@@ -1,0 +1,131 @@
+"""Build, load and launch the hand-written CUDA kernels (csrc/*.cu).
+
+On first CUDA use the sources are compiled with nvcc for sm_90a into a
+shared library with a plain C interface, cached under `_build/` (listed
+in .gitignore) by a hash of the sources and flags, and loaded with
+ctypes.  Nothing is built or loaded at import time.
+
+Each kernel is a `Kernel` whose `launches` counter goes up by one per
+launch, so a run can show which kernels its main path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib = None
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return _BUILD_DIR / f"libh264t_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu (if the cached library is missing) and return its
+    path.  Raises with nvcc's output when the build fails."""
+    out = library_path()
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+        os.replace(tmp, out)      # atomic: concurrent builders race safely
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = ctypes.CDLL(str(build()))
+        return _lib
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+class Kernel:
+    """One extern "C" entry of the kernel library; `launches` counts the
+    launches made through `launch`."""
+
+    def __init__(self, symbol: str, argtypes):
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+
+    def launch(self, *args):
+        if self._fn is None:
+            fn = getattr(_load(), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        err = self._fn(*args)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.symbol}: CUDA launch failed with cudaError_t {err}")
+        self.launches += 1
+
+
+# K1: (pat, nb, nal_ref_idc, batch, n, n_nal, n_rbsp, cap, align, append_tb,
+#      nal_out, meta, stream)
+EMIT_FUSED = Kernel("h264t_emit_fused",
+                    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P])
+# K2: (pat, nb, batch, n, n_words, words_out, total_out, stream)
+PACK_PLACE = Kernel("h264t_pack_place", [_P, _P, _I, _I, _I, _P, _P, _P])
+
+KERNELS = (EMIT_FUSED, PACK_PLACE)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def as_i32_bits(x):
+    """int64 tensor of uint32 values -> int32 tensor with the same bits."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32).contiguous()
+

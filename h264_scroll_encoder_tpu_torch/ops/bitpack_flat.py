@@ -1,0 +1,55 @@
+"""Batched bit pack (K2) for the staged exact-EBSP path.
+
+Port of the direct-placement pack of h264_scroll_encoder_tpu
+ops/bitpack_flat.py (`pack_words_place_pallas`, whose Pallas kernels are
+`_pack_kernel3` and `_place_kernel`): (patterns, nbits)[B, n] ->
+(words[B, num_words], total_bits[B]), bit-exact with ops/bitpack.pack_words
+for widths in [0, 32].  One batched CUDA kernel, `h264t_pack_place`
+(csrc/emit_kernels.cu), serves both Pallas entry points; it is K1's pack
+stage on its own.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _kernels
+from .bitpack import U32, pack_words
+from .emit_fused import _SMEM_LIMIT, check_symbols
+
+
+def pack_words_place_plain(patterns, nbits, num_words: int):
+    """Plain PyTorch version of K2 on any device: (words int64[B,
+    num_words] holding uint32 values, total_bits int64[B])."""
+    return pack_words(patterns, nbits, num_words)
+
+
+def pack_words_place_batch(patterns, nbits, num_words: int):
+    """K2 over a [B, n] batch: the plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors (a build or launch failure raises)."""
+    check_symbols(patterns, nbits)
+    if patterns.device.type == "cpu":
+        return pack_words_place_plain(patterns, nbits, num_words)
+    words, total = launch_kernel(_kernels.as_i32_bits(patterns),
+                                 nbits.to(torch.int32).contiguous(), num_words)
+    return words.to(torch.int64) & U32, total.to(torch.int64)
+
+
+def launch_kernel(pat, nb, num_words: int):
+    """Launch K2 on contiguous int32 CUDA tensors pat[B, n] (uint32 bit
+    patterns) and nb[B, n]: (words int32[B, num_words] holding the uint32
+    bits, total_bits int32[B])."""
+    dev = pat.device
+    B, n = pat.shape
+    if 4 * num_words > _SMEM_LIMIT:
+        raise ValueError(f"{num_words} words exceed the kernel's "
+                         "shared-memory budget")
+    words = torch.empty((B, num_words), dtype=torch.int32, device=dev)
+    total = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B:
+        with torch.cuda.device(dev):
+            _kernels.PACK_PLACE.launch(
+                pat.data_ptr(), nb.data_ptr(), B, n, num_words,
+                words.data_ptr(), total.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    return words, total

@@ -1,0 +1,156 @@
+"""Batched multi-session compose: one P-frame per session per step.
+
+Port of the batched step of h264_scroll_encoder_tpu/parallel/batch.py.
+The reference is a single-threaded C program; the first-class parallel
+axis is data parallelism over independent UI sessions.  Per-session state
+(frame_num + waypoint registry) is a set of tensors with a leading session
+dimension on the device, and each step composes one P-frame per session.
+
+Not ported yet: the sharded step, the hint step, the splice steps and
+`compact_batch_nal`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from ..config import ComposerConfig, MAX_WAYPOINTS
+from ..models import scroll
+
+_FIELDS = ("frame_num", "wp_offsets", "wp_ltidx", "wp_valid", "wp_count")
+
+
+@dataclasses.dataclass
+class SessionState:
+    """Device-resident per-session state (session dimension leading): the
+    C reference's frame_num and waypoint registry, i.e. exactly what must
+    be saved to evict and restore a session.  Field names and dtypes
+    match the JAX package's SessionState."""
+    frame_num: torch.Tensor        # int32[B]
+    wp_offsets: torch.Tensor       # int32[B, MAX_WAYPOINTS]
+    wp_ltidx: torch.Tensor         # int32[B, MAX_WAYPOINTS]
+    wp_valid: torch.Tensor         # bool[B, MAX_WAYPOINTS]
+    wp_count: torch.Tensor         # int32[B]
+
+    @classmethod
+    def create(cls, batch: int, frame_num: int = 2, *,
+               device="cpu") -> "SessionState":
+        """Fresh sessions, frame_num=2 (after the two atlas frames)."""
+        def z(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return cls(
+            frame_num=torch.full((batch,), frame_num, dtype=torch.int32,
+                                 device=device),
+            wp_offsets=z(batch, MAX_WAYPOINTS),
+            wp_ltidx=z(batch, MAX_WAYPOINTS),
+            wp_valid=z(batch, MAX_WAYPOINTS, dtype=torch.bool),
+            wp_count=z(batch),
+        )
+
+    def to_numpy(self) -> dict:
+        """Fields as numpy arrays (int32 / bool), the JAX package's layout."""
+        return {f: getattr(self, f).cpu().numpy() for f in _FIELDS}
+
+    @classmethod
+    def from_numpy(cls, d, *, device="cpu") -> "SessionState":
+        """State from numpy arrays keyed by field name — e.g. a JAX
+        SessionState's fields — so both packages continue one session."""
+        def t(f, dtype):
+            return torch.tensor(np.asarray(d[f]), device=device).to(dtype)
+        return cls(frame_num=t("frame_num", torch.int32),
+                   wp_offsets=t("wp_offsets", torch.int32),
+                   wp_ltidx=t("wp_ltidx", torch.int32),
+                   wp_valid=t("wp_valid", torch.bool),
+                   wp_count=t("wp_count", torch.int32))
+
+
+def _session_step(cfg: ComposerConfig, enable_pskip: bool,
+                  emit_waypoints: bool, state: SessionState, offset_px):
+    """One composed frame per session.
+
+    Exactly one NAL per session per step: on a step whose offset crosses a
+    496 px boundary (h264_needs_waypoint) it is the waypoint reference
+    frame, which the session registers; the caller repeats the offset next
+    step for the scroll frame.  A step that needs a 9th waypoint slot
+    flags `overflow` (frame not servable) instead of silently emitting
+    illegal > 496 px MVs.
+    """
+    offset_px = torch.as_tensor(offset_px, device=state.frame_num.device)
+    offset_px = offset_px.to(torch.int64)
+    wp_offsets = state.wp_offsets.to(torch.int64)
+    wp_count = state.wp_count.to(torch.int64)
+    if emit_waypoints:
+        needs = scroll.needs_waypoint(offset_px, wp_offsets, state.wp_valid,
+                                      wp_count)
+    else:
+        needs = torch.zeros_like(state.wp_valid[:, 0])
+
+    nal, nal_len, rbsp_bits, overflow = scroll.unified_frame(
+        cfg, state.frame_num, offset_px, wp_offsets, state.wp_ltidx,
+        state.wp_valid, wp_count, needs, enable_pskip=enable_pskip)
+
+    # Register the waypoint (masked scatter on [B, MAX_WAYPOINTS]).
+    slot = torch.clamp(wp_count, max=MAX_WAYPOINTS - 1)
+    exhausted = needs & (wp_count >= MAX_WAYPOINTS)
+    can_reg = needs & ~exhausted
+    idx = torch.arange(MAX_WAYPOINTS, device=slot.device)
+    hit = (idx[None, :] == slot[:, None]) & can_reg[:, None]
+    i32 = torch.int32
+    state = SessionState(
+        frame_num=state.frame_num + 1,
+        wp_offsets=torch.where(hit, offset_px[:, None], wp_offsets).to(i32),
+        wp_ltidx=torch.where(hit, 2 + wp_count[:, None],
+                             state.wp_ltidx.to(torch.int64)).to(i32),
+        wp_valid=state.wp_valid | hit,
+        wp_count=(wp_count + can_reg.to(torch.int64)).to(i32),
+    )
+    return state, (nal, nal_len, needs, rbsp_bits, overflow | exhausted)
+
+
+def make_batched_step(cfg: ComposerConfig, *, enable_pskip: bool = False,
+                      emit_waypoints: bool = True):
+    """(SessionState[B], offsets int[B]) -> (SessionState[B], (nal u8[B, N],
+    nal_len i32[B], emitted_waypoint bool[B], rbsp_bits i32[B],
+    overflow bool[B])).  Runs on the device of the state's tensors."""
+    return functools.partial(_session_step, cfg, enable_pskip, emit_waypoints)
+
+
+def _checksum(nal):
+    """Sum of a step's NAL bytes per session, mod 2**32."""
+    return nal.to(torch.int64).sum(dim=-1) & 0xFFFFFFFF
+
+
+def run_frames(cfg: ComposerConfig, state: SessionState, offsets,
+               *, enable_pskip: bool = False, emit_waypoints: bool = True,
+               composer_semantics: bool = False):
+    """Run a [T, B] offset schedule; returns the final state and stacked
+    per-frame (nal_len, emitted_waypoint, rbsp_bits, checksum, overflow),
+    each [T, B] (checksum: the NAL bytes' sum mod 2**32).
+
+    With composer_semantics=True each session follows the composer CLI's
+    two-NAL behaviour: a step that emits a waypoint does not consume the
+    session's schedule entry — the session keeps its own schedule pointer
+    and re-presents the same offset next step for the scroll frame
+    (trailing steps past the schedule replay its last entry).
+    """
+    step = make_batched_step(cfg, enable_pskip=enable_pskip,
+                             emit_waypoints=emit_waypoints)
+    dev = state.frame_num.device
+    offsets = torch.as_tensor(offsets, device=dev).to(torch.int64)
+    T, B = offsets.shape
+    ptr = torch.zeros(B, dtype=torch.int64, device=dev)
+    cols = torch.arange(B, device=dev)
+    outs = []
+    for t in range(T):
+        offs = (offsets[ptr.clamp(0, T - 1), cols] if composer_semantics
+                else offsets[t])
+        state, (nal, nal_len, emitted_wp, rbsp_bits, overflow) = step(
+            state, offs)
+        ptr = ptr + (~emitted_wp).to(torch.int64)
+        outs.append((nal_len, emitted_wp, rbsp_bits, _checksum(nal),
+                     overflow))
+    return state, tuple(torch.stack(x) for x in zip(*outs))

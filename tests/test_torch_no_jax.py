@@ -1,0 +1,30 @@
+"""The PyTorch port must run where jax is not installed: importing every
+module of h264_scroll_encoder_tpu_torch, and chip_smoke.py, loads neither
+jax nor the JAX package."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = """
+import importlib, pkgutil, sys
+import h264_scroll_encoder_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'h264_scroll_encoder_tpu'))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 10     # every module was imported
