@@ -6,19 +6,39 @@ Phases (any failure raises; the script then exits non-zero and prints no
 result line):
 
   1. Require CUDA; print the torch, CUDA, nvcc and card versions.
-  2. Build the kernels (K1 h264t_emit_fused, K2 h264t_pack_place) from
-     h264_scroll_encoder_tpu_torch/csrc/*.cu with nvcc.
+  2. Build, started together: the kernels (K1 h264t_emit_fused, K2
+     h264t_pack_place, K3 h264t_ebsp_nal, K4 h264t_pack_words) from
+     h264_scroll_encoder_tpu_torch/csrc/*.cu with nvcc, and the native
+     CAVLC engine from csrc/cavlc_decode.cpp with g++.
   3. Hold each kernel against its plain PyTorch version on CUDA tensors,
      exactly (tolerance: none — outputs are integers and bytes): the
-     byte-stream, overflow, alignment and zero-run-window cases of the
-     tests, and real 1280x720 symbol batches at B = 256.
-  4. Drive the main path — `parallel.batch.make_batched_step` at 1280x720
-     — over the benchmark's 32-frame schedule at B = 256, then the golden
-     batch-8 schedule and one `ebsp_exact` (K2) frame per session, whose
-     digests must equal golden/scroll_720p.json (the JAX package's
-     output).  Launch counters are reset just before and read just after.
-  5. Print the kernel table (one JSON line), the card's name and power
+     byte-stream, overflow, alignment, saturation and truncation cases of
+     the tests, real 1280x720 scroll and splice symbol batches at B = 256
+     (K1, K2, K4) and the splice frames' RBSP bytes (K3); time each as
+     kernel alone, wrapper and plain version (CUDA-event medians).
+  4. The scroll path — `parallel.batch.make_batched_step` at 1280x720 —
+     over 16 frames of the benchmark's schedule at B = 256, then the
+     golden batch-8 schedule and one `ebsp_exact` (K2) frame per session,
+     whose digests must equal golden/scroll_720p.json (the JAX package's
+     output).
+  5. The rows splice path (the serving hot path): 32 seeded representative
+     donors prepared by the native engine into the blob wire (host time per
+     donor; the Python engine must give the same wire), tiled to B = 256
+     and 1,024 sessions and spliced at bench.py's geometry (23x23 MBs at
+     MB (30, 10)) by the compact and the static-chrome programs, plus one
+     `ebsp_exact` frame per session; every session's digest must equal
+     golden/splice_rows_720p.json, no frame may overflow, and K1 launches
+     once per step.  Step times: CUDA events and host wall; launches per
+     step from torch.profiler.
+  6. K3 and K4 through their own entry points (ops/ebsp_flat
+     `rbsp_to_nal_batch`, ops/bitpack_flat `pack_words_batch`) on the
+     splice frames at B = 256; K3's NAL must equal K1's bytes wherever K1
+     did not flag the frame.
+  7. Print the kernel table (one JSON line), the card's name and power
      limit, and the result line.
+
+Launch counters are set to 0 just before each path (4, 5, 6) and read
+just after; every kernel must have launched on its path.
 """
 
 from __future__ import annotations
@@ -27,10 +47,15 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
+
+# H100 SXM device memory bandwidth (NVIDIA's data sheet), bytes per ms.
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+N_DONORS = 32
 
 
 def _log(msg: str) -> None:
@@ -71,15 +96,86 @@ def _max_abs_err(got, want) -> int:
     return err
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _build_all(_kernels, native_bridge):
+    """nvcc (kernels) and g++ (CAVLC engine) started together; returns
+    {name: (path, seconds)}; a failed build raises."""
+    results, errors = {}, []
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        try:
+            results[name] = (fn(), time.perf_counter() - t0)
+        except Exception as e:      # re-raised below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=("kernels", _kernels.build)),
+               threading.Thread(target=run, args=("cavlc", native_bridge.build))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
+
+
+class Timer:
+    """Step timing: CUDA-event and host-wall milliseconds per call."""
+
+    def __init__(self):
+        self.cuda_ms, self.wall_ms = [], []
+
+    def __call__(self, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        self.wall_ms.append((time.perf_counter() - t0) * 1e3)
+        self.cuda_ms.append(start.elapsed_time(end))
+        return out
+
+    def medians(self):
+        return statistics.median(self.cuda_ms), statistics.median(self.wall_ms)
+
+
+def _profile_launches(fn, steps: int):
+    """(cudaLaunchKernel calls per step, device ms per step) over `steps`
+    calls of fn under torch.profiler, or None when the profiler records no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key.startswith("cudaLaunch"))
+    # Device-side events only: a CPU op's self device time repeats its
+    # kernels' time.
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    if dev_us <= 0:
+        return None
+    return launches / steps, dev_us / 1e3 / steps
+
+
 def main() -> int:
     # -- 1. CUDA and versions ----------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from h264_scroll_encoder_tpu_torch import _kernels, cases
+    from h264_scroll_encoder_tpu_torch import _kernels, cases, native_bridge
     from h264_scroll_encoder_tpu_torch.config import ComposerConfig
-    from h264_scroll_encoder_tpu_torch.models import scroll
-    from h264_scroll_encoder_tpu_torch.ops import bitpack, bitpack_flat, emit_fused
+    from h264_scroll_encoder_tpu_torch.models import scroll, splice_device
+    from h264_scroll_encoder_tpu_torch.ops import (bitpack, bitpack_flat,
+                                                   ebsp_flat, emit_fused)
     from h264_scroll_encoder_tpu_torch.parallel import batch
 
     dev = torch.device("cuda", 0)
@@ -92,9 +188,10 @@ def main() -> int:
     _log(f"card: {smi}")
 
     # -- 2. Build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    lib = _kernels.build()
-    _log(f"phase 2: built {lib.name} in {time.perf_counter() - t0:.2f} s")
+    built = _build_all(_kernels, native_bridge)
+    for name, (path, secs) in built.items():
+        _log(f"phase 2: built {path.name} ({name}) in {secs:.2f} s")
+    native_bridge.load_library()
 
     # -- 3. Kernels vs plain versions on the card ----------------------------
     def cu(a):
@@ -102,31 +199,34 @@ def main() -> int:
             return a.to(dev, torch.int64)
         return torch.as_tensor(np.asarray(a).astype(np.int64), device=dev)
 
-    k1_err = 0
-    k2_err = 0
+    errs = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
-    def check_k1(name, pat, nb, idc, n_rbsp, cap, **kw):
-        nonlocal k1_err
-        got = emit_fused.emit_nal_fused_batch(cu(pat), cu(nb), idc, n_rbsp,
-                                              cap, **kw)
-        want = emit_fused.emit_nal_fused_plain(cu(pat), cu(nb), idc, n_rbsp,
-                                               cap, **kw)
+    def hold(name, case, got, want):
         torch.cuda.synchronize()
         err = _max_abs_err(got, want)
         if err:
-            raise AssertionError(f"K1 {name}: kernel != plain (max err {err})")
-        k1_err = max(k1_err, err)
+            raise AssertionError(f"{name} {case}: kernel != plain (max err {err})")
+        errs[name] = max(errs[name], err)
         return got
 
-    def check_k2(name, pat, nb, num_words):
-        nonlocal k2_err
-        got = bitpack_flat.pack_words_place_batch(cu(pat), cu(nb), num_words)
-        want = bitpack_flat.pack_words_place_plain(cu(pat), cu(nb), num_words)
-        torch.cuda.synchronize()
-        err = _max_abs_err(got, want)
-        if err:
-            raise AssertionError(f"K2 {name}: kernel != plain (max err {err})")
-        k2_err = max(k2_err, err)
+    def check_k1(case, pat, nb, idc, n_rbsp, cap, **kw):
+        args = (cu(pat), cu(nb), idc, n_rbsp, cap)
+        return hold("K1", case, emit_fused.emit_nal_fused_batch(*args, **kw),
+                    emit_fused.emit_nal_fused_plain(*args, **kw))
+
+    def check_pack(name, case, pat, nb, num_words):
+        args = (cu(pat), cu(nb), num_words)
+        entry = (bitpack_flat.pack_words_place_batch if name == "K2"
+                 else bitpack_flat.pack_words_batch)
+        return hold(name, case, entry(*args),
+                    bitpack_flat.pack_words_place_plain(*args))
+
+    def check_k3(case, rbsp, lens, hdr, n_nal, cap):
+        args = (torch.as_tensor(rbsp, device=dev),
+                torch.as_tensor(lens, device=dev),
+                torch.as_tensor(hdr, device=dev), n_nal, cap)
+        return hold("K3", case, ebsp_flat.rbsp_to_nal_batch(*args),
+                    ebsp_flat.rbsp_to_nal_plain(*args))
 
     cap = cases.CAP
     pat, nb = cases.byte_stream_cases()
@@ -150,51 +250,124 @@ def main() -> int:
     has_sentinel = torch.as_tensor((nb < 0).any(axis=1), device=dev)
     if not bool(torch.all(got[3][has_sentinel])):
         raise AssertionError("K1 did not flag sentinels without align")
-    for n, nw in ((1024, 300), (64, 80), (200, 64), (8483, 1490)):
-        p2, n2 = cases.pack_cases(n, 8, n, nw)
-        check_k2(f"pack n={n}", p2, n2, nw)
+    for k in ("K2", "K4"):
+        for n, nw in ((1024, 300), (64, 80), (200, 64), (8483, 1490)):
+            p2, n2 = cases.pack_cases(n, 8, n, nw)
+            check_pack(k, f"pack n={n}", p2, n2, nw)
+    for seed, (n, nw) in enumerate(((100, 10), (257, 30), (64, 3), (5, 1),
+                                    (1000, 40), (1000, 1000))):
+        p2, n2 = cases.pack_edge_case(seed, n, nw)
+        check_pack("K4", f"edge n={n} words={nw}", p2[None], n2[None], nw)
+    rbsp, lens, hdr = cases.ebsp_cases()
+    for k3_cap in (cap, 1000):
+        check_k3(f"bytes cap={k3_cap}", rbsp, lens, hdr, cases.EBSP_N_NAL,
+                 k3_cap)
+    rb, rb_len = cases.ebsp_saturation_case()
+    sat = check_k3("saturation", rb[None], [rb_len], [0x41], 384, cap)
+    if not int(sat[1][0]) > cap:
+        raise AssertionError("K3 did not saturate past the window")
 
-    # Real 720p symbols at B = 256: step 0 of the benchmark schedule.
+    # Real 720p scroll symbols at B = 256: step 0 of the benchmark schedule.
     cfg = ComposerConfig(1280, 720)
     B = 256
-    schedule = torch.as_tensor(cases.bench_schedule(cfg.height, B), device=dev)
+    schedule = torch.as_tensor(cases.bench_schedule(cfg.height, B, 16),
+                               device=dev)
     state = batch.SessionState.create(B, device=dev)
     needs = scroll.needs_waypoint(schedule[0], state.wp_offsets,
                                   state.wp_valid, state.wp_count)
     sym_pat, sym_nb, n_rbsp, idc = scroll.unified_frame_symbols(
         cfg, state.frame_num, schedule[0], state.wp_offsets, state.wp_ltidx,
         state.wp_valid, state.wp_count, needs)
-    got = check_k1("720p B=256", sym_pat, sym_nb, idc, n_rbsp, cap,
+    got = check_k1("scroll 720p B=256", sym_pat, sym_nb, idc, n_rbsp, cap,
                    append_tb=True)
     if bool(got[3].any()):
         raise AssertionError("720p symbols overflowed the bounded path")
-    # K2's 720p input: the same symbols plus the trailing-bits symbol, into
-    # the exact path's buffer (finish_slice with ebsp_exact=True).
-    tb_pat, tb_nb = bitpack.trailing_bits_symbol(sym_nb.sum(dim=1))
-    exact_pat = torch.cat([sym_pat, tb_pat[:, None]], dim=1)
-    exact_nb = torch.cat([sym_nb, tb_nb[:, None]], dim=1)
-    exact_words = (scroll.max_rbsp_bytes(cfg) + 3) // 4
-    check_k2("720p B=256", exact_pat, exact_nb, exact_words)
-    _log(f"phase 3: K1 and K2 equal their plain versions on every case "
-         f"(720p: n={sym_pat.shape[1]} symbols, n_rbsp={n_rbsp} B)")
 
-    # Timing at the 720p B = 256 shapes: the kernel alone (launched on
-    # prepared int32 inputs), its wrapper (int64 -> int32 conversion plus
-    # kernel) and the plain version, in turns: plain, kernel, kernel, plain.
+    # Real 720p splice symbols at B = 256: the compact program's input,
+    # sessions carrying the 32 donors in turn.
+    payloads = [cases.splice_donor_payload(k) for k in range(N_DONORS)]
+    dn32, bits32, align32 = cases.prepare_splice_donors(
+        payloads, engine="native", device=dev)
+    has_align = bool(align32.any())
+    s_n_rbsp = cases.splice_budget(cfg, int(bits32.max()), static_bg=False)
+
+    def tile(B):
+        return {"blob": dn32["blob"][torch.arange(B, device=dev) % N_DONORS]}
+
+    s_inputs = cases.splice_session_inputs(cfg, B, dev)
+    s_pat, s_nb, _ = splice_device.rows_splice_symbols(
+        cfg, cases.SPLICE_C0, cases.SPLICE_R0, cases.SPLICE_R, cases.SPLICE_C,
+        cases.SPLICE_NUM_REFS, *s_inputs, tile(B), n_rbsp=s_n_rbsp,
+        compact_x=True, s_row=cases.SPLICE_S_ROW, s_flat=cases.SPLICE_S_FLAT,
+        s_exc=cases.SPLICE_S_EXC)
+    s_idc = torch.zeros(B, dtype=torch.int64, device=dev)
+    got = check_k1("splice 720p B=256", s_pat, s_nb, s_idc, s_n_rbsp, cap,
+                   align=has_align, append_tb=True)
+    if bool(got[3].any()):
+        raise AssertionError("720p splice symbols overflowed the bounded path")
+
+    # K2/K4 input: the splice symbols plus the trailing-bits symbol, into
+    # the exact path's buffer (finish_slice with ebsp_exact=True).
+    tb_pat, tb_nb = bitpack.trailing_bits_symbol(s_nb.sum(dim=1))
+    exact_pat = torch.cat([s_pat, tb_pat[:, None]], dim=1)
+    exact_nb = torch.cat([s_nb, tb_nb[:, None]], dim=1)
+    exact_words = (s_n_rbsp + 3) // 4
+    for k in ("K2", "K4"):
+        words, total = check_pack(k, "splice 720p B=256", exact_pat, exact_nb,
+                                  exact_words)
+    # K3 input: those frames' RBSP bytes, into K1's NAL buffer size.
+    rbsp_720 = bitpack.words_to_bytes(words)[:, :s_n_rbsp].to(torch.uint8)
+    rbsp_len = (total // 8).to(torch.int32)
+    hdr_720 = torch.full((B,), 0x01, dtype=torch.int32, device=dev)
+    k3_n_nal = emit_fused.nal_bytes(s_n_rbsp, cap)
+    check_k3("splice 720p B=256", rbsp_720, rbsp_len, hdr_720, k3_n_nal, cap)
+    _log(f"phase 3: K1-K4 equal their plain versions on every case "
+         f"(scroll 720p: n={sym_pat.shape[1]} symbols, n_rbsp={n_rbsp} B; "
+         f"splice 720p: n={s_pat.shape[1]} symbols, n_rbsp={s_n_rbsp} B, "
+         f"NAL buffer {k3_n_nal} B)")
+
+    # Timing at the 720p B = 256 splice shapes (K1 and K2 also at the
+    # scroll shapes): the kernel alone (launched on prepared int32 inputs),
+    # its wrapper and the plain version, in turns: plain, kernel, kernel,
+    # plain.
+    spat32, snb32 = _kernels.as_i32_bits(s_pat), s_nb.to(torch.int32)
+    sidc32 = s_idc.to(torch.int32).contiguous()
+    epat32, enb32 = _kernels.as_i32_bits(exact_pat), exact_nb.to(torch.int32)
     pat32, nb32 = _kernels.as_i32_bits(sym_pat), sym_nb.to(torch.int32)
     idc32 = idc.to(torch.int32).contiguous()
-    epat32, enb32 = _kernels.as_i32_bits(exact_pat), exact_nb.to(torch.int32)
+    rbsp_in = ebsp_flat._fit(rbsp_720, ebsp_flat.padded_len(k3_n_nal)).contiguous()
     runs = {
+        "K1 scroll": (lambda: emit_fused.launch_kernel(
+                          pat32, nb32, idc32, n_rbsp, cap, align=False,
+                          append_tb=True),
+                      lambda: emit_fused.emit_nal_fused_batch(
+                          sym_pat, sym_nb, idc, n_rbsp, cap, append_tb=True),
+                      lambda: emit_fused.emit_nal_fused_plain(
+                          sym_pat, sym_nb, idc, n_rbsp, cap, append_tb=True)),
         "K1": (lambda: emit_fused.launch_kernel(
-                   pat32, nb32, idc32, n_rbsp, cap, align=False,
+                   spat32, snb32, sidc32, s_n_rbsp, cap, align=has_align,
                    append_tb=True),
                lambda: emit_fused.emit_nal_fused_batch(
-                   sym_pat, sym_nb, idc, n_rbsp, cap, append_tb=True),
+                   s_pat, s_nb, s_idc, s_n_rbsp, cap, align=has_align,
+                   append_tb=True),
                lambda: emit_fused.emit_nal_fused_plain(
-                   sym_pat, sym_nb, idc, n_rbsp, cap, append_tb=True)),
+                   s_pat, s_nb, s_idc, s_n_rbsp, cap, align=has_align,
+                   append_tb=True)),
         "K2": (lambda: bitpack_flat.launch_kernel(epat32, enb32, exact_words),
                lambda: bitpack_flat.pack_words_place_batch(
                    exact_pat, exact_nb, exact_words),
+               lambda: bitpack_flat.pack_words_place_plain(
+                   exact_pat, exact_nb, exact_words)),
+        "K3": (lambda: ebsp_flat.launch_kernel(rbsp_in, rbsp_len, hdr_720,
+                                               k3_n_nal, cap),
+               lambda: ebsp_flat.rbsp_to_nal_batch(rbsp_720, rbsp_len, hdr_720,
+                                                   k3_n_nal, cap),
+               lambda: ebsp_flat.rbsp_to_nal_plain(rbsp_720, rbsp_len, hdr_720,
+                                                   k3_n_nal, cap)),
+        "K4": (lambda: bitpack_flat.launch_kernel(epat32, enb32, exact_words,
+                                                  _kernels.PACK_WORDS),
+               lambda: bitpack_flat.pack_words_batch(exact_pat, exact_nb,
+                                                     exact_words),
                lambda: bitpack_flat.pack_words_place_plain(
                    exact_pat, exact_nb, exact_words)),
     }
@@ -210,23 +383,30 @@ def main() -> int:
         _log(f"phase 3: {name} at 720p B=256: kernel {k_a:.4f}/{k_b:.4f} ms, "
              f"wrapper {w:.4f} ms, plain {p_a:.4f}/{p_b:.4f} ms "
              f"(CUDA-event medians)")
+    # Least time for each kernel's work at the timed shapes: its inputs read
+    # once and its outputs written once at the card's memory rate.
+    n_nal_s = emit_fused.nal_bytes(s_n_rbsp, cap)
+    pack_bytes = _nbytes(epat32, enb32) + B * (exact_words + 1) * 4
+    bound = {
+        "K1 scroll": (_nbytes(pat32, nb32, idc32)
+                      + B * (emit_fused.nal_bytes(n_rbsp, cap) + 16)),
+        "K1": (_nbytes(spat32, snb32, sidc32) + B * (n_nal_s + 16)),
+        "K2": pack_bytes,
+        "K3": (B * s_n_rbsp + _nbytes(rbsp_len, hdr_720) + B * (k3_n_nal + 4)),
+        "K4": pack_bytes,
+    }
+    bound_ms = {k: v / HBM_BYTES_PER_MS for k, v in bound.items()}
+    _log("phase 3: memory bounds at 3.35 TB/s: " + ", ".join(
+        f"{k} {v} B = {bound_ms[k]:.5f} ms" for k, v in bound.items()))
 
-    # -- 4. The main path ----------------------------------------------------
+    # -- 4. The scroll path --------------------------------------------------
     step = batch.make_batched_step(cfg)
     state = batch.SessionState.create(B, device=dev)
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()
-    step_ms, wall_ms, waypoints = [], [], 0
+    timer, waypoints = Timer(), 0
     for offs in schedule:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        state, (nal, nal_len, wp, bits, ovf) = step(state, offs)
-        end.record()
-        end.synchronize()
-        wall_ms.append((time.perf_counter() - t0) * 1e3)
-        step_ms.append(start.elapsed_time(end))
+        state, (nal, nal_len, wp, bits, ovf) = timer(lambda: step(state, offs))
         if bool(ovf.any()):
             raise AssertionError("batch-256 720p step overflowed")
         if nal.shape != (B, emit_fused.nal_bytes(n_rbsp, cap)):
@@ -241,31 +421,153 @@ def main() -> int:
                              f"{len(schedule)} steps")
     golden = json.loads(cases.GOLDEN_PATH.read_text())
     if cases.port_golden(dev) != golden:
-        raise AssertionError("CUDA output differs from the golden digests")
-    launches = {k.symbol: k.launches for k in _kernels.KERNELS}
+        raise AssertionError("CUDA output differs from the scroll golden digests")
     torch.cuda.synchronize()
-    for k in _kernels.KERNELS:
-        if launches[k.symbol] == 0:
-            raise AssertionError(f"{k.symbol} never launched on the main path")
-    _log(f"phase 4: {len(schedule)} steps at B={B}: no overflow, "
-         f"{waypoints} waypoint frames, K1 launches {k1_steps}; golden "
-         f"digests match; launches {launches}")
-    _log(f"phase 4: batch-256 720p step: {statistics.median(step_ms):.4f} ms "
-         f"(CUDA-event median), host wall {statistics.median(wall_ms):.4f} ms "
-         f"(median)")
+    scroll_launches = {k.symbol: k.launches for k in _kernels.KERNELS}
+    for k in (_kernels.EMIT_FUSED, _kernels.PACK_PLACE):
+        if scroll_launches[k.symbol] == 0:
+            raise AssertionError(f"{k.symbol} never launched on the scroll path")
+    step_ms, wall_ms = timer.medians()
+    _log(f"phase 4: scroll, {len(schedule)} steps at B={B}: no overflow, "
+         f"{waypoints} waypoint frames; golden digests match; launches "
+         f"{scroll_launches}")
+    _log(f"phase 4: batch-256 720p scroll step: {step_ms:.4f} ms (CUDA-event "
+         f"median), host wall {wall_ms:.4f} ms (median)")
 
-    # -- 5. Results ------------------------------------------------------------
+    # -- 5. The rows splice path -----------------------------------------------
+    prep_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        cases.prepare_splice_donors(payloads, engine="native", device=dev)
+        torch.cuda.synchronize()
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+    one_ms = []
+    for k in range(8):
+        t0 = time.perf_counter()
+        cases.prepare_splice_donors(payloads[k:k + 1], engine="native",
+                                    device=dev)
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    dn_py, bits_py, _ = cases.prepare_splice_donors(payloads[:1],
+                                                    engine="python",
+                                                    device="cpu")
+    if not (torch.equal(dn32["blob"][0].cpu(), dn_py["blob"][0])
+            and int(bits_py[0]) == int(bits32[0])):
+        raise AssertionError("native and Python donor wires differ")
+    _log(f"phase 5: host prep (native engine, blob wire, to the card): "
+         f"{statistics.median(prep_ms) / N_DONORS:.4f} ms per donor in a "
+         f"batch of {N_DONORS} (median of 5), "
+         f"{statistics.median(one_ms):.4f} ms for one donor alone (median "
+         f"of 8); wire {dn32['blob'].shape[1] * 4} B per donor; native wire "
+         f"== Python engine's")
+
+    splice_golden = json.loads(cases.SPLICE_GOLDEN_PATH.read_text())
+    steps = cases.splice_steps(cfg, int(bits32.max()), has_align)
+    n_warm, n_steps = 2, 20
+
+    def check_digests(name, out, B):
+        nal, nal_len, _bits, ovf = out
+        if bool(ovf.any()):
+            raise AssertionError(f"splice {name} B={B} overflowed")
+        idx = [b for b in range(B) if b % N_DONORS < cases.SPLICE_GOLDEN_BATCH]
+        got = cases.digest_step(nal[idx].cpu().numpy(), nal_len[idx].cpu().numpy(),
+                                np.zeros(len(idx), bool), ovf[idx].cpu().numpy())
+        want = [splice_golden[name][b % N_DONORS] for b in idx]
+        if got != want:
+            raise AssertionError(f"splice {name} B={B}: digests differ from "
+                                 "the golden file")
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    n_run = 0
+    for B_s in (256, 1024):
+        args = cases.splice_session_inputs(cfg, B_s, dev) + (tile(B_s),)
+        for name in ("compact", "static"):
+            for _ in range(n_warm):
+                check_digests(name, steps[name](*args), B_s)
+            timer = Timer()
+            for _ in range(n_steps):
+                out = timer(lambda: steps[name](*args))
+            n_run += n_warm + n_steps
+            check_digests(name, out, B_s)
+            step_ms, wall_ms = timer.medians()
+            _log(f"phase 5: splice {name} B={B_s}: {step_ms:.4f} ms "
+                 f"(CUDA-event median of {n_steps}), host wall {wall_ms:.4f} ms "
+                 f"(median) = {B_s / wall_ms * 1e3:.1f} frames/s; NAL buffer "
+                 f"{tuple(out[0].shape)}, mean nal_len "
+                 f"{float(out[1].float().mean()):.1f} B")
+        if B_s == 256:
+            check_digests("ebsp_exact", steps["ebsp_exact"](*args), B_s)
+    torch.cuda.synchronize()
+    splice_launches = {k.symbol: k.launches for k in _kernels.KERNELS}
+    if splice_launches["h264t_emit_fused"] != n_run:
+        raise AssertionError(f"K1 launched {splice_launches['h264t_emit_fused']} "
+                             f"times in {n_run} splice steps")
+    for k in (_kernels.EMIT_FUSED, _kernels.PACK_PLACE):
+        if splice_launches[k.symbol] == 0:
+            raise AssertionError(f"{k.symbol} never launched on the splice path")
+    if cases.port_splice_golden(dev) != splice_golden:
+        raise AssertionError("CUDA output differs from the splice golden digests")
+    _log(f"phase 5: {n_run} splice steps + 1 ebsp_exact frame: no overflow, "
+         f"digests match the golden file; launches {splice_launches}")
+    for B_s in (256, 1024):
+        args = cases.splice_session_inputs(cfg, B_s, dev) + (tile(B_s),)
+        for name in ("compact", "static"):
+            try:
+                prof = _profile_launches(lambda: steps[name](*args), 5)
+            except Exception as e:  # measurement only; outputs checked above
+                prof = None
+                _log(f"phase 5: torch.profiler failed: {e!r}")
+            if prof is None:
+                _log(f"phase 5: splice {name} B={B_s}: launches per step not "
+                     "measured (no device time)")
+            else:
+                _log(f"phase 5: splice {name} B={B_s} under torch.profiler: "
+                     f"{prof[0]:.1f} cudaLaunch calls per step, device time "
+                     f"{prof[1]:.4f} ms per step")
+
+    # -- 6. K3 and K4 through their own entry points ----------------------------
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    words, total = bitpack_flat.pack_words_batch(exact_pat, exact_nb, exact_words)
+    rbsp = bitpack.words_to_bytes(words)[:, :s_n_rbsp].to(torch.uint8)
+    nal3, count3 = ebsp_flat.rbsp_to_nal_batch(rbsp, total // 8, 0x01, k3_n_nal,
+                                               cap)
+    torch.cuda.synchronize()
+    entry_launches = {k.symbol: k.launches for k in _kernels.KERNELS}
+    for k in (_kernels.EBSP_NAL, _kernels.PACK_WORDS):
+        if entry_launches[k.symbol] == 0:
+            raise AssertionError(f"{k.symbol} never launched on its entry path")
+    nal1, len1, _bits, ovf1 = emit_fused.emit_nal_fused_batch(
+        s_pat, s_nb, s_idc, s_n_rbsp, cap, align=has_align, append_tb=True)
+    len3 = 5 + total // 8 + count3
+    both = ~ovf1 & (count3 <= cap)
+    for b in torch.nonzero(both).flatten().tolist():
+        n = int(len1[b])
+        if int(len3[b]) != n or not torch.equal(nal3[b, :n], nal1[b, :n]):
+            raise AssertionError(f"K3 and K1 disagree on splice frame {b}")
+    _log(f"phase 6: K4 then K3 on the splice frames at B={B}: K3's NAL equals "
+         f"K1's on the {int(both.sum())} frames neither flagged; launches "
+         f"{entry_launches}")
+
+    # -- 7. Results ------------------------------------------------------------
     src = "h264_scroll_encoder_tpu_torch/csrc/emit_kernels.cu"
-    kernels = [
-        {"name": "emit_fused (K1)", "route": "cuda", "source": src,
-         "replaces": "h264_scroll_encoder_tpu/ops/emit_fused.py:214",
-         "launches": launches["h264t_emit_fused"], "max_abs_err": k1_err,
-         "ms": timing["K1"][0], "plain_ms": timing["K1"][1]},
-        {"name": "pack_place (K2)", "route": "cuda", "source": src,
-         "replaces": "h264_scroll_encoder_tpu/ops/bitpack_flat.py:435",
-         "launches": launches["h264t_pack_place"], "max_abs_err": k2_err,
-         "ms": timing["K2"][0], "plain_ms": timing["K2"][1]},
+    rows = [
+        ("emit_fused (K1)", "K1", "h264t_emit_fused", splice_launches,
+         "h264_scroll_encoder_tpu/ops/emit_fused.py:214"),
+        ("pack_place (K2)", "K2", "h264t_pack_place", splice_launches,
+         "h264_scroll_encoder_tpu/ops/bitpack_flat.py:435"),
+        ("ebsp_nal (K3)", "K3", "h264t_ebsp_nal", entry_launches,
+         "h264_scroll_encoder_tpu/ops/ebsp_flat.py:158"),
+        ("pack_words (K4)", "K4", "h264t_pack_words", entry_launches,
+         "h264_scroll_encoder_tpu/ops/bitpack_flat.py:261"),
     ]
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+                "launches": counts[sym], "max_abs_err": errs[key],
+                "ms": timing[key][0], "plain_ms": timing[key][1],
+                "bound_ms": bound_ms[key], "bound_by": "bytes",
+                "library_ms": None}
+               for name, key, sym, counts, rep in rows]
     print(json.dumps({"kernels": kernels}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

@@ -116,7 +116,24 @@ EMIT_FUSED = Kernel("h264t_emit_fused",
 # K2: (pat, nb, batch, n, n_words, words_out, total_out, stream)
 PACK_PLACE = Kernel("h264t_pack_place", [_P, _P, _I, _I, _I, _P, _P, _P])
 
-KERNELS = (EMIT_FUSED, PACK_PLACE)
+# K3: (rbsp, rbsp_len, header, batch, padded, n_nal, max_ins, nal_out,
+#      total_out, stream)
+EBSP_NAL = Kernel("h264t_ebsp_nal", [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P])
+# K4: K2's block behind its own entry point and counter.
+PACK_WORDS = Kernel("h264t_pack_words", [_P, _P, _I, _I, _I, _P, _P, _P])
+
+KERNELS = (EMIT_FUSED, PACK_PLACE, EBSP_NAL, PACK_WORDS)
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; a CUDA device without a usable
+    CUDA runtime raises instead of falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but CUDA is not available; pass "
+            "device='cpu' to run on the CPU")
+    return dev
 
 
 def reset_launch_counts() -> None:

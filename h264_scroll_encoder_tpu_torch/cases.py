@@ -3,8 +3,10 @@
 The cases are plain numpy arrays, so the same inputs feed the JAX package
 (in the tests), the port's plain PyTorch versions and the CUDA kernels
 (on the card).  `golden/scroll_720p.json` holds the JAX package's output
-digests for the 720p schedule below; `port_golden` recomputes them with
-the port on any device.
+digests for the 720p scroll schedule below, `golden/splice_rows_720p.json`
+those of the 720p rows splice of seeded representative donors;
+`port_golden` and `port_splice_golden` recompute them with the port on
+any device.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .config import ComposerConfig, MAX_EBSP_INSERTIONS
+from .config import ComposerConfig, MAX_EBSP_INSERTIONS, MAX_WAYPOINTS
 from .models import scroll
 from .parallel import batch
 
@@ -123,6 +125,54 @@ def pack_cases(seed: int, batch: int, n: int, num_words: int):
     return np.stack(pats), np.stack(nbs)
 
 
+def pack_edge_case(seed: int, n: int, num_words: int):
+    """One K4 edge case: random widths with every 7th lane 32 bits wide
+    and every 5th 0, usually past the num_words budget (the pack drops the
+    bits beyond it).  Returns (pat u32[n], nbits i32[n])."""
+    rng = np.random.default_rng(seed)
+    nb = rng.integers(0, 33, n).astype(np.int32)
+    nb[::7] = 32
+    nb[::5] = 0
+    pat = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    return pat, nb
+
+
+# K3 byte-stream cases: payloads of up to EBSP_PAYLOAD bytes into
+# EBSP_N_NAL-byte NAL buffers (room for the 1.5x worst case).
+EBSP_PAYLOAD = 517
+EBSP_N_NAL = 896
+EBSP_LENGTHS = (0, 1, 5, 64, 127, 200, 517)
+
+
+def ebsp_cases(seed: int = 11):
+    """RBSP byte streams for K3, one per (kind, length) with kind 0
+    random bytes and 1 zero-heavy (00 00 0x soup), lengths EBSP_LENGTHS:
+    (rbsp u8[K, EBSP_PAYLOAD] zero past each length, lengths i32[K],
+    header bytes i32[K])."""
+    rng = np.random.default_rng(seed)
+    rows, lens = [], []
+    for zero_heavy in (False, True):
+        for n in EBSP_LENGTHS:
+            b = (rng.choice([0, 0, 0, 1, 2, 3, 255], n) if zero_heavy
+                 else rng.integers(0, 256, n))
+            row = np.zeros(EBSP_PAYLOAD, np.uint8)
+            row[:n] = b
+            rows.append(row)
+            lens.append(n)
+    headers = 0x01 | (np.arange(len(rows)) % 4 << 5)
+    return (np.stack(rows), np.asarray(lens, np.int32),
+            headers.astype(np.int32))
+
+
+def ebsp_saturation_case():
+    """A stream whose first nonzero byte lies past K3's 64-byte zero-run
+    window (200 zeros, then 56 nonzero bytes): the count saturates past
+    the insertion cap.  Returns (rbsp u8[384], rbsp_len)."""
+    rb = np.zeros(384, np.uint8)
+    rb[200:256] = np.arange(1, 57)
+    return rb, 256
+
+
 # ---------------------------------------------------------------------------
 # The 720p scroll schedules.
 # ---------------------------------------------------------------------------
@@ -155,7 +205,7 @@ def golden_config() -> dict:
             "speeds": list(GOLDEN_SPEEDS)}
 
 
-def port_golden(device="cpu") -> dict:
+def port_golden(device="cuda") -> dict:
     """The golden digests computed by the port on `device`: the batched
     step over golden_schedule(), then one `ebsp_exact` scroll frame per
     session at the last offsets."""
@@ -175,6 +225,126 @@ def port_golden(device="cpu") -> dict:
     return {"config": golden_config(), "steps": steps,
             "ebsp_exact": digest_step(nal.cpu().numpy(), nal_len.cpu().numpy(),
                                       no_wp, ovf.cpu().numpy())}
+
+
+# ---------------------------------------------------------------------------
+# The 720p rows splice (bench.py's `_splice_config` geometry).
+# ---------------------------------------------------------------------------
+
+SPLICE_GOLDEN_PATH = GOLDEN_PATH.parent / "splice_rows_720p.json"
+# Rect at MB column 30, row 10, 23x23 MBs; two composite references.
+SPLICE_C0, SPLICE_R0, SPLICE_C, SPLICE_R = 30, 10, 23, 23
+SPLICE_NUM_REFS = 2
+SPLICE_FRAME_NUM = 3
+# Pinned wire classes: every representative 23x23 donor fits them, so one
+# step serves all of them (rows <= 128 chunks, <= 1,536 chunks in all).
+SPLICE_S_ROW, SPLICE_S_FLAT, SPLICE_S_EXC = 128, 1536, 32
+SPLICE_DONOR_SEED = 1000
+SPLICE_GOLDEN_BATCH = 8
+
+
+def splice_donor_payload(k: int) -> bytes:
+    """CAVLC P-slice payload (one reference) of representative donor k:
+    fixtures.representative_donor_grid seeded SPLICE_DONOR_SEED + k."""
+    from .models import mb_transcode as mbt
+    from .ops.bitio import BitWriter
+    from .utils import fixtures
+
+    grid = fixtures.representative_donor_grid(
+        np.random.default_rng(SPLICE_DONOR_SEED + k), SPLICE_C, SPLICE_R)
+    bw = BitWriter()
+    mbt.emit_p_slice_mbs(bw, grid, 1)
+    bw.write_trailing_bits()
+    return bw.getvalue()
+
+
+def splice_budget(cfg: ComposerConfig, donor_bits: int, *,
+                  static_bg: bool) -> int:
+    """bench.py's RBSP budget: 4 bits per background MB for the compact
+    program, no background allowance for the static-chrome one."""
+    from .models import splice_device
+
+    return splice_device.splice_rows_rbsp_budget(
+        cfg, SPLICE_R * SPLICE_C, SPLICE_R, donor_bits,
+        bg_bits_per_mb=None if static_bg else 4, static_bg=static_bg)
+
+
+def splice_session_inputs(cfg: ComposerConfig, batch_size: int, device):
+    """Header symbols and an all-skip, zero-motion background for
+    `batch_size` sessions: (hp, hn, bg_ref, bg_mvx, bg_mvy, bg_coded)."""
+    from .syntax.slice_headers import p_slice_header_symbols
+
+    frame_num = torch.full((batch_size,), SPLICE_FRAME_NUM, dtype=torch.int64,
+                           device=device)
+    hp, hn = p_slice_header_symbols(
+        cfg, frame_num, 2 * SPLICE_FRAME_NUM, False, -1, 0,
+        torch.zeros((batch_size, MAX_WAYPOINTS), dtype=torch.int64,
+                    device=device),
+        torch.zeros((batch_size, MAX_WAYPOINTS), dtype=torch.bool,
+                    device=device))
+    zero = torch.zeros((batch_size, cfg.mb_height, cfg.mb_width),
+                       dtype=torch.int32, device=device)
+    return hp, hn, zero, zero, zero, zero.to(torch.bool)
+
+
+def splice_steps(cfg: ComposerConfig, donor_bits: int, has_align: bool):
+    """The three rows splice programs of the golden run, over the blob
+    wire: {"compact": bench.py's representative program, "static": the
+    static-chrome program, "ebsp_exact": the compact program's exact-EBSP
+    retry}."""
+    common = dict(num_refs=SPLICE_NUM_REFS, has_align=has_align,
+                  s_row=SPLICE_S_ROW, s_flat=SPLICE_S_FLAT,
+                  s_exc=SPLICE_S_EXC)
+    rect = (cfg, SPLICE_C0, SPLICE_R0, SPLICE_C, SPLICE_R)
+    compact = splice_budget(cfg, donor_bits, static_bg=False)
+    static = splice_budget(cfg, donor_bits, static_bg=True)
+    return {
+        "compact": batch.make_batched_splice_step_rows(
+            *rect, n_rbsp=compact, compact_x=True, **common),
+        "static": batch.make_batched_splice_step_rows(
+            *rect, n_rbsp=static, bg_static_skip=True, **common),
+        "ebsp_exact": batch.make_batched_splice_step_rows(
+            *rect, n_rbsp=compact, compact_x=True, ebsp_exact=True,
+            **common),
+    }
+
+
+def prepare_splice_donors(payloads, *, engine: str, device):
+    """Blob-wire donor tensors for the payloads: (dn, donor_bits i64[N],
+    has_align bool[N])."""
+    from .models import splice_device
+
+    dn, (donor_bits, has_align) = splice_device.prepare_donor_rows_serving(
+        payloads, [0] * len(payloads), SPLICE_R, SPLICE_C, 1, SPLICE_NUM_REFS,
+        s_row=SPLICE_S_ROW, blob_wire=True, s_flat=SPLICE_S_FLAT,
+        s_exc=SPLICE_S_EXC, engine=engine, device=device)
+    return dn, donor_bits, has_align
+
+
+def splice_golden_config() -> dict:
+    return {"width": GOLDEN_WIDTH, "height": GOLDEN_HEIGHT,
+            "rect": [SPLICE_C0, SPLICE_R0, SPLICE_C, SPLICE_R],
+            "num_refs": SPLICE_NUM_REFS, "frame_num": SPLICE_FRAME_NUM,
+            "batch": SPLICE_GOLDEN_BATCH, "donor_seed": SPLICE_DONOR_SEED}
+
+
+def port_splice_golden(device="cuda", engine: str = "native") -> dict:
+    """The splice golden digests computed by the port on `device`: donors
+    0..SPLICE_GOLDEN_BATCH-1 prepared by `engine`, one frame per session
+    through each program of splice_steps()."""
+    cfg = ComposerConfig(GOLDEN_WIDTH, GOLDEN_HEIGHT)
+    payloads = [splice_donor_payload(k) for k in range(SPLICE_GOLDEN_BATCH)]
+    dn, donor_bits, has_align = prepare_splice_donors(
+        payloads, engine=engine, device=device)
+    inputs = splice_session_inputs(cfg, SPLICE_GOLDEN_BATCH, device)
+    out = {"config": splice_golden_config()}
+    no_wp = np.zeros(SPLICE_GOLDEN_BATCH, bool)
+    for name, step in splice_steps(cfg, int(donor_bits.max()),
+                                   bool(has_align.any())).items():
+        nal, nal_len, _bits, ovf = step(*inputs, dn)
+        out[name] = digest_step(nal.cpu().numpy(), nal_len.cpu().numpy(),
+                                no_wp, ovf.cpu().numpy())
+    return out
 
 
 def digest_step(nal, nal_len, emitted_waypoint, overflow):

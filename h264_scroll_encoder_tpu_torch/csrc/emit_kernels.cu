@@ -7,6 +7,14 @@
 // K2  h264t_pack_place  — replaces h264_scroll_encoder_tpu/ops/bitpack_flat.py
 //     `_pack_kernel3` / `_place_kernel` (behind `pack_words_place_pallas`):
 //     the bit pack alone, for the staged exact-EBSP retry path.
+// K3  h264t_ebsp_nal    — replaces h264_scroll_encoder_tpu/ops/ebsp_flat.py
+//     `_ebsp_kernel` (behind `rbsp_to_nal_pallas`): bounded emulation
+//     prevention with a 64-byte zero-run window and Annex-B framing of
+//     RBSP bytes.
+// K4  h264t_pack_words  — replaces h264_scroll_encoder_tpu/ops/bitpack_flat.py
+//     `_pack_kernel` (behind `pack_words_pallas`, a merge-tree pack with
+//     K2's output): the same block as K2 behind its own entry point and
+//     launch counter.
 //
 // What bounds them on an H100: memory traffic, not arithmetic.  At 720p a
 // session reads ~58 KB of (pattern, nbits) symbols and writes a ~7.3 KB NAL;
@@ -255,6 +263,68 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) total_out[s] = total_bits;
 }
 
+// K3's zero-run window in bytes (h264_scroll_encoder_tpu ops/ebsp
+// ZERO_RUN_WINDOW): a byte whose last nonzero predecessor lies further
+// back is unresolved.
+constexpr int kZeroRunWindow = 64;
+
+// One session's RBSP bytes (the first `padded` of them are read; bytes at
+// or past rbsp_len count as zero) -> framed NAL bytes and the insertion
+// count.  Byte i lands at 5 + i + (insertions up to and including i); an
+// inserting byte leaves 0x03 in the hole before it.  t, the zero run before
+// byte i, comes from an exact max-scan of the last nonzero index; where
+// that index lies more than kZeroRunWindow back (or there is none) the
+// window rule applies: t = min(i, 255), and past byte kZeroRunWindow such a
+// byte marks the stream saturated, which adds max_ins + 1 to the count.
+// Positions from the last byte up to 5 + rbsp_len + count hold 0x03 and
+// the rest zeros, exactly as the TPU kernel's expansion leaves them.
+__global__ void __launch_bounds__(kThreads)
+    ebsp_nal_kernel(const uint8_t* __restrict__ rbsp, const int32_t* __restrict__ rbsp_len,
+                    const int32_t* __restrict__ header, int padded, int n_nal, int max_ins,
+                    uint8_t* __restrict__ nal_out, int32_t* __restrict__ total_out) {
+  extern __shared__ uint32_t smem[];
+  __shared__ int tmp_int[32];
+  const int s = blockIdx.x;
+  uint8_t* nal = reinterpret_cast<uint8_t*>(smem);
+  zero_words(smem, (n_nal + 3) >> 2);
+  const uint8_t* in = rbsp + (size_t)s * padded;
+  const int len = rbsp_len[s];
+  const int valid_len = max(min(len, padded), 0);
+  int last_nz = -1;
+  int ins_carry = 0;
+  int sat = 0;
+  for (int base = 0; base < valid_len; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const bool valid = i < valid_len;
+    const int byte = valid ? (int)in[i] : 0;
+    int excl, incl, total;
+    block_scan((valid && byte != 0) ? i : -1, -1, MaxOp(), tmp_int, excl, incl, total);
+    const int last = max(excl, last_nz);
+    last_nz = max(total, last_nz);
+    const bool found = last >= 0 && i - last <= kZeroRunWindow;
+    const int t = found ? i - last - 1 : min(i, 255);
+    sat |= valid && !found && i > kZeroRunWindow;
+    const int ins = valid && byte <= 3 && t >= 2 && (t & 1) == 0;
+    block_scan(ins, 0, SumOp(), tmp_int, excl, incl, total);
+    const int dst = 5 + i + ins_carry + incl;
+    if (valid && dst < n_nal) nal[dst] = (uint8_t)byte;
+    if (ins && dst - 1 < n_nal) nal[dst - 1] = 3;
+    ins_carry += total;
+  }
+  sat = __syncthreads_or(sat);
+  const int count = ins_carry + (sat ? max_ins + 1 : 0);
+  const int end = min(5 + len + count, n_nal);
+  for (int k = 5 + valid_len + ins_carry + threadIdx.x; k < end; k += blockDim.x) nal[k] = 3;
+  if (threadIdx.x < min(5, n_nal)) {
+    const uint8_t prefix[4] = {0, 0, 0, 1};
+    nal[threadIdx.x] = threadIdx.x < 4 ? prefix[threadIdx.x] : (uint8_t)header[s];
+  }
+  __syncthreads();
+  uint8_t* out = nal_out + (size_t)s * n_nal;
+  for (int k = threadIdx.x; k < n_nal; k += blockDim.x) out[k] = nal[k];
+  if (threadIdx.x == 0) total_out[s] = count;
+}
+
 cudaError_t set_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -282,4 +352,21 @@ extern "C" int h264t_pack_place(const int32_t* pat, const int32_t* nb, int batch
   pack_place_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(pat, nb, n, n_words,
                                                                      words_out, total_out);
   return (int)cudaGetLastError();
+}
+
+extern "C" int h264t_ebsp_nal(const uint8_t* rbsp, const int32_t* rbsp_len, const int32_t* header,
+                              int batch, int padded, int n_nal, int max_ins, uint8_t* nal_out,
+                              int32_t* total_out, void* stream) {
+  const size_t smem = 4 * (size_t)((n_nal + 3) / 4);
+  cudaError_t err = set_smem((const void*)ebsp_nal_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  ebsp_nal_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+      rbsp, rbsp_len, header, padded, n_nal, max_ins, nal_out, total_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int h264t_pack_words(const int32_t* pat, const int32_t* nb, int batch, int n,
+                                int n_words, int32_t* words_out, int32_t* total_out,
+                                void* stream) {
+  return h264t_pack_place(pat, nb, batch, n, n_words, words_out, total_out, stream);
 }

@@ -383,14 +383,18 @@ def p_frame_symbols(cfg: ComposerConfig, header_patterns, header_nbits,
 
 
 def finish_slice(patterns, nbits, n_rbsp: int, nal_ref_idc,
-                 *, ebsp_exact: bool = False):
-    """Shared slice tail: trailing bits -> pack -> emulation prevention ->
-    Annex-B framing over [B, n] symbols.
+                 *, ebsp_exact: bool = False, has_align: bool = False):
+    """Shared slice tail: I_PCM alignment -> trailing bits -> pack ->
+    emulation prevention -> Annex-B framing over [B, n] symbols.
 
-    The bounded path is K1 (ops/emit_fused) with the trailing-bits symbol
-    appended inside it.  The `ebsp_exact` retry path packs with K2
-    (ops/bitpack_flat) and runs exact emulation prevention in plain torch.
-    Both kernels take their plain version for CPU tensors.
+    The bounded path is K1 (ops/emit_fused), which resolves the alignment
+    sentinels (`has_align`: nbits < 0 are pcm_alignment_zero_bits) and
+    appends the trailing-bits symbol itself.  The `ebsp_exact` retry path
+    resolves the sentinels in plain torch, packs with K2
+    (ops/bitpack_flat) and runs exact emulation prevention in plain
+    torch.  Both kernels take their plain version for CPU tensors.
+    Without `has_align` a negative width is out of contract and flags
+    overflow on both paths.
 
     Returns (nal u8[B, n_nal], nal_len i32[B], rbsp_bits i32[B],
     overflow bool[B]).
@@ -398,11 +402,18 @@ def finish_slice(patterns, nbits, n_rbsp: int, nal_ref_idc,
     if not ebsp_exact:
         return emit_fused.finish_nal_fused(
             patterns, nbits, n_rbsp, nal_ref_idc,
-            max_insertions=MAX_EBSP_INSERTIONS, append_trailing=True)
+            max_insertions=MAX_EBSP_INSERTIONS, has_align=has_align,
+            append_trailing=True)
 
     patterns = patterns.to(torch.int64)
     nbits = nbits.to(torch.int64)
     B = nbits.shape[0]
+    if has_align:
+        nbits = emit_fused._resolve_align(nbits)
+        bad = torch.zeros(B, dtype=torch.bool, device=nbits.device)
+    else:
+        bad = (nbits < 0).any(dim=1)
+        nbits = nbits.clamp(min=0)
     tb_pat, tb_n = bitpack.trailing_bits_symbol(nbits.sum(dim=1))
     patterns = torch.cat([patterns, tb_pat[:, None]], dim=1)
     nbits = torch.cat([nbits, tb_n[:, None]], dim=1)
@@ -411,7 +422,7 @@ def finish_slice(patterns, nbits, n_rbsp: int, nal_ref_idc,
         patterns, nbits, (n_rbsp + 3) // 4)
     rbsp_bytes = bitpack.words_to_bytes(words)[:, :n_rbsp]
     rbsp_len = total_bits // 8      # trailing bits guarantee alignment
-    overflow = total_bits > n_rbsp * 8
+    overflow = (total_bits > n_rbsp * 8) | bad
 
     # Output capacity covers the 1.5x worst case.
     n_nal = (5 + n_rbsp * 3 // 2 + 8 + 3) // 4 * 4

@@ -1,12 +1,20 @@
-"""Batched bit pack (K2) for the staged exact-EBSP path.
+"""Batched bit packs (K2, K4).
 
-Port of the direct-placement pack of h264_scroll_encoder_tpu
-ops/bitpack_flat.py (`pack_words_place_pallas`, whose Pallas kernels are
-`_pack_kernel3` and `_place_kernel`): (patterns, nbits)[B, n] ->
-(words[B, num_words], total_bits[B]), bit-exact with ops/bitpack.pack_words
-for widths in [0, 32].  One batched CUDA kernel, `h264t_pack_place`
-(csrc/emit_kernels.cu), serves both Pallas entry points; it is K1's pack
-stage on its own.
+Port of h264_scroll_encoder_tpu/ops/bitpack_flat.py: (patterns,
+nbits)[B, n] -> (words[B, num_words], total_bits[B]), bit-exact with
+ops/bitpack.pack_words for widths in [0, 32] (bits past num_words drop).
+
+  K2  `pack_words_place_batch` — the direct-placement pack
+      (`pack_words_place_pallas`, Pallas kernels `_pack_kernel3` and
+      `_place_kernel`) of the staged exact-EBSP path.
+  K4  `pack_words_batch` — the merge-tree pack (`pack_words_pallas`,
+      Pallas kernel `_pack_kernel`), the same function by another TPU
+      algorithm.
+
+Both run one batched CUDA block per session (csrc/emit_kernels.cu, K1's
+pack stage on its own): `h264t_pack_place` for K2 and `h264t_pack_words`,
+the same block behind its own entry point and launch counter, for K4.
+The TPU merge tree is not carried over.
 """
 
 from __future__ import annotations
@@ -27,18 +35,32 @@ def pack_words_place_plain(patterns, nbits, num_words: int):
 def pack_words_place_batch(patterns, nbits, num_words: int):
     """K2 over a [B, n] batch: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (a build or launch failure raises)."""
+    return _batch(patterns, nbits, num_words, _kernels.PACK_PLACE)
+
+
+def pack_words_batch(patterns, nbits, num_words: int):
+    """K4 over a [B, n] batch (the port of `pack_words_pallas`): the plain
+    version (pack_words_place_plain) for CPU tensors, the CUDA kernel for
+    CUDA tensors.  Returns (words int64[B, num_words], total_bits
+    int64[B])."""
+    return _batch(patterns, nbits, num_words, _kernels.PACK_WORDS)
+
+
+def _batch(patterns, nbits, num_words: int, kernel):
     check_symbols(patterns, nbits)
     if patterns.device.type == "cpu":
         return pack_words_place_plain(patterns, nbits, num_words)
     words, total = launch_kernel(_kernels.as_i32_bits(patterns),
-                                 nbits.to(torch.int32).contiguous(), num_words)
+                                 nbits.to(torch.int32).contiguous(), num_words,
+                                 kernel)
     return words.to(torch.int64) & U32, total.to(torch.int64)
 
 
-def launch_kernel(pat, nb, num_words: int):
-    """Launch K2 on contiguous int32 CUDA tensors pat[B, n] (uint32 bit
-    patterns) and nb[B, n]: (words int32[B, num_words] holding the uint32
-    bits, total_bits int32[B])."""
+def launch_kernel(pat, nb, num_words: int, kernel=_kernels.PACK_PLACE):
+    """Launch K2 (or K4, the same block: kernel=_kernels.PACK_WORDS) on
+    contiguous int32 CUDA tensors pat[B, n] (uint32 bit patterns) and
+    nb[B, n]: (words int32[B, num_words] holding the uint32 bits,
+    total_bits int32[B])."""
     dev = pat.device
     B, n = pat.shape
     if 4 * num_words > _SMEM_LIMIT:
@@ -48,7 +70,7 @@ def launch_kernel(pat, nb, num_words: int):
     total = torch.empty((B,), dtype=torch.int32, device=dev)
     if B:
         with torch.cuda.device(dev):
-            _kernels.PACK_PLACE.launch(
+            kernel.launch(
                 pat.data_ptr(), nb.data_ptr(), B, n, num_words,
                 words.data_ptr(), total.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)

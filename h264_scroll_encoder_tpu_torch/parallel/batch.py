@@ -6,8 +6,11 @@ axis is data parallelism over independent UI sessions.  Per-session state
 (frame_num + waypoint registry) is a set of tensors with a leading session
 dimension on the device, and each step composes one P-frame per session.
 
-Not ported yet: the sharded step, the hint step, the splice steps and
-`compact_batch_nal`.
+`make_batched_splice_step_rows` is the rows splice step (the serving hot
+path): a pre-encoded donor rect composed into each session's P-frame.
+
+Not ported yet: the sharded step, the hint step, the dense splice step
+and `compact_batch_nal`.
 """
 
 from __future__ import annotations
@@ -18,8 +21,10 @@ import functools
 import numpy as np
 import torch
 
+from .. import _kernels
 from ..config import ComposerConfig, MAX_WAYPOINTS
-from ..models import scroll
+from ..models import scroll, splice_device
+from ..models.splice_device import donor_arrays_from_numpy  # noqa: F401
 
 _FIELDS = ("frame_num", "wp_offsets", "wp_ltidx", "wp_valid", "wp_count")
 
@@ -38,8 +43,10 @@ class SessionState:
 
     @classmethod
     def create(cls, batch: int, frame_num: int = 2, *,
-               device="cpu") -> "SessionState":
-        """Fresh sessions, frame_num=2 (after the two atlas frames)."""
+               device="cuda") -> "SessionState":
+        """Fresh sessions, frame_num=2 (after the two atlas frames), on
+        `device` (the card unless the caller asks for the CPU)."""
+        device = _kernels.resolve_device(device)
         def z(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=device)
         return cls(
@@ -56,9 +63,10 @@ class SessionState:
         return {f: getattr(self, f).cpu().numpy() for f in _FIELDS}
 
     @classmethod
-    def from_numpy(cls, d, *, device="cpu") -> "SessionState":
+    def from_numpy(cls, d, *, device="cuda") -> "SessionState":
         """State from numpy arrays keyed by field name — e.g. a JAX
         SessionState's fields — so both packages continue one session."""
+        device = _kernels.resolve_device(device)
         def t(f, dtype):
             return torch.tensor(np.asarray(d[f]), device=device).to(dtype)
         return cls(frame_num=t("frame_num", torch.int32),
@@ -117,6 +125,45 @@ def make_batched_step(cfg: ComposerConfig, *, enable_pskip: bool = False,
     nal_len i32[B], emitted_waypoint bool[B], rbsp_bits i32[B],
     overflow bool[B])).  Runs on the device of the state's tensors."""
     return functools.partial(_session_step, cfg, enable_pskip, emit_waypoints)
+
+
+def make_batched_splice_step_rows(cfg: ComposerConfig, rect_mb_x: int,
+                                  rect_mb_y: int, rect_w: int, rect_h: int,
+                                  num_refs: int = 2, *,
+                                  nal_ref_idc: int = 0,
+                                  has_align: bool = False,
+                                  n_rbsp: int | None = None,
+                                  ebsp_exact: bool = False,
+                                  compact_x: bool = False,
+                                  s_row: int | None = None,
+                                  s_flat: int | None = None,
+                                  s_exc: int | None = None,
+                                  bg_static_skip: bool = False,
+                                  bg_budget: int | None = None):
+    """The rows splice step over a batch of sessions:
+
+        step(hp, hn, bg_ref, bg_mvx, bg_mvy, bg_coded, dn)
+            -> (nal u8[B, n_nal], nal_len i32[B], rbsp_bits i32[B],
+                overflow bool[B])
+
+    with per-session header symbols hp/hn [B, nh], background fields
+    [B, H, W] and the donor wire `dn` with a leading [B] axis (from
+    models/splice_device.prepare_donor_rows_serving, or a JAX donor wire
+    carried across by donor_arrays_from_numpy).  Every donor-dependent
+    value is a tensor, so one step serves every donor that shares the rect
+    geometry, the row chunk class and the n_rbsp budget.  Modes as in
+    splice_device.rows_splice_symbols (compact_x, bg_static_skip,
+    bg_budget; flat and blob wires need s_row / s_flat / s_exc); the step
+    runs on the device of its inputs."""
+    def step(hp, hn, bg_ref, bg_mvx, bg_mvy, bg_coded, dn):
+        return splice_device.emit_spliced_frame_rows(
+            cfg, rect_mb_x, rect_mb_y, rect_h, rect_w, num_refs,
+            hp, hn, bg_ref, bg_mvx, bg_mvy, bg_coded, dn,
+            nal_ref_idc=nal_ref_idc, has_align=has_align, n_rbsp=n_rbsp,
+            ebsp_exact=ebsp_exact, compact_x=compact_x, s_row=s_row,
+            s_flat=s_flat, s_exc=s_exc, bg_static_skip=bg_static_skip,
+            bg_budget=bg_budget)
+    return step
 
 
 def _checksum(nal):

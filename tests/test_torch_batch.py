@@ -48,7 +48,7 @@ def test_batched_step_divergent_sessions_and_exhaustion():
     tstep = batch.make_batched_step(ComposerConfig(*TALL))
     sched = _tall_schedule()
     jstate = jbatch.SessionState.create(sched.shape[1])
-    tstate = batch.SessionState.create(sched.shape[1])
+    tstate = batch.SessionState.create(sched.shape[1], device="cpu")
     flagged = False
     for offs in sched:
         jstate, jouts = jstep(jstate, jnp.asarray(offs))
@@ -67,7 +67,8 @@ def test_run_frames(composer_semantics):
         JaxConfig(*TALL), s, o, composer_semantics=composer_semantics))(
         jbatch.SessionState.create(sched.shape[1]), jnp.asarray(sched))
     tfinal, touts = batch.run_frames(
-        ComposerConfig(*TALL), batch.SessionState.create(sched.shape[1]),
+        ComposerConfig(*TALL),
+        batch.SessionState.create(sched.shape[1], device="cpu"),
         torch.as_tensor(sched), composer_semantics=composer_semantics)
     _assert_outputs_equal(touts, jouts)
     _assert_state_equal(tfinal, jfinal)
@@ -85,7 +86,7 @@ def test_full_width_720p_batch8():
     jstep = jbatch.make_batched_step(JaxConfig(1280, 720))
     tstep = batch.make_batched_step(ComposerConfig(1280, 720))
     jstate = jbatch.SessionState.create(8)
-    tstate = batch.SessionState.create(8)
+    tstate = batch.SessionState.create(8, device="cpu")
     waypoints = 0
     for offs in sched:
         jstate, jouts = jstep(jstate, jnp.asarray(offs))
@@ -105,7 +106,7 @@ def test_session_state_from_numpy_continues_jax_session():
     for offs in sched[:6]:
         jstate, _ = jstep(jstate, jnp.asarray(offs))
     tstate = batch.SessionState.from_numpy(
-        {f: np.asarray(getattr(jstate, f)) for f in FIELDS})
+        {f: np.asarray(getattr(jstate, f)) for f in FIELDS}, device="cpu")
     for f, a in tstate.to_numpy().items():
         np.testing.assert_array_equal(a, np.asarray(getattr(jstate, f)))
         assert a.dtype == np.asarray(getattr(jstate, f)).dtype
@@ -127,7 +128,7 @@ def test_batched_step_options(enable_pskip, emit_waypoints):
     tstep = batch.make_batched_step(ComposerConfig(*TALL), **kw)
     sched = _tall_schedule()[:6]
     jstate = jbatch.SessionState.create(sched.shape[1])
-    tstate = batch.SessionState.create(sched.shape[1])
+    tstate = batch.SessionState.create(sched.shape[1], device="cpu")
     for offs in sched:
         jstate, jouts = jstep(jstate, jnp.asarray(offs))
         tstate, touts = tstep(tstate, torch.as_tensor(offs))

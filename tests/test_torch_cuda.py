@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from h264_scroll_encoder_tpu_torch import _kernels, cases
-from h264_scroll_encoder_tpu_torch.ops import bitpack_flat, emit_fused
+from h264_scroll_encoder_tpu_torch.config import ComposerConfig
+from h264_scroll_encoder_tpu_torch.ops import bitpack_flat, ebsp_flat, emit_fused
 
 pytestmark = pytest.mark.cuda
 
@@ -73,3 +74,56 @@ def test_pack_kernel(dev, n, num_words):
 
 def test_golden_digests_on_card(dev):
     assert cases.port_golden(dev) == json.loads(cases.GOLDEN_PATH.read_text())
+
+
+@pytest.mark.parametrize("n,num_words", [(100, 10), (257, 30), (5, 1),
+                                         (1000, 1000), (8483, 1490)])
+def test_pack_words_kernel(dev, n, num_words):
+    """K4 at widths of 0 and 32, lane counts that are not powers of two,
+    and streams cut at num_words."""
+    pat, nb = cases.pack_edge_case(n, n, num_words)
+    args = (_cu(pat[None], dev), _cu(nb[None], dev), num_words)
+    before = _kernels.PACK_WORDS.launches
+    got = bitpack_flat.pack_words_batch(*args)
+    assert _kernels.PACK_WORDS.launches == before + 1
+    _same(got, bitpack_flat.pack_words_place_plain(*args))
+
+
+@pytest.mark.parametrize("cap", [cases.CAP, 1000])
+def test_ebsp_kernel(dev, cap):
+    rbsp, lens, hdr = cases.ebsp_cases()
+    args = (torch.as_tensor(rbsp, device=dev), torch.as_tensor(lens, device=dev),
+            torch.as_tensor(hdr, device=dev), cases.EBSP_N_NAL, cap)
+    before = _kernels.EBSP_NAL.launches
+    got = ebsp_flat.rbsp_to_nal_batch(*args)
+    assert _kernels.EBSP_NAL.launches == before + 1
+    _same(got, ebsp_flat.rbsp_to_nal_plain(*args))
+    rb, n = cases.ebsp_saturation_case()
+    args = (torch.as_tensor(rb[None], device=dev), n, 0x41, rb.size, cap)
+    got = ebsp_flat.rbsp_to_nal_batch(*args)
+    _same(got, ebsp_flat.rbsp_to_nal_plain(*args))
+    assert int(got[1][0]) > cap or cap > 100
+
+
+@pytest.mark.parametrize("program", ["compact", "static", "ebsp_exact"])
+def test_small_splice_step_matches_cpu(dev, program):
+    """The 720p rows splice step on the card (K1, or K2 for ebsp_exact)
+    against the same step on CPU tensors (the plain versions), two
+    representative donors from the Python engine."""
+    cfg = ComposerConfig(1280, 720)
+    pays = [cases.splice_donor_payload(k) for k in range(2)]
+    outs = []
+    for device in ("cpu", dev):
+        dn, bits, align = cases.prepare_splice_donors(pays, engine="python",
+                                                      device=device)
+        step = cases.splice_steps(cfg, int(bits.max()), bool(align.any()))[program]
+        outs.append(step(*cases.splice_session_inputs(cfg, 2, device), dn))
+    torch.cuda.synchronize()
+    for c, g in zip(*outs):
+        assert torch.equal(g.cpu(), c)
+    assert not bool(outs[0][3].any())
+
+
+def test_splice_golden_digests_on_card(dev):
+    want = json.loads(cases.SPLICE_GOLDEN_PATH.read_text())
+    assert cases.port_splice_golden(dev) == want

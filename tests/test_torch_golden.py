@@ -6,8 +6,14 @@ overflow for the batch-8, 12-step 1280x720 schedule of
 `cases.golden_schedule`, plus one `ebsp_exact` scroll frame per session.
 chip_smoke.py holds the card's output against it without jax.
 
-Regenerate the file with `python tests/test_torch_golden.py` (the test
-below fails whenever its contents differ from the JAX package's output).
+h264_scroll_encoder_tpu_torch/golden/splice_rows_720p.json holds the same
+digests for the 720p rows splice (bench.py's geometry) of the seeded
+representative donors of `cases.splice_donor_payload`: one frame per
+session through the compact program, the static-chrome program and the
+compact program's `ebsp_exact` retry.
+
+Regenerate both files with `python tests/test_torch_golden.py` (the tests
+below fail whenever their contents differ from the JAX package's output).
 """
 
 import functools
@@ -19,8 +25,15 @@ import numpy as np
 import torch
 
 from h264_scroll_encoder_tpu.config import ComposerConfig as JaxConfig
+from h264_scroll_encoder_tpu.config import MAX_WAYPOINTS
+from h264_scroll_encoder_tpu.models import mb_transcode as jax_mbt
 from h264_scroll_encoder_tpu.models import scroll as jax_scroll
+from h264_scroll_encoder_tpu.models import splice_device as jax_sd
+from h264_scroll_encoder_tpu.ops.bitio import BitWriter as JaxBitWriter
 from h264_scroll_encoder_tpu.parallel import batch as jax_batch
+from h264_scroll_encoder_tpu.syntax.slice_headers import (
+    p_slice_header_symbols as jax_header)
+from h264_scroll_encoder_tpu.utils import fixtures as jax_fixtures
 from h264_scroll_encoder_tpu_torch import cases
 
 torch.set_num_threads(1)
@@ -50,6 +63,61 @@ def jax_golden() -> dict:
                                             np.asarray(ovf))}
 
 
+def jax_splice_golden() -> dict:
+    """The splice golden digests, computed by the JAX package (Python
+    donor engine, padded rows wire, staged back end)."""
+    cfg = JaxConfig(cases.GOLDEN_WIDTH, cases.GOLDEN_HEIGHT)
+    R, C, B = cases.SPLICE_R, cases.SPLICE_C, cases.SPLICE_GOLDEN_BATCH
+    drs = []
+    for k in range(B):
+        grid = jax_fixtures.representative_donor_grid(
+            np.random.default_rng(cases.SPLICE_DONOR_SEED + k), C, R)
+        bw = JaxBitWriter()
+        jax_mbt.emit_p_slice_mbs(bw, grid, 1)
+        bw.write_trailing_bits()
+        dd = jax_sd.prepare_donor_dense_from_slice(
+            bw.getvalue(), 0, C, R, 1, cases.SPLICE_NUM_REFS,
+            engine="python")
+        drs.append(jax_sd.pack_donor_rows(dd, R, C,
+                                          min_class=cases.SPLICE_S_ROW))
+    wires = [jax_sd.rows_device_arrays(dr) for dr in drs]
+    dn = {k: jnp.stack([w[k] for w in wires]) for k in wires[0]}
+    donor_bits = max(dr.donor_bits for dr in drs)
+    has_align = any(dr.has_align for dr in drs)
+    hp, hn = jax_header(
+        cfg, jnp.int32(cases.SPLICE_FRAME_NUM),
+        jnp.int32(2 * cases.SPLICE_FRAME_NUM), is_reference=False,
+        long_term_idx=-1, num_waypoints=jnp.int32(0),
+        wp_long_term_idx=jnp.zeros(MAX_WAYPOINTS, jnp.int32),
+        wp_valid=jnp.zeros(MAX_WAYPOINTS, bool))
+    zero = jnp.zeros((B, cfg.mb_height, cfg.mb_width), jnp.int32)
+    args = (jnp.broadcast_to(hp, (B,) + hp.shape),
+            jnp.broadcast_to(hn, (B,) + hn.shape), zero, zero, zero,
+            zero.astype(bool), dn)
+
+    def budget(static_bg):
+        return jax_sd.splice_rows_rbsp_budget(
+            cfg, R * C, R, donor_bits,
+            bg_bits_per_mb=None if static_bg else 4, static_bg=static_bg)
+
+    rect = (cfg, cases.SPLICE_C0, cases.SPLICE_R0, C, R)
+    common = dict(num_refs=cases.SPLICE_NUM_REFS, has_align=has_align)
+    programs = {
+        "compact": dict(n_rbsp=budget(False), compact_x=True),
+        "static": dict(n_rbsp=budget(True), bg_static_skip=True),
+        "ebsp_exact": dict(n_rbsp=budget(False), compact_x=True,
+                           ebsp_exact=True),
+    }
+    out = {"config": cases.splice_golden_config()}
+    no_wp = np.zeros(B, bool)
+    for name, kw in programs.items():
+        step = jax_batch.make_batched_splice_step_rows(*rect, **common, **kw)
+        nal, nal_len, _bits, ovf = step(*args)
+        out[name] = cases.digest_step(np.asarray(nal), np.asarray(nal_len),
+                                      no_wp, np.asarray(ovf))
+    return out
+
+
 def test_golden_file_is_jax_output():
     committed = json.loads(cases.GOLDEN_PATH.read_text())
     assert committed == jax_golden()
@@ -61,7 +129,22 @@ def test_golden_file_is_jax_output():
 
 def test_port_matches_golden():
     committed = json.loads(cases.GOLDEN_PATH.read_text())
-    assert cases.port_golden() == committed
+    assert cases.port_golden(device="cpu") == committed
+
+
+def test_splice_golden_file_is_jax_output():
+    committed = json.loads(cases.SPLICE_GOLDEN_PATH.read_text())
+    assert committed == jax_splice_golden()
+    for name in ("compact", "static", "ebsp_exact"):
+        assert not any(d["overflow"] for d in committed[name])
+    # The programs differ only in layout and back end: the bytes agree.
+    assert committed["static"] == committed["compact"]
+    assert committed["ebsp_exact"] == committed["compact"]
+
+
+def test_port_matches_splice_golden():
+    committed = json.loads(cases.SPLICE_GOLDEN_PATH.read_text())
+    assert cases.port_splice_golden(device="cpu", engine="python") == committed
 
 
 if __name__ == "__main__":
@@ -69,3 +152,6 @@ if __name__ == "__main__":
     cases.GOLDEN_PATH.parent.mkdir(parents=True, exist_ok=True)
     cases.GOLDEN_PATH.write_text(json.dumps(jax_golden(), indent=1) + "\n")
     print(f"wrote {cases.GOLDEN_PATH}")
+    cases.SPLICE_GOLDEN_PATH.write_text(
+        json.dumps(jax_splice_golden(), indent=1) + "\n")
+    print(f"wrote {cases.SPLICE_GOLDEN_PATH}")
