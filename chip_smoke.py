@@ -12,10 +12,15 @@ result line):
      CAVLC engine from csrc/cavlc_decode.cpp with g++.
   3. Hold each kernel against its plain PyTorch version on CUDA tensors,
      exactly (tolerance: none — outputs are integers and bytes): the
-     byte-stream, overflow, alignment, saturation and truncation cases of
-     the tests, real 1280x720 scroll and splice symbol batches at B = 256
-     (K1, K2, K4) and the splice frames' RBSP bytes (K3); time each as
-     kernel alone, wrapper and plain version (CUDA-event medians).
+     byte-stream, overflow, alignment, saturation, truncation and pack
+     boundary cases of the tests, real 1280x720 scroll and splice symbol
+     batches at B = 256 (K1, K2, K4; K1 also at B = 1,024), K1, K2 and K4
+     on int32 and on int64 symbols, and the splice frames' RBSP bytes (K3).
+     Show that the K1, K2 and K4 wrappers run no tensor op (no conversion)
+     around their kernel on int64 symbols.  Time each kernel's device time
+     per call (calls queued back to back), one call as a caller waits for
+     it, the host's issue time per call, and the plain version (CUDA-event
+     medians); K1 also on int32 symbols and at B = 1 and 1,024.
   4. The scroll path — `parallel.batch.make_batched_step` at 1280x720 —
      over 16 frames of the benchmark's schedule at B = 256, then the
      golden batch-8 schedule and one `ebsp_exact` (K2) frame per session,
@@ -34,8 +39,9 @@ result line):
      `rbsp_to_nal_batch`, ops/bitpack_flat `pack_words_batch`) on the
      splice frames at B = 256; K3's NAL must equal K1's bytes wherever K1
      did not flag the frame.
-  7. Print the kernel table (one JSON line), the card's name and power
-     limit, and the result line.
+  7. Print the kernel table (one JSON line; `ms` is one call on an idle
+     card, as in the first port's rows, with `device_ms` and `host_ms`
+     beside it), the card's name and power limit, and the result line.
 
 Launch counters are set to 0 just before each path (4, 5, 6) and read
 just after; every kernel must have launched on its path.
@@ -67,22 +73,6 @@ def _smi() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True)
     return r.stdout.strip().splitlines()[0]
-
-
-def _cuda_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of fn() in ms, after two warm-up calls."""
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _max_abs_err(got, want) -> int:
@@ -173,10 +163,11 @@ def main() -> int:
         return 1
     from h264_scroll_encoder_tpu_torch import _kernels, cases, native_bridge
     from h264_scroll_encoder_tpu_torch.config import ComposerConfig
-    from h264_scroll_encoder_tpu_torch.models import scroll, splice_device
+    from h264_scroll_encoder_tpu_torch.models import scroll
     from h264_scroll_encoder_tpu_torch.ops import (bitpack, bitpack_flat,
                                                    ebsp_flat, emit_fused)
     from h264_scroll_encoder_tpu_torch.parallel import batch
+    from h264_scroll_encoder_tpu_torch.utils import timing as timing_
 
     dev = torch.device("cuda", 0)
     smi = _smi()
@@ -194,10 +185,10 @@ def main() -> int:
     native_bridge.load_library()
 
     # -- 3. Kernels vs plain versions on the card ----------------------------
-    def cu(a):
-        if isinstance(a, torch.Tensor):
-            return a.to(dev, torch.int64)
-        return torch.as_tensor(np.asarray(a).astype(np.int64), device=dev)
+    def cu(a, int32=False):
+        if not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(np.asarray(a).astype(np.int64), device=dev)
+        return cases.int32_bits(a) if int32 else a.to(dev, torch.int64)
 
     errs = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
@@ -210,16 +201,22 @@ def main() -> int:
         return got
 
     def check_k1(case, pat, nb, idc, n_rbsp, cap, **kw):
-        args = (cu(pat), cu(nb), idc, n_rbsp, cap)
-        return hold("K1", case, emit_fused.emit_nal_fused_batch(*args, **kw),
-                    emit_fused.emit_nal_fused_plain(*args, **kw))
+        """K1 on int32 and on int64 symbols; returns the int64 result."""
+        for int32 in (True, False):
+            args = (cu(pat, int32), cu(nb, int32), idc, n_rbsp, cap)
+            got = hold("K1", f"{case} int{32 if int32 else 64}",
+                       emit_fused.emit_nal_fused_batch(*args, **kw),
+                       emit_fused.emit_nal_fused_plain(*args, **kw))
+        return got
 
     def check_pack(name, case, pat, nb, num_words):
-        args = (cu(pat), cu(nb), num_words)
         entry = (bitpack_flat.pack_words_place_batch if name == "K2"
                  else bitpack_flat.pack_words_batch)
-        return hold(name, case, entry(*args),
-                    bitpack_flat.pack_words_place_plain(*args))
+        for int32 in (True, False):
+            args = (cu(pat, int32), cu(nb, int32), num_words)
+            got = hold(name, f"{case} int{32 if int32 else 64}", entry(*args),
+                       bitpack_flat.pack_words_place_plain(*args))
+        return got
 
     def check_k3(case, rbsp, lens, hdr, n_nal, cap):
         args = (torch.as_tensor(rbsp, device=dev),
@@ -241,6 +238,8 @@ def main() -> int:
     pat, nb, _runs = cases.window_sweep_cases()
     # Cap 64: the zero-run window, not the insertion count, decides.
     check_k1("window sweep", pat, nb, 0, cases.N_RBSP, 64)
+    pat, nb, _runs, c_rbsp = cases.chunk_zero_run_cases()
+    check_k1("chunk zero runs", pat, nb, 0, c_rbsp, 64)
     pat, nb = cases.align_cases()
     check_k1("align+tb", pat, nb, 3, cases.N_RBSP, cap, align=True,
              append_tb=True)
@@ -250,6 +249,16 @@ def main() -> int:
     has_sentinel = torch.as_tensor((nb < 0).any(axis=1), device=dev)
     if not bool(torch.all(got[3][has_sentinel])):
         raise AssertionError("K1 did not flag sentinels without align")
+    for n in cases.PACK_BOUNDARY_LENGTHS:
+        pat, nb, b_rbsp = cases.pack_boundary_cases(n)
+        for align in (False, True):
+            check_k1(f"pack boundary n={n} align={align}", pat, nb,
+                     torch.arange(len(pat)) % 4, b_rbsp, cap, align=align,
+                     append_tb=True)
+        pat, nb, b_rbsp = cases.pack_boundary_cases(n, sentinels=False)
+        for k in ("K2", "K4"):
+            for nw in (b_rbsp // 4, b_rbsp // 8):
+                check_pack(k, f"pack boundary n={n} words={nw}", pat, nb, nw)
     for k in ("K2", "K4"):
         for n, nw in ((1024, 300), (64, 80), (200, 64), (8483, 1490)):
             p2, n2 = cases.pack_cases(n, 8, n, nw)
@@ -283,8 +292,8 @@ def main() -> int:
     if bool(got[3].any()):
         raise AssertionError("720p symbols overflowed the bounded path")
 
-    # Real 720p splice symbols at B = 256: the compact program's input,
-    # sessions carrying the 32 donors in turn.
+    # Real 720p splice symbols: the compact program's input, sessions
+    # carrying the 32 donors in turn, at B = 256 (and 1 and 1,024 for K1).
     payloads = [cases.splice_donor_payload(k) for k in range(N_DONORS)]
     dn32, bits32, align32 = cases.prepare_splice_donors(
         payloads, engine="native", device=dev)
@@ -294,17 +303,16 @@ def main() -> int:
     def tile(B):
         return {"blob": dn32["blob"][torch.arange(B, device=dev) % N_DONORS]}
 
-    s_inputs = cases.splice_session_inputs(cfg, B, dev)
-    s_pat, s_nb, _ = splice_device.rows_splice_symbols(
-        cfg, cases.SPLICE_C0, cases.SPLICE_R0, cases.SPLICE_R, cases.SPLICE_C,
-        cases.SPLICE_NUM_REFS, *s_inputs, tile(B), n_rbsp=s_n_rbsp,
-        compact_x=True, s_row=cases.SPLICE_S_ROW, s_flat=cases.SPLICE_S_FLAT,
-        s_exc=cases.SPLICE_S_EXC)
-    s_idc = torch.zeros(B, dtype=torch.int64, device=dev)
+    s_pat, s_nb = cases.splice_symbols(cfg, dn32, B, s_n_rbsp, dev)
+    s_idc = 0  # the splice step's nal_ref_idc
     got = check_k1("splice 720p B=256", s_pat, s_nb, s_idc, s_n_rbsp, cap,
                    align=has_align, append_tb=True)
     if bool(got[3].any()):
         raise AssertionError("720p splice symbols overflowed the bounded path")
+    k1_sym = {1: (s_pat[:1], s_nb[:1]), B: (s_pat, s_nb),
+              1024: cases.splice_symbols(cfg, dn32, 1024, s_n_rbsp, dev)}
+    check_k1("splice 720p B=1024", *k1_sym[1024], s_idc, s_n_rbsp, cap,
+             align=has_align, append_tb=True)
 
     # K2/K4 input: the splice symbols plus the trailing-bits symbol, into
     # the exact path's buffer (finish_slice with ebsp_exact=True).
@@ -321,83 +329,105 @@ def main() -> int:
     hdr_720 = torch.full((B,), 0x01, dtype=torch.int32, device=dev)
     k3_n_nal = emit_fused.nal_bytes(s_n_rbsp, cap)
     check_k3("splice 720p B=256", rbsp_720, rbsp_len, hdr_720, k3_n_nal, cap)
-    _log(f"phase 3: K1-K4 equal their plain versions on every case "
-         f"(scroll 720p: n={sym_pat.shape[1]} symbols, n_rbsp={n_rbsp} B; "
-         f"splice 720p: n={s_pat.shape[1]} symbols, n_rbsp={s_n_rbsp} B, "
-         f"NAL buffer {k3_n_nal} B)")
 
-    # Timing at the 720p B = 256 splice shapes (K1 and K2 also at the
-    # scroll shapes): the kernel alone (launched on prepared int32 inputs),
-    # its wrapper and the plain version, in turns: plain, kernel, kernel,
-    # plain.
-    spat32, snb32 = _kernels.as_i32_bits(s_pat), s_nb.to(torch.int32)
-    sidc32 = s_idc.to(torch.int32).contiguous()
-    epat32, enb32 = _kernels.as_i32_bits(exact_pat), exact_nb.to(torch.int32)
-    pat32, nb32 = _kernels.as_i32_bits(sym_pat), sym_nb.to(torch.int32)
-    idc32 = idc.to(torch.int32).contiguous()
+    # The wrappers run no conversion (or any other tensor op but
+    # allocations and views) around their kernel on the main path's int64
+    # symbols.
+    for name, fn in (
+            ("K1", lambda: emit_fused.emit_nal_fused_batch(
+                s_pat, s_nb, s_idc, s_n_rbsp, cap, align=has_align,
+                append_tb=True)),
+            ("K2", lambda: bitpack_flat.pack_words_place_batch(
+                exact_pat, exact_nb, exact_words)),
+            ("K4", lambda: bitpack_flat.pack_words_batch(
+                exact_pat, exact_nb, exact_words))):
+        ops = cases.compute_ops(fn)
+        if ops:
+            raise AssertionError(f"{name}'s wrapper ran tensor ops {ops} on "
+                                 "int64 symbols")
+    _log(f"phase 3: K1-K4 equal their plain versions on every case, K1, K2 "
+         f"and K4 on int32 and int64 symbols (scroll 720p: "
+         f"n={sym_pat.shape[1]} symbols, n_rbsp={n_rbsp} B; splice 720p: "
+         f"n={s_pat.shape[1]} symbols, n_rbsp={s_n_rbsp} B, NAL buffer "
+         f"{k3_n_nal} B); the K1, K2 and K4 wrappers run no tensor op on "
+         f"int64 symbols")
+
+    # Timing at the 720p B = 256 splice shapes (K1 also at B = 1 and 1,024
+    # and at the scroll shapes): the kernel's device time on the main
+    # path's int64 symbols (calls queued back to back) and on int32, one
+    # call as a caller waits for it (host issue + device: the method of the
+    # first port's rows) and the plain version's call, in turns: plain,
+    # kernel, kernel, plain.
+    e32 = (cases.int32_bits(exact_pat), cases.int32_bits(exact_nb))
     rbsp_in = ebsp_flat._fit(rbsp_720, ebsp_flat.padded_len(k3_n_nal)).contiguous()
+
+    def k1_run(pat_nb, idc_, n_rbsp_, **kw):
+        return (lambda: emit_fused.emit_nal_fused_batch(*pat_nb, idc_, n_rbsp_,
+                                                        cap, **kw),
+                lambda: emit_fused.emit_nal_fused_plain(*pat_nb, idc_, n_rbsp_,
+                                                        cap, **kw))
+
+    splice_kw = dict(align=has_align, append_tb=True)
     runs = {
-        "K1 scroll": (lambda: emit_fused.launch_kernel(
-                          pat32, nb32, idc32, n_rbsp, cap, align=False,
-                          append_tb=True),
-                      lambda: emit_fused.emit_nal_fused_batch(
-                          sym_pat, sym_nb, idc, n_rbsp, cap, append_tb=True),
-                      lambda: emit_fused.emit_nal_fused_plain(
-                          sym_pat, sym_nb, idc, n_rbsp, cap, append_tb=True)),
-        "K1": (lambda: emit_fused.launch_kernel(
-                   spat32, snb32, sidc32, s_n_rbsp, cap, align=has_align,
-                   append_tb=True),
-               lambda: emit_fused.emit_nal_fused_batch(
-                   s_pat, s_nb, s_idc, s_n_rbsp, cap, align=has_align,
-                   append_tb=True),
-               lambda: emit_fused.emit_nal_fused_plain(
-                   s_pat, s_nb, s_idc, s_n_rbsp, cap, align=has_align,
-                   append_tb=True)),
-        "K2": (lambda: bitpack_flat.launch_kernel(epat32, enb32, exact_words),
-               lambda: bitpack_flat.pack_words_place_batch(
+        "K1": k1_run(k1_sym[B], s_idc, s_n_rbsp, **splice_kw),
+        "K1 int32": k1_run(tuple(cases.int32_bits(x) for x in k1_sym[B]), s_idc,
+                           s_n_rbsp, **splice_kw),
+        "K1 B=1": k1_run(k1_sym[1], s_idc, s_n_rbsp, **splice_kw),
+        "K1 B=1024": k1_run(k1_sym[1024], s_idc, s_n_rbsp, **splice_kw),
+        "K1 scroll": k1_run((sym_pat, sym_nb), idc, n_rbsp, append_tb=True),
+        "K2": (lambda: bitpack_flat.pack_words_place_batch(
                    exact_pat, exact_nb, exact_words),
                lambda: bitpack_flat.pack_words_place_plain(
                    exact_pat, exact_nb, exact_words)),
+        "K2 int32": (lambda: bitpack_flat.pack_words_place_batch(
+                         *e32, exact_words),
+                     lambda: bitpack_flat.pack_words_place_plain(
+                         *e32, exact_words)),
         "K3": (lambda: ebsp_flat.launch_kernel(rbsp_in, rbsp_len, hdr_720,
                                                k3_n_nal, cap),
-               lambda: ebsp_flat.rbsp_to_nal_batch(rbsp_720, rbsp_len, hdr_720,
-                                                   k3_n_nal, cap),
                lambda: ebsp_flat.rbsp_to_nal_plain(rbsp_720, rbsp_len, hdr_720,
                                                    k3_n_nal, cap)),
-        "K4": (lambda: bitpack_flat.launch_kernel(epat32, enb32, exact_words,
-                                                  _kernels.PACK_WORDS),
-               lambda: bitpack_flat.pack_words_batch(exact_pat, exact_nb,
+        "K4": (lambda: bitpack_flat.pack_words_batch(exact_pat, exact_nb,
                                                      exact_words),
                lambda: bitpack_flat.pack_words_place_plain(
                    exact_pat, exact_nb, exact_words)),
     }
     timing = {}
-    for name, (kernel, wrapper, plain) in runs.items():
-        p_a = _cuda_ms(plain, 10)
-        k_a = _cuda_ms(kernel, 20)
-        w = _cuda_ms(wrapper, 20)
-        k_b = _cuda_ms(kernel, 20)
-        p_b = _cuda_ms(plain, 10)
-        timing[name] = (statistics.median([k_a, k_b]),
-                        statistics.median([p_a, p_b]))
-        _log(f"phase 3: {name} at 720p B=256: kernel {k_a:.4f}/{k_b:.4f} ms, "
-             f"wrapper {w:.4f} ms, plain {p_a:.4f}/{p_b:.4f} ms "
-             f"(CUDA-event medians)")
+    for name, (kernel, plain) in runs.items():
+        p_a = timing_.call_ms(plain, 10)
+        d_a = timing_.device_ms(kernel)
+        c = timing_.call_ms(kernel, 20)
+        h = timing_.host_ms(kernel)
+        d_b = timing_.device_ms(kernel)
+        p_b = timing_.call_ms(plain, 10)
+        timing[name] = {"ms": c, "device_ms": statistics.median([d_a, d_b]),
+                        "host_ms": h, "plain_ms": statistics.median([p_a, p_b])}
+        _log(f"phase 3: {name} at 720p: device {d_a:.5f}/{d_b:.5f} ms per "
+             f"call, one call {c:.5f} ms, host issue {h:.5f} ms per call, "
+             f"plain {p_a:.4f}/{p_b:.4f} ms (CUDA-event medians)")
     # Least time for each kernel's work at the timed shapes: its inputs read
-    # once and its outputs written once at the card's memory rate.
+    # once and its outputs written once at the card's memory rate.  K1, K2
+    # and K4 keep the first port's formula (symbols counted as int32, NAL
+    # plus 16 bytes of per-session results); they now read the main path's
+    # int64 symbols in place, whose bytes are logged beside it.
     n_nal_s = emit_fused.nal_bytes(s_n_rbsp, cap)
-    pack_bytes = _nbytes(epat32, enb32) + B * (exact_words + 1) * 4
+    n_s, n_e = s_pat.shape[1], exact_pat.shape[1]
+    pack_bytes = B * n_e * 8 + B * (exact_words + 1) * 4
     bound = {
-        "K1 scroll": (_nbytes(pat32, nb32, idc32)
+        "K1 scroll": (B * sym_pat.shape[1] * 8 + B * 4
                       + B * (emit_fused.nal_bytes(n_rbsp, cap) + 16)),
-        "K1": (_nbytes(spat32, snb32, sidc32) + B * (n_nal_s + 16)),
+        "K1": B * n_s * 8 + B * 4 + B * (n_nal_s + 16),
         "K2": pack_bytes,
         "K3": (B * s_n_rbsp + _nbytes(rbsp_len, hdr_720) + B * (k3_n_nal + 4)),
         "K4": pack_bytes,
     }
+    int64_bytes = {"K1": B * n_s * 16 + B * (n_nal_s + 9),
+                   "K2": B * n_e * 16 + B * (exact_words + 1) * 8}
     bound_ms = {k: v / HBM_BYTES_PER_MS for k, v in bound.items()}
     _log("phase 3: memory bounds at 3.35 TB/s: " + ", ".join(
         f"{k} {v} B = {bound_ms[k]:.5f} ms" for k, v in bound.items()))
+    _log("phase 3: bytes as the main path hands them (int64 symbols): " + ", ".join(
+        f"{k} {v} B = {v / HBM_BYTES_PER_MS:.5f} ms" for k, v in int64_bytes.items()))
 
     # -- 4. The scroll path --------------------------------------------------
     step = batch.make_batched_step(cfg)
@@ -562,10 +592,12 @@ def main() -> int:
         ("pack_words (K4)", "K4", "h264t_pack_words", entry_launches,
          "h264_scroll_encoder_tpu/ops/bitpack_flat.py:261"),
     ]
+    # ms: one call as a caller waits for it (the method of the first port's
+    # rows); device_ms: device time per call of calls queued back to back;
+    # host_ms: the host's issue time per call.
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[sym], "max_abs_err": errs[key],
-                "ms": timing[key][0], "plain_ms": timing[key][1],
-                "bound_ms": bound_ms[key], "bound_by": "bytes",
+                **timing[key], "bound_ms": bound_ms[key], "bound_by": "bytes",
                 "library_ms": None}
                for name, key, sym, counts, rep in rows]
     print(json.dumps({"kernels": kernels}))

@@ -24,8 +24,12 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# Threads per block of K1 and K2/K4: compiled into the kernels, and read by
+# the wrappers and the boundary cases (cases.pack_boundary_cases).
+PACK_THREADS = 512
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC",
+              f"-DH264T_PACK_THREADS={PACK_THREADS}")
 
 _lock = threading.Lock()
 _lib = None
@@ -84,6 +88,7 @@ def _load():
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 class Kernel:
@@ -109,18 +114,22 @@ class Kernel:
         self.launches += 1
 
 
-# K1: (pat, nb, nal_ref_idc, batch, n, n_nal, n_rbsp, cap, align, append_tb,
-#      nal_out, meta, stream)
+# K1: (pat, nb, sym_bytes, pat_row, nb_row, idc, idc_row, idc_value, batch,
+#      n, items_per_thread, n_nal, n_rbsp, cap, align, append_tb, nal_out,
+#      len_out, bits_out, ovf_out, stream)
 EMIT_FUSED = Kernel("h264t_emit_fused",
-                    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P])
-# K2: (pat, nb, batch, n, n_words, words_out, total_out, stream)
-PACK_PLACE = Kernel("h264t_pack_place", [_P, _P, _I, _I, _I, _P, _P, _P])
+                    [_P, _P, _I, _L, _L, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _P, _P, _P, _P, _P])
+# K2: (pat, nb, sym_bytes, pat_row, nb_row, batch, n, items_per_thread,
+#      n_words, words_out, total_out, stream)
+_PACK_ARGS = [_P, _P, _I, _L, _L, _I, _I, _I, _I, _P, _P, _P]
+PACK_PLACE = Kernel("h264t_pack_place", _PACK_ARGS)
 
 # K3: (rbsp, rbsp_len, header, batch, padded, n_nal, max_ins, nal_out,
 #      total_out, stream)
 EBSP_NAL = Kernel("h264t_ebsp_nal", [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P])
 # K4: K2's block behind its own entry point and counter.
-PACK_WORDS = Kernel("h264t_pack_words", [_P, _P, _I, _I, _I, _P, _P, _P])
+PACK_WORDS = Kernel("h264t_pack_words", _PACK_ARGS)
 
 KERNELS = (EMIT_FUSED, PACK_PLACE, EBSP_NAL, PACK_WORDS)
 
@@ -139,10 +148,3 @@ def resolve_device(device) -> torch.device:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
-
-
-def as_i32_bits(x):
-    """int64 tensor of uint32 values -> int32 tensor with the same bits."""
-    x = x.to(torch.int64) & 0xFFFFFFFF
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32).contiguous()
-

@@ -17,8 +17,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ._kernels import PACK_THREADS
 from .config import ComposerConfig, MAX_EBSP_INSERTIONS, MAX_WAYPOINTS
 from .models import scroll
+from .ops import emit_fused
 from .parallel import batch
 
 GOLDEN_PATH = Path(__file__).resolve().parent / "golden" / "scroll_720p.json"
@@ -46,10 +48,10 @@ def byte_stream_case(rng, kind: int, n_payload: int):
     return _bytes_to_symbols(vals)
 
 
-def _bytes_to_symbols(vals):
+def _bytes_to_symbols(vals, n_sym: int = N_SYM):
     n_payload = len(vals)
-    patterns = np.zeros(N_SYM, np.uint32)
-    nbits = np.zeros(N_SYM, np.int32)
+    patterns = np.zeros(n_sym, np.uint32)
+    nbits = np.zeros(n_sym, np.int32)
     patterns[:n_payload] = vals
     nbits[:n_payload] = 8
     patterns[n_payload] = 0x80          # trailing bits (aligned payload)
@@ -162,6 +164,112 @@ def ebsp_cases(seed: int = 11):
     headers = 0x01 | (np.arange(len(rows)) % 4 << 5)
     return (np.stack(rows), np.asarray(lens, np.int32),
             headers.astype(np.int32))
+
+
+def int32_bits(x):
+    """int64 symbols (uint32 patterns, signed widths) -> int32 with the same
+    low 32 bits: the kernels' int32 input route.  numpy or torch."""
+    if isinstance(x, torch.Tensor):
+        x = x.to(torch.int64) & 0xFFFFFFFF
+        return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+    return ((np.asarray(x).astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
+            .view(np.int32))
+
+
+# Boundary cases of the CUDA pack of K1 and K2/K4: each of the T =
+# PACK_THREADS threads owns a contiguous run of k = items_per_thread(n)
+# symbols of a staged chunk of T * k (csrc/emit_kernels.cu).  Lengths
+# k*T - 1, k*T and k*T + 1 for k = 1, 19 (the 720p splice run) and
+# PACK_MAX_ITEMS (one full chunk; one more symbol starts a second chunk),
+# and one shorter than T.
+PACK_BOUNDARY_LENGTHS = tuple(
+    k * PACK_THREADS + d for k in (1, 19, emit_fused.PACK_MAX_ITEMS)
+    for d in (-1, 0, 1)) + (100,)
+
+
+def pack_boundary_cases(n: int, *, sentinels: bool = True):
+    """Sessions of n symbols aimed at the run boundaries of the CUDA pack,
+    with random uint32 patterns (unmasked) and widths:
+      0  random 1-16 bit widths;
+      1  32-bit and width-0 lanes at the first and last symbol of each run;
+      2  stretches of 1-bit symbols three runs long, so that one word spans
+         several threads' runs;
+      3  I_PCM alignment sentinels (nbits -1, pattern 0) as the first and
+         last symbol of every other run — width 0 there when not
+         `sentinels` (the pack alone takes no sentinels).
+    For n < PACK_THREADS, one session holding all four.  Returns
+    (pat u32[B, n], nbits i32[B, n], n_rbsp) with n_rbsp, a multiple of 4,
+    room for every session's bits and trailing bits."""
+    rng = np.random.default_rng(n)
+    k = emit_fused.items_per_thread(n)
+    idx = np.arange(n)
+    run = idx // k
+    first, last = idx % k == 0, idx % k == k - 1
+    nbs = [rng.integers(1, 17, n) for _ in range(4)]
+    nbs[1][last] = np.where(run[last] % 2 == 0, 0, 32)
+    nbs[1][first] = np.where(run[first] % 2 == 0, 32, 0)
+    nbs[2][(run // 3) % 2 == 0] = 1
+    ends = (first | last) & (run % 2 == 0)
+    nbs[3][ends] = -1 if sentinels else 0
+    if n < PACK_THREADS:
+        nb = nbs[0]
+        for j, kind in enumerate(nbs[1:]):
+            part = slice(j * n // 3, (j + 1) * n // 3)
+            nb[part] = kind[part]
+        nbs = [nb]
+    nb = np.stack(nbs).astype(np.int32)
+    pat = rng.integers(0, 2 ** 32, nb.shape, dtype=np.uint64).astype(np.uint32)
+    pat[nb < 0] = 0
+    bits = np.where(nb < 0, 7, nb).sum(axis=1).max()
+    return pat, nb, int(bits // 8 + 8) // 4 * 4
+
+
+def chunk_zero_run_cases():
+    """Zero runs of 63-67 bytes, around K1's 16-word window edge, starting
+    at each of the 8 byte phases of a K1 thread's 8-byte RBSP chunk (a
+    stream of 2,048-4,096 bytes gives each of the 512 threads two words),
+    behind a nonzero prefix and ended by 0x01.  Returns (pat u32[K, n],
+    nbits i32[K, n], runs[K], n_rbsp)."""
+    rng = np.random.default_rng(7)
+    n = 2600
+    pats, nbs, runs = [], [], []
+    for phase in range(8):
+        for run in range(63, 68):
+            vals = rng.integers(1, 256, n - 1)
+            start = 2000 + phase
+            vals[start:start + run] = 0
+            vals[start + run] = 0x01
+            p, b = _bytes_to_symbols(vals, n)
+            pats.append(p)
+            nbs.append(b)
+            runs.append(run)
+    return np.stack(pats), np.stack(nbs), np.asarray(runs), n + 64
+
+
+# aten ops that only allocate or make views: no device work runs for them.
+_NO_WORK_OPS = {"empty", "empty_strided", "select", "slice", "view", "reshape",
+                "_reshape_alias", "expand", "as_strided", "alias", "detach",
+                "unsqueeze", "squeeze", "t", "lift_fresh"}
+
+
+def compute_ops(fn) -> list[str]:
+    """Names of the aten ops fn() runs other than allocations and views, in
+    order: the tensor work it does besides the hand-written kernels it
+    launches through ctypes (which no dispatcher sees)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name not in _NO_WORK_OPS:
+                seen.append(name)
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn()
+    return seen
 
 
 def ebsp_saturation_case():
@@ -319,6 +427,24 @@ def prepare_splice_donors(payloads, *, engine: str, device):
         s_row=SPLICE_S_ROW, blob_wire=True, s_flat=SPLICE_S_FLAT,
         s_exc=SPLICE_S_EXC, engine=engine, device=device)
     return dn, donor_bits, has_align
+
+
+def splice_symbols(cfg: ComposerConfig, dn: dict, batch_size: int,
+                   n_rbsp: int, device):
+    """K1's input on the compact splice step: (patterns int64[B, n], nbits
+    int64[B, n]) of `batch_size` sessions carrying the prepared donors of
+    `dn` in turn."""
+    from .models import splice_device
+
+    blob = dn["blob"]
+    tiled = {"blob": blob[torch.arange(batch_size, device=blob.device)
+                          % blob.shape[0]]}
+    pat, nb, _ = splice_device.rows_splice_symbols(
+        cfg, SPLICE_C0, SPLICE_R0, SPLICE_R, SPLICE_C, SPLICE_NUM_REFS,
+        *splice_session_inputs(cfg, batch_size, device), tiled, n_rbsp=n_rbsp,
+        compact_x=True, s_row=SPLICE_S_ROW, s_flat=SPLICE_S_FLAT,
+        s_exc=SPLICE_S_EXC)
+    return pat, nb
 
 
 def splice_golden_config() -> dict:

@@ -14,7 +14,9 @@ ops/bitpack.pack_words for widths in [0, 32] (bits past num_words drop).
 Both run one batched CUDA block per session (csrc/emit_kernels.cu, K1's
 pack stage on its own): `h264t_pack_place` for K2 and `h264t_pack_words`,
 the same block behind its own entry point and launch counter, for K4.
-The TPU merge tree is not carried over.
+The kernel reads int64 (or int32) symbols as they are and writes the
+int64 words and totals the plain version returns.  The TPU merge tree is
+not carried over.
 """
 
 from __future__ import annotations
@@ -22,8 +24,8 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from .bitpack import U32, pack_words
-from .emit_fused import _SMEM_LIMIT, check_symbols
+from .bitpack import pack_words
+from .emit_fused import check_symbols, items_per_thread, row_stride
 
 
 def pack_words_place_plain(patterns, nbits, num_words: int):
@@ -50,28 +52,24 @@ def _batch(patterns, nbits, num_words: int, kernel):
     check_symbols(patterns, nbits)
     if patterns.device.type == "cpu":
         return pack_words_place_plain(patterns, nbits, num_words)
-    words, total = launch_kernel(_kernels.as_i32_bits(patterns),
-                                 nbits.to(torch.int32).contiguous(), num_words,
-                                 kernel)
-    return words.to(torch.int64) & U32, total.to(torch.int64)
+    return launch_kernel(patterns, nbits, num_words, kernel)
 
 
 def launch_kernel(pat, nb, num_words: int, kernel=_kernels.PACK_PLACE):
     """Launch K2 (or K4, the same block: kernel=_kernels.PACK_WORDS) on
-    contiguous int32 CUDA tensors pat[B, n] (uint32 bit patterns) and
-    nb[B, n]: (words int32[B, num_words] holding the uint32 bits,
-    total_bits int32[B])."""
+    int64 or int32 CUDA tensors pat[B, n] (uint32 bit patterns in the low
+    32 bits) and nb[B, n], read as they are: (words int64[B, num_words]
+    holding uint32 values, total_bits int64[B])."""
     dev = pat.device
     B, n = pat.shape
-    if 4 * num_words > _SMEM_LIMIT:
-        raise ValueError(f"{num_words} words exceed the kernel's "
-                         "shared-memory budget")
-    words = torch.empty((B, num_words), dtype=torch.int32, device=dev)
-    total = torch.empty((B,), dtype=torch.int32, device=dev)
+    words = torch.empty((B, num_words), dtype=torch.int64, device=dev)
+    total = torch.empty((B,), dtype=torch.int64, device=dev)
     if B:
         with torch.cuda.device(dev):
             kernel.launch(
-                pat.data_ptr(), nb.data_ptr(), B, n, num_words,
+                pat.data_ptr(), nb.data_ptr(), pat.element_size(),
+                row_stride(pat), row_stride(nb), B, n, items_per_thread(n),
+                num_words,
                 words.data_ptr(), total.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     return words, total

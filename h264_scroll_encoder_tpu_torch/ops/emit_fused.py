@@ -19,12 +19,15 @@ Port of h264_scroll_encoder_tpu/ops/emit_fused.py.  Per session, from raw
 
 `emit_nal_fused_plain` is the plain PyTorch version of that contract.
 `emit_nal_fused_batch` runs it for CPU tensors and launches the CUDA
-kernel `h264t_emit_fused` (csrc/emit_kernels.cu) for CUDA tensors.
+kernel `h264t_emit_fused` (csrc/emit_kernels.cu) for CUDA tensors, on
+the int64 (or int32) symbols as they are: no conversion pass first.
 Bytes of flagged frames are unspecified beyond being deterministic; the
 kernel and the plain version agree on every output of every frame.
 """
 
 from __future__ import annotations
+
+import numbers
 
 import torch
 
@@ -35,6 +38,11 @@ from .ebsp import rbsp_to_ebsp_bounded
 # Dynamic shared memory a block may use on Hopper (227 KB), less slack
 # for the kernel's static scan buffers.
 _SMEM_LIMIT = 227 * 1024 - 1024
+# The most symbols a thread of K1 or K2/K4 owns per staged chunk: it caps
+# the staging area at 8 B * 24 * _kernels.PACK_THREADS = 96 KB a block.
+PACK_MAX_ITEMS = 24
+# Symbol dtypes the kernels read in place.
+SYMBOL_DTYPES = (torch.int64, torch.int32)
 
 
 def nal_bytes(n_rbsp: int, cap: int) -> int:
@@ -110,54 +118,72 @@ def emit_nal_fused_plain(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
 
 
 def check_symbols(patterns, nbits):
-    """Raise unless patterns and nbits are [B, n] on one CPU or CUDA device."""
+    """Raise unless patterns and nbits are [B, n] tensors of one dtype,
+    int64 (as the symbol stage makes them) or int32, on one CPU or CUDA
+    device.  Nothing is converted: any other dtype raises."""
     if patterns.dim() != 2 or patterns.shape != nbits.shape:
         raise ValueError(f"patterns {tuple(patterns.shape)} and nbits "
                          f"{tuple(nbits.shape)} must both be [B, n]")
+    if patterns.dtype not in SYMBOL_DTYPES or nbits.dtype != patterns.dtype:
+        raise TypeError(f"patterns ({patterns.dtype}) and nbits ({nbits.dtype}) "
+                        "must both be int64 or both int32")
     if patterns.device != nbits.device:
         raise ValueError("patterns and nbits must be on one device")
     if patterns.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {patterns.device}")
 
 
+def items_per_thread(n: int) -> int:
+    """Symbols each of the _kernels.PACK_THREADS threads of K1 and K2/K4
+    owns per staged chunk, for n symbols per session (the kernels take it
+    as an argument)."""
+    return min(max(-(-n // _kernels.PACK_THREADS), 1), PACK_MAX_ITEMS)
+
+
+def row_stride(x) -> int:
+    """Row stride of a [B, n] CUDA tensor the kernels read in place; they
+    need unit stride along each row."""
+    if x.shape[1] > 1 and x.stride(1) != 1:
+        raise ValueError(f"symbols need unit stride along each row, not "
+                         f"strides {tuple(x.stride())}")
+    return x.stride(0)
+
+
 def emit_nal_fused_batch(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
                          *, align: bool = False, append_tb: bool = False):
     """K1 over a [B, n] batch: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (a build or launch failure raises).  Same
-    arguments and returns as emit_nal_fused_plain."""
+    arguments and returns as emit_nal_fused_plain; patterns and nbits are
+    int64 or int32, and the kernel reads them as they are."""
     check_symbols(patterns, nbits)
     if patterns.device.type == "cpu":
         return emit_nal_fused_plain(patterns, nbits, nal_ref_idc, n_rbsp, cap,
                                     align=align, append_tb=append_tb)
     dev = patterns.device
-    idc = torch.as_tensor(nal_ref_idc, device=dev).to(torch.int32)
-    return launch_kernel(_kernels.as_i32_bits(patterns),
-                         nbits.to(torch.int32).contiguous(),
-                         idc.expand(patterns.shape[0]).contiguous(),
-                         n_rbsp, cap, align=align, append_tb=append_tb)
-
-
-def launch_kernel(pat, nb, nal_ref_idc, n_rbsp: int, cap: int, *,
-                  align: bool, append_tb: bool):
-    """Launch K1 on contiguous int32 CUDA tensors pat[B, n] (uint32 bit
-    patterns), nb[B, n] and nal_ref_idc[B]; allocates the outputs and
-    returns them as emit_nal_fused_batch does."""
-    dev = pat.device
-    B, n = pat.shape
+    B, n = patterns.shape
     n_nal = nal_bytes(n_rbsp, cap)
-    if 2 * n_nal > _SMEM_LIMIT:
-        raise ValueError(f"NAL buffer of {n_nal} bytes exceeds the kernel's "
-                         "shared-memory budget")
+    if isinstance(nal_ref_idc, numbers.Integral):
+        idc, idc_row, idc_value = None, 0, int(nal_ref_idc)
+    else:
+        idc = torch.as_tensor(nal_ref_idc, device=dev)
+        if idc.dtype != torch.int64:
+            idc = idc.to(torch.int64)
+        idc = idc.reshape(-1).expand(B)
+        idc_row, idc_value = idc.stride(0), 0
     nal = torch.empty((B, n_nal), dtype=torch.uint8, device=dev)
-    meta = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    meta = torch.empty((2, B), dtype=torch.int32, device=dev)
+    overflow = torch.empty((B,), dtype=torch.bool, device=dev)
     if B:
         with torch.cuda.device(dev):
             _kernels.EMIT_FUSED.launch(
-                pat.data_ptr(), nb.data_ptr(), nal_ref_idc.data_ptr(), B, n,
-                n_nal, n_rbsp, cap, int(align), int(append_tb),
-                nal.data_ptr(), meta.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-    return nal, meta[:, 2], meta[:, 0], meta[:, 3] != 0
+                patterns.data_ptr(), nbits.data_ptr(), patterns.element_size(),
+                row_stride(patterns), row_stride(nbits),
+                None if idc is None else idc.data_ptr(), idc_row, idc_value,
+                B, n, items_per_thread(n), n_nal, n_rbsp, cap, int(align),
+                int(append_tb),
+                nal.data_ptr(), meta[0].data_ptr(), meta[1].data_ptr(),
+                overflow.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return nal, meta[0], meta[1], overflow
 
 
 def finish_nal_fused(patterns, nbits, n_rbsp: int, nal_ref_idc, *,

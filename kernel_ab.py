@@ -1,0 +1,159 @@
+"""Same-process A/B timing of the kernel wrappers of two trees on one card.
+
+    python3 kernel_ab.py --parent DIR
+
+DIR holds another commit of this repository, unpacked (for example
+`git archive <commit> | tar -x -C _parent`; `_parent/` is gitignored).
+Its `h264_scroll_encoder_tpu_torch` package is loaded beside this tree's
+under another name and builds its own kernels.  Both are driven through
+the public wrappers only, on the same int64 inputs at the 720p compact
+splice shapes (32 seeded representative donors tiled over B sessions):
+
+  K1  ops.emit_fused.emit_nal_fused_batch       B = 1, 256 and 1,024
+  K2  ops.bitpack_flat.pack_words_place_batch   B = 256, the ebsp_exact input
+  K3  ops.ebsp_flat.rbsp_to_nal_batch           B = 256, K2's frames
+  K4  ops.bitpack_flat.pack_words_batch         B = 256, as K2
+
+For each, the two trees' outputs are held equal; then each is measured in
+turns (parent, tree, tree, parent; the median of each pair): with
+utils/timing the wrapper's device time per call of calls queued back to
+back, one call, and the host's issue time per call; with torch.profiler
+the device time per call of the hand-written kernel alone (the device
+kernels whose name holds the kernel's) and of all the call's device work.
+The last line is one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+import threading
+from pathlib import Path
+
+import torch
+
+N_DONORS = 32
+MODULES = ("_kernels", "ops.emit_fused", "ops.bitpack_flat", "ops.ebsp_flat")
+
+
+def load_tree(root: Path, name: str) -> dict:
+    """The port package under `root`, imported as `name`: {module: module}."""
+    pkg = root / "h264_scroll_encoder_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules[name])
+    return {m: importlib.import_module(f"{name}.{m}") for m in MODULES}
+
+
+def profiled_ms(fn, kernel: str, calls: int = 20):
+    """(device ms per call of the kernels named `kernel`, of all device
+    work) over `calls` calls of fn under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    own = sum(e.self_device_time_total for e in dev if kernel in e.key)
+    work = sum(e.self_device_time_total for e in dev)
+    return own / 1e3 / calls, work / 1e3 / calls
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True, type=Path)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab: CUDA is not available", file=sys.stderr)
+        return 1
+    from h264_scroll_encoder_tpu_torch import cases, native_bridge
+    from h264_scroll_encoder_tpu_torch.config import ComposerConfig
+    from h264_scroll_encoder_tpu_torch.ops import bitpack, emit_fused
+    from h264_scroll_encoder_tpu_torch.utils import timing
+
+    trees = {"parent": load_tree(args.parent.resolve(), "_ab_parent"),
+             "tree": load_tree(Path(__file__).resolve().parent, "_ab_tree")}
+    builds = [threading.Thread(target=t["_kernels"].build) for t in trees.values()]
+    builds.append(threading.Thread(target=native_bridge.build))
+    for t in builds:
+        t.start()
+    for t in builds:
+        t.join()
+    for t in trees.values():
+        t["_kernels"].build()  # raises here if its build failed
+    native_bridge.load_library()
+
+    dev = torch.device("cuda", 0)
+    cfg, cap = ComposerConfig(1280, 720), cases.CAP
+    payloads = [cases.splice_donor_payload(k) for k in range(N_DONORS)]
+    dn, bits, has_align = cases.prepare_splice_donors(payloads, engine="native",
+                                                      device=dev)
+    n_rbsp = cases.splice_budget(cfg, int(bits.max()), static_bg=False)
+    n_nal = emit_fused.nal_bytes(n_rbsp, cap)
+    k1_kw = dict(align=bool(has_align.any()), append_tb=True)
+
+    cells = []  # (label, kernel name, wrapper, module, args, kwargs)
+    for B in (1, 256, 1024):
+        sym = cases.splice_symbols(cfg, dn, B, n_rbsp, dev)
+        idc = torch.zeros((B,), dtype=torch.int64, device=dev)
+        cells.append((f"K1 B={B}", "emit_fused_kernel", "emit_nal_fused_batch",
+                      "ops.emit_fused", (*sym, idc, n_rbsp, cap), k1_kw))
+        if B == 256:
+            pat, nb = sym
+    tb_pat, tb_nb = bitpack.trailing_bits_symbol(nb.sum(dim=1))
+    e_pat = torch.cat([pat, tb_pat[:, None]], dim=1)
+    e_nb = torch.cat([nb, tb_nb[:, None]], dim=1)
+    n_words = (n_rbsp + 3) // 4
+    words, total = bitpack.pack_words(e_pat, e_nb, n_words)
+    rbsp = bitpack.words_to_bytes(words)[:, :n_rbsp].to(torch.uint8)
+    k3_args = (rbsp, (total // 8).to(torch.int32),
+               torch.ones((256,), dtype=torch.int32, device=dev), n_nal, cap)
+    cells += [("K2 B=256", "pack_place_kernel", "pack_words_place_batch",
+               "ops.bitpack_flat", (e_pat, e_nb, n_words), {}),
+              ("K3 B=256", "ebsp_nal_kernel", "rbsp_to_nal_batch",
+               "ops.ebsp_flat", k3_args, {}),
+              ("K4 B=256", "pack_place_kernel", "pack_words_batch",
+               "ops.bitpack_flat", (e_pat, e_nb, n_words), {})]
+
+    def measure(fn, kernel):
+        own, work = profiled_ms(fn, kernel)
+        return {"device_ms": timing.device_ms(fn), "call_ms": timing.call_ms(fn, 20),
+                "host_ms": timing.host_ms(fn), "kernel_ms": own, "work_ms": work}
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    results = {"card": smi, "n_rbsp": n_rbsp, "n_nal": n_nal}
+    for label, kernel, wrapper, module, a, kw in cells:
+        fns = {side: (lambda f=getattr(t[module], wrapper): f(*a, **kw))
+               for side, t in trees.items()}
+        outs = {side: fn() for side, fn in fns.items()}
+        torch.cuda.synchronize()
+        for x, y in zip(outs["parent"], outs["tree"]):
+            if not torch.equal(x.to(torch.int64), y.to(torch.int64)):
+                raise AssertionError(f"{label}: the two trees' outputs differ")
+        p1, t1, t2, p2 = (measure(fns[s], kernel)
+                          for s in ("parent", "tree", "tree", "parent"))
+        row = {side: {k: statistics.median([x[k], y[k]]) for k in x}
+               for side, (x, y) in (("parent", (p1, p2)), ("tree", (t1, t2)))}
+        results[label] = row
+        print(f"{label}: " + "; ".join(
+            f"{k} {row['parent'][k]:.5f} -> {row['tree'][k]:.5f}"
+            for k in row["parent"]), flush=True)
+    print(smi)
+    print(json.dumps(results))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

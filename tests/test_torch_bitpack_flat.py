@@ -2,6 +2,8 @@
 Pallas pack (interpret mode here) and the scatter reference.  Tolerance:
 exact equality of words and totals."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -74,3 +76,39 @@ def test_pack_words_batch_matches_merge_tree_in_budget(n, num_words):
         np.testing.assert_array_equal(words[b].numpy(),
                                       np.asarray(jw).astype(np.int64))
         assert int(total[b]) == int(jt)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_boundary(n):
+    pat, nb, n_rbsp = cases.pack_boundary_cases(n, sentinels=False)
+    jw, jt = jflat.pack_words_place_pallas_batch(jnp.asarray(pat),
+                                                 jnp.asarray(nb), n_rbsp // 4)
+    return np.asarray(jw).astype(np.int64), np.asarray(jt)
+
+
+@pytest.mark.parametrize("entry", ["place", "words"])
+@pytest.mark.parametrize("int32", [False, True], ids=["int64", "int32"])
+@pytest.mark.parametrize("n", cases.PACK_BOUNDARY_LENGTHS)
+def test_pack_boundaries_match_jax(n, int32, entry):
+    """K2 and K4 through their wrappers with int64 and int32 symbols, on
+    the CUDA pack's run and chunk boundaries (cases.pack_boundary_cases,
+    width 0 where K1's cases put sentinels), against interpret-mode
+    `pack_words_place_pallas`."""
+    pat, nb, n_rbsp = cases.pack_boundary_cases(n, sentinels=False)
+    fn = (bitpack_flat.pack_words_place_batch if entry == "place"
+          else bitpack_flat.pack_words_batch)
+    to = cases.int32_bits if int32 else (lambda a: a.astype(np.int64))
+    words, total = fn(torch.as_tensor(to(pat)), torch.as_tensor(to(nb)),
+                      n_rbsp // 4)
+    jw, jt = _jax_boundary(n)
+    assert words.dtype == total.dtype == torch.int64
+    np.testing.assert_array_equal(words.numpy(), jw)
+    np.testing.assert_array_equal(total.numpy(), jt)
+
+
+def test_rejects_other_dtypes():
+    z = torch.zeros((2, 5), dtype=torch.int64)
+    for pat, nb in ((z, z.to(torch.int32)), (z.to(torch.int16),) * 2,
+                    (z.to(torch.float64),) * 2):
+        with pytest.raises(TypeError):
+            bitpack_flat.pack_words_batch(pat, nb, 4)

@@ -29,8 +29,9 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _cu(a, dev):
-    return torch.as_tensor(np.asarray(a).astype(np.int64), device=dev)
+def _cu(a, dev, int32=False):
+    a = cases.int32_bits(a) if int32 else np.asarray(a).astype(np.int64)
+    return torch.as_tensor(a, device=dev)
 
 
 def _same(got, want):
@@ -127,3 +128,43 @@ def test_small_splice_step_matches_cpu(dev, program):
 def test_splice_golden_digests_on_card(dev):
     want = json.loads(cases.SPLICE_GOLDEN_PATH.read_text())
     assert cases.port_splice_golden(dev) == want
+
+
+@pytest.mark.parametrize("int32", [False, True], ids=["int64", "int32"])
+@pytest.mark.parametrize("n", cases.PACK_BOUNDARY_LENGTHS)
+def test_kernels_on_pack_boundaries(dev, n, int32):
+    """K1, K2 and K4 on the run and chunk boundaries of their pack
+    (cases.pack_boundary_cases), reading int64 and int32 symbols."""
+    pat, nb, n_rbsp = cases.pack_boundary_cases(n)
+    args = (_cu(pat, dev, int32), _cu(nb, dev, int32), 1, n_rbsp, cases.CAP)
+    for align in (False, True):
+        kw = dict(align=align, append_tb=True)
+        _same(emit_fused.emit_nal_fused_batch(*args, **kw),
+              emit_fused.emit_nal_fused_plain(*args, **kw))
+    pat, nb, n_rbsp = cases.pack_boundary_cases(n, sentinels=False)
+    for num_words in (n_rbsp // 4, n_rbsp // 8):  # in budget, then cut
+        args = (_cu(pat, dev, int32), _cu(nb, dev, int32), num_words)
+        want = bitpack_flat.pack_words_place_plain(*args)
+        _same(bitpack_flat.pack_words_place_batch(*args), want)
+        _same(bitpack_flat.pack_words_batch(*args), want)
+
+
+@pytest.mark.parametrize("int32", [False, True], ids=["int64", "int32"])
+def test_emit_kernel_chunk_zero_runs(dev, int32):
+    pat, nb, _runs, n_rbsp = cases.chunk_zero_run_cases()
+    args = (_cu(pat, dev, int32), _cu(nb, dev, int32), 0, n_rbsp, 64)
+    got = emit_fused.emit_nal_fused_batch(*args)
+    _same(got, emit_fused.emit_nal_fused_plain(*args))
+    assert bool(got[3].any()) and not bool(got[3].all())
+
+
+def test_wrappers_launch_only_their_kernel(dev):
+    """On int64 symbols the K1 and K2/K4 wrappers run no tensor op but
+    allocations and views before and after their one kernel launch."""
+    pat, nb, n_rbsp = cases.pack_boundary_cases(9728)
+    p, n = _cu(pat, dev), _cu(nb, dev)
+    for fn in (lambda: emit_fused.emit_nal_fused_batch(p, n, 0, n_rbsp, cases.CAP,
+                                                       align=True, append_tb=True),
+               lambda: bitpack_flat.pack_words_place_batch(p, n, n_rbsp // 4),
+               lambda: bitpack_flat.pack_words_batch(p, n, n_rbsp // 4)):
+        assert cases.compute_ops(fn) == []

@@ -7,6 +7,8 @@ and overflow; bytes of flagged frames are unspecified, only their flag
 (and, against the JAX kernel, nal_len and total_bits) must agree.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +19,7 @@ from h264_scroll_encoder_tpu.models import scroll as jax_scroll
 from h264_scroll_encoder_tpu.ops import bitpack as jbitpack
 from h264_scroll_encoder_tpu.ops import ebsp as jebsp
 from h264_scroll_encoder_tpu.ops import emit_fused as jemit
-from h264_scroll_encoder_tpu_torch import _kernels, cases
+from h264_scroll_encoder_tpu_torch import cases
 from h264_scroll_encoder_tpu_torch.ops import ebsp, emit_fused
 
 torch.set_num_threads(1)
@@ -26,17 +28,23 @@ N_RBSP, CAP = cases.N_RBSP, cases.CAP
 N_NAL = emit_fused.nal_bytes(N_RBSP, CAP)
 
 
-def _port(pat, nb, idc, cap=CAP, **kw):
+def _symbols(a, int32: bool):
+    """A torch tensor of symbols as the wrapper takes them: int64, or int32
+    with the same low 32 bits."""
+    return torch.as_tensor(cases.int32_bits(a) if int32 else a.astype(np.int64))
+
+
+def _port(pat, nb, idc, cap=CAP, *, n_rbsp=N_RBSP, int32=False, **kw):
     out = emit_fused.emit_nal_fused_batch(
-        torch.as_tensor(pat.astype(np.int64)),
-        torch.as_tensor(nb.astype(np.int64)), idc, N_RBSP, cap, **kw)
+        _symbols(pat, int32), _symbols(nb, int32), idc, n_rbsp, cap, **kw)
     return [x.numpy() for x in out]
 
 
-def _jax_kernel(pat, nb, idc, align=False, append_tb=False, cap=CAP):
+def _jax_kernel(pat, nb, idc, align=False, append_tb=False, cap=CAP,
+                n_rbsp=N_RBSP):
     """JAX K1 (interpret mode), batched through its custom vmap rule."""
     f = jax.jit(jax.vmap(lambda p, n: jemit.finish_nal_fused(
-        p, n, N_RBSP, idc, max_insertions=cap, has_align=align,
+        p, n, n_rbsp, idc, max_insertions=cap, has_align=align,
         append_trailing=append_tb)))
     return [np.asarray(x) for x in f(jnp.asarray(pat.astype(np.uint32)),
                                       jnp.asarray(nb.astype(np.int32)))]
@@ -154,15 +162,94 @@ def test_sentinel_without_align_flags_overflow():
 
 
 def test_wrapper_input_checks():
-    """The wrapper takes [B, n] symbols on one CPU or CUDA device and
-    raises on anything else (no silent fallback)."""
+    """The wrapper takes [B, n] int64 or int32 symbols of one dtype on one
+    CPU or CUDA device and raises on anything else (no silent fallback, no
+    quiet conversion)."""
     z = torch.zeros((2, 8), dtype=torch.int64)
     with pytest.raises(ValueError):
         emit_fused.emit_nal_fused_batch(z, z[:, :7], 0, 64, CAP)
     with pytest.raises(ValueError):
         emit_fused.emit_nal_fused_batch(z.to("meta"), z.to("meta"), 0, 64, CAP)
-    bits = torch.as_tensor([0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1])
-    got = _kernels.as_i32_bits(bits)
-    assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy().view(np.uint32),
-                                  bits.numpy().astype(np.uint32))
+    for pat, nb in ((z, z.to(torch.int32)), (z.to(torch.int16),) * 2,
+                    (z.to(torch.float32),) * 2, (z.to(torch.uint8),) * 2):
+        with pytest.raises(TypeError):
+            emit_fused.emit_nal_fused_batch(pat, nb, 0, 64, CAP)
+    bits = np.asarray([0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1, -1])
+    got = cases.int32_bits(bits)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  (bits & 0xFFFFFFFF).astype(np.uint32))
+    np.testing.assert_array_equal(cases.int32_bits(torch.as_tensor(bits)).numpy(),
+                                  got)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_align_seed3():
+    pat, nb = cases.align_cases(seed=3, batch=6)
+    return _jax_kernel(pat, nb, 1, align=True, append_tb=True)
+
+
+@pytest.mark.parametrize("int32", [False, True], ids=["int64", "int32"])
+def test_byte_streams_int32_equal_int64(int32):
+    """int32 and int64 symbols (I_PCM sentinels as -1 in either) through
+    the wrapper each give interpret-mode K1's outputs, so they agree."""
+    pat, nb = cases.align_cases(seed=3, batch=6)
+    assert (nb < 0).any()
+    port = _port(pat, nb, 1, int32=int32, align=True, append_tb=True)
+    assert _assert_agree(port, _jax_align_seed3(),
+                         lengths_when_flagged=True) == len(pat)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_boundary(n):
+    pat, nb, n_rbsp = cases.pack_boundary_cases(n)
+    return _jax_kernel(pat, nb, 1, align=True, append_tb=True, n_rbsp=n_rbsp)
+
+
+@pytest.mark.parametrize("int32", [False, True], ids=["int64", "int32"])
+@pytest.mark.parametrize("n", cases.PACK_BOUNDARY_LENGTHS)
+def test_pack_boundaries_match_jax_kernel(n, int32):
+    """The CUDA pack's run and chunk boundaries (cases.pack_boundary_cases:
+    lengths k*T - 1, k*T, k*T + 1; 32-bit and width-0 lanes, 1-bit
+    stretches and I_PCM sentinels at run ends) through the wrapper with
+    int64 and int32 symbols, against interpret-mode K1."""
+    pat, nb, n_rbsp = cases.pack_boundary_cases(n)
+    port = _port(pat, nb, 1, n_rbsp=n_rbsp, int32=int32, align=True,
+                 append_tb=True)
+    assert _assert_agree(port, _jax_boundary(n),
+                         lengths_when_flagged=True) == len(pat)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_chunk_zero_runs():
+    pat, nb, _runs, n_rbsp = cases.chunk_zero_run_cases()
+    return _jax_kernel(pat, nb, 0, cap=64, n_rbsp=n_rbsp)
+
+
+@pytest.mark.parametrize("int32", [False, True], ids=["int64", "int32"])
+def test_chunk_zero_runs_match_jax_kernel(int32):
+    """Zero runs of 63-67 bytes crossing a K1 thread's 8-byte RBSP chunk
+    at each byte phase, around the 16-word window edge: flags, nal_len and
+    total_bits equal interpret-mode K1's (cap 64, as in the window sweep),
+    and unflagged bytes equal the exact numpy reference."""
+    pat, nb, runs, n_rbsp = cases.chunk_zero_run_cases()
+    port = _port(pat, nb, 0, cap=64, n_rbsp=n_rbsp, int32=int32)
+    _assert_agree(port, _jax_chunk_zero_runs(), lengths_when_flagged=True,
+                  compare_bytes=False)
+    nal, nal_len, _bits, ovf = port
+    assert ovf.any() and (~ovf).any() and not ovf[runs < 64].any()
+    for i in np.flatnonzero(~ovf):
+        payload = pat[i][nb[i] == 8].astype(np.uint8)
+        np.testing.assert_array_equal(nal[i, 5:nal_len[i]],
+                                      ebsp.rbsp_to_ebsp_np(payload))
+
+
+def test_compute_ops_sees_conversions():
+    """cases.compute_ops, which the card's checks use to show that the
+    wrappers convert nothing, sees a conversion pass and ignores
+    allocations and views."""
+    x = torch.arange(6, dtype=torch.int64).reshape(2, 3)
+    assert cases.compute_ops(lambda: (torch.empty(3), x[0], x.reshape(-1),
+                                      x.expand(2, 3))) == []
+    ops = cases.compute_ops(lambda: cases.int32_bits(x))
+    assert "_to_copy" in ops and "where" in ops
