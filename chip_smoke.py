@@ -13,14 +13,19 @@ result line):
   3. Hold each kernel against its plain PyTorch version on CUDA tensors,
      exactly (tolerance: none — outputs are integers and bytes): the
      byte-stream, overflow, alignment, saturation, truncation and pack
-     boundary cases of the tests, real 1280x720 scroll and splice symbol
-     batches at B = 256 (K1, K2, K4; K1 also at B = 1,024), K1, K2 and K4
-     on int32 and on int64 symbols, and the splice frames' RBSP bytes (K3).
-     Show that the K1, K2 and K4 wrappers run no tensor op (no conversion)
-     around their kernel on int64 symbols.  Time each kernel's device time
-     per call (calls queued back to back), one call as a caller waits for
-     it, the host's issue time per call, and the plain version (CUDA-event
-     medians); K1 also on int32 symbols and at B = 1 and 1,024.
+     boundary cases of the tests (K3's at each of its NAL sizes, with int32
+     and int64 lengths and tensor and int headers), real 1280x720 scroll
+     and splice symbol batches at B = 256 (K1, K2, K4; K1 also at
+     B = 1,024), K1, K2 and K4 on int32 and on int64 symbols, and the
+     splice frames' RBSP bytes (K3); K3's bytes per thread, which the
+     boundary cases follow, equal ops/ebsp_flat.items_per_thread.  Show
+     that the wrappers run no tensor
+     op (no conversion) around their kernel on the entry path's inputs:
+     int64 symbols (K1, K2, K4), uint8 bytes with int64 lengths and an int
+     header (K3).  Time each kernel's device time per call (calls queued
+     back to back), one call as a caller waits for it, the host's issue
+     time per call, and the plain version (CUDA-event medians); K1 also on
+     int32 symbols, K1 and K3 also at B = 1 and 1,024.
   4. The scroll path — `parallel.batch.make_batched_step` at 1280x720 —
      over 16 frames of the benchmark's schedule at B = 256, then the
      golden batch-8 schedule and one `ebsp_exact` (K2) frame per session,
@@ -84,10 +89,6 @@ def _max_abs_err(got, want) -> int:
         err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
                            .abs().max()) if g.numel() else 0)
     return err
-
-
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _build_all(_kernels, native_bridge):
@@ -219,9 +220,8 @@ def main() -> int:
         return got
 
     def check_k3(case, rbsp, lens, hdr, n_nal, cap):
-        args = (torch.as_tensor(rbsp, device=dev),
-                torch.as_tensor(lens, device=dev),
-                torch.as_tensor(hdr, device=dev), n_nal, cap)
+        args = tuple(x if isinstance(x, int) else torch.as_tensor(x, device=dev)
+                     for x in (rbsp, lens, hdr)) + (n_nal, cap)
         return hold("K3", case, ebsp_flat.rbsp_to_nal_batch(*args),
                     ebsp_flat.rbsp_to_nal_plain(*args))
 
@@ -275,6 +275,19 @@ def main() -> int:
     sat = check_k3("saturation", rb[None], [rb_len], [0x41], 384, cap)
     if not int(sat[1][0]) > cap:
         raise AssertionError("K3 did not saturate past the window")
+    rbsp, lens, hdr = cases.ebsp_boundary_cases()
+    for n_nal in cases.EBSP_BOUNDARY_N_NALS:
+        for k3_cap in (cap, 1000):
+            check_k3(f"boundary n_nal={n_nal} cap={k3_cap}", rbsp, lens, hdr,
+                     n_nal, k3_cap)
+            check_k3(f"boundary n_nal={n_nal} cap={k3_cap} int64 lengths",
+                     rbsp, lens.astype(np.int64), 0x41, n_nal, k3_cap)
+    # The boundary cases follow ebsp_flat.items_per_thread; the built K3
+    # must own the same runs.
+    for valid in range(ebsp_flat.padded_len(max(cases.EBSP_BOUNDARY_N_NALS)) + 1):
+        if ebsp_flat.items_per_thread(valid) != _kernels.ebsp_items_per_thread(valid):
+            raise AssertionError(f"K3's bytes per thread at {valid} differ "
+                                 "from ebsp_flat.items_per_thread")
 
     # Real 720p scroll symbols at B = 256: step 0 of the benchmark schedule.
     cfg = ComposerConfig(1280, 720)
@@ -323,16 +336,19 @@ def main() -> int:
     for k in ("K2", "K4"):
         words, total = check_pack(k, "splice 720p B=256", exact_pat, exact_nb,
                                   exact_words)
-    # K3 input: those frames' RBSP bytes, into K1's NAL buffer size.
+    # K3 input: those frames' RBSP bytes, into K1's NAL buffer size, with
+    # the lengths (int64) and header (an int) as the entry path hands them.
     rbsp_720 = bitpack.words_to_bytes(words)[:, :s_n_rbsp].to(torch.uint8)
-    rbsp_len = (total // 8).to(torch.int32)
-    hdr_720 = torch.full((B,), 0x01, dtype=torch.int32, device=dev)
+    rbsp_len = total // 8
     k3_n_nal = emit_fused.nal_bytes(s_n_rbsp, cap)
-    check_k3("splice 720p B=256", rbsp_720, rbsp_len, hdr_720, k3_n_nal, cap)
+    check_k3("splice 720p B=256", rbsp_720, rbsp_len, 0x01, k3_n_nal, cap)
+    check_k3("splice 720p B=256 int32", rbsp_720, rbsp_len.to(torch.int32),
+             torch.full((B,), 0x01, dtype=torch.int32, device=dev), k3_n_nal,
+             cap)
 
     # The wrappers run no conversion (or any other tensor op but
     # allocations and views) around their kernel on the main path's int64
-    # symbols.
+    # symbols, and K3's on uint8 bytes, int64 lengths and an int header.
     for name, fn in (
             ("K1", lambda: emit_fused.emit_nal_fused_batch(
                 s_pat, s_nb, s_idc, s_n_rbsp, cap, align=has_align,
@@ -340,26 +356,36 @@ def main() -> int:
             ("K2", lambda: bitpack_flat.pack_words_place_batch(
                 exact_pat, exact_nb, exact_words)),
             ("K4", lambda: bitpack_flat.pack_words_batch(
-                exact_pat, exact_nb, exact_words))):
+                exact_pat, exact_nb, exact_words)),
+            ("K3", lambda: ebsp_flat.rbsp_to_nal_batch(
+                rbsp_720, rbsp_len, 0x01, k3_n_nal, cap))):
         ops = cases.compute_ops(fn)
         if ops:
             raise AssertionError(f"{name}'s wrapper ran tensor ops {ops} on "
-                                 "int64 symbols")
+                                 "the entry path's inputs")
     _log(f"phase 3: K1-K4 equal their plain versions on every case, K1, K2 "
-         f"and K4 on int32 and int64 symbols (scroll 720p: "
-         f"n={sym_pat.shape[1]} symbols, n_rbsp={n_rbsp} B; splice 720p: "
-         f"n={s_pat.shape[1]} symbols, n_rbsp={s_n_rbsp} B, NAL buffer "
-         f"{k3_n_nal} B); the K1, K2 and K4 wrappers run no tensor op on "
-         f"int64 symbols")
+         f"and K4 on int32 and int64 symbols, K3 on int32 and int64 lengths "
+         f"(scroll 720p: n={sym_pat.shape[1]} symbols, n_rbsp={n_rbsp} B; "
+         f"splice 720p: n={s_pat.shape[1]} symbols, n_rbsp={s_n_rbsp} B, NAL "
+         f"buffer {k3_n_nal} B, mean RBSP {float(rbsp_len.float().mean()):.1f} "
+         f"B); no wrapper runs a tensor op on the entry path's inputs")
 
-    # Timing at the 720p B = 256 splice shapes (K1 also at B = 1 and 1,024
-    # and at the scroll shapes): the kernel's device time on the main
-    # path's int64 symbols (calls queued back to back) and on int32, one
-    # call as a caller waits for it (host issue + device: the method of the
-    # first port's rows) and the plain version's call, in turns: plain,
-    # kernel, kernel, plain.
+    # Timing at the 720p B = 256 splice shapes (K1 and K3 also at B = 1
+    # and 1,024, K1 at the scroll shapes): the kernel's device time on the
+    # main path's inputs (calls queued back to back) and K1's and K2's on
+    # int32, one call as a caller waits for it (host issue + device: the
+    # method of the first port's rows) and the plain version's call, in
+    # turns: plain, kernel, kernel, plain.  All through the wrappers.
     e32 = (cases.int32_bits(exact_pat), cases.int32_bits(exact_nb))
-    rbsp_in = ebsp_flat._fit(rbsp_720, ebsp_flat.padded_len(k3_n_nal)).contiguous()
+
+    k3_rows = {b: torch.arange(b, device=dev) % B  # the sessions' frames in turn
+               for b in (1, B, 1024)}
+
+    def k3_run(b):
+        rows = k3_rows[b]
+        args = (rbsp_720[rows], rbsp_len[rows], 0x01, k3_n_nal, cap)
+        return (lambda: ebsp_flat.rbsp_to_nal_batch(*args),
+                lambda: ebsp_flat.rbsp_to_nal_plain(*args))
 
     def k1_run(pat_nb, idc_, n_rbsp_, **kw):
         return (lambda: emit_fused.emit_nal_fused_batch(*pat_nb, idc_, n_rbsp_,
@@ -383,10 +409,9 @@ def main() -> int:
                          *e32, exact_words),
                      lambda: bitpack_flat.pack_words_place_plain(
                          *e32, exact_words)),
-        "K3": (lambda: ebsp_flat.launch_kernel(rbsp_in, rbsp_len, hdr_720,
-                                               k3_n_nal, cap),
-               lambda: ebsp_flat.rbsp_to_nal_plain(rbsp_720, rbsp_len, hdr_720,
-                                                   k3_n_nal, cap)),
+        "K3": k3_run(B),
+        "K3 B=1": k3_run(1),
+        "K3 B=1024": k3_run(1024),
         "K4": (lambda: bitpack_flat.pack_words_batch(exact_pat, exact_nb,
                                                      exact_words),
                lambda: bitpack_flat.pack_words_place_plain(
@@ -409,7 +434,16 @@ def main() -> int:
     # once and its outputs written once at the card's memory rate.  K1, K2
     # and K4 keep the first port's formula (symbols counted as int32, NAL
     # plus 16 bytes of per-session results); they now read the main path's
-    # int64 symbols in place, whose bytes are logged beside it.
+    # int64 symbols in place, whose bytes are logged beside it.  K3's is
+    # counted from this run's lengths: the valid bytes of each row it
+    # stages, the int64 lengths, NAL plus count (the header is an int,
+    # passed by value).  Its earlier formula, every row's whole RBSP
+    # budget with lengths and headers as int32, is logged beside it.
+    def k3_bytes(lens):
+        staged = lens.clamp(0, min(s_n_rbsp, ebsp_flat.padded_len(k3_n_nal)))
+        return (int(staged.sum()) + lens.numel() * lens.element_size()
+                + lens.numel() * (k3_n_nal + 4))
+
     n_nal_s = emit_fused.nal_bytes(s_n_rbsp, cap)
     n_s, n_e = s_pat.shape[1], exact_pat.shape[1]
     pack_bytes = B * n_e * 8 + B * (exact_words + 1) * 4
@@ -418,16 +452,21 @@ def main() -> int:
                       + B * (emit_fused.nal_bytes(n_rbsp, cap) + 16)),
         "K1": B * n_s * 8 + B * 4 + B * (n_nal_s + 16),
         "K2": pack_bytes,
-        "K3": (B * s_n_rbsp + _nbytes(rbsp_len, hdr_720) + B * (k3_n_nal + 4)),
+        "K3": k3_bytes(rbsp_len[k3_rows[B]]),
+        "K3 B=1": k3_bytes(rbsp_len[k3_rows[1]]),
+        "K3 B=1024": k3_bytes(rbsp_len[k3_rows[1024]]),
         "K4": pack_bytes,
     }
-    int64_bytes = {"K1": B * n_s * 16 + B * (n_nal_s + 9),
-                   "K2": B * n_e * 16 + B * (exact_words + 1) * 8}
+    compare_bytes = {"K1": B * n_s * 16 + B * (n_nal_s + 9),
+                     "K2": B * n_e * 16 + B * (exact_words + 1) * 8,
+                     "K3 earlier formula": (B * s_n_rbsp + 2 * 4 * B
+                                            + B * (k3_n_nal + 4))}
     bound_ms = {k: v / HBM_BYTES_PER_MS for k, v in bound.items()}
     _log("phase 3: memory bounds at 3.35 TB/s: " + ", ".join(
         f"{k} {v} B = {bound_ms[k]:.5f} ms" for k, v in bound.items()))
-    _log("phase 3: bytes as the main path hands them (int64 symbols): " + ", ".join(
-        f"{k} {v} B = {v / HBM_BYTES_PER_MS:.5f} ms" for k, v in int64_bytes.items()))
+    _log("phase 3: for comparison, K1 and K2 on the int64 symbols as the main "
+         "path hands them, and K3's earlier formula: " + ", ".join(
+        f"{k} {v} B = {v / HBM_BYTES_PER_MS:.5f} ms" for k, v in compare_bytes.items()))
 
     # -- 4. The scroll path --------------------------------------------------
     step = batch.make_batched_step(cfg)

@@ -24,8 +24,9 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
-# Threads per block of K1 and K2/K4: compiled into the kernels, and read by
-# the wrappers and the boundary cases (cases.pack_boundary_cases).
+# Threads per block of every kernel: compiled into the kernels, and read by
+# the wrappers and the boundary cases (cases.pack_boundary_cases,
+# cases.ebsp_boundary_cases).
 PACK_THREADS = 512
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC",
@@ -125,13 +126,23 @@ EMIT_FUSED = Kernel("h264t_emit_fused",
 _PACK_ARGS = [_P, _P, _I, _L, _L, _I, _I, _I, _I, _P, _P, _P]
 PACK_PLACE = Kernel("h264t_pack_place", _PACK_ARGS)
 
-# K3: (rbsp, rbsp_len, header, batch, padded, n_nal, max_ins, nal_out,
-#      total_out, stream)
-EBSP_NAL = Kernel("h264t_ebsp_nal", [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P])
+# K3: (rbsp, rbsp_row, m, len, len_bytes, len_row, len_value, header,
+#      header_bytes, header_row, header_value, batch, n_nal, max_ins,
+#      nal_out, total_out, stream)
+EBSP_NAL = Kernel("h264t_ebsp_nal", [_P, _L, _I, _P, _I, _L, _I, _P, _I, _L, _I,
+                                     _I, _I, _I, _P, _P, _P])
 # K4: K2's block behind its own entry point and counter.
 PACK_WORDS = Kernel("h264t_pack_words", _PACK_ARGS)
 
 KERNELS = (EMIT_FUSED, PACK_PLACE, EBSP_NAL, PACK_WORDS)
+
+
+def ebsp_items_per_thread(valid: int) -> int:
+    """K3's bytes per thread for a session of `valid` bytes, as the built
+    kernel computes them (h264t_ebsp_items_per_thread; launches nothing)."""
+    fn = _load().h264t_ebsp_items_per_thread
+    fn.argtypes, fn.restype = [_I], ctypes.c_int
+    return fn(valid)
 
 
 def resolve_device(device) -> torch.device:

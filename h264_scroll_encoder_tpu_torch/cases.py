@@ -272,6 +272,91 @@ def compute_ops(fn) -> list[str]:
     return seen
 
 
+# Boundary cases of the CUDA K3 (csrc/emit_kernels.cu): each of the
+# PACK_THREADS threads owns a contiguous run of ops/ebsp_flat
+# .items_per_thread(valid) bytes (11 at 5,000 bytes, 13 at 6,500; the card
+# tests hold it equal to the built kernel's).  Rows of
+# an odd EBSP_BOUNDARY_M bytes, so that row starts fall on every alignment,
+# into 720p NAL buffers whose copy-out takes 16-byte, 4-byte and 1-byte
+# stores.
+EBSP_BOUNDARY_M = 8191
+EBSP_BOUNDARY_N_NALS = (8224, 8228, 8221)
+
+
+def ebsp_boundary_cases(seed: int = 3):
+    """RBSP rows aimed at the run boundaries of the CUDA K3, on a base of
+    random bytes in [4, 255] (which insert nothing by themselves), at 720p
+    lengths:
+      0-1  at every run boundary of a 5,000- and a 6,500-byte stream, a
+           zero run of 1-3 bytes ending before, at or after the boundary,
+           then one of 00, 01, 02, 03, 80: `00 00 0x` triples split across
+           two threads' runs;
+      2-3  zero runs of 62-63 bytes (resolved) and of 64-66 bytes
+           (saturating) starting at every phase of a thread's run;
+      4-7  the first nonzero byte at 63, 64, 65 and 66;
+      8-9  a zero run that saturates inside the last thread's run, at the
+           end of the stream and before a last 01;
+      10   random bytes of all values at the full RBSP budget;
+      11-16 one row ending in two zero bytes at lengths m - 1, m, m + 1,
+           past padded_len(n_nal), 0 and -1.
+    Returns (rbsp u8[17, EBSP_BOUNDARY_M], lengths i32[17], header bytes
+    i32[17], among them values above 255, which keep their low byte)."""
+    from .ops.ebsp_flat import items_per_thread, padded_len
+
+    rng = np.random.default_rng(seed)
+    m = EBSP_BOUNDARY_M
+    rows, lens = [], []
+
+    def add(row, n):
+        rows.append(row)
+        lens.append(n)
+
+    def base():
+        return rng.integers(4, 256, m).astype(np.uint8)
+
+    for n in (5000, 6500):
+        per, row = items_per_thread(n), base()
+        for j, b in enumerate(range(per, n - 8, per)):
+            r = 1 + j % 3
+            start = b - r + (j // 3) % (r + 1)
+            row[start:start + r] = 0
+            row[start + r] = (0, 1, 2, 3, 0x80)[(j // 12) % 5]
+        add(row, n)
+    for runs in ((62, 63), (64, 65, 66)):
+        n = 6500
+        per, row = items_per_thread(n), base()
+        pos, j = 100, 0
+        while True:
+            r = runs[j % len(runs)]
+            start = (pos // per + 1) * per + j % per
+            if start + r + 1 >= n:
+                break
+            row[start:start + r] = 0
+            row[start + r] = (1, 3, 0x80)[j % 3]
+            pos, j = start + r + 150, j + 1
+        add(row, n)
+    for first in (63, 64, 65, 66):
+        row = base()
+        row[:first] = 0
+        add(row, 5000)
+    n = 5000
+    for tail in ((n - 70, n), (n - 66, n - 1)):
+        row = base()
+        row[tail[0]:tail[1]] = 0
+        row[tail[1]:n] = 1
+        add(row, n)
+    add(rng.integers(0, 256, m).astype(np.uint8), m - 1)
+    row = base()
+    row[m - 2:] = 0
+    for n in (m - 1, m, m + 1, padded_len(EBSP_BOUNDARY_N_NALS[0]) + 100,
+              0, -1):
+        add(row, n)
+    headers = 0x01 | (np.arange(len(rows)) % 4 << 5)
+    headers[-1] = 0x165
+    return (np.stack(rows), np.asarray(lens, np.int32),
+            headers.astype(np.int32))
+
+
 def ebsp_saturation_case():
     """A stream whose first nonzero byte lies past K3's 64-byte zero-run
     window (200 zeros, then 56 nonzero bytes): the count saturates past

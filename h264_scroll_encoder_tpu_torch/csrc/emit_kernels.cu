@@ -44,20 +44,55 @@
 //     64-bit register window and stores the words that lie wholly inside
 //     its run with plain shared stores, OR-ing atomically only the <= 2
 //     words it shares with its neighbours.
-//   - Emulation prevention (K1).  Each thread owns a contiguous run of RBSP
-//     words: its last nonzero byte, one block max-scan, a serial insertion
-//     count, one block sum-scan, then a serial scatter into the NAL, which
-//     is assembled in shared memory over the dead staging area and written
-//     out with 16-byte stores.
-// Six barriers per 720p session for K1, three for K2/K4.  K3 keeps the
-// first design.  Measured as device time at 720p splice shapes, B = 256
-// (PERF.md): K1 runs at ~1.8x the time its int64 bytes need at the card's
-// memory rate and within 7% of K2 (the pack alone), so the pack stage sets
-// its time; int32 symbols instead of int64 save 6-8% (K1) and 26-27% (K2).
-// The rest is the staging wait, scan, pack and copy-out of one wave of
-// blocks in a row, with nothing to overlap them but the other block on the
-// same SM.  One call on an idle card takes several times longer: the
-// host's time to issue it, not the kernel, bounds that.
+//   - Emulation prevention (K1).  `emulation_prevention` below, over the
+//     packed words: the NAL is assembled in shared memory over the dead
+//     staging area and written out with 16-byte stores.
+// Six barriers per 720p session for K1, three for K2/K4.  Measured as
+// device time at 720p splice shapes, B = 256 (PERF.md): K1 runs at ~1.8x
+// the time its int64 bytes need at the card's memory rate and within 7% of
+// K2 (the pack alone), so the pack stage sets its time; int32 symbols
+// instead of int64 save 6-8% (K1) and 26-27% (K2).  The rest is the
+// staging wait, scan, pack and copy-out of one wave of blocks in a row,
+// with nothing to overlap them but the other block on the same SM.  One
+// call on an idle card takes several times longer: the host's time to
+// issue it, not the kernel, bounds that.
+//
+// What bounds K3.  At 720p a session reads its valid RBSP bytes (5,602 of
+// an 8,192-byte budget on average) and writes an 8,224-byte NAL: ~3.5 MB
+// a call at B = 256, ~1.1 us at the card's memory rate (chip_smoke.py
+// counts it from each run's lengths).  Its work per byte is a few integer
+// operations, and
+// B = 256 blocks are one wave, so again a session's time is a chain of
+// latencies: load round trips and barriers.
+//
+// This design (kPackThreads threads per session, like K1):
+//   - Staging.  The session's min(rbsp_len, row bytes, padded) bytes are
+//     copied into shared memory at once: 16-byte cp.async copies where the
+//     row and the staging area share their alignment (the staging area is
+//     offset by the row start's address mod 16, so rows of any stride
+//     qualify), single bytes for the head and tail.  One wait, one barrier.
+//     The row is read in place with its stride (the wrapper copies
+//     nothing); bytes past the row up to rbsp_len read as zeros, as the
+//     JAX wrapper's zero pad makes them.
+//   - Emulation prevention, shared with K1: `emulation_prevention`, a
+//     template over the byte accessor (K1: MSB-first packed words; K3:
+//     staged bytes) and the window rule (K1: 16 words; K3: 64 bytes).
+//     Each thread owns a contiguous run of bytes, ceil(valid / threads)
+//     made odd (11 at 720p) so that neighbouring threads' runs fall into
+//     different shared-memory banks.  Its last nonzero byte, one block
+//     max-scan, a serial insertion count, one block sum-scan, a serial
+//     scatter into the NAL in shared memory.  Every NAL position from 5 up
+//     to the escaped payload's end is written once, so nothing is zeroed
+//     first.
+//   - Copy-out.  The prefix, the payload, then K3's 0x03 fill and the zeros
+//     after it are derived in the store loop: 16-byte stores where n_nal is
+//     a multiple of 16, 4-byte where it is a multiple of 4, else bytes.
+// Four barriers per session, ~17 KB of shared memory at 720p (several
+// blocks per SM).  Measured (PERF.md): 1.8x less device time than the
+// first design at 720p, B = 256, and still ~8x the time its bytes need:
+// one session alone takes two thirds of a B = 256 call, so the chain
+// (the length read, then the staged copy it sizes, four barriers, three
+// serial passes) sets the time, not the bytes.
 //
 // Plain C interface (bound with ctypes): each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() of its launch.
@@ -67,14 +102,14 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Zero-run window of K1's bounded emulation prevention, in 4-byte words.
 constexpr int kWindowWords = 16;
 
-// Threads per block of K1 and K2/K4, set by the build (_kernels.py holds
-// the one value); the wrappers pass the symbols per thread, k.
+// Threads per block of all the kernels, set by the build (_kernels.py
+// holds the one value); the K1 and K2/K4 wrappers pass the symbols per
+// thread, k.
 #ifndef H264T_PACK_THREADS
 #error "build with -DH264T_PACK_THREADS=<threads> (h264_scroll_encoder_tpu_torch/_kernels.py)"
 #endif
@@ -123,41 +158,6 @@ __device__ __forceinline__ PosMap shfl_up(PosMap x, int o) {
                 __shfl_up_sync(kFull, x.b, o)};
 }
 
-// Block-wide scan of one value per thread: inclusive and exclusive prefixes
-// in thread order and the block total.  Every thread of the block must call
-// it; `tmp` holds 32 elements of shared memory.
-template <typename T, typename Op>
-__device__ void block_scan(T v, T ident, Op op, T* tmp, T& excl, T& incl, T& total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  T x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    T u = shfl_up(x, o);
-    if (lane >= o) x = op(u, x);
-  }
-  if (lane == 31) tmp[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    T w = lane < n_warps ? tmp[lane] : ident;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      T u = shfl_up(w, o);
-      if (lane >= o) w = op(u, w);
-    }
-    tmp[lane] = w;
-  }
-  __syncthreads();
-  const T warp_prefix = warp > 0 ? tmp[warp - 1] : ident;
-  T xe = shfl_up(x, 1);
-  if (lane == 0) xe = ident;
-  incl = op(warp_prefix, x);
-  excl = op(warp_prefix, xe);
-  total = tmp[n_warps - 1];
-  __syncthreads();  // tmp is reused by the next scan
-}
-
 __device__ __forceinline__ int shfl_idx(int x, int src) { return __shfl_sync(kFull, x, src); }
 
 __device__ __forceinline__ PosMap shfl_idx(PosMap x, int src) {
@@ -197,6 +197,13 @@ __device__ __forceinline__ void scan_once(T v, T ident, Op op, T* tmp, T& excl, 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// 16-byte asynchronous copy from global to shared memory; both addresses
+// 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -296,8 +303,141 @@ __device__ int pack_session(const Sym* __restrict__ pat, const Sym* __restrict__
   return carry;
 }
 
-__device__ __forceinline__ int rbsp_byte(const uint32_t* words, int i) {
-  return (int)((words[i >> 2] >> (24 - 8 * (i & 3))) & 0xffu);
+// Byte i of the RBSP, for the emulation-prevention stage.  K1 reads its
+// MSB-first packed words; K3 its staged bytes, zero from byte n on.
+struct PackedBytes {
+  const uint32_t* words;
+  __device__ __forceinline__ int operator()(int i) const {
+    return (int)((words[i >> 2] >> (24 - 8 * (i & 3))) & 0xffu);
+  }
+};
+
+struct StagedBytes {
+  const uint8_t* bytes;
+  int n;
+  __device__ __forceinline__ int operator()(int i) const { return i < n ? bytes[i] : 0; }
+};
+
+// The window rules of the stage: whether byte i (of value `byte`, with the
+// last nonzero byte before it at `last`, -1 if none) takes a 0x03 before
+// it; `sat` is set where the rule cannot resolve its zero run.
+//
+// K1's 16-word window: byte i is unresolved iff (i >> 2) > 16 and its zero
+// run t >= 64 + (i & 3); an unresolved byte never inserts and saturates
+// the stream.
+struct WordWindow {
+  __device__ __forceinline__ bool operator()(int i, int last, int byte, int& sat) const {
+    const int t = i - 1 - last;
+    const bool unresolved = (i >> 2) > kWindowWords && t >= 4 * kWindowWords + (i & 3);
+    sat |= unresolved;
+    return byte <= 3 && t >= 2 && (t & 1) == 0 && !unresolved;
+  }
+};
+
+// K3's zero-run window in bytes (h264_scroll_encoder_tpu ops/ebsp
+// ZERO_RUN_WINDOW): byte i is resolved iff a nonzero byte lies before it
+// at most 64 back; otherwise t = min(i, 255), the insertion test still
+// applies with that t, and the stream saturates where i > 64.
+constexpr int kZeroRunWindow = 64;
+
+struct ByteWindow {
+  __device__ __forceinline__ bool operator()(int i, int last, int byte, int& sat) const {
+    const bool found = last >= 0 && i - last <= kZeroRunWindow;
+    const int t = found ? i - 1 - last : min(i, 255);
+    sat |= !found && i > kZeroRunWindow;
+    return byte <= 3 && t >= 2 && (t & 1) == 0;
+  }
+};
+
+// The emulation-prevention stage of K1 and K3 over one session's `valid`
+// RBSP bytes, `per` to a thread (a contiguous run each).  Byte i lands in
+// the NAL at 5 + i + (insertions up to and including i), and an inserting
+// byte leaves 0x03 in the hole before it, so every position from 5 up to
+// min(5 + valid + insertions, n_nal) is written exactly once.  Returns the
+// insertion count; `sat` gets the block's OR of the rule's flag.  Ends on a
+// barrier, so the NAL in shared memory is complete on return.
+template <typename ByteAt, typename Rule>
+__device__ int emulation_prevention(ByteAt at, Rule rule, int valid, int per, uint8_t* nal,
+                                    int n_nal, int* tmp_max, int* tmp_sum, int& sat) {
+  const int b0 = min((int)threadIdx.x * per, valid);
+  const int b1 = min(b0 + per, valid);
+  int last = -1;
+  for (int i = b1 - 1; i >= b0; --i) {
+    if (at(i)) {
+      last = i;
+      break;
+    }
+  }
+  int before, unused;
+  scan_once(last, -1, MaxOp(), tmp_max, before, unused);
+  int count = 0;
+  int run_sat = 0;
+  last = before;
+  for (int i = b0; i < b1; ++i) {
+    const int byte = at(i);
+    count += rule(i, last, byte, run_sat);
+    if (byte) last = i;
+  }
+  int ins_before, ins_total;
+  scan_once(count, 0, SumOp(), tmp_sum, ins_before, ins_total);
+  last = before;
+  int dst = 5 + b0 + ins_before;
+  for (int i = b0; i < b1; ++i, ++dst) {
+    const int byte = at(i);
+    int ignored = 0;
+    if (rule(i, last, byte, ignored)) {
+      if (dst < n_nal) nal[dst] = 3;
+      ++dst;
+    }
+    if (dst < n_nal) nal[dst] = (uint8_t)byte;
+    if (byte) last = i;
+  }
+  sat = __syncthreads_or(run_sat);
+  return ins_total;
+}
+
+// Writes one session's n_nal NAL bytes: positions below `fill` from the
+// NAL in shared memory, then 0x03 below `end`, then zeros, in stores of
+// V.  `nal` is 16-byte aligned and `out` aligned to V.
+template <typename V>
+__device__ void store_nal(const uint8_t* nal, int fill, int end, int n_nal, uint8_t* out) {
+  constexpr int W = sizeof(V);
+  for (int c = threadIdx.x; c < n_nal / W; c += kPackThreads) {
+    const int k0 = c * W;
+    union {
+      V v;
+      uint8_t b[W];
+    } u;
+    if (k0 + W <= fill) {
+      u.v = reinterpret_cast<const V*>(nal)[c];
+    } else {
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        const int k = k0 + j;
+        u.b[j] = k < fill ? nal[k] : (k < end ? 3 : 0);
+      }
+    }
+    reinterpret_cast<V*>(out)[c] = u.v;
+  }
+}
+
+// Row s of an output of n_nal-byte rows: 16-byte stores where n_nal is a
+// multiple of 16, 4-byte where it is a multiple of 4, single bytes else.
+__device__ __forceinline__ void copy_out(const uint8_t* nal, int fill, int end, int n_nal,
+                                         uint8_t* nal_out, int s) {
+  uint8_t* out = nal_out + (size_t)s * n_nal;
+  if ((n_nal & 15) == 0) {
+    store_nal<uint4>(nal, fill, end, n_nal, out);
+  } else if ((n_nal & 3) == 0) {
+    store_nal<uint32_t>(nal, fill, end, n_nal, out);
+  } else {
+    store_nal<uint8_t>(nal, fill, end, n_nal, out);
+  }
+}
+
+__device__ __forceinline__ void write_prefix(uint8_t* nal, int n_nal, uint8_t header) {
+  const uint8_t prefix[5] = {0, 0, 0, 1, header};
+  for (int k = 0; k < min(5, n_nal); ++k) nal[k] = prefix[k];
 }
 
 template <typename Sym>
@@ -333,71 +473,19 @@ __global__ void __launch_bounds__(kPackThreads, 2)
   }
   bad = __syncthreads_or(bad);  // the words are packed; the staging area is free
 
-  uint4* nal4 = reinterpret_cast<uint4*>(nal);
-  for (int i = threadIdx.x; i < (n_nal + 15) >> 4; i += kPackThreads) nal4[i] = make_uint4(0, 0, 0, 0);
   if (threadIdx.x == 0) {
     const int64_t h = idc ? idc[s * idc_row] : idc_value;
-    nal[3] = 1;
-    nal[4] = (uint8_t)(((h & 3) << 5) | 1);
+    write_prefix(nal, n_nal, (uint8_t)(((h & 3) << 5) | 1));
   }
-
-  // Emulation prevention + framing over this thread's whole words of the
-  // stream: byte i lands at 5 + i + (insertions up to and including i),
-  // and an inserting byte leaves 0x03 in the hole before it.  t, the zero
-  // run before byte i, is i - 1 - (last nonzero index before i).
+  // Whole words of the stream per thread.
   const int rbsp_len = total_bits >> 3;
   const int valid = min(rbsp_len, n_nal);
   const int per = 4 * ((((valid + 3) >> 2) + kPackThreads - 1) / kPackThreads);
-  const int b0 = min((int)threadIdx.x * per, valid);
-  const int b1 = min(b0 + per, valid);
-  int last = -1;
-  for (int i = b1 - 1; i >= b0; --i) {
-    if (rbsp_byte(words, i)) {
-      last = i;
-      break;
-    }
-  }
-  int before, unused;
-  scan_once(last, -1, MaxOp(), tmp_max, before, unused);
-  int count = 0;
-  int sat = 0;
-  last = before;
-  for (int i = b0; i < b1; ++i) {
-    const int byte = rbsp_byte(words, i);
-    const int t = i - 1 - last;
-    const bool unresolved = (i >> 2) > kWindowWords && t >= 4 * kWindowWords + (i & 3);
-    count += byte <= 3 && t >= 2 && (t & 1) == 0 && !unresolved;
-    sat |= unresolved;
-    if (byte) last = i;
-  }
-  int ins_before, ins_total;
-  scan_once(count, 0, SumOp(), tmp_sum, ins_before, ins_total);
-  last = before;
-  int dst = 5 + b0 + ins_before;
-  for (int i = b0; i < b1; ++i, ++dst) {
-    const int byte = rbsp_byte(words, i);
-    const int t = i - 1 - last;
-    const bool unresolved = (i >> 2) > kWindowWords && t >= 4 * kWindowWords + (i & 3);
-    if (byte <= 3 && t >= 2 && (t & 1) == 0 && !unresolved) {
-      if (dst < n_nal) nal[dst] = 3;
-      ++dst;
-    }
-    if (byte) {
-      if (dst < n_nal) nal[dst] = (uint8_t)byte;
-      last = i;
-    }
-  }
-  sat = __syncthreads_or(sat);  // also orders the NAL bytes before the copy-out
-
-  uint8_t* out = nal_out + (size_t)s * n_nal;
-  if ((n_nal & 15) == 0) {
-    uint4* out4 = reinterpret_cast<uint4*>(out);
-    for (int i = threadIdx.x; i < n_nal >> 4; i += kPackThreads) out4[i] = nal4[i];
-  } else {
-    uint32_t* out1 = reinterpret_cast<uint32_t*>(out);
-    const uint32_t* nal1 = reinterpret_cast<const uint32_t*>(nal);
-    for (int i = threadIdx.x; i < n_words; i += kPackThreads) out1[i] = nal1[i];
-  }
+  int sat;
+  const int ins_total = emulation_prevention(PackedBytes{words}, WordWindow(), valid, per, nal,
+                                             n_nal, tmp_max, tmp_sum, sat);
+  const int fill = min(5 + valid + ins_total, n_nal);
+  copy_out(nal, fill, fill, n_nal, nal_out, s);
   if (threadIdx.x == 0) {
     const int ins_eff = ins_total + (sat ? cap + 1 : 0);
     len_out[s] = 5 + rbsp_len + ins_eff;
@@ -428,76 +516,91 @@ __global__ void __launch_bounds__(kPackThreads, 2)
   if (threadIdx.x == 0) total_out[s] = total_bits;
 }
 
-__device__ __forceinline__ void zero_words(uint32_t* words, int n_words) {
-  for (int k = threadIdx.x; k < n_words; k += blockDim.x) words[k] = 0;
-  __syncthreads();
+// A per-session int argument of K3: element s * row of an int32 (bytes 4)
+// or int64 (bytes 8) array, row 0 broadcasting one element, or `value`
+// where p is null.  Read as int32, as the JAX wrapper casts it.
+struct SessionInt {
+  const void* p;
+  long long row;
+  int bytes;
+  int value;
+  __device__ __forceinline__ int at(int s) const {
+    if (p == nullptr) return value;
+    return bytes == 8 ? (int)static_cast<const int64_t*>(p)[s * row]
+                      : static_cast<const int32_t*>(p)[s * row];
+  }
+};
+
+// Bytes of K3's shared memory: the staging area (padded bytes plus up to
+// 15 of alignment offset), then the NAL.
+__host__ __device__ __forceinline__ int ebsp_stage_bytes(int padded) { return padded + 16; }
+
+// Bytes each thread of K3 owns for a session of `valid` bytes: ceil(valid /
+// threads), made odd so that neighbouring threads' runs fall into different
+// shared-memory banks.  Exported as h264t_ebsp_items_per_thread.
+__host__ __device__ __forceinline__ int ebsp_items_per_thread(int valid) {
+  return ((valid + kPackThreads - 1) / kPackThreads) | 1;
 }
 
-// K3's zero-run window in bytes (h264_scroll_encoder_tpu ops/ebsp
-// ZERO_RUN_WINDOW): a byte whose last nonzero predecessor lies further
-// back is unresolved.
-constexpr int kZeroRunWindow = 64;
-
-// One session's RBSP bytes (the first `padded` of them are read; bytes at
-// or past rbsp_len count as zero) -> framed NAL bytes and the insertion
-// count.  Byte i lands at 5 + i + (insertions up to and including i); an
-// inserting byte leaves 0x03 in the hole before it.  t, the zero run before
-// byte i, comes from an exact max-scan of the last nonzero index; where
-// that index lies more than kZeroRunWindow back (or there is none) the
-// window rule applies: t = min(i, 255), and past byte kZeroRunWindow such a
-// byte marks the stream saturated, which adds max_ins + 1 to the count.
-// Positions from the last byte up to 5 + rbsp_len + count hold 0x03 and
-// the rest zeros, exactly as the TPU kernel's expansion leaves them.
-__global__ void __launch_bounds__(kThreads)
-    ebsp_nal_kernel(const uint8_t* __restrict__ rbsp, const int32_t* __restrict__ rbsp_len,
-                    const int32_t* __restrict__ header, int padded, int n_nal, int max_ins,
+// K3.  Session s reads row s of `rbsp` (m bytes, `rbsp_row` apart), its
+// valid length and NAL header byte, and writes n_nal framed NAL bytes and
+// the insertion count: `padded` positions of the stream are considered
+// (n_nal rounded up to 128, as the JAX wrapper pads or cuts), those below
+// rbsp_len valid, those past the row zero.  The count is the insertions,
+// plus max_ins + 1 where the stream saturated; positions from the escaped
+// payload's end up to 5 + rbsp_len + count hold 0x03, zeros after, as the
+// TPU kernel's expansion leaves them.
+__global__ void __launch_bounds__(kPackThreads, 2)
+    ebsp_nal_kernel(const uint8_t* __restrict__ rbsp, long long rbsp_row, int m,
+                    SessionInt len_arg, SessionInt header_arg, int padded, int n_nal, int max_ins,
                     uint8_t* __restrict__ nal_out, int32_t* __restrict__ total_out) {
-  extern __shared__ uint32_t smem[];
-  __shared__ int tmp_int[32];
+  extern __shared__ uint4 pack_smem[];  // 16-byte aligned
+  uint8_t* stage = reinterpret_cast<uint8_t*>(pack_smem);
+  uint8_t* nal = stage + ebsp_stage_bytes(padded);
+  __shared__ int tmp_max[kPackWarps];
+  __shared__ int tmp_sum[kPackWarps];
   const int s = blockIdx.x;
-  uint8_t* nal = reinterpret_cast<uint8_t*>(smem);
-  zero_words(smem, (n_nal + 3) >> 2);
-  const uint8_t* in = rbsp + (size_t)s * padded;
-  const int len = rbsp_len[s];
-  const int valid_len = max(min(len, padded), 0);
-  int last_nz = -1;
-  int ins_carry = 0;
-  int sat = 0;
-  for (int base = 0; base < valid_len; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const bool valid = i < valid_len;
-    const int byte = valid ? (int)in[i] : 0;
-    int excl, incl, total;
-    block_scan((valid && byte != 0) ? i : -1, -1, MaxOp(), tmp_int, excl, incl, total);
-    const int last = max(excl, last_nz);
-    last_nz = max(total, last_nz);
-    const bool found = last >= 0 && i - last <= kZeroRunWindow;
-    const int t = found ? i - last - 1 : min(i, 255);
-    sat |= valid && !found && i > kZeroRunWindow;
-    const int ins = valid && byte <= 3 && t >= 2 && (t & 1) == 0;
-    block_scan(ins, 0, SumOp(), tmp_int, excl, incl, total);
-    const int dst = 5 + i + ins_carry + incl;
-    if (valid && dst < n_nal) nal[dst] = (uint8_t)byte;
-    if (ins && dst - 1 < n_nal) nal[dst - 1] = 3;
-    ins_carry += total;
+  const int t = threadIdx.x;
+  const uint8_t* src = rbsp + s * rbsp_row;
+  const int len = len_arg.at(s);
+  const int valid = max(min(len, padded), 0);
+  const int n_load = min(valid, m);
+
+  // Byte i goes to stage[off + i]: the row and the staging area then share
+  // their alignment mod 16, and the aligned middle moves in 16-byte copies.
+  const int off = (int)(reinterpret_cast<uintptr_t>(src) & 15);
+  const int head = min((16 - off) & 15, n_load);
+  const int n16 = (n_load - head) >> 4;
+  const int tail = head + (n16 << 4);
+  for (int c = t; c < n16; c += kPackThreads) {
+    cp_async16(stage + off + head + 16 * c, src + head + 16 * c);
   }
-  sat = __syncthreads_or(sat);
-  const int count = ins_carry + (sat ? max_ins + 1 : 0);
-  const int end = min(5 + len + count, n_nal);
-  for (int k = 5 + valid_len + ins_carry + threadIdx.x; k < end; k += blockDim.x) nal[k] = 3;
-  if (threadIdx.x < min(5, n_nal)) {
-    const uint8_t prefix[4] = {0, 0, 0, 1};
-    nal[threadIdx.x] = threadIdx.x < 4 ? prefix[threadIdx.x] : (uint8_t)header[s];
-  }
+  if (t < head) stage[off + t] = src[t];
+  if (t < n_load - tail) stage[off + tail + t] = src[tail + t];
+  if (t == 0) write_prefix(nal, n_nal, (uint8_t)header_arg.at(s));
+  cp_async_wait_all();
   __syncthreads();
-  uint8_t* out = nal_out + (size_t)s * n_nal;
-  for (int k = threadIdx.x; k < n_nal; k += blockDim.x) out[k] = nal[k];
-  if (threadIdx.x == 0) total_out[s] = count;
+
+  int sat;
+  const int ins = emulation_prevention(StagedBytes{stage + off, n_load}, ByteWindow(), valid,
+                                       ebsp_items_per_thread(valid), nal, n_nal, tmp_max,
+                                       tmp_sum, sat);
+  const int count = ins + (sat ? max_ins + 1 : 0);
+  const int fill = min(5 + valid + ins, n_nal);
+  const int end = (int)min(5LL + len + count, (long long)n_nal);
+  copy_out(nal, fill, end, n_nal, nal_out, s);
+  if (t == 0) total_out[s] = count;
 }
 
+// Opts the kernel in to `bytes` of dynamic shared memory.  A refusal is
+// returned and cleared, so that the next launch's cudaGetLastError()
+// reports that launch's own error.
 cudaError_t set_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 
@@ -572,16 +675,32 @@ extern "C" int h264t_pack_place(const void* pat, const void* nb, int sym_bytes, 
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int h264t_ebsp_nal(const uint8_t* rbsp, const int32_t* rbsp_len, const int32_t* header,
-                              int batch, int padded, int n_nal, int max_ins, uint8_t* nal_out,
-                              int32_t* total_out, void* stream) {
-  const size_t smem = 4 * (size_t)((n_nal + 3) / 4);
+// K3.  rbsp: [batch, m] bytes with unit column stride and row stride
+// rbsp_row; rbsp_len and header as SessionInt (len, len_bytes, len_row,
+// len_value, and the same for the header).  Outputs nal_out u8[batch,
+// n_nal] and total_out i32[batch].
+extern "C" int h264t_ebsp_nal(const uint8_t* rbsp, long long rbsp_row, int m, const void* len,
+                              int len_bytes, long long len_row, int len_value, const void* header,
+                              int header_bytes, long long header_row, int header_value, int batch,
+                              int n_nal, int max_ins, uint8_t* nal_out, int32_t* total_out,
+                              void* stream) {
+  const bool len_ok = len == nullptr || len_bytes == 4 || len_bytes == 8;
+  const bool header_ok = header == nullptr || header_bytes == 4 || header_bytes == 8;
+  if (n_nal < 0 || m < 0 || !len_ok || !header_ok) return (int)cudaErrorInvalidValue;
+  const int padded = (n_nal + 127) / 128 * 128;  // ops/ebsp_flat.padded_len
+  const size_t smem = (size_t)ebsp_stage_bytes(padded) + (size_t)((n_nal + 15) & ~15);
   cudaError_t err = set_smem((const void*)ebsp_nal_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  ebsp_nal_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-      rbsp, rbsp_len, header, padded, n_nal, max_ins, nal_out, total_out);
+  ebsp_nal_kernel<<<batch, kPackThreads, smem, (cudaStream_t)stream>>>(
+      rbsp, rbsp_row, m, SessionInt{len, len_row, len_bytes, len_value},
+      SessionInt{header, header_row, header_bytes, header_value}, padded, n_nal, max_ins, nal_out,
+      total_out);
   return (int)cudaGetLastError();
 }
+
+// K3's bytes per thread for a session of `valid` bytes, as the kernel
+// computes them (ops/ebsp_flat.items_per_thread is held to this on the card).
+extern "C" int h264t_ebsp_items_per_thread(int valid) { return ebsp_items_per_thread(valid); }
 
 extern "C" int h264t_pack_words(const void* pat, const void* nb, int sym_bytes, long long pat_row,
                                 long long nb_row, int batch, int n, int k, int n_words,

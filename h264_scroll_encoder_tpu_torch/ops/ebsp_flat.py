@@ -15,43 +15,54 @@ total insertion count.  Its rule (the staged path's, not K1's):
     to and including i), 0x03 in every other position below
     5 + rbsp_len + count, zeros after.
 
-The input is zero-padded (or cut) to the next multiple of 128 bytes of
-n_nal, as the JAX wrapper does.  On in-contract streams (count <=
-max_insertions) the output equals the JAX package's byte for byte; over
-the bound the JAX kernel's bytes past its movable range are unspecified,
-while the port's follow the rule above in both the plain version and the
-kernel.
+As in the JAX wrapper, the bytes are cast to uint8 and the length and
+header to int32 first, and the stream is the row zero-padded (or cut) to
+the next multiple of 128 bytes of n_nal.  On in-contract streams (count
+<= max_insertions) whose NAL fits its buffer the output equals the JAX
+package's byte for byte.  Over the bound the JAX kernel's bytes past its
+movable range are unspecified, and where 5 + rbsp_len + count > n_nal its
+cyclic rolls wrap the overflow to the front of the buffer; the port's
+bytes follow the rule above in both cases, writing nothing past the
+buffer, in both the plain version and the kernel.
 
 `rbsp_to_nal_plain` is the plain PyTorch version; `rbsp_to_nal_batch`
 runs it for CPU tensors and launches `h264t_ebsp_nal`
-(csrc/emit_kernels.cu) for CUDA tensors.
+(csrc/emit_kernels.cu) for CUDA tensors.  The kernel reads uint8 bytes in
+place with their row stride, and int32 or int64 lengths and header bytes
+in place (a [B] or a 0-dim tensor) or a Python int by value.
 """
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 from .. import _kernels
-from .emit_fused import _SMEM_LIMIT
+from .emit_fused import row_stride
 
 ZERO_RUN_WINDOW = 64
+# Per-session int dtypes the kernel reads in place.
+SESSION_INT_DTYPES = (torch.int32, torch.int64)
 
 
 def padded_len(n_nal: int) -> int:
-    """Input bytes K3 reads per session: n_nal rounded up to 128."""
+    """Stream positions K3 considers per session: n_nal rounded up to 128."""
     return -(-n_nal // 128) * 128
 
 
-def _fit(rbsp, n: int):
-    """Zero-pad or cut uint8[B, m] to [B, n]."""
-    m = rbsp.shape[1]
-    if m >= n:
-        return rbsp[:, :n]
-    return torch.cat([rbsp, rbsp.new_zeros((rbsp.shape[0], n - m))], dim=1)
+def items_per_thread(valid: int) -> int:
+    """Bytes each of the _kernels.PACK_THREADS threads of K3 owns for a
+    session of `valid` bytes: ceil(valid / threads), made odd.  The kernel
+    computes it itself; this is its value without a card, for the boundary
+    cases, and the card tests hold it equal to the built kernel's
+    (_kernels.ebsp_items_per_thread)."""
+    return -(-valid // _kernels.PACK_THREADS) | 1
 
 
 def _per_session(x, B: int, device):
-    x = torch.as_tensor(x, device=device).to(torch.int64)
+    """int or int[B] -> int64 of int32 values, broadcast over B sessions."""
+    x = torch.as_tensor(x, device=device).to(torch.int32).to(torch.int64)
     return x.expand(B) if x.dim() == 0 else x
 
 
@@ -60,7 +71,7 @@ def rbsp_to_nal_plain(rbsp, rbsp_len, header_byte, n_nal: int,
     """Plain PyTorch version of K3 on any device.
 
     Args:
-      rbsp: uint8[B, m] payload bytes.
+      rbsp: [B, m] payload bytes (any integer dtype; cast to uint8).
       rbsp_len: int or int[B] valid lengths.
       header_byte: int or int[B] NAL header bytes.
       n_nal: output bytes per session.
@@ -68,14 +79,16 @@ def rbsp_to_nal_plain(rbsp, rbsp_len, header_byte, n_nal: int,
 
     Returns (nal uint8[B, n_nal], total_insertions int32[B]).
     """
-    B = rbsp.shape[0]
+    B, m = rbsp.shape
     dev = rbsp.device
     P = padded_len(n_nal)
     n = _per_session(rbsp_len, B, dev)
     hb = _per_session(header_byte, B, dev) & 0xFF
     idx = torch.arange(P, device=dev)
     valid = idx[None, :] < n[:, None]
-    b = torch.where(valid, _fit(rbsp, P).to(torch.int64), 0)
+    raw = torch.zeros((B, P), dtype=torch.int64, device=dev)
+    raw[:, :min(m, P)] = rbsp[:, :P].to(torch.uint8)
+    b = torch.where(valid, raw, 0)
 
     nz = torch.where(b != 0, idx, -1)
     last = torch.cummax(nz, dim=1).values
@@ -100,11 +113,30 @@ def rbsp_to_nal_plain(rbsp, rbsp_len, header_byte, n_nal: int,
     return out[:, :n_nal].to(torch.uint8), total.to(torch.int32)
 
 
+def _session_int(x, B: int, device):
+    """K3's view of a per-session int: (int32 or int64 [B] view or None,
+    its stride, the value where there is no tensor)."""
+    if isinstance(x, numbers.Integral):
+        return None, 0, int(x)
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+    if t.device != device:
+        t = t.to(device)
+    if t.dtype not in SESSION_INT_DTYPES:
+        t = t.to(torch.int64)
+    t = t.reshape(-1).expand(B)
+    return t, t.stride(0), 0
+
+
 def rbsp_to_nal_batch(rbsp, rbsp_len, header_byte, n_nal: int,
                       max_insertions: int):
     """K3 over a [B, m] batch: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (a build or launch failure raises).  Same
-    arguments and returns as rbsp_to_nal_plain."""
+    arguments and returns as rbsp_to_nal_plain.  On the card a uint8 rbsp
+    (unit stride along each row, or ValueError), int32 or int64 tensor
+    lengths and headers, and Python ints are read as they are; any other
+    byte dtype is cast to uint8 once (the JAX wrapper's cast), any other
+    int dtype to int64.  A NAL buffer whose block needs more shared memory
+    than the card has raises from the launch."""
     if rbsp.dim() != 2:
         raise ValueError(f"rbsp must be [B, n], not {tuple(rbsp.shape)}")
     if rbsp.device.type == "cpu":
@@ -112,32 +144,23 @@ def rbsp_to_nal_batch(rbsp, rbsp_len, header_byte, n_nal: int,
                                  max_insertions)
     if rbsp.device.type != "cuda":
         raise ValueError(f"unsupported device {rbsp.device}")
-    B, dev = rbsp.shape[0], rbsp.device
-    return launch_kernel(
-        _fit(rbsp.to(torch.uint8), padded_len(n_nal)).contiguous(),
-        _per_session(rbsp_len, B, dev).to(torch.int32).contiguous(),
-        _per_session(header_byte, B, dev).to(torch.int32).contiguous(),
-        n_nal, max_insertions)
-
-
-def launch_kernel(rbsp, rbsp_len, header, n_nal: int, max_insertions: int):
-    """Launch K3 on contiguous CUDA tensors rbsp uint8[B, padded_len(n_nal)],
-    rbsp_len int32[B] and header int32[B]; allocates and returns
-    (nal uint8[B, n_nal], total int32[B])."""
     dev = rbsp.device
-    B, padded = rbsp.shape
-    if padded != padded_len(n_nal):
-        raise ValueError(f"rbsp has {padded} bytes per session, K3 reads "
-                         f"{padded_len(n_nal)}")
-    if n_nal + 4 > _SMEM_LIMIT:
-        raise ValueError(f"NAL buffer of {n_nal} bytes exceeds the "
-                         "kernel's shared-memory budget")
+    B, m = rbsp.shape
+    if rbsp.dtype != torch.uint8:
+        rbsp = rbsp.to(torch.uint8)
+    rbsp_row = row_stride(rbsp)
+    n, n_row, n_value = _session_int(rbsp_len, B, dev)
+    h, h_row, h_value = _session_int(header_byte, B, dev)
     nal = torch.empty((B, n_nal), dtype=torch.uint8, device=dev)
     total = torch.empty((B,), dtype=torch.int32, device=dev)
     if B:
         with torch.cuda.device(dev):
             _kernels.EBSP_NAL.launch(
-                rbsp.data_ptr(), rbsp_len.data_ptr(), header.data_ptr(), B,
-                padded, n_nal, max_insertions, nal.data_ptr(),
-                total.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                rbsp.data_ptr(), rbsp_row, m,
+                None if n is None else n.data_ptr(),
+                0 if n is None else n.element_size(), n_row, n_value,
+                None if h is None else h.data_ptr(),
+                0 if h is None else h.element_size(), h_row, h_value,
+                B, n_nal, max_insertions, nal.data_ptr(), total.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     return nal, total

@@ -35,9 +35,6 @@ from .. import _kernels
 from .bitpack import pack_words, trailing_bits_symbol, words_to_bytes
 from .ebsp import rbsp_to_ebsp_bounded
 
-# Dynamic shared memory a block may use on Hopper (227 KB), less slack
-# for the kernel's static scan buffers.
-_SMEM_LIMIT = 227 * 1024 - 1024
 # The most symbols a thread of K1 or K2/K4 owns per staged chunk: it caps
 # the staging area at 8 B * 24 * _kernels.PACK_THREADS = 96 KB a block.
 PACK_MAX_ITEMS = 24
@@ -144,8 +141,8 @@ def row_stride(x) -> int:
     """Row stride of a [B, n] CUDA tensor the kernels read in place; they
     need unit stride along each row."""
     if x.shape[1] > 1 and x.stride(1) != 1:
-        raise ValueError(f"symbols need unit stride along each row, not "
-                         f"strides {tuple(x.stride())}")
+        raise ValueError(f"the kernels need unit stride along each row, "
+                         f"not strides {tuple(x.stride())}")
     return x.stride(0)
 
 

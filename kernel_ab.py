@@ -116,8 +116,7 @@ def main() -> int:
     n_words = (n_rbsp + 3) // 4
     words, total = bitpack.pack_words(e_pat, e_nb, n_words)
     rbsp = bitpack.words_to_bytes(words)[:, :n_rbsp].to(torch.uint8)
-    k3_args = (rbsp, (total // 8).to(torch.int32),
-               torch.ones((256,), dtype=torch.int32, device=dev), n_nal, cap)
+    k3_args = (rbsp, total // 8, 0x01, n_nal, cap)  # as phase 6 hands them
     cells += [("K2 B=256", "pack_place_kernel", "pack_words_place_batch",
                "ops.bitpack_flat", (e_pat, e_nb, n_words), {}),
               ("K3 B=256", "ebsp_nal_kernel", "rbsp_to_nal_batch",

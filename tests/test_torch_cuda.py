@@ -92,6 +92,10 @@ def test_pack_words_kernel(dev, n, num_words):
 
 @pytest.mark.parametrize("cap", [cases.CAP, 1000])
 def test_ebsp_kernel(dev, cap):
+    """K3 on the byte-stream, saturation and boundary cases
+    (cases.ebsp_boundary_cases at each of its NAL sizes), with int32 and
+    int64 lengths, tensor and Python-int headers, 0-dim lengths, rows read
+    through a row stride other than their length, and int32 bytes."""
     rbsp, lens, hdr = cases.ebsp_cases()
     args = (torch.as_tensor(rbsp, device=dev), torch.as_tensor(lens, device=dev),
             torch.as_tensor(hdr, device=dev), cases.EBSP_N_NAL, cap)
@@ -104,6 +108,40 @@ def test_ebsp_kernel(dev, cap):
     got = ebsp_flat.rbsp_to_nal_batch(*args)
     _same(got, ebsp_flat.rbsp_to_nal_plain(*args))
     assert int(got[1][0]) > cap or cap > 100
+    rbsp, lens, hdr = cases.ebsp_boundary_cases()
+    rb = torch.as_tensor(rbsp, device=dev)
+    wide = torch.zeros((rb.shape[0], rb.shape[1] + 5), dtype=torch.uint8,
+                       device=dev)
+    wide[:, 3:-2] = rb
+    inputs = [(rb, torch.as_tensor(lens, device=dev), torch.as_tensor(hdr, device=dev)),
+              (rb, torch.as_tensor(lens.astype(np.int64), device=dev), 0x165),
+              (wide[:, 3:-2], torch.as_tensor(lens, device=dev), 0x41),
+              (rb.to(torch.int32), torch.tensor(5000, device=dev), 1)]
+    for n_nal in cases.EBSP_BOUNDARY_N_NALS:
+        for rows, n, h in inputs:
+            args = (rows, n, h, n_nal, cap)
+            _same(ebsp_flat.rbsp_to_nal_batch(*args),
+                  ebsp_flat.rbsp_to_nal_plain(*args))
+
+
+def test_ebsp_items_per_thread_is_the_kernels(dev):
+    """cases.ebsp_boundary_cases aims at the runs that
+    ebsp_flat.items_per_thread gives; the built K3 must use the same."""
+    for valid in range(2 * ebsp_flat.padded_len(8224) + 1):
+        assert (ebsp_flat.items_per_thread(valid)
+                == _kernels.ebsp_items_per_thread(valid)), valid
+
+
+def test_ebsp_kernel_over_shared_memory_raises(dev):
+    """A NAL buffer too large for one block's shared memory raises from the
+    launch, launches nothing, and leaves no error for the next launch."""
+    rb = torch.zeros((2, 64), dtype=torch.uint8, device=dev)
+    before = _kernels.EBSP_NAL.launches
+    with pytest.raises(RuntimeError, match="h264t_ebsp_nal"):
+        ebsp_flat.rbsp_to_nal_batch(rb, 64, 0x41, 300_000, cases.CAP)
+    assert _kernels.EBSP_NAL.launches == before
+    args = (rb, 64, 0x41, 384, cases.CAP)
+    _same(ebsp_flat.rbsp_to_nal_batch(*args), ebsp_flat.rbsp_to_nal_plain(*args))
 
 
 @pytest.mark.parametrize("program", ["compact", "static", "ebsp_exact"])
@@ -159,12 +197,18 @@ def test_emit_kernel_chunk_zero_runs(dev, int32):
 
 
 def test_wrappers_launch_only_their_kernel(dev):
-    """On int64 symbols the K1 and K2/K4 wrappers run no tensor op but
+    """On int64 symbols the K1 and K2/K4 wrappers, and on uint8 bytes with
+    int64 lengths and an int header the K3 wrapper, run no tensor op but
     allocations and views before and after their one kernel launch."""
     pat, nb, n_rbsp = cases.pack_boundary_cases(9728)
     p, n = _cu(pat, dev), _cu(nb, dev)
+    rbsp, lens, _ = cases.ebsp_boundary_cases()
+    rb = torch.as_tensor(rbsp, device=dev)
+    rb_len = torch.as_tensor(lens.astype(np.int64), device=dev)
     for fn in (lambda: emit_fused.emit_nal_fused_batch(p, n, 0, n_rbsp, cases.CAP,
                                                        align=True, append_tb=True),
                lambda: bitpack_flat.pack_words_place_batch(p, n, n_rbsp // 4),
-               lambda: bitpack_flat.pack_words_batch(p, n, n_rbsp // 4)):
+               lambda: bitpack_flat.pack_words_batch(p, n, n_rbsp // 4),
+               lambda: ebsp_flat.rbsp_to_nal_batch(rb, rb_len, 0x01, 8224,
+                                                   cases.CAP)):
         assert cases.compute_ops(fn) == []
