@@ -44,20 +44,37 @@ result line):
      `rbsp_to_nal_batch`, ops/bitpack_flat `pack_words_batch`) on the
      splice frames at B = 256; K3's NAL must equal K1's bytes wherever K1
      did not flag the frame.
-  7. Print the kernel table (one JSON line; `ms` is one call on an idle
+  7. The per-session composer ("session") at 1280x720: one
+     ComposerSession on the card over the scroll-encoder schedule (64
+     frames through write_scroll_or_waypoint_frame, each timed: host wall
+     with the frame's bytes on the host), two sliced frames, 8 hint frames
+     and 2 spliced frames (one frame's launches, device time and tensor
+     ops also counted); partitioned and nearest sessions; the
+     scroll-encoder and composer CLIs (donors from the port's ipcm); a
+     1920x1088 hint frame and a 3840x2160 scroll frame.  Every stream's
+     sha256 must equal golden/session_720p.json and pass verify_stream;
+     K1 launches once per device P-frame (once per sliced frame), K2 on a
+     forced `ebsp_exact` frame.  Then make_batched_hint_step (compact_x)
+     at B = 256 against the golden digest and compact_batch_nal on its
+     output (exact bytes, overflow at total - 1), both timed (CUDA events
+     and host wall).
+  8. Print the kernel table (one JSON line; `ms` is one call on an idle
      card, as in the first port's rows, with `device_ms` and `host_ms`
-     beside it), the card's name and power limit, and the result line.
+     beside it; `launches` sums the paths, `launches_by_path` splits
+     them), the card's name and power limit, and the result line.
 
-Launch counters are set to 0 just before each path (4, 5, 6) and read
+Launch counters are set to 0 just before each path (4, 5, 6, 7) and read
 just after; every kernel must have launched on its path.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -304,6 +321,15 @@ def main() -> int:
                    append_tb=True)
     if bool(got[3].any()):
         raise AssertionError("720p symbols overflowed the bounded path")
+    # The same step's partitioned frames: 4 slots per MB, two 12,288-symbol
+    # chunks, 16x8 seam rows (the session slice's new K1 shape).
+    part_pat, part_nb, part_rbsp, part_idc = scroll.unified_frame_symbols(
+        cfg, state.frame_num, schedule[0], state.wp_offsets, state.wp_ltidx,
+        state.wp_valid, state.wp_count, needs, boundary_policy="partitioned")
+    got = check_k1("partitioned 720p B=256", part_pat, part_nb, part_idc,
+                   part_rbsp, cap, append_tb=True)
+    if bool(got[3].any()):
+        raise AssertionError("720p partitioned symbols overflowed")
 
     # Real 720p splice symbols: the compact program's input, sessions
     # carrying the 32 donors in turn, at B = 256 (and 1 and 1,024 for K1).
@@ -401,6 +427,12 @@ def main() -> int:
         "K1 B=1": k1_run(k1_sym[1], s_idc, s_n_rbsp, **splice_kw),
         "K1 B=1024": k1_run(k1_sym[1024], s_idc, s_n_rbsp, **splice_kw),
         "K1 scroll": k1_run((sym_pat, sym_nb), idc, n_rbsp, append_tb=True),
+        "K1 partitioned": k1_run((part_pat, part_nb), part_idc, part_rbsp,
+                                 append_tb=True),
+        "K1 scroll B=1": k1_run((sym_pat[:1], sym_nb[:1]), idc[:1], n_rbsp,
+                                append_tb=True),
+        "K1 partitioned B=1": k1_run((part_pat[:1], part_nb[:1]), part_idc[:1],
+                                     part_rbsp, append_tb=True),
         "K2": (lambda: bitpack_flat.pack_words_place_batch(
                    exact_pat, exact_nb, exact_words),
                lambda: bitpack_flat.pack_words_place_plain(
@@ -450,6 +482,8 @@ def main() -> int:
     bound = {
         "K1 scroll": (B * sym_pat.shape[1] * 8 + B * 4
                       + B * (emit_fused.nal_bytes(n_rbsp, cap) + 16)),
+        "K1 partitioned": (B * part_pat.shape[1] * 8 + B * 4
+                           + B * (emit_fused.nal_bytes(part_rbsp, cap) + 16)),
         "K1": B * n_s * 8 + B * 4 + B * (n_nal_s + 16),
         "K2": pack_bytes,
         "K3": k3_bytes(rbsp_len[k3_rows[B]]),
@@ -619,32 +653,207 @@ def main() -> int:
          f"K1's on the {int(both.sum())} frames neither flagged; launches "
          f"{entry_launches}")
 
-    # -- 7. Results ------------------------------------------------------------
+    # -- 7. The per-session composer --------------------------------------------
+    session_launches = _session_phase(dev, cfg, cases, batch, _kernels, Timer)
+
+    # -- 8. Results ------------------------------------------------------------
     src = "h264_scroll_encoder_tpu_torch/csrc/emit_kernels.cu"
     rows = [
-        ("emit_fused (K1)", "K1", "h264t_emit_fused", splice_launches,
+        ("emit_fused (K1)", "K1", "h264t_emit_fused",
          "h264_scroll_encoder_tpu/ops/emit_fused.py:214"),
-        ("pack_place (K2)", "K2", "h264t_pack_place", splice_launches,
+        ("pack_place (K2)", "K2", "h264t_pack_place",
          "h264_scroll_encoder_tpu/ops/bitpack_flat.py:435"),
-        ("ebsp_nal (K3)", "K3", "h264t_ebsp_nal", entry_launches,
+        ("ebsp_nal (K3)", "K3", "h264t_ebsp_nal",
          "h264_scroll_encoder_tpu/ops/ebsp_flat.py:158"),
-        ("pack_words (K4)", "K4", "h264t_pack_words", entry_launches,
+        ("pack_words (K4)", "K4", "h264t_pack_words",
          "h264_scroll_encoder_tpu/ops/bitpack_flat.py:261"),
     ]
+    paths = {"scroll": scroll_launches, "splice": splice_launches,
+             "entry": entry_launches, "session": session_launches}
     # ms: one call as a caller waits for it (the method of the first port's
     # rows); device_ms: device time per call of calls queued back to back;
-    # host_ms: the host's issue time per call.
-    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": counts[sym], "max_abs_err": errs[key],
-                **timing[key], "bound_ms": bound_ms[key], "bound_by": "bytes",
-                "library_ms": None}
-               for name, key, sym, counts, rep in rows]
+    # host_ms: the host's issue time per call.  launches: the kernel's
+    # launches summed over the paths it runs on (phase 4's scroll golden
+    # run, 5, 6 and 7), each path counted from 0.
+    kernels = []
+    for name, key, sym, rep in rows:
+        by_path = {p: c[sym] for p, c in paths.items() if c[sym]}
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, "max_abs_err": errs[key],
+                        **timing[key], "bound_ms": bound_ms[key],
+                        "bound_by": "bytes", "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _session_phase(dev, cfg, cases, batch, _kernels, Timer) -> dict:
+    """Phase 7: the per-session composer and the batched hint step on the
+    card; returns the launch counts of the phase."""
+    from h264_scroll_encoder_tpu_torch.session import ComposerSession
+    from h264_scroll_encoder_tpu_torch.syntax.slice_headers import (
+        p_slice_header_symbols)
+    from h264_scroll_encoder_tpu_torch.verify import verify_stream
+
+    golden = json.loads(cases.SESSION_GOLDEN_PATH.read_text())
+    pkg = cases.port_package()
+    streams, frame_ms = {}, []
+
+    def timed(call):
+        t0 = time.perf_counter()
+        call()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t_phase = time.perf_counter()
+    s = ComposerSession(cfg, device=dev)
+    cases.drive_session(s, pkg, timed=timed)
+    streams["session"] = s.getvalue()
+    with tempfile.TemporaryDirectory() as tmp:
+        streams.update(cases.session_streams(
+            pkg, tmp, [n for n in cases.SESSION_STREAMS if n != "session"],
+            device=dev))
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in _kernels.KERNELS}
+    compose_s = time.perf_counter() - t_phase
+
+    device_frames = 0
+    for name, data in streams.items():
+        if cases.stream_digest(data) != golden[name]:
+            raise AssertionError(f"session stream {name}: digest differs from "
+                                 "golden/session_720p.json")
+        rep = verify_stream(data)
+        if not rep.ok:
+            raise AssertionError(f"session stream {name}: verify_stream "
+                                 f"failed: {rep.errors[:3]}")
+        device_frames += rep.frame_count - 2       # all but the two atlases
+    device_frames -= cases.SESSION_SPLICED_FRAMES  # composed on the host
+    if launches["h264t_emit_fused"] != device_frames:
+        raise AssertionError(f"K1 launched {launches['h264t_emit_fused']} "
+                             f"times for {device_frames} device P-frames")
+    verify_s = time.perf_counter() - t_phase - compose_s
+
+    # One sliced frame is one K1 launch; a flagged frame retries through K2.
+    _kernels.reset_launch_counts()
+    s.write_scroll_frame_sliced(60, cases.SESSION_ROWS_PER_SLICE)
+    torch.cuda.synchronize()
+    if _kernels.EMIT_FUSED.launches != 1:
+        raise AssertionError(f"a sliced frame launched K1 "
+                             f"{_kernels.EMIT_FUSED.launches} times")
+    launches["h264t_emit_fused"] += 1
+    honest = ComposerSession(cfg, device=dev)
+    forced = ComposerSession(cfg, device=dev)
+    fast = forced._scroll_fn
+
+    def flagged(*args):
+        nal, nal_len, bits, ovf = fast(*args)
+        return nal, nal_len, bits, torch.ones_like(ovf)
+
+    forced._scroll_fn = flagged
+    honest.write_scroll_frame(100)
+    _kernels.reset_launch_counts()
+    forced.write_scroll_frame(100)
+    torch.cuda.synchronize()
+    retry = {k.symbol: k.launches for k in _kernels.KERNELS}
+    if retry["h264t_emit_fused"] != 1 or retry["h264t_pack_place"] != 1:
+        raise AssertionError(f"forced ebsp_exact frame launched {retry}")
+    if forced.getvalue() != honest.getvalue():
+        raise AssertionError("the ebsp_exact retry changed the frame's bytes")
+    for k, n in retry.items():
+        launches[k] += n
+
+    ms = sorted(frame_ms)
+    p50, p90 = statistics.median(ms), ms[int(0.9 * (len(ms) - 1))]
+    # Launches and device time of one batch-1 frame (offsets that need no
+    # waypoint), by torch.profiler: the device's busy share at batch 1.
+    probe = ComposerSession(cfg, device=dev)
+    try:
+        per_frame = _profile_launches(
+            lambda: probe.write_scroll_or_waypoint_frame(500), 5)
+    except Exception as e:  # measurement only; outputs checked above
+        per_frame = None
+        _log(f"phase 7: torch.profiler failed: {e!r}")
+    _log(f"phase 7: session streams {sorted(streams)}: digests equal "
+         f"golden/session_720p.json and verify_stream passes each "
+         f"({sum(map(len, streams.values()))} B); K1 launched once per each "
+         f"of {device_frames} device P-frames and once for one sliced frame; "
+         f"a forced ebsp_exact frame launched K1 and K2 once each, bytes "
+         f"unchanged; compose {compose_s:.2f} s, verify {verify_s:.2f} s")
+    _log(f"phase 7: batch-1 session latency, {len(ms)} 720p "
+         f"write_scroll_or_waypoint_frame calls (host wall, bytes on the "
+         f"host): p50 {p50:.4f} ms, p90 {p90:.4f} ms, min {ms[0]:.4f} ms, "
+         f"max {ms[-1]:.4f} ms; card {_smi()}")
+    if per_frame is not None:
+        _log(f"phase 7: one batch-1 scroll frame under torch.profiler: "
+             f"{per_frame[0]:.1f} cudaLaunch calls, device time "
+             f"{per_frame[1]:.4f} ms")
+    # Tensor ops (besides allocations and views) of one frame, and of its
+    # P slice header's symbol stream alone.
+    frame_num, _off, _wp_off, wp_lt, wp_valid, count = probe._frame_args(500)
+    poc = frame_num * 2
+    frame_ops = cases.compute_ops(
+        lambda: probe.write_scroll_or_waypoint_frame(500))
+    header_ops = cases.compute_ops(lambda: p_slice_header_symbols(
+        cfg, frame_num, poc, False, -1, count, wp_lt, wp_valid))
+    _log(f"phase 7: one batch-1 scroll frame runs {len(frame_ops)} tensor "
+         f"ops, {len(header_ops)} of them in its slice header's symbols")
+
+    # The batched hint step at B = 256 and egress.
+    step = batch.make_batched_hint_step(cfg, compact_x=True, device=dev)
+    inputs = {k: torch.as_tensor(v, device=dev)
+              for k, v in cases.hint_step_inputs().items()}
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    out = cases.run_hint_step(step, inputs)
+    torch.cuda.synchronize()
+    if _kernels.EMIT_FUSED.launches != 1:
+        raise AssertionError("the hint step did not launch K1 once")
+    launches["h264t_emit_fused"] += 1
+    nal, nal_len, _bits, ovf = out
+    if cases.hint_step_digest(nal.cpu().numpy(), nal_len.cpu().numpy(),
+                              ovf.cpu().numpy()) != golden["hint_step"]:
+        raise AssertionError("hint step: digest differs from the golden file")
+    total = int(nal_len.sum())
+    packed, tot, c_ovf = batch.compact_batch_nal(nal, nal_len, total)
+    want = bytes.fromhex(golden["hint_step"]["sha256"])
+    if (int(tot) != total or bool(c_ovf)
+            or hashlib.sha256(packed.cpu().numpy().tobytes()).digest() != want):
+        raise AssertionError("compact_batch_nal: packed bytes differ from the "
+                             "sessions' valid bytes")
+    if not bool(batch.compact_batch_nal(nal, nal_len, total - 1)[2]):
+        raise AssertionError("compact_batch_nal: no overflow at total - 1")
+    step_t, egress_t = Timer(), Timer()
+    for _ in range(3):
+        cases.run_hint_step(step, inputs)
+    for _ in range(20):
+        out = step_t(lambda: cases.run_hint_step(step, inputs))
+        egress_t(lambda: batch.compact_batch_nal(out[0], out[1], total))
+    (step_ms, step_wall), (eg_ms, eg_wall) = step_t.medians(), egress_t.medians()
+    try:
+        prof = {name: _profile_launches(fn, 5) for name, fn in (
+            ("hint step", lambda: cases.run_hint_step(step, inputs)),
+            ("compact_batch_nal",
+             lambda: batch.compact_batch_nal(out[0], out[1], total)))}
+    except Exception as e:  # measurement only; outputs checked above
+        prof = {}
+        _log(f"phase 7: torch.profiler failed: {e!r}")
+    for name, got in prof.items():
+        if got is not None:
+            _log(f"phase 7: {name} B=256 under torch.profiler: {got[0]:.1f} "
+                 f"cudaLaunch calls per call, device time {got[1]:.4f} ms")
+    _log(f"phase 7: hint step (compact_x) B=256 720p: digest equals the golden "
+         f"file; {step_ms:.4f} ms (CUDA-event median of 20), host wall "
+         f"{step_wall:.4f} ms; NAL buffer {tuple(nal.shape)}, {total} valid B "
+         f"(mean {total / nal.shape[0]:.1f} B)")
+    _log(f"phase 7: compact_batch_nal B=256 (cap = total = {total} B): "
+         f"{eg_ms:.4f} ms (CUDA-event median of 20), host wall {eg_wall:.4f} "
+         f"ms; packed[:total] equals the sessions' bytes, overflow at total - 1")
+    return launches
 
 
 if __name__ == "__main__":

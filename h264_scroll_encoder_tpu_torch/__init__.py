@@ -6,12 +6,19 @@ rewritten by hand in CUDA C++ for Hopper (`csrc/`).  Same layout and
 names as the JAX package, so every function has an obvious counterpart:
 
   ops/       — Exp-Golomb symbols, the scatter bit packer, emulation
-               prevention, and the two kernels' wrappers:
-               `ops/emit_fused` (K1: pack + bounded EBSP + Annex-B framing)
-               and `ops/bitpack_flat` (K2: batched bit pack).
-  syntax/    — P slice header symbol streams.
-  models/    — the scroll/waypoint P-frame compose path.
-  parallel/  — `SessionState` and the batched serving step.
+               prevention, and the kernels' wrappers: `ops/emit_fused` (K1:
+               pack + bounded EBSP + Annex-B framing), `ops/bitpack_flat`
+               (K2/K4: batched bit pack), `ops/ebsp_flat` (K3).
+  syntax/    — slice headers (device symbol streams, host writers), NAL
+               framing, parameter sets, Annex-B parsing.
+  models/    — scroll/waypoint (floor, nearest, partitioned), sliced and
+               hint P-frames; the rows splice; I_PCM atlases, the donor
+               rewrite and the host splice path.
+  parallel/  — `SessionState`, the batched scroll, splice and hint steps,
+               egress (`compact_batch_nal`).
+  session.py — `ComposerSession`, one UI session's stream.
+  cli.py     — the composer, scroll-encoder and splice-demo CLIs.
+  verify.py  — the structural stream oracle.
 
 Conventions: functions take tensors with an explicit leading session
 dimension (the JAX package's `vmap` axis); the device comes from the

@@ -12,6 +12,7 @@ launch, so a run can show which kernels its main path went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -116,14 +117,14 @@ class Kernel:
 
 
 # K1: (pat, nb, sym_bytes, pat_row, nb_row, idc, idc_row, idc_value, batch,
-#      n, items_per_thread, n_nal, n_rbsp, cap, align, append_tb, nal_out,
-#      len_out, bits_out, ovf_out, stream)
+#      n, items_per_thread, n_nal, n_rbsp, cap, align, append_tb, words_gmem,
+#      nal_out, len_out, bits_out, ovf_out, stream)
 EMIT_FUSED = Kernel("h264t_emit_fused",
                     [_P, _P, _I, _L, _L, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _P, _P, _P, _P, _P])
+                     _I, _I, _P, _P, _P, _P, _P, _P])
 # K2: (pat, nb, sym_bytes, pat_row, nb_row, batch, n, items_per_thread,
-#      n_words, words_out, total_out, stream)
-_PACK_ARGS = [_P, _P, _I, _L, _L, _I, _I, _I, _I, _P, _P, _P]
+#      n_words, words_gmem, words_out, total_out, stream)
+_PACK_ARGS = [_P, _P, _I, _L, _L, _I, _I, _I, _I, _P, _P, _P, _P]
 PACK_PLACE = Kernel("h264t_pack_place", _PACK_ARGS)
 
 # K3: (rbsp, rbsp_row, m, len, len_bytes, len_row, len_value, header,
@@ -135,6 +136,33 @@ EBSP_NAL = Kernel("h264t_ebsp_nal", [_P, _L, _I, _P, _I, _L, _I, _P, _I, _L, _I,
 PACK_WORDS = Kernel("h264t_pack_words", _PACK_ARGS)
 
 KERNELS = (EMIT_FUSED, PACK_PLACE, EBSP_NAL, PACK_WORDS)
+
+
+@functools.lru_cache(maxsize=None)
+def _words_in_global(symbol: str, device: int, sym_bytes: int, k: int,
+                     n: int) -> bool:
+    fn = getattr(_load(), symbol)
+    fn.argtypes, fn.restype = [_I, _I, _I], ctypes.c_int
+    answer = fn(sym_bytes, k, n)
+    if answer < 0:
+        raise RuntimeError(f"{symbol}: the CUDA runtime did not report the "
+                           "card's shared-memory limit")
+    return bool(answer)
+
+
+def emit_words_in_global(sym_bytes: int, k: int, n_nal: int) -> bool:
+    """Whether K1 on the current device keeps its RBSP words in a global
+    scratch buffer (u32[B, n_nal / 4]) at these symbols per thread and NAL
+    size: the built kernel's shared-memory plan decides
+    (h264t_emit_words_in_global; launches nothing)."""
+    return _words_in_global("h264t_emit_words_in_global",
+                            torch.cuda.current_device(), sym_bytes, k, n_nal)
+
+
+def pack_words_in_global(sym_bytes: int, k: int, n_words: int) -> bool:
+    """As emit_words_in_global, for K2/K4 (scratch u32[B, n_words])."""
+    return _words_in_global("h264t_pack_words_in_global",
+                            torch.cuda.current_device(), sym_bytes, k, n_words)
 
 
 def ebsp_items_per_thread(valid: int) -> int:

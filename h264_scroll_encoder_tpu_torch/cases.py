@@ -17,7 +17,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ._kernels import PACK_THREADS
+from ._kernels import PACK_THREADS, resolve_device
 from .config import ComposerConfig, MAX_EBSP_INSERTIONS, MAX_WAYPOINTS
 from .models import scroll
 from .ops import emit_fused
@@ -568,3 +568,275 @@ def digest_step(nal, nal_len, emitted_waypoint, overflow):
              "emitted_waypoint": bool(emitted_waypoint[b]),
              "overflow": bool(overflow[b])}
             for b in range(nal.shape[0])]
+
+
+# ---------------------------------------------------------------------------
+# The 720p session streams (the per-session composer and its CLIs).
+# ---------------------------------------------------------------------------
+
+SESSION_GOLDEN_PATH = GOLDEN_PATH.parent / "session_720p.json"
+# The scroll-encoder schedule: 64 frames at 4 px/frame from 496 px, up to
+# height - 16 (it crosses the 496 px waypoint on its first frame).
+SESSION_SCROLL = (64, 4, GOLDEN_HEIGHT - 16, 496)
+SESSION_SLICED_OFFSETS = (100, 348)
+SESSION_ROWS_PER_SLICE = 9
+SESSION_HINT_FRAMES = 8
+SESSION_HINT_SEED = 2000
+SESSION_SPLICED_FRAMES = 2
+# Offsets of the partitioned and nearest sessions: seams in MB rows 38-44
+# (K1's second chunk of partitioned symbols) at 9, 40, 71 and 102, a
+# waypoint at 496, and offsets past it.
+SESSION_POLICY_OFFSETS = (9, 40, 71, 102, 133, 250, 380, 496, 503, 620, 700,
+                          650, 24, 7, 300, 0)
+HINT_STEP_BATCH = 256
+HINT_STEP_SEED = 3000
+
+
+def session_scroll_offsets() -> list:
+    """The main session's scroll-encoder offsets (cli.triangle_offsets)."""
+    from .cli import triangle_offsets
+
+    n, speed, max_offset, start = SESSION_SCROLL
+    return list(triangle_offsets(n, speed, max_offset, start_offset=start))
+
+
+def hint_region_specs(k: int, mb_width: int, mb_height: int,
+                      num_refs: int) -> list:
+    """Seeded motion regions of hint frame k: 1-3 rects inside the frame,
+    refs in the active list, MVs within the 496 px budget.  A list of
+    (mb_x0, mb_y0, mb_x1, mb_y1, ref_idx, mv_x, mv_y) — MotionRegion's
+    fields in order, for either package's class."""
+    rng = np.random.default_rng(SESSION_HINT_SEED + k)
+    specs = []
+    for _ in range(int(rng.integers(1, 4))):
+        x0 = int(rng.integers(0, mb_width - 1))
+        y0 = int(rng.integers(0, mb_height - 1))
+        x1 = int(rng.integers(x0 + 1, mb_width + 1))
+        y1 = int(rng.integers(y0 + 1, mb_height + 1))
+        specs.append((x0, y0, x1, y1, int(rng.integers(0, num_refs)),
+                      int(rng.integers(-32, 33)), int(rng.integers(-120, 121))))
+    return specs
+
+
+def _splice_hints(k: int, motion_region, frame_hints):
+    """FrameHints of spliced frame k: a scrolling band above the donor rect
+    at bench.py's geometry."""
+    band = motion_region(0, 1, 80, SPLICE_R0 - 1, 0, 0, 8 * (k + 1))
+    return frame_hints(motion_regions=(band,), dynamic_mb_x=SPLICE_C0,
+                       dynamic_mb_y=SPLICE_R0)
+
+
+def drive_session(s, pkg, *, timed=None) -> None:
+    """Script the main 720p session `s` (either package's ComposerSession):
+    parameter sets, striped test atlases, the scroll-encoder schedule
+    through write_scroll_or_waypoint_frame (each call through timed(fn)
+    when given), two sliced frames, the hint frames and the spliced frames
+    with representative donors.  `pkg` names that package's MotionRegion,
+    FrameHints and fixtures module."""
+    s.write_parameter_sets()
+    s.write_test_atlases(striped=True)
+    for off in session_scroll_offsets():
+        call = lambda off=off: s.write_scroll_or_waypoint_frame(off)
+        timed(call) if timed else call()
+    for off in SESSION_SLICED_OFFSETS:
+        s.write_scroll_frame_sliced(off, SESSION_ROWS_PER_SLICE)
+    for k in range(SESSION_HINT_FRAMES):
+        specs = hint_region_specs(k, s.cfg.mb_width, s.cfg.mb_height,
+                                  2 + s.waypoints.count)
+        s.write_hint_frame(pkg.FrameHints(motion_regions=tuple(
+            pkg.MotionRegion(*spec) for spec in specs)))
+    for k in range(SESSION_SPLICED_FRAMES):
+        grid = pkg.fixtures.representative_donor_grid(
+            np.random.default_rng(SPLICE_DONOR_SEED + k), SPLICE_C, SPLICE_R)
+        s.write_spliced_frame(_splice_hints(k, pkg.MotionRegion,
+                                            pkg.FrameHints), grid)
+
+
+def drive_policy_session(s) -> None:
+    """A scroll session (either package's) over SESSION_POLICY_OFFSETS
+    with composer semantics (write_scroll_frame)."""
+    s.write_parameter_sets()
+    s.write_test_atlases(striped=True)
+    for off in SESSION_POLICY_OFFSETS:
+        s.write_scroll_frame(off)
+
+
+# The 1920x1088 hint frame's regions (tests/test_hints.py's wide layout
+# case), as hint_region_specs tuples.
+LARGE_HINT_REGIONS = ((0, 0, 120, 12, 0, 0, 40), (20, 40, 60, 60, 1, 0, -16))
+
+
+SESSION_STREAMS = ("session", "partitioned", "nearest", "scroll_encoder_cli",
+                   "composer_cli", "hint_1080p", "scroll_4k")
+
+
+def session_streams(pkg, workdir, names=SESSION_STREAMS,
+                    **session_kw) -> dict:
+    """Golden session streams composed by one package: {name: bytes} for
+    `names` (of SESSION_STREAMS).  `pkg` names that package's
+    ComposerConfig, ComposerSession, MotionRegion, FrameHints, fixtures,
+    ipcm and cli; `session_kw` (the port's device) goes to every session,
+    and as --device to the CLIs, which write their files into `workdir`."""
+    from pathlib import Path
+
+    workdir = Path(workdir)
+    cfg = pkg.ComposerConfig(GOLDEN_WIDTH, GOLDEN_HEIGHT)
+    dev_args = (["--device", str(session_kw["device"])]
+                if "device" in session_kw else [])
+
+    def main_session():
+        s = pkg.ComposerSession(cfg, **session_kw)
+        drive_session(s, pkg)
+        return s.getvalue()
+
+    def policy(name):
+        s = pkg.ComposerSession(cfg, boundary_policy=name, **session_kw)
+        drive_policy_session(s)
+        return s.getvalue()
+
+    def scroll_encoder_cli():
+        enc = workdir / "scroll_encoder.h264"
+        pkg.cli.scroll_encoder_main(["-n", "16", "-S", "31", "-w",
+                                     str(cfg.width), "-H", str(cfg.height),
+                                     "-o", str(enc)] + dev_args)
+        return enc.read_bytes()
+
+    def composer_cli():
+        donors = []
+        for name, color in (("a", (81, 90, 240)), ("b", (41, 240, 110))):
+            d = pkg.ComposerSession(cfg, **session_kw)
+            d.write_parameter_sets()
+            d.writer.append_raw(pkg.ipcm.idr_frame_color(cfg, *color))
+            donors.append(workdir / f"donor_{name}.h264")
+            d.write_to_file(donors[-1])
+        comp = workdir / "composer.h264"
+        pkg.cli.composer_main(["--ref-a", str(donors[0]), "--ref-b",
+                               str(donors[1]), "-n", "16", "-s", "31",
+                               "--safe-mv", "-o", str(comp)] + dev_args)
+        return comp.read_bytes()
+
+    def hint_1080p():
+        s = pkg.ComposerSession(pkg.ComposerConfig(1920, 1088), **session_kw)
+        s.write_parameter_sets()
+        s.write_test_atlases(striped=True)
+        s.write_hint_frame(pkg.FrameHints(motion_regions=tuple(
+            pkg.MotionRegion(*spec) for spec in LARGE_HINT_REGIONS)))
+        return s.getvalue()
+
+    def scroll_4k():
+        s = pkg.ComposerSession(pkg.ComposerConfig(3840, 2160),
+                                enable_pskip=True, **session_kw)
+        s.write_parameter_sets()
+        s.write_test_atlases(striped=True)
+        s.write_scroll_frame(48)
+        return s.getvalue()
+
+    build = {"session": main_session,
+             "partitioned": lambda: policy("partitioned"),
+             "nearest": lambda: policy("nearest"),
+             "scroll_encoder_cli": scroll_encoder_cli,
+             "composer_cli": composer_cli, "hint_1080p": hint_1080p,
+             "scroll_4k": scroll_4k}
+    return {name: build[name]() for name in names}
+
+
+def stream_digest(data: bytes) -> dict:
+    return {"sha256": hashlib.sha256(data).hexdigest(), "bytes": len(data)}
+
+
+def hint_step_inputs(batch: int = HINT_STEP_BATCH) -> dict:
+    """The batched hint step's inputs at 720p (numpy, int32 and bool):
+    static chrome with one full-width vertical-scroll band per session, of
+    seeded rows, reference and speed, over registries of 0-8 waypoints
+    (so the reference lists, and te()'s width, differ per session)."""
+    rng = np.random.default_rng(HINT_STEP_SEED)
+    H, W = GOLDEN_HEIGHT // 16, GOLDEN_WIDTH // 16
+    count = rng.integers(0, MAX_WAYPOINTS + 1, batch)
+    slot = np.arange(MAX_WAYPOINTS)[None, :]
+    valid = slot < count[:, None]
+    ref = np.zeros((batch, H, W), np.int32)
+    mv_y = np.zeros((batch, H, W), np.int32)
+    for b in range(batch):
+        y0 = int(rng.integers(0, H - 8))
+        y1 = int(rng.integers(y0 + 4, H + 1))
+        ref[b, y0:y1] = rng.integers(0, 2 + count[b])
+        mv_y[b, y0:y1] = 4 * rng.integers(-120, 121)
+    return {"frame_num": rng.integers(2, 40, batch).astype(np.int32),
+            "ref": ref, "mv_x": np.zeros_like(ref), "mv_y": mv_y,
+            "wp_count": count.astype(np.int32),
+            "wp_ltidx": np.where(valid, 2 + slot, 0).astype(np.int32),
+            "wp_valid": valid}
+
+
+def run_hint_step(step, inputs: dict):
+    """step (either package's batched hint step) over hint_step_inputs."""
+    return step(*(inputs[k] for k in ("frame_num", "ref", "mv_x", "mv_y",
+                                      "wp_count", "wp_ltidx", "wp_valid")))
+
+
+def hint_step_digest(nal, nal_len, overflow) -> dict:
+    """Digest of a hint step's outputs (numpy): the sha256 of the sessions'
+    valid bytes concatenated (what compact_batch_nal packs), their total,
+    the sha256 of the int32 lengths, and whether any frame overflowed."""
+    nal = np.asarray(nal)
+    lens = np.asarray(nal_len).astype(np.int32)
+    data = b"".join(nal[b, :lens[b]].tobytes() for b in range(len(lens)))
+    return {"sha256": hashlib.sha256(data).hexdigest(), "total": len(data),
+            "nal_len_sha256": hashlib.sha256(lens.tobytes()).hexdigest(),
+            "overflow": bool(np.asarray(overflow).any())}
+
+
+def session_golden_config() -> dict:
+    return {"width": GOLDEN_WIDTH, "height": GOLDEN_HEIGHT,
+            "scroll": list(SESSION_SCROLL),
+            "sliced_offsets": list(SESSION_SLICED_OFFSETS),
+            "rows_per_slice": SESSION_ROWS_PER_SLICE,
+            "hint_frames": SESSION_HINT_FRAMES, "hint_seed": SESSION_HINT_SEED,
+            "spliced_frames": SESSION_SPLICED_FRAMES,
+            "policy_offsets": list(SESSION_POLICY_OFFSETS),
+            "hint_step_batch": HINT_STEP_BATCH,
+            "hint_step_seed": HINT_STEP_SEED}
+
+
+def port_package():
+    """The port's modules as session_streams' `pkg`."""
+    import types
+
+    from . import cli
+    from .models import ipcm
+    from .models.splice import FrameHints, MotionRegion
+    from .session import ComposerSession
+    from .utils import fixtures
+
+    return types.SimpleNamespace(
+        ComposerConfig=ComposerConfig, ComposerSession=ComposerSession,
+        MotionRegion=MotionRegion, FrameHints=FrameHints, fixtures=fixtures,
+        ipcm=ipcm, cli=cli)
+
+
+def session_golden(pkg, hint_step, workdir, **session_kw) -> dict:
+    """The session golden digests composed by one package: every stream of
+    session_streams, and the batched hint step (compact_x) over
+    hint_step_inputs — `hint_step` is that package's
+    make_batched_hint_step(cfg, compact_x=True)."""
+    out = {"config": session_golden_config()}
+    for name, data in session_streams(pkg, workdir, **session_kw).items():
+        out[name] = stream_digest(data)
+    nal, nal_len, _bits, ovf = run_hint_step(hint_step, hint_step_inputs())
+    out["hint_step"] = hint_step_digest(*(np.asarray(x.cpu()) if isinstance(
+        x, torch.Tensor) else np.asarray(x) for x in (nal, nal_len, ovf)))
+    return out
+
+
+def port_session_golden(device="cuda", workdir=None) -> dict:
+    """The session golden digests computed by the port on `device`, the
+    CLIs writing into `workdir` (a temporary directory when None)."""
+    import tempfile
+
+    device = resolve_device(device)
+    cfg = ComposerConfig(GOLDEN_WIDTH, GOLDEN_HEIGHT)
+    step = batch.make_batched_hint_step(cfg, compact_x=True, device=device)
+    if workdir is not None:
+        return session_golden(port_package(), step, workdir, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        return session_golden(port_package(), step, tmp, device=device)

@@ -94,6 +94,19 @@
 // (the length read, then the staged copy it sizes, four barriers, three
 // serial passes) sets the time, not the bytes.
 //
+// Large frames (K1, K2/K4).  K1 keeps the staging area (reused for the
+// NAL) and the packed RBSP words in shared memory: max(8 * kPackThreads * k,
+// n_nal) + n_nal bytes.  At 3840x2160 and the generic 32 bits per MB
+// (n_nal 129,728) that is 259,456 bytes, over the 232,448 a block may use,
+// and K2's exact retry passes the limit from about 33,500 MBs.  Where
+// staging and words do not fit together, the wrapper passes a global
+// scratch buffer (`words_gmem`, n_words per session) and the kernel packs
+// into it instead: the same code through generic pointers, at global-memory
+// latency for the pack's atomics and the emulation-prevention reads.
+// `h264t_emit_words_in_global` / `h264t_pack_words_in_global` answer the
+// wrapper from the shared-memory plan and the card's limit, so the formula
+// lives here only.
+//
 // Plain C interface (bound with ctypes): each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() of its launch.
 
@@ -445,7 +458,8 @@ __global__ void __launch_bounds__(kPackThreads, 2)
     emit_fused_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row,
                       long long nb_row, const int64_t* __restrict__ idc, long long idc_row,
                       int idc_value, int n, int k, int n_nal, int n_rbsp, int cap, int align,
-                      int append_tb, uint8_t* __restrict__ nal_out, int32_t* __restrict__ len_out,
+                      int append_tb, uint32_t* __restrict__ words_gmem,
+                      uint8_t* __restrict__ nal_out, int32_t* __restrict__ len_out,
                       int32_t* __restrict__ bits_out, uint8_t* __restrict__ ovf_out) {
   extern __shared__ uint4 pack_smem[];  // 16-byte aligned
   uint8_t* smem = reinterpret_cast<uint8_t*>(pack_smem);
@@ -457,7 +471,8 @@ __global__ void __launch_bounds__(kPackThreads, 2)
   uint32_t* spat = reinterpret_cast<uint32_t*>(smem);
   int32_t* snb = reinterpret_cast<int32_t*>(smem + 4 * kPackThreads * k);
   uint8_t* nal = smem;  // reuses the staging area once the words are packed
-  uint32_t* words = reinterpret_cast<uint32_t*>(smem + staging_bytes(k, n_nal));
+  uint32_t* words = words_gmem ? words_gmem + (size_t)s * n_words
+                               : reinterpret_cast<uint32_t*>(smem + staging_bytes(k, n_nal));
 
   for (int i = threadIdx.x; i < n_words; i += kPackThreads) words[i] = 0;
   int bad = 0;
@@ -498,14 +513,16 @@ template <typename Sym>
 __global__ void __launch_bounds__(kPackThreads, 2)
     pack_place_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row,
                       long long nb_row, int n, int k, int n_words,
-                      int64_t* __restrict__ words_out, int64_t* __restrict__ total_out) {
+                      uint32_t* __restrict__ words_gmem, int64_t* __restrict__ words_out,
+                      int64_t* __restrict__ total_out) {
   extern __shared__ uint4 pack_smem[];  // 16-byte aligned
   uint8_t* smem = reinterpret_cast<uint8_t*>(pack_smem);
   __shared__ PosMap tmp_map[kPackWarps];
   const int s = blockIdx.x;
   uint32_t* spat = reinterpret_cast<uint32_t*>(smem);
   int32_t* snb = reinterpret_cast<int32_t*>(smem + 4 * kPackThreads * k);
-  uint32_t* words = reinterpret_cast<uint32_t*>(smem + staging_bytes(k, 0));
+  uint32_t* words = words_gmem ? words_gmem + (size_t)s * n_words
+                               : reinterpret_cast<uint32_t*>(smem + staging_bytes(k, 0));
   for (int i = threadIdx.x; i < n_words; i += kPackThreads) words[i] = 0;
   int bad = 0;
   const int total_bits = pack_session(pat + s * pat_row, nb + s * nb_row, n, k, false, spat,
@@ -603,32 +620,66 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
   return err;
 }
 
+// Bytes of shared memory a block of `kernel` may use besides its static
+// arrays, on the current device; 0 where the runtime cannot say.
+size_t dynamic_smem_limit(const void* kernel) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return (size_t)optin > attr.sharedSizeBytes ? (size_t)optin - attr.sharedSizeBytes : 0;
+}
+
+// K1's and K2's dynamic shared memory: the staging area, plus the RBSP words
+// unless they live in global memory.
+size_t emit_smem(int k, int n_nal, bool words_in_global) {
+  return (size_t)staging_bytes(k, n_nal) + (words_in_global ? 0 : (size_t)n_nal);
+}
+
+size_t pack_smem_bytes(int k, int n_words, bool words_in_global) {
+  return (size_t)staging_bytes(k, 0) + (words_in_global ? 0 : 4 * (size_t)n_words);
+}
+
+const void* emit_kernel_of(int sym_bytes) {
+  return sym_bytes == 8 ? (const void*)emit_fused_kernel<int64_t>
+                        : (const void*)emit_fused_kernel<int32_t>;
+}
+
+const void* pack_kernel_of(int sym_bytes) {
+  return sym_bytes == 8 ? (const void*)pack_place_kernel<int64_t>
+                        : (const void*)pack_place_kernel<int32_t>;
+}
 
 template <typename Sym>
 cudaError_t launch_emit(const void* pat, const void* nb, long long pat_row, long long nb_row,
                         const int64_t* idc, long long idc_row, int idc_value, int batch, int n,
                         int k, int n_nal, int n_rbsp, int cap, int align, int append_tb,
-                        uint8_t* nal_out, int32_t* len_out, int32_t* bits_out,
-                        uint8_t* ovf_out, cudaStream_t stream) {
-  const size_t smem = (size_t)staging_bytes(k, n_nal) + (size_t)n_nal;  // + RBSP words
+                        uint32_t* words_gmem, uint8_t* nal_out, int32_t* len_out,
+                        int32_t* bits_out, uint8_t* ovf_out, cudaStream_t stream) {
+  const size_t smem = emit_smem(k, n_nal, words_gmem != nullptr);
   cudaError_t err = set_smem((const void*)emit_fused_kernel<Sym>, smem);
   if (err != cudaSuccess) return err;
   emit_fused_kernel<Sym><<<batch, kPackThreads, smem, stream>>>(
       static_cast<const Sym*>(pat), static_cast<const Sym*>(nb), pat_row, nb_row, idc, idc_row,
-      idc_value, n, k, n_nal, n_rbsp, cap, align, append_tb, nal_out, len_out, bits_out, ovf_out);
+      idc_value, n, k, n_nal, n_rbsp, cap, align, append_tb, words_gmem, nal_out, len_out,
+      bits_out, ovf_out);
   return cudaGetLastError();
 }
 
 template <typename Sym>
 cudaError_t launch_pack(const void* pat, const void* nb, long long pat_row, long long nb_row,
-                        int batch, int n, int k, int n_words, int64_t* words_out,
-                        int64_t* total_out, cudaStream_t stream) {
-  const size_t smem = (size_t)staging_bytes(k, 0) + 4 * (size_t)n_words;
+                        int batch, int n, int k, int n_words, uint32_t* words_gmem,
+                        int64_t* words_out, int64_t* total_out, cudaStream_t stream) {
+  const size_t smem = pack_smem_bytes(k, n_words, words_gmem != nullptr);
   cudaError_t err = set_smem((const void*)pack_place_kernel<Sym>, smem);
   if (err != cudaSuccess) return err;
   pack_place_kernel<Sym><<<batch, kPackThreads, smem, stream>>>(
       static_cast<const Sym*>(pat), static_cast<const Sym*>(nb), pat_row, nb_row, n, k, n_words,
-      words_out, total_out);
+      words_gmem, words_out, total_out);
   return cudaGetLastError();
 }
 
@@ -637,42 +688,63 @@ cudaError_t launch_pack(const void* pat, const void* nb, long long pat_row, long
 // K1.  pat, nb: [batch, n] rows of int32 (sym_bytes 4) or int64 (8)
 // elements with unit column stride and the given row strides, staged k per
 // thread (k >= 1); nal_ref_idc is idc[s * idc_row] (int64) or, where idc
-// is null, idc_value.  Outputs: nal_out u8[batch, n_nal], len_out,
-// bits_out i32[batch], ovf_out bool[batch].  A block that needs more shared
-// memory than the card allows fails with the attribute call's error.
+// is null, idc_value.  words_gmem: null, or u32[batch, n_nal / 4] scratch
+// where h264t_emit_words_in_global says so.  Outputs: nal_out u8[batch,
+// n_nal], len_out, bits_out i32[batch], ovf_out bool[batch].  A block that
+// needs more shared memory than the card allows fails with the attribute
+// call's error.
 extern "C" int h264t_emit_fused(const void* pat, const void* nb, int sym_bytes,
                                 long long pat_row, long long nb_row, const int64_t* idc,
                                 long long idc_row, int idc_value, int batch, int n, int k,
                                 int n_nal, int n_rbsp, int cap, int align, int append_tb,
-                                uint8_t* nal_out, int32_t* len_out, int32_t* bits_out,
-                                uint8_t* ovf_out, void* stream) {
+                                uint32_t* words_gmem, uint8_t* nal_out, int32_t* len_out,
+                                int32_t* bits_out, uint8_t* ovf_out, void* stream) {
   if (n_nal < 16 || n_nal % 4 != 0 || k < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (sym_bytes == 8)
     return (int)launch_emit<int64_t>(pat, nb, pat_row, nb_row, idc, idc_row, idc_value, batch, n,
-                                     k, n_nal, n_rbsp, cap, align, append_tb, nal_out, len_out,
-                                     bits_out, ovf_out, st);
+                                     k, n_nal, n_rbsp, cap, align, append_tb, words_gmem, nal_out,
+                                     len_out, bits_out, ovf_out, st);
   if (sym_bytes == 4)
     return (int)launch_emit<int32_t>(pat, nb, pat_row, nb_row, idc, idc_row, idc_value, batch, n,
-                                     k, n_nal, n_rbsp, cap, align, append_tb, nal_out, len_out,
-                                     bits_out, ovf_out, st);
+                                     k, n_nal, n_rbsp, cap, align, append_tb, words_gmem, nal_out,
+                                     len_out, bits_out, ovf_out, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// K2.  pat, nb and k as for K1; outputs words_out i64[batch, n_words]
-// (uint32 values) and total_out i64[batch].
+// 1 where K1 at (sym_bytes, k, n_nal) keeps its RBSP words in global memory
+// on the current device (staging and words exceed a block's shared memory
+// together), 0 where they stay in shared memory, -1 if the runtime cannot
+// say.  Launches nothing.
+extern "C" int h264t_emit_words_in_global(int sym_bytes, int k, int n_nal) {
+  if (sym_bytes != 4 && sym_bytes != 8) return -1;
+  const size_t limit = dynamic_smem_limit(emit_kernel_of(sym_bytes));
+  return limit == 0 ? -1 : emit_smem(k, n_nal, false) > limit ? 1 : 0;
+}
+
+// K2.  pat, nb and k as for K1; words_gmem null, or u32[batch, n_words]
+// scratch where h264t_pack_words_in_global says so; outputs words_out
+// i64[batch, n_words] (uint32 values) and total_out i64[batch].
 extern "C" int h264t_pack_place(const void* pat, const void* nb, int sym_bytes, long long pat_row,
                                 long long nb_row, int batch, int n, int k, int n_words,
-                                int64_t* words_out, int64_t* total_out, void* stream) {
+                                uint32_t* words_gmem, int64_t* words_out, int64_t* total_out,
+                                void* stream) {
   if (k < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (sym_bytes == 8)
-    return (int)launch_pack<int64_t>(pat, nb, pat_row, nb_row, batch, n, k, n_words,
+    return (int)launch_pack<int64_t>(pat, nb, pat_row, nb_row, batch, n, k, n_words, words_gmem,
                                      words_out, total_out, st);
   if (sym_bytes == 4)
-    return (int)launch_pack<int32_t>(pat, nb, pat_row, nb_row, batch, n, k, n_words,
+    return (int)launch_pack<int32_t>(pat, nb, pat_row, nb_row, batch, n, k, n_words, words_gmem,
                                      words_out, total_out, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// As h264t_emit_words_in_global, for K2/K4 at (sym_bytes, k, n_words).
+extern "C" int h264t_pack_words_in_global(int sym_bytes, int k, int n_words) {
+  if (sym_bytes != 4 && sym_bytes != 8) return -1;
+  const size_t limit = dynamic_smem_limit(pack_kernel_of(sym_bytes));
+  return limit == 0 ? -1 : pack_smem_bytes(k, n_words, false) > limit ? 1 : 0;
 }
 
 // K3.  rbsp: [batch, m] bytes with unit column stride and row stride
@@ -704,7 +776,8 @@ extern "C" int h264t_ebsp_items_per_thread(int valid) { return ebsp_items_per_th
 
 extern "C" int h264t_pack_words(const void* pat, const void* nb, int sym_bytes, long long pat_row,
                                 long long nb_row, int batch, int n, int k, int n_words,
-                                int64_t* words_out, int64_t* total_out, void* stream) {
-  return h264t_pack_place(pat, nb, sym_bytes, pat_row, nb_row, batch, n, k, n_words, words_out,
-                          total_out, stream);
+                                uint32_t* words_gmem, int64_t* words_out, int64_t* total_out,
+                                void* stream) {
+  return h264t_pack_place(pat, nb, sym_bytes, pat_row, nb_row, batch, n, k, n_words, words_gmem,
+                          words_out, total_out, stream);
 }

@@ -13,9 +13,10 @@ decoder's skip-MV rule (8.4.1.1); False is the byte-parity mode against the
 C reference.
 
 Grids are [B, h, w] tensors (session dimension first); per-session scalars
-are [B] tensors.  Not ported yet: the partitioned seam layout
-(`emit_partitioned_scroll_frame`, boundary_policy="partitioned") and
-multi-slice frames (`scroll_frame_sliced`).
+are [B] tensors.  Besides the floor and nearest seams, the partitioned
+seam codes the straddled MB row as two 16x8 partitions
+(`emit_partitioned_scroll_frame`), and `scroll_frame_sliced` emits a
+frame as MB-row bands, all bands of all sessions in one back-end call.
 """
 
 from __future__ import annotations
@@ -124,10 +125,9 @@ def mb_fields_traced(cfg: ComposerConfig, offset_px, wp_offsets, wp_valid,
         a_region_end = (cfg.height - offset_px) // 16
     elif boundary_policy == "nearest":
         a_region_end = (cfg.height - offset_px + 8) // 16
-    elif boundary_policy == "partitioned":
-        raise NotImplementedError(
-            "boundary_policy='partitioned' is not ported yet")
     else:
+        # "partitioned" has no per-MB (ref, mv) grid: its seam row carries
+        # two partitions (emit_partitioned_scroll_frame).
         raise ValueError(f"unknown boundary_policy {boundary_policy!r}")
 
     a_ref, a_mv, b_ref, b_mv = region_params(
@@ -327,14 +327,7 @@ def p_frame_symbols(cfg: ComposerConfig, header_patterns, header_nbits,
     else:
         can_skip = torch.zeros((B, n_mbs), dtype=torch.bool, device=ref.device)
     coded = ~can_skip
-
-    # mb_skip_run before each coded MB = distance to the previous coded MB.
-    idx = torch.arange(n_mbs, device=ref.device).expand(B, n_mbs)
-    last_coded_incl = torch.cummax(torch.where(coded, idx, -1), dim=1).values
-    last_coded_before = torch.cat(
-        [torch.full_like(last_coded_incl[:, :1], -1),
-         last_coded_incl[:, :-1]], dim=1)
-    skip_run = idx - last_coded_before - 1
+    skip_run, last_coded_incl = _skip_runs(coded)
 
     zeros = torch.zeros_like(ref_f)
     num_refs = _i64(num_refs, ref)
@@ -367,19 +360,43 @@ def p_frame_symbols(cfg: ComposerConfig, header_patterns, header_nbits,
     mb_nbits = torch.stack([torch.where(coded, cn, 0) for _, cn in cols],
                            dim=2)
 
-    # Trailing skip run after the last coded MB (only if > 0).
+    patterns, nbits = _slice_symbols(header_patterns, header_nbits,
+                                     mb_patterns, mb_nbits, last_coded_incl)
+    return patterns, nbits, _n_rbsp(n_mbs, rbsp_bits_per_mb
+                                    or cfg.rbsp_bits_per_mb)
+
+
+def _skip_runs(coded):
+    """(mb_skip_run before each MB, index of the last coded MB up to each
+    MB or -1) over coded bool[B, n]: the run before a coded MB is its
+    distance to the previous coded MB."""
+    B, n_mbs = coded.shape
+    idx = torch.arange(n_mbs, device=coded.device).expand(B, n_mbs)
+    last_coded_incl = torch.cummax(torch.where(coded, idx, -1), dim=1).values
+    last_coded_before = torch.cat(
+        [torch.full_like(last_coded_incl[:, :1], -1),
+         last_coded_incl[:, :-1]], dim=1)
+    return idx - last_coded_before - 1, last_coded_incl
+
+
+def _slice_symbols(header_patterns, header_nbits, mb_patterns, mb_nbits,
+                   last_coded_incl):
+    """Header, the MBs' slots [B, n_mbs, slots] and the trailing skip run
+    after the last coded MB (only if > 0) as one [B, n] symbol stream."""
+    B, n_mbs = mb_patterns.shape[:2]
     tail_skips = n_mbs - 1 - last_coded_incl[:, -1]
     ts_pat, ts_n = expgolomb.ue(tail_skips)
     ts_n = torch.where(tail_skips > 0, ts_n, 0)
-
     patterns = torch.cat([header_patterns.to(torch.int64),
                           mb_patterns.reshape(B, -1), ts_pat[:, None]], dim=1)
     nbits = torch.cat([header_nbits.to(torch.int64),
                        mb_nbits.reshape(B, -1), ts_n[:, None]], dim=1)
+    return patterns, nbits
 
-    bits_per_mb = rbsp_bits_per_mb or cfg.rbsp_bits_per_mb
-    n_rbsp = (n_mbs * bits_per_mb // 8 + 96 + 3) // 4 * 4
-    return patterns, nbits, n_rbsp
+
+def _n_rbsp(n_mbs: int, bits_per_mb: int) -> int:
+    """RBSP working budget in bytes for n_mbs MBs (a multiple of 4)."""
+    return (n_mbs * bits_per_mb // 8 + 96 + 3) // 4 * 4
 
 
 def finish_slice(patterns, nbits, n_rbsp: int, nal_ref_idc,
@@ -434,6 +451,124 @@ def finish_slice(patterns, nbits, n_rbsp: int, nal_ref_idc,
             overflow)
 
 
+def emit_partitioned_scroll_frame(cfg: ComposerConfig, header_patterns,
+                                  header_nbits, offset_px,
+                                  a_ref, a_mv_px, b_ref, b_mv_px,
+                                  num_refs, nal_ref_idc, *,
+                                  enable_pskip: bool,
+                                  ebsp_exact: bool = False):
+    """Scroll P-frames with an 8 px-granular A/B seam.
+
+    The reference floors the A/B boundary to MB rows while content moves
+    per pixel, so up to 15 pixel rows at the seam fetch past their atlas.
+    Here the straddled MB row is coded P_L0_L0_16x8: two 16x8 partitions
+    with separate (ref, mv), the finest legal split across a seam whose
+    two regions reference different pictures.  The row above is uniformly
+    region A, so part 0's mvd is 0 except at the frame's top-left MB, and
+    part 1's is b_mv at column 0 only.  Four symbol slots per MB (uniform
+    MBs use three).
+
+    Per-session [B] values: offset_px, the region parameters (from
+    region_params), num_refs, nal_ref_idc.  Returns (nal u8[B, n_nal],
+    nal_len i32[B], rbsp_bits i32[B], overflow bool[B]).
+    """
+    patterns, nbits, n_rbsp = partitioned_frame_symbols(
+        cfg, header_patterns, header_nbits, offset_px, a_ref, a_mv_px,
+        b_ref, b_mv_px, num_refs, enable_pskip=enable_pskip)
+    return finish_slice(patterns, nbits, n_rbsp, nal_ref_idc,
+                        ebsp_exact=ebsp_exact)
+
+
+def partitioned_frame_symbols(cfg: ComposerConfig, header_patterns,
+                              header_nbits, offset_px, a_ref, a_mv_px,
+                              b_ref, b_mv_px, num_refs, *,
+                              enable_pskip: bool):
+    """emit_partitioned_scroll_frame before its back end: (patterns
+    int64[B, n], nbits int64[B, n], n_rbsp)."""
+    h, w = cfg.mb_height, cfg.mb_width
+    n_mbs = h * w
+    # Same 32-bit merged-slot constraint as the narrow layout: the seam and
+    # uniform A-slots both carry skip_run||mb_type(||ref).
+    if n_mbs > 4095:
+        raise ValueError(
+            f"emit_partitioned_scroll_frame: {n_mbs} MBs > 4095 — merged "
+            "skip-run slot would overflow 32 bits; use slice bands")
+    B = header_patterns.shape[0]
+    dev = header_patterns.device
+
+    def per_session(x):                     # [B, 1, 1] for the grids
+        return _i64(x, header_patterns).reshape(-1).expand(B)[:, None, None]
+
+    a_ref, b_ref = per_session(a_ref), per_session(b_ref)
+    a_mvq, b_mvq = per_session(a_mv_px) * 4, per_session(b_mv_px) * 4
+    rows = torch.arange(h, device=dev)[None, :, None]
+    cols = torch.arange(w, device=dev)[None, None, :]
+    cov = torch.clamp(cfg.height - per_session(offset_px) - 16 * rows, 0, 16)
+    c_r = ((cov + 4) // 8) * 8             # rounded A-coverage: 0 | 8 | 16
+    seam = (c_r == 8).expand(B, h, w)
+    in_full_a = (c_r == 16).expand(B, h, w)
+
+    ref_full = torch.where(in_full_a, a_ref, b_ref)
+    mv_full = torch.where(in_full_a, a_mvq, b_mvq)
+    zeros = torch.zeros((B, h, w), dtype=torch.int64, device=dev)
+
+    # Role grids: a seam MB's top-right 4x4 (as-left role) is region A;
+    # its bottom-left/bottom-right (as-above/above-left roles) region B,
+    # which equals the full-value grid.
+    ref_a_role = torch.where(seam, a_ref, ref_full)
+    mv_a_role = torch.where(seam, a_mvq, mv_full)
+    pred_x, pred_y = _pred_stencil_roles(
+        ref_a_role, zeros, mv_a_role, ref_full, zeros, mv_full,
+        ref_full, zeros, mv_full, ref_full)
+    mvd_y = (mv_full - pred_y).reshape(B, n_mbs)
+    mvd_x = (-pred_x).reshape(B, n_mbs)
+
+    if enable_pskip:
+        skip_x, skip_y = pskip_mv_grid(ref_full, zeros, mv_full)
+        can_skip = ((ref_full == 0) & (skip_x == 0) & (mv_full == skip_y)
+                    & ~seam)
+    else:
+        can_skip = torch.zeros((B, h, w), dtype=torch.bool, device=dev)
+    coded = (~can_skip).reshape(B, n_mbs)
+    skip_run, last_coded_incl = _skip_runs(coded)
+
+    num_refs = _i64(num_refs, header_patterns).reshape(-1, 1)
+    z = zeros.reshape(B, n_mbs)
+    merge = bitpack.merge_symbol_pairs
+    sr = expgolomb.ue(skip_run)
+    cbp = expgolomb.ue(z)
+    # Uniform-MB slots: [sr||mb_type(0)||ref, mvd_x, mvd_y||cbp, 0].
+    u_a = merge(*merge(*sr, *expgolomb.ue(z)),
+                *expgolomb.te(ref_full.reshape(B, n_mbs), num_refs))
+    u_b = expgolomb.se(mvd_x)
+    u_c = merge(*expgolomb.se(mvd_y), *cbp)
+    # Seam-MB slots: [sr||mb_type(1), ref0||ref1||mvd0x(0), mvd0y,
+    #                 mvd1x(0)||mvd1y||cbp(0)].
+    se0 = expgolomb.se(z)
+    s_a = merge(*sr, *expgolomb.ue(z + 1))
+    s_b = merge(*merge(*expgolomb.te(a_ref.reshape(B, 1).expand(B, n_mbs),
+                                     num_refs),
+                       *expgolomb.te(b_ref.reshape(B, 1).expand(B, n_mbs),
+                                     num_refs)),
+                *se0)
+    mvd0y = torch.where((rows == 0) & (cols == 0), a_mvq, zeros)
+    mvd1y = torch.where(cols == 0, b_mvq, zeros)
+    s_c = expgolomb.se(mvd0y.reshape(B, n_mbs))
+    s_d = merge(*merge(*se0, *expgolomb.se(mvd1y.reshape(B, n_mbs))), *cbp)
+
+    seam_f = seam.reshape(B, n_mbs)
+    slots = [(u_a, s_a), (u_b, s_b), (u_c, s_c), ((z, z), s_d)]
+    mb_patterns = torch.stack(
+        [torch.where(coded, torch.where(seam_f, s[0], u[0]), 0)
+         for u, s in slots], dim=2)
+    mb_nbits = torch.stack(
+        [torch.where(coded, torch.where(seam_f, s[1], u[1]), 0)
+         for u, s in slots], dim=2)
+    patterns, nbits = _slice_symbols(header_patterns, header_nbits,
+                                     mb_patterns, mb_nbits, last_coded_incl)
+    return patterns, nbits, _n_rbsp(n_mbs, cfg.rbsp_bits_per_mb)
+
+
 def _header(cfg, frame_num, is_reference, long_term_idx, num_waypoints,
             wp_ltidx, wp_valid):
     fn = torch.as_tensor(frame_num).to(torch.int64) % (1 << cfg.log2_max_frame_num)
@@ -471,6 +606,14 @@ def unified_frame_symbols(cfg: ComposerConfig, frame_num, offset_px,
     long_term_idx = torch.where(is_waypoint, 2 + num_waypoints, -1)
     hp, hn = _header(cfg, frame_num, is_waypoint, long_term_idx,
                      num_waypoints, wp_ltidx, wp_valid)
+    nal_ref_idc = torch.where(is_waypoint, 2, 0)
+    if boundary_policy == "partitioned":
+        patterns, nbits, n_rbsp = partitioned_frame_symbols(
+            cfg, hp, hn, offset_px,
+            *region_params(cfg, offset_px, wp_offsets, wp_valid,
+                           num_waypoints, is_waypoint),
+            num_refs=2 + num_waypoints, enable_pskip=enable_pskip)
+        return patterns, nbits, n_rbsp, nal_ref_idc
     ref, mv_y = mb_fields_traced(cfg, offset_px, wp_offsets, wp_valid,
                                  num_waypoints, is_waypoint,
                                  boundary_policy=boundary_policy)
@@ -478,7 +621,7 @@ def unified_frame_symbols(cfg: ComposerConfig, frame_num, offset_px,
         cfg, hp, hn, ref, torch.zeros_like(mv_y), mv_y,
         num_refs=2 + num_waypoints, enable_pskip=enable_pskip,
         compact_x=True, rbsp_bits_per_mb=SCROLL_FAST_RBSP_BITS_PER_MB)
-    return patterns, nbits, n_rbsp, torch.where(is_waypoint, 2, 0)
+    return patterns, nbits, n_rbsp, nal_ref_idc
 
 
 def needs_waypoint(offset_px, wp_offsets, wp_valid, num_waypoints):
@@ -499,12 +642,20 @@ def _scroll_or_waypoint(cfg, frame_num, offset_px, wp_offsets, wp_ltidx,
     hp, hn = _header(cfg, frame_num, waypoint,
                      2 + num_waypoints if waypoint else -1,
                      num_waypoints, wp_ltidx, wp_valid)
+    nal_ref_idc = 2 if waypoint else 0
+    if boundary_policy == "partitioned":
+        return emit_partitioned_scroll_frame(
+            cfg, hp, hn, offset_px,
+            *region_params(cfg, offset_px, wp_offsets, wp_valid,
+                           num_waypoints,
+                           torch.as_tensor(waypoint, device=wp_offsets.device)),
+            num_refs=2 + num_waypoints, nal_ref_idc=nal_ref_idc,
+            enable_pskip=enable_pskip, ebsp_exact=ebsp_exact)
     ref, mv_y = mb_fields(cfg, offset_px, wp_offsets, wp_valid,
                           num_waypoints, is_waypoint_frame=waypoint,
                           boundary_policy=boundary_policy)
     return emit_p_frame(cfg, hp, hn, ref, torch.zeros_like(mv_y), mv_y,
-                        num_refs=2 + num_waypoints,
-                        nal_ref_idc=2 if waypoint else 0,
+                        num_refs=2 + num_waypoints, nal_ref_idc=nal_ref_idc,
                         enable_pskip=enable_pskip, ebsp_exact=ebsp_exact,
                         compact_x=True,
                         rbsp_bits_per_mb=0 if ebsp_exact
@@ -534,3 +685,69 @@ def waypoint_frame(cfg: ComposerConfig, frame_num, offset_px,
                                waypoint=True, enable_pskip=enable_pskip,
                                boundary_policy=boundary_policy,
                                ebsp_exact=ebsp_exact)
+
+
+def scroll_frame_sliced(cfg: ComposerConfig, frame_num, offset_px,
+                        wp_offsets, wp_ltidx, wp_valid, num_waypoints,
+                        *, rows_per_slice: int,
+                        enable_pskip: bool = False,
+                        boundary_policy: str = "floor",
+                        ebsp_exact: bool = False):
+    """One scroll frame per session emitted as K = mb_height /
+    rows_per_slice MB-row-aligned slices (first_mb_in_slice = band start):
+    bands decode in parallel and packet loss stays contained.  The B*K
+    bands are the rows of ONE back-end call (one K1 launch per frame).
+    Returns (nals u8[B, K, n], lens i32[B, K], bits i32[B, K],
+    overflow bool[B, K])."""
+    patterns, nbits, n_rbsp = sliced_frame_symbols(
+        cfg, frame_num, offset_px, wp_offsets, wp_ltidx, wp_valid,
+        num_waypoints, rows_per_slice=rows_per_slice,
+        enable_pskip=enable_pskip, boundary_policy=boundary_policy,
+        ebsp_exact=ebsp_exact)
+    out = finish_slice(patterns, nbits, n_rbsp, 0, ebsp_exact=ebsp_exact)
+    K = cfg.mb_height // rows_per_slice
+    return tuple(x.reshape((-1, K) + x.shape[1:]) for x in out)
+
+
+def sliced_frame_symbols(cfg: ComposerConfig, frame_num, offset_px,
+                         wp_offsets, wp_ltidx, wp_valid, num_waypoints,
+                         *, rows_per_slice: int, enable_pskip: bool = False,
+                         boundary_policy: str = "floor",
+                         ebsp_exact: bool = False):
+    """scroll_frame_sliced before its back end: (patterns int64[B*K, n],
+    nbits int64[B*K, n], n_rbsp), band k of session b in row b*K + k.
+
+    H.264 does not predict across slice boundaries, and the stencils shift
+    within each grid, so the [B, h, w] fields reshaped to [B*K, rows, w]
+    predict band-locally, exactly."""
+    if cfg.mb_height % rows_per_slice:
+        raise ValueError("mb_height must divide by rows_per_slice")
+    K = cfg.mb_height // rows_per_slice
+    num_waypoints = _i64(num_waypoints, wp_offsets)
+    ref, mv_y = mb_fields(cfg, offset_px, wp_offsets, wp_valid,
+                          num_waypoints, is_waypoint_frame=False,
+                          boundary_policy=boundary_policy)
+    B = ref.shape[0]
+    dev = wp_offsets.device
+
+    def bands(a):
+        return a.reshape(B * K, rows_per_slice, cfg.mb_width)
+
+    def each_band(a):
+        return torch.as_tensor(a, device=dev).repeat_interleave(K, dim=0)
+
+    fn = (torch.as_tensor(frame_num, device=dev).to(torch.int64)
+          % (1 << cfg.log2_max_frame_num))
+    first_mb = (torch.arange(K, device=dev).repeat(B)
+                * (rows_per_slice * cfg.mb_width))
+    hp, hn = p_slice_header_symbols(
+        cfg, each_band(fn), each_band(fn * 2), is_reference=False,
+        long_term_idx=-1, num_waypoints=each_band(num_waypoints),
+        wp_long_term_idx=each_band(wp_ltidx), wp_valid=each_band(wp_valid),
+        first_mb=first_mb)
+    mv_y = bands(mv_y)
+    return p_frame_symbols(
+        cfg, hp, hn, bands(ref), torch.zeros_like(mv_y), mv_y,
+        num_refs=2 + each_band(num_waypoints), enable_pskip=enable_pskip,
+        compact_x=True,
+        rbsp_bits_per_mb=0 if ebsp_exact else SCROLL_FAST_RBSP_BITS_PER_MB)

@@ -66,10 +66,16 @@ def launch_kernel(pat, nb, num_words: int, kernel=_kernels.PACK_PLACE):
     total = torch.empty((B,), dtype=torch.int64, device=dev)
     if B:
         with torch.cuda.device(dev):
+            k = items_per_thread(n)
+            # Large frames: the words packed in global scratch (see the .cu).
+            scratch = (torch.empty((B, num_words), dtype=torch.int32,
+                                   device=dev)
+                       if _kernels.pack_words_in_global(pat.element_size(), k,
+                                                        num_words) else None)
             kernel.launch(
                 pat.data_ptr(), nb.data_ptr(), pat.element_size(),
-                row_stride(pat), row_stride(nb), B, n, items_per_thread(n),
-                num_words,
+                row_stride(pat), row_stride(nb), B, n, k, num_words,
+                None if scratch is None else scratch.data_ptr(),
                 words.data_ptr(), total.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     return words, total

@@ -172,12 +172,18 @@ def emit_nal_fused_batch(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
     overflow = torch.empty((B,), dtype=torch.bool, device=dev)
     if B:
         with torch.cuda.device(dev):
+            k = items_per_thread(n)
+            # Large frames: the RBSP words in global scratch (see the .cu).
+            scratch = (torch.empty((B, n_nal // 4), dtype=torch.int32,
+                                   device=dev)
+                       if _kernels.emit_words_in_global(
+                           patterns.element_size(), k, n_nal) else None)
             _kernels.EMIT_FUSED.launch(
                 patterns.data_ptr(), nbits.data_ptr(), patterns.element_size(),
                 row_stride(patterns), row_stride(nbits),
                 None if idc is None else idc.data_ptr(), idc_row, idc_value,
-                B, n, items_per_thread(n), n_nal, n_rbsp, cap, int(align),
-                int(append_tb),
+                B, n, k, n_nal, n_rbsp, cap, int(align), int(append_tb),
+                None if scratch is None else scratch.data_ptr(),
                 nal.data_ptr(), meta[0].data_ptr(), meta[1].data_ptr(),
                 overflow.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return nal, meta[0], meta[1], overflow

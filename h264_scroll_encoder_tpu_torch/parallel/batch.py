@@ -7,10 +7,12 @@ axis is data parallelism over independent UI sessions.  Per-session state
 dimension on the device, and each step composes one P-frame per session.
 
 `make_batched_splice_step_rows` is the rows splice step (the serving hot
-path): a pre-encoded donor rect composed into each session's P-frame.
+path): a pre-encoded donor rect composed into each session's P-frame;
+`make_batched_hint_step` composes hint frames (static chrome plus motion
+regions); `compact_batch_nal` is egress, the sessions' valid bytes in one
+buffer.
 
-Not ported yet: the sharded step, the hint step, the dense splice step
-and `compact_batch_nal`.
+Not ported yet: the sharded step and the dense splice step.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 
 from .. import _kernels
 from ..config import ComposerConfig, MAX_WAYPOINTS
-from ..models import scroll, splice_device
+from ..models import hints, scroll, splice_device
 from ..models.splice_device import donor_arrays_from_numpy  # noqa: F401
 
 _FIELDS = ("frame_num", "wp_offsets", "wp_ltidx", "wp_valid", "wp_count")
@@ -166,6 +168,34 @@ def make_batched_splice_step_rows(cfg: ComposerConfig, rect_mb_x: int,
     return step
 
 
+def make_batched_hint_step(cfg: ComposerConfig, *, enable_pskip: bool = True,
+                           compact_x: bool = False, device="cuda"):
+    """The hint-frame step over a batch of sessions on `device` (the card
+    unless the caller asks for the CPU):
+
+        step(frame_num, ref, mv_x, mv_y, wp_count, wp_ltidx, wp_valid)
+            -> (nal u8[B, n_nal], nal_len i32[B], rbsp_bits i32[B],
+                overflow bool[B])
+
+    with frame_num and wp_count int[B], field grids int[B, H, W] (from
+    models/hints.hint_fields or any per-session composition logic) and the
+    waypoint registries [B, MAX_WAYPOINTS], which set each session's
+    reference list (2 + wp_count entries).  Static chrome collapses to
+    P_Skip runs.  compact_x packs each MB into two symbol slots instead of
+    three, valid whenever every mv_x is zero (the vertical-scroll serving
+    shape) and byte-identical to the generic layout there.  Inputs may be
+    numpy arrays or tensors; they are placed on `device`."""
+    device = _kernels.resolve_device(device)
+
+    def step(frame_num, ref, mv_x, mv_y, wp_count, wp_ltidx, wp_valid):
+        t = functools.partial(torch.as_tensor, device=device)
+        return hints.hint_frame(cfg, t(frame_num), t(ref), t(mv_x), t(mv_y),
+                                t(wp_count), t(wp_ltidx), t(wp_valid),
+                                enable_pskip=enable_pskip,
+                                compact_x=compact_x)
+    return step
+
+
 def _checksum(nal):
     """Sum of a step's NAL bytes per session, mod 2**32."""
     return nal.to(torch.int64).sum(dim=-1) & 0xFFFFFFFF
@@ -201,3 +231,30 @@ def run_frames(cfg: ComposerConfig, state: SessionState, offsets,
         outs.append((nal_len, emitted_wp, rbsp_bits, _checksum(nal),
                      overflow))
     return state, tuple(torch.stack(x) for x in zip(*outs))
+
+
+def compact_batch_nal(nal, nal_len, cap: int):
+    """Concatenate a batch's valid NAL bytes into one dense buffer, so
+    egress is one contiguous copy per step instead of B strided copies of
+    mostly-padding rows (the reference delivers its bytes too,
+    src/composer.c:274-291).
+
+    nal u8[B, N] with nal_len int[B] valid bytes each -> (packed u8[cap],
+    total i32, overflow bool): packed[:total] is session 0's bytes, then
+    session 1's, ...; bytes past `total` are zero.  overflow means
+    total > cap: packed then holds the first `cap` bytes and the caller
+    retries with a larger cap (nothing is truncated silently).
+
+    An exclusive cumsum of the lengths gives each session's offset; each
+    output byte finds its session by a binary search over the inclusive
+    offsets and gathers its byte, so bytes past a session's length are
+    never read."""
+    B, N = nal.shape
+    lens = nal_len.to(torch.int64)
+    incl = torch.cumsum(lens, dim=0)
+    total = incl[-1]
+    pos = torch.arange(cap, device=nal.device)
+    session = torch.searchsorted(incl, pos, right=True).clamp(max=B - 1)
+    col = (pos - (incl - lens)[session]).clamp(0, N - 1)
+    packed = torch.where(pos < total, nal[session, col], 0).to(torch.uint8)
+    return packed, total.to(torch.int32), total > cap

@@ -1,11 +1,15 @@
-"""P slice headers as fixed-shape masked symbol streams, batched.
+"""Slice headers: P headers as batched fixed-shape symbol streams (device)
+and the host writers of P, IDR and non-IDR I headers.
 
-Port of `p_slice_header_symbols` in h264_scroll_encoder_tpu
-syntax/slice_headers.py (byte-parity target: h264_write_p_slice_header
-and h264_write_p_slice_header_waypoint of the C reference).  The base P
+Port of h264_scroll_encoder_tpu/syntax/slice_headers.py.  Byte-parity
+targets in the C reference: h264_write_p_slice_header and
+h264_write_p_slice_header_waypoint (src/h264_writer.c:455-539),
+h264_write_idr_slice_header and h264_write_non_idr_i_slice_header
+(experiments/scroll-encoder/src/h264_encoder.c:622-715).  The base P
 header is the waypoint variant specialized to zero waypoints and no MMCO
 self-marking, so one branchless stream covers both: every optional field
-has a fixed slot whose nbits is 0 when absent.
+has a fixed slot whose nbits is 0 when absent.  The host writers are
+copied unchanged (they have no framework dependency).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 
 from ..config import ComposerConfig, MAX_WAYPOINTS, SLICE_TYPE_P
 from ..ops import expgolomb
+from ..ops.bitio import BitWriter
 from ..ops.bitpack import U32
 
 # Slot budget for the P slice header symbol stream (incl. the two
@@ -124,3 +129,98 @@ def p_slice_header_symbols(cfg: ComposerConfig, frame_num, poc_lsb,
     nbits = torch.stack(bits, dim=1)
     assert patterns.shape[1] == P_HEADER_SLOTS, patterns.shape
     return patterns, nbits
+
+
+def write_p_slice_header(bw: BitWriter, cfg: ComposerConfig, frame_num: int,
+                         *, is_reference: bool = False,
+                         long_term_idx: int = -1, num_waypoints: int = 0,
+                         wp_long_term_idx=(),
+                         slice_qp_delta: int = 0,
+                         prev_ref_abs_diff: int | None = None) -> None:
+    """Host twin of p_slice_header_symbols (bit-identical output).
+
+    prev_ref_abs_diff: when not None, the active reference list leads
+    with a SHORT-TERM picture — reordering idc 0 with
+    abs_diff_pic_num_minus1 = prev_ref_abs_diff - 1 — ahead of the
+    long-term atlases (successive-donor splicing: the dynamic rect of
+    frame N references composed frame N-1)."""
+    bw.write_ue(0)
+    bw.write_ue(SLICE_TYPE_P)
+    bw.write_ue(0)
+    bw.write_bits(frame_num & ((1 << cfg.log2_max_frame_num) - 1),
+                  cfg.log2_max_frame_num)
+    if cfg.pic_order_cnt_type == 0:
+        bw.write_bits((frame_num * 2)
+                      & ((1 << cfg.log2_max_pic_order_cnt_lsb) - 1),
+                      cfg.log2_max_pic_order_cnt_lsb)
+    n_st = 1 if prev_ref_abs_diff is not None else 0
+    bw.write_bit(1)                       # num_ref_idx_active_override
+    bw.write_ue(num_waypoints + 1 + n_st)  # [st?] + 2 atlases + waypoints
+    bw.write_bit(1)                       # ref_pic_list_modification
+    if n_st:
+        bw.write_ue(0)                    # idc 0: short-term, pic_num down
+        bw.write_ue(prev_ref_abs_diff - 1)
+    bw.write_ue(2)
+    bw.write_ue(0)
+    bw.write_ue(2)
+    bw.write_ue(1)
+    for i in range(num_waypoints):
+        bw.write_ue(2)
+        bw.write_ue(wp_long_term_idx[i])
+    bw.write_ue(3)
+    if is_reference:
+        if long_term_idx >= 0:
+            bw.write_bit(1)
+            bw.write_ue(4)
+            bw.write_ue(long_term_idx + 1)
+            bw.write_ue(6)
+            bw.write_ue(long_term_idx)
+            bw.write_ue(0)
+        else:
+            bw.write_bit(0)
+    bw.write_se(slice_qp_delta)
+    if cfg.deblocking_filter_control_present_flag:
+        bw.write_ue(1)
+
+
+# ---------------------------------------------------------------------------
+# Host-side I-slice headers (session setup: I_PCM atlas frames).
+# ---------------------------------------------------------------------------
+
+def write_idr_slice_header(bw: BitWriter, cfg: ComposerConfig,
+                           long_term_reference_flag: int = 1) -> None:
+    """IDR I-slice header, frame_num=0, marks long-term atlas slot 0
+    (h264_encoder.c:622-662)."""
+    bw.write_ue(0)                        # first_mb_in_slice
+    bw.write_ue(7)                        # slice_type I_ALL
+    bw.write_ue(0)                        # pps_id
+    bw.write_bits(0, cfg.log2_max_frame_num)
+    bw.write_ue(cfg.idr_pic_id)
+    if cfg.pic_order_cnt_type == 0:
+        bw.write_bits(0, cfg.log2_max_pic_order_cnt_lsb)
+    bw.write_bit(0)                       # no_output_of_prior_pics_flag
+    bw.write_bit(long_term_reference_flag)
+    bw.write_se(0)                        # slice_qp_delta
+    if cfg.deblocking_filter_control_present_flag:
+        bw.write_ue(1)                    # disable deblocking
+
+
+def write_non_idr_i_slice_header(bw: BitWriter, cfg: ComposerConfig,
+                                 frame_num: int) -> None:
+    """Non-IDR I-slice header with MMCO 4/6/0 marking long-term idx 1
+    (h264_encoder.c:667-715)."""
+    bw.write_ue(0)
+    bw.write_ue(7)                        # I_ALL
+    bw.write_ue(0)
+    bw.write_bits(frame_num, cfg.log2_max_frame_num)
+    if cfg.pic_order_cnt_type == 0:
+        bw.write_bits(frame_num * 2, cfg.log2_max_pic_order_cnt_lsb)
+    bw.write_bit(1)                       # adaptive_ref_pic_marking_mode_flag
+    bw.write_ue(4)                        # MMCO 4
+    bw.write_ue(2)                        # max_long_term_frame_idx_plus1 = 2
+    bw.write_ue(6)                        # MMCO 6
+    bw.write_ue(1)                        # long_term_frame_idx = 1
+    bw.write_ue(0)                        # MMCO 0 end
+    bw.write_se(0)
+    if cfg.deblocking_filter_control_present_flag:
+        bw.write_ue(1)

@@ -16,8 +16,11 @@ import pytest
 import torch
 
 from h264_scroll_encoder_tpu_torch import _kernels, cases
-from h264_scroll_encoder_tpu_torch.config import ComposerConfig
+from h264_scroll_encoder_tpu_torch.config import ComposerConfig, MAX_WAYPOINTS
+from h264_scroll_encoder_tpu_torch.models import scroll
 from h264_scroll_encoder_tpu_torch.ops import bitpack_flat, ebsp_flat, emit_fused
+from h264_scroll_encoder_tpu_torch.parallel import batch
+from h264_scroll_encoder_tpu_torch.syntax import slice_headers
 
 pytestmark = pytest.mark.cuda
 
@@ -212,3 +215,138 @@ def test_wrappers_launch_only_their_kernel(dev):
                lambda: ebsp_flat.rbsp_to_nal_batch(rb, rb_len, 0x01, 8224,
                                                    cases.CAP)):
         assert cases.compute_ops(fn) == []
+
+
+# ---------------------------------------------------------------------------
+# The session slice's shapes: partitioned frames, sliced bands, large frames.
+# ---------------------------------------------------------------------------
+
+def _registry_zeros(B, dev):
+    z = torch.zeros((B, MAX_WAYPOINTS), dtype=torch.int64, device=dev)
+    return z, z, z.bool(), torch.zeros(B, dtype=torch.int64, device=dev)
+
+
+def _k1_same(pat, nb, idc, n_rbsp):
+    args = (pat, nb, idc, n_rbsp, cases.CAP)
+    before = _kernels.EMIT_FUSED.launches
+    got = emit_fused.emit_nal_fused_batch(*args, append_tb=True)
+    assert _kernels.EMIT_FUSED.launches == before + 1
+    _same(got, emit_fused.emit_nal_fused_plain(*args, append_tb=True))
+    return got
+
+
+@pytest.mark.parametrize("waypoint", [False, True])
+def test_emit_kernel_on_partitioned_720p(dev, waypoint):
+    """K1 on 720p partitioned symbols (4 slots per MB: 14,436 symbols, two
+    12,288-symbol chunks), the 16x8 seam rows of offsets 9, 40 and 71 in
+    the second chunk."""
+    cfg = ComposerConfig(1280, 720)
+    offs = torch.as_tensor(cases.SESSION_POLICY_OFFSETS[:8], device=dev)
+    wp = torch.full((8,), waypoint, device=dev)
+    pat, nb, n_rbsp, idc = scroll.unified_frame_symbols(
+        cfg, torch.full((8,), 7, device=dev), offs, *_registry_zeros(8, dev),
+        wp, boundary_policy="partitioned")
+    assert pat.shape[1] > 12288
+    assert not bool(_k1_same(pat, nb, idc, n_rbsp)[3].any())
+
+
+@pytest.mark.parametrize("rows", [3, 9, 15])
+def test_emit_kernel_on_sliced_bands(dev, rows):
+    """K1 on one 720p sliced frame per session: all bands of 4 sessions in
+    one launch, equal to the plain version, and the frame function equal
+    to its CPU run."""
+    cfg = ComposerConfig(1280, 720)
+    offs = [100, 348, 496, 7]
+    outs = []
+    for device in ("cpu", dev):
+        args = (torch.arange(4, device=device) + 2,
+                torch.as_tensor(offs, device=device),
+                *_registry_zeros(4, device))
+        pat, nb, n_rbsp = scroll.sliced_frame_symbols(cfg, *args,
+                                                      rows_per_slice=rows)
+        if device != "cpu":
+            assert pat.shape[0] == 4 * 45 // rows
+            _k1_same(pat, nb, 0, n_rbsp)
+        before = _kernels.EMIT_FUSED.launches
+        outs.append(scroll.scroll_frame_sliced(cfg, *args, rows_per_slice=rows))
+    assert _kernels.EMIT_FUSED.launches == before + 1
+    torch.cuda.synchronize()
+    for c, g in zip(*outs):
+        assert torch.equal(g.cpu(), c)
+
+
+def _hint_symbols(cfg, dev, specs):
+    from h264_scroll_encoder_tpu_torch.models import hints, splice
+    ref, mvx, mvy = hints.hint_fields(cfg, splice.FrameHints(
+        motion_regions=tuple(splice.MotionRegion(*s) for s in specs)), dev)
+    hp, hn = slice_headers.p_slice_header_symbols(
+        cfg, torch.tensor([3], device=dev), torch.tensor([6], device=dev),
+        False, -1, 0, *_registry_zeros(1, dev)[1:3])
+    return scroll.p_frame_symbols(cfg, hp, hn, ref[None], mvx[None],
+                                  mvy[None], 2, enable_pskip=True)
+
+
+@pytest.mark.parametrize("frame", ["hint_1080p", "scroll_4k", "hint_4k",
+                                   "exact_4k", "exact_4096x2160"])
+def test_kernels_on_large_frames(dev, frame):
+    """K1 and K2 on the large buffers against their plain versions: the
+    1080p hint frame (n_rbsp 32,736 B) and the 4K scroll fast path
+    (64,896 B) keep their words in shared memory, the 4K generic budget
+    (129,696 B: 259,456 B of shared memory by the in-block plan) takes
+    K1's global scratch; K2 on the 4K exact retry (129,696 B, in shared
+    memory with 4,256 B to spare) and at 4096x2160 (138,336 B, global)."""
+    w, h = {"hint_1080p": (1920, 1088), "exact_4096x2160": (4096, 2160)}.get(
+        frame, (3840, 2160))
+    cfg = ComposerConfig(w, h)
+    if frame.startswith("hint"):
+        pat, nb, n_rbsp = _hint_symbols(cfg, dev, [
+            (0, 0, cfg.mb_width, 12, 0, 0, 40), (20, 40, 60, 60, 1, 3, -16)])
+    else:
+        pat, nb, n_rbsp, _ = scroll.unified_frame_symbols(
+            cfg, torch.tensor([2], device=dev), torch.tensor([48], device=dev),
+            *_registry_zeros(1, dev), torch.tensor([False], device=dev),
+            enable_pskip=True)
+        if frame.startswith("exact"):
+            n_rbsp = (cfg.total_mbs * cfg.rbsp_bits_per_mb // 8 + 96 + 3) // 4 * 4
+    k = emit_fused.items_per_thread(pat.shape[1])
+    with torch.cuda.device(dev):
+        if frame.startswith("exact"):
+            n_words = (n_rbsp + 3) // 4
+            assert (_kernels.pack_words_in_global(8, k, n_words)
+                    == (frame == "exact_4096x2160"))
+            args = (pat, nb, n_words)
+            _same(bitpack_flat.pack_words_place_batch(*args),
+                  bitpack_flat.pack_words_place_plain(*args))
+            return
+        n_nal = emit_fused.nal_bytes(n_rbsp, cases.CAP)
+        assert _kernels.emit_words_in_global(8, k, n_nal) == (frame == "hint_4k")
+    assert not bool(_k1_same(pat, nb, 0, n_rbsp)[3].any())
+
+
+def test_splice_path_keeps_words_in_shared_memory(dev):
+    """The 720p splice and scroll paths are unchanged by the large-frame
+    scratch: their words stay in shared memory."""
+    with torch.cuda.device(dev):
+        assert not _kernels.emit_words_in_global(8, 19, 8224)
+        assert not _kernels.emit_words_in_global(4, 24, 14528)
+        assert not _kernels.pack_words_in_global(8, 19, 2048)
+
+
+def test_session_golden_on_card(dev, tmp_path):
+    """Every session stream and the batched hint step on the card equal the
+    JAX package's digests (golden/session_720p.json)."""
+    want = json.loads(cases.SESSION_GOLDEN_PATH.read_text())
+    assert cases.port_session_golden(dev, tmp_path) == want
+
+
+def test_compact_batch_nal_on_card(dev):
+    rng = np.random.default_rng(5)
+    nal = rng.integers(0, 256, (40, 333), dtype=np.uint8)
+    lens = rng.integers(0, 334, 40)
+    for cap in (int(lens.sum()), int(lens.sum()) - 1, 64):
+        got = batch.compact_batch_nal(torch.as_tensor(nal, device=dev),
+                                      torch.as_tensor(lens, device=dev), cap)
+        want = batch.compact_batch_nal(torch.as_tensor(nal),
+                                       torch.as_tensor(lens), cap)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)

@@ -12,23 +12,40 @@ representative donors of `cases.splice_donor_payload`: one frame per
 session through the compact program, the static-chrome program and the
 compact program's `ebsp_exact` retry.
 
-Regenerate both files with `python tests/test_torch_golden.py` (the tests
-below fail whenever their contents differ from the JAX package's output).
+h264_scroll_encoder_tpu_torch/golden/session_720p.json holds the sha256
+and size of each stream of `cases.session_streams` — a 1280x720
+ComposerSession over the scroll-encoder schedule, sliced, hint and spliced
+frames; partitioned and nearest sessions; the scroll-encoder and composer
+CLIs' files; a 1920x1088 hint frame and a 3840x2160 scroll frame — and the
+digest of the batched hint step at B = 256 (`cases.hint_step_inputs`).
+The partitioned, nearest and large-frame entries are held against the JAX
+package in tests/test_torch_hints.py.
+
+Regenerate all three files with `python tests/test_torch_golden.py` (the
+tests fail whenever their contents differ from the JAX package's output).
 """
 
+import contextlib
 import functools
 import json
+import types
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+import pytest
+
+from h264_scroll_encoder_tpu import cli as jax_cli
 from h264_scroll_encoder_tpu.config import ComposerConfig as JaxConfig
 from h264_scroll_encoder_tpu.config import MAX_WAYPOINTS
+from h264_scroll_encoder_tpu.models import ipcm as jax_ipcm
 from h264_scroll_encoder_tpu.models import mb_transcode as jax_mbt
 from h264_scroll_encoder_tpu.models import scroll as jax_scroll
 from h264_scroll_encoder_tpu.models import splice_device as jax_sd
+from h264_scroll_encoder_tpu.models.splice import FrameHints, MotionRegion
+from h264_scroll_encoder_tpu.session import ComposerSession as JaxSession
 from h264_scroll_encoder_tpu.ops.bitio import BitWriter as JaxBitWriter
 from h264_scroll_encoder_tpu.parallel import batch as jax_batch
 from h264_scroll_encoder_tpu.syntax.slice_headers import (
@@ -37,6 +54,11 @@ from h264_scroll_encoder_tpu.utils import fixtures as jax_fixtures
 from h264_scroll_encoder_tpu_torch import cases
 
 torch.set_num_threads(1)
+
+JAX_PKG = types.SimpleNamespace(
+    ComposerConfig=JaxConfig, ComposerSession=JaxSession,
+    MotionRegion=MotionRegion, FrameHints=FrameHints, fixtures=jax_fixtures,
+    ipcm=jax_ipcm, cli=jax_cli)
 
 
 def jax_golden() -> dict:
@@ -118,6 +140,44 @@ def jax_splice_golden() -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _jitted_sliced_frames():
+    """The JAX session calls scroll_frame_sliced without jit (~30 s a 720p
+    frame on the CPU); for the generator, jit the same function (same
+    bytes) while the session runs."""
+    eager = jax_scroll.scroll_frame_sliced
+
+    @functools.lru_cache(maxsize=None)
+    def compiled(cfg, **kw):
+        return jax.jit(functools.partial(eager, cfg, **kw))
+
+    jax_scroll.scroll_frame_sliced = (
+        lambda cfg, *args, **kw: compiled(cfg, **kw)(*args))
+    try:
+        yield
+    finally:
+        jax_scroll.scroll_frame_sliced = eager
+
+
+def jax_session_golden(tmp_dir, names=cases.SESSION_STREAMS,
+                       hint_step=True) -> dict:
+    """The session golden digests (the `names` streams, and the batched
+    hint step when `hint_step`), computed by the JAX package."""
+    out = {"config": cases.session_golden_config()}
+    with _jitted_sliced_frames():
+        for name, data in cases.session_streams(JAX_PKG, tmp_dir,
+                                                names).items():
+            out[name] = cases.stream_digest(data)
+    if hint_step:
+        step = jax_batch.make_batched_hint_step(
+            JaxConfig(cases.GOLDEN_WIDTH, cases.GOLDEN_HEIGHT), compact_x=True)
+        nal, nal_len, _bits, ovf = cases.run_hint_step(
+            step, cases.hint_step_inputs())
+        out["hint_step"] = cases.hint_step_digest(
+            np.asarray(nal), np.asarray(nal_len), np.asarray(ovf))
+    return out
+
+
 def test_golden_file_is_jax_output():
     committed = json.loads(cases.GOLDEN_PATH.read_text())
     assert committed == jax_golden()
@@ -147,6 +207,24 @@ def test_port_matches_splice_golden():
     assert cases.port_splice_golden(device="cpu", engine="python") == committed
 
 
+@pytest.mark.parametrize("names,hint_step", [
+    (("session",), False), (("scroll_encoder_cli", "composer_cli"), False),
+    ((), True)], ids=["session", "clis", "hint_step"])
+def test_session_golden_file_is_jax_output(tmp_path, names, hint_step):
+    """The main session's and the CLIs' stream digests and the batched
+    hint step's digest (the other streams: tests/test_torch_hints.py)."""
+    committed = json.loads(cases.SESSION_GOLDEN_PATH.read_text())
+    got = jax_session_golden(tmp_path, names, hint_step)
+    assert got == {k: committed[k] for k in got}
+    assert set(committed) == {"config", "hint_step", *cases.SESSION_STREAMS}
+    assert not committed["hint_step"]["overflow"]
+
+
+def test_port_matches_session_golden(tmp_path):
+    committed = json.loads(cases.SESSION_GOLDEN_PATH.read_text())
+    assert cases.port_session_golden(device="cpu", workdir=tmp_path) == committed
+
+
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     cases.GOLDEN_PATH.parent.mkdir(parents=True, exist_ok=True)
@@ -155,3 +233,8 @@ if __name__ == "__main__":
     cases.SPLICE_GOLDEN_PATH.write_text(
         json.dumps(jax_splice_golden(), indent=1) + "\n")
     print(f"wrote {cases.SPLICE_GOLDEN_PATH}")
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        cases.SESSION_GOLDEN_PATH.write_text(
+            json.dumps(jax_session_golden(tmp), indent=1) + "\n")
+    print(f"wrote {cases.SESSION_GOLDEN_PATH}")

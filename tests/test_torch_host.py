@@ -28,13 +28,17 @@ from h264_scroll_encoder_tpu.ops import cavlc as jcavlc
 from h264_scroll_encoder_tpu.syntax import nal as jnal
 from h264_scroll_encoder_tpu.syntax import params as jparams
 from h264_scroll_encoder_tpu.utils import fixtures as jfx
-from h264_scroll_encoder_tpu_torch import cases, native_bridge
+from h264_scroll_encoder_tpu_torch import cases, cli, native_bridge
 from h264_scroll_encoder_tpu_torch.config import ComposerConfig
+from h264_scroll_encoder_tpu_torch.models import hints, ipcm
 from h264_scroll_encoder_tpu_torch.models import mb_transcode as mbt
 from h264_scroll_encoder_tpu_torch.models import mv_field
 from h264_scroll_encoder_tpu_torch.models import splice_device as sd
+from h264_scroll_encoder_tpu_torch.models.splice import FrameHints
 from h264_scroll_encoder_tpu_torch.ops import bitio, cavlc
 from h264_scroll_encoder_tpu_torch.parallel import batch
+from h264_scroll_encoder_tpu_torch.session import (ComposerSession,
+                                                   WaypointRegistry)
 from h264_scroll_encoder_tpu_torch.syntax import nal, params
 from h264_scroll_encoder_tpu_torch.utils import fixtures
 
@@ -337,25 +341,58 @@ def _small_wire():
     return sd.pack_donor_rows(dd, 5, 6)
 
 
+def _ipcm_donor(tmp) -> str:
+    """An I_PCM donor stream (SPS, PPS, IDR) at 64x48."""
+    path = tmp / "ipcm_donor.h264"
+    path.write_bytes(nal.write_nal_unit(params.generate_sps(64, 48), 3, 7)
+                     + nal.write_nal_unit(params.generate_pps(), 3, 8)
+                     + ipcm.idr_frame_color(ComposerConfig(64, 48), 81, 90,
+                                            240))
+    return str(path)
+
+
+def _cavlc_donor(tmp) -> str:
+    path = tmp / "cavlc_donor.h264"
+    path.write_bytes(fixtures.synthetic_cavlc_stream(96, 96, n_p_frames=1,
+                                                     seed=9))
+    return str(path)
+
+
 @pytest.mark.parametrize("entry", [
-    lambda: batch.SessionState.create(2),
-    lambda: batch.SessionState.from_numpy(
+    lambda tmp: batch.SessionState.create(2),
+    lambda tmp: batch.SessionState.from_numpy(
         batch.SessionState.create(2, device="cpu").to_numpy()),
-    lambda: cases.port_golden(),
-    lambda: cases.port_splice_golden(engine="python"),
-    lambda: sd.rows_device_arrays(_small_wire()),
-    lambda: sd.donor_arrays_from_numpy(sd.rows_wire(_small_wire())),
-    lambda: sd.prepare_donor_rows_serving(
+    lambda tmp: cases.port_golden(),
+    lambda tmp: cases.port_splice_golden(engine="python"),
+    lambda tmp: sd.rows_device_arrays(_small_wire()),
+    lambda tmp: sd.donor_arrays_from_numpy(sd.rows_wire(_small_wire())),
+    lambda tmp: sd.prepare_donor_rows_serving(
         [_payload(mbt, bitio.BitWriter, _grids("dense", 3, 5, 4)[0])], [0],
         4, 5, 1, 2, s_row=256, engine="python"),
+    lambda tmp: ComposerSession(ComposerConfig(64, 48)),
+    lambda tmp: batch.make_batched_hint_step(ComposerConfig(64, 48)),
+    lambda tmp: hints.emit_hint_frame(ComposerConfig(64, 48), 2, FrameHints()),
+    lambda tmp: hints.hint_fields(ComposerConfig(64, 48), FrameHints()),
+    lambda tmp: WaypointRegistry.empty().as_arrays(),
+    lambda tmp: cases.port_session_golden(),
+    lambda tmp: cli.scroll_encoder_main(["-n", "1", "-w", "64", "-H", "48",
+                                         "-o", str(tmp / "e.h264")]),
+    lambda tmp: cli.composer_main(["--ref-a", _ipcm_donor(tmp),
+                                   "--ref-b", _ipcm_donor(tmp),
+                                   "-o", str(tmp / "c.h264")]),
+    lambda tmp: cli.splice_demo_main(["--donor", _cavlc_donor(tmp),
+                                      "-o", str(tmp / "s.h264")]),
 ], ids=["create", "from_numpy", "port_golden", "port_splice_golden",
-        "rows_device_arrays", "donor_arrays_from_numpy", "serving"])
-def test_entry_points_default_to_cuda(entry, monkeypatch):
+        "rows_device_arrays", "donor_arrays_from_numpy", "serving",
+        "ComposerSession", "make_batched_hint_step", "emit_hint_frame",
+        "hint_fields", "registry_as_arrays", "port_session_golden",
+        "scroll_encoder_cli", "composer_cli", "splice_demo_cli"])
+def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     """Without CUDA, every entry point's default device raises instead of
-    falling back to the CPU."""
+    falling back to the CPU (the CLIs through their --device default)."""
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        entry()
+        entry(tmp_path)
 
 
 # ---------------------------------------------------------------------------

@@ -110,11 +110,18 @@ def test_field_assignment_and_waypoint_checks():
                                    _t(st["wp_count"]))
     _eq(tneeds, jneeds)
     assert tneeds.any() and (~tneeds).any()
-    with pytest.raises(NotImplementedError):
-        scroll.mb_fields(tcfg, _t(st["offsets"]), _t(st["wp_offsets"]),
-                         torch.as_tensor(st["wp_valid"]), _t(st["wp_count"]),
-                         is_waypoint_frame=False,
-                         boundary_policy="partitioned")
+    # The partitioned seam has no per-MB field grid (its seam row carries
+    # two partitions): both packages reject it here, as any unknown policy.
+    for policy in ("partitioned", "ceil"):
+        with pytest.raises(ValueError, match="boundary_policy"):
+            scroll.mb_fields(tcfg, _t(st["offsets"]), _t(st["wp_offsets"]),
+                             torch.as_tensor(st["wp_valid"]),
+                             _t(st["wp_count"]), is_waypoint_frame=False,
+                             boundary_policy=policy)
+        with pytest.raises(ValueError, match="boundary_policy"):
+            jscroll.mb_fields(jcfg, jnp.int32(7), _j(st, "wp_offsets")[0],
+                              jnp.asarray(st["wp_valid"][0]), jnp.int32(0),
+                              is_waypoint_frame=False, boundary_policy=policy)
 
 
 def _grids(rng, B, h, w, zero_x=False):
