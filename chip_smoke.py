@@ -8,13 +8,19 @@ result line):
   1. Require CUDA; print the torch, CUDA, nvcc and card versions.
   2. Build, started together: the kernels (K1 h264t_emit_fused, K2
      h264t_pack_place, K3 h264t_ebsp_nal, K4 h264t_pack_words) from
-     h264_scroll_encoder_tpu_torch/csrc/*.cu with nvcc, and the native
-     CAVLC engine from csrc/cavlc_decode.cpp with g++.
+     h264_scroll_encoder_tpu_torch/csrc/*.cu with nvcc, the native CAVLC
+     engine from csrc/cavlc_decode.cpp with g++, and avref from
+     csrc/avref.c with gcc where the system has libavcodec (else a line
+     says what is missing).
   3. Hold each kernel against its plain PyTorch version on CUDA tensors,
      exactly (tolerance: none — outputs are integers and bytes): the
      byte-stream, overflow, alignment, saturation, truncation and pack
-     boundary cases of the tests (K3's at each of its NAL sizes, with int32
-     and int64 lengths and tensor and int headers), real 1280x720 scroll
+     boundary cases of the tests (K3's at each of its NAL sizes, with int64
+     lengths under each header byte, and rows read through a stride),
+     K1 on the frames whose NAL passes a block's shared memory (3840x2160
+     at 64 bits per MB, 5120x3200, the 720p dense frame of I_PCM donors:
+     words and NAL in global memory, the 720p shapes' plans in shared
+     memory), real 1280x720 scroll
      and splice symbol batches at B = 256 (K1, K2, K4; K1 also at
      B = 1,024), K1, K2 and K4 on int32 and on int64 symbols, and the
      splice frames' RBSP bytes (K3); K3's bytes per thread, which the
@@ -58,13 +64,29 @@ result line):
      at B = 256 against the golden digest and compact_batch_nal on its
      output (exact bytes, overflow at total - 1), both timed (CUDA events
      and host wall).
-  8. Print the kernel table (one JSON line; `ms` is one call on an idle
+  8. The dense splice path and the large frames ("dense", "large"):
+     make_batched_splice_step_dense at bench.py's geometry over the 32
+     representative donors at the honest budget, tiled to B = 256 and
+     1,024 (every session's digest equals golden/splice_dense_720p.json
+     and its bytes the rows step's), and over the same donors with one
+     I_PCM MB each at the default budget, B = 256 (NAL buffer 237,600 B:
+     K1 builds words and NAL in global memory), and one forced
+     `ebsp_exact` retry (K1 then K2, bytes unchanged); step times (CUDA
+     events, host wall) and launches per step (torch.profiler).  Then
+     3840x2160 at 64 bits per MB and 5120x3200 hint frames through
+     ComposerSession (golden/large_frames.json, verify_stream), K3 on
+     rows at NAL sizes past a block's shared memory against its plain
+     version, the pixel oracle on a 720p session at MB-aligned offsets,
+     libavcodec (avref, where the system has it) on phase 7's and this
+     phase's streams and on a 720p session with a fallback frame, and the
+     trans-resizer on phase 7's composer stream (both engines equal).
+  9. Print the kernel table (one JSON line; `ms` is one call on an idle
      card, as in the first port's rows, with `device_ms` and `host_ms`
      beside it; `launches` sums the paths, `launches_by_path` splits
      them), the card's name and power limit, and the result line.
 
-Launch counters are set to 0 just before each path (4, 5, 6, 7) and read
-just after; every kernel must have launched on its path.
+Launch counters are set to 0 just before each path (4, 5, 6, 7, 8) and
+read just after; every kernel must have launched on its path.
 """
 
 from __future__ import annotations
@@ -108,9 +130,10 @@ def _max_abs_err(got, want) -> int:
     return err
 
 
-def _build_all(_kernels, native_bridge):
-    """nvcc (kernels) and g++ (CAVLC engine) started together; returns
-    {name: (path, seconds)}; a failed build raises."""
+def _build_all(_kernels, native_bridge, avref):
+    """nvcc (kernels), g++ (CAVLC engine) and gcc (avref, where the system
+    has libavcodec) started together; returns {name: (path, seconds)}; a
+    failed build raises."""
     results, errors = {}, []
 
     def run(name, fn):
@@ -120,8 +143,10 @@ def _build_all(_kernels, native_bridge):
         except Exception as e:      # re-raised below, in the main thread
             errors.append(e)
 
-    threads = [threading.Thread(target=run, args=("kernels", _kernels.build)),
-               threading.Thread(target=run, args=("cavlc", native_bridge.build))]
+    builds = [("kernels", _kernels.build), ("cavlc", native_bridge.build)]
+    if avref.missing() is None:
+        builds.append(("avref", avref.build))
+    threads = [threading.Thread(target=run, args=b) for b in builds]
     for t in threads:
         t.start()
     for t in threads:
@@ -174,12 +199,43 @@ def _profile_launches(fn, steps: int):
     return launches / steps, dev_us / 1e3 / steps
 
 
+def _large_k1_inputs(dev, cases, ComposerConfig) -> dict:
+    """K1's inputs on frames whose NAL buffer passes a block's shared
+    memory: {name: (patterns, nbits, n_rbsp, kwargs)} for the two large
+    hint frames (B = 1, the session's frame) and the 720p dense frames of
+    the 32 I_PCM-bearing donors."""
+    from h264_scroll_encoder_tpu_torch.models import hints, scroll, splice
+    from h264_scroll_encoder_tpu_torch.syntax.slice_headers import (
+        p_slice_header_symbols)
+
+    out = {}
+    z = torch.zeros((1, 8), dtype=torch.int64, device=dev)
+    for name, (w, h, bits) in cases.LARGE_FRAMES.items():
+        cfg = ComposerConfig(w, h, rbsp_bits_per_mb=bits)
+        ref, mvx, mvy = hints.hint_fields(cfg, splice.FrameHints(
+            motion_regions=tuple(splice.MotionRegion(*s)
+                                 for s in cases.LARGE_HINT_REGIONS)), dev)
+        hp, hn = p_slice_header_symbols(
+            cfg, torch.tensor([2], device=dev), torch.tensor([4], device=dev),
+            False, -1, 0, z, z.bool())
+        pat, nb, n_rbsp = scroll.p_frame_symbols(
+            cfg, hp, hn, ref[None], mvx[None], mvy[None], 2, enable_pskip=True)
+        out[name] = (pat, nb, n_rbsp, {})
+    cfg = ComposerConfig(cases.GOLDEN_WIDTH, cases.GOLDEN_HEIGHT)
+    dn, bits, align = cases.prepare_dense_donors("ipcm", engine="native",
+                                                 device=dev)
+    pat, nb, n_rbsp = cases.dense_symbols(cfg, "ipcm", dn, bits, dev)
+    out["dense_ipcm_720p"] = (pat, nb, n_rbsp, {"align": align})
+    return out
+
+
 def main() -> int:
     # -- 1. CUDA and versions ----------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from h264_scroll_encoder_tpu_torch import _kernels, cases, native_bridge
+    from h264_scroll_encoder_tpu_torch import (_kernels, avref, cases,
+                                               native_bridge)
     from h264_scroll_encoder_tpu_torch.config import ComposerConfig
     from h264_scroll_encoder_tpu_torch.models import scroll
     from h264_scroll_encoder_tpu_torch.ops import (bitpack, bitpack_flat,
@@ -197,9 +253,11 @@ def main() -> int:
     _log(f"card: {smi}")
 
     # -- 2. Build ------------------------------------------------------------
-    built = _build_all(_kernels, native_bridge)
+    built = _build_all(_kernels, native_bridge, avref)
     for name, (path, secs) in built.items():
         _log(f"phase 2: built {path.name} ({name}) in {secs:.2f} s")
+    if "avref" not in built:
+        _log(f"phase 2: avref not built: {avref.missing()}")
     native_bridge.load_library()
 
     # -- 3. Kernels vs plain versions on the card ----------------------------
@@ -237,10 +295,20 @@ def main() -> int:
         return got
 
     def check_k3(case, rbsp, lens, hdr, n_nal, cap):
-        args = tuple(x if isinstance(x, int) else torch.as_tensor(x, device=dev)
-                     for x in (rbsp, lens, hdr)) + (n_nal, cap)
-        return hold("K3", case, ebsp_flat.rbsp_to_nal_batch(*args),
-                    ebsp_flat.rbsp_to_nal_plain(*args))
+        """K3 on rows with int64 lengths under one header byte, or per-row
+        header bytes (one call per value); returns the last call's result."""
+        rbsp = torch.as_tensor(rbsp, device=dev)
+        lens = torch.as_tensor(lens, device=dev).to(torch.int64)
+        groups = ([(None, hdr)] if isinstance(hdr, int) else
+                  [(torch.as_tensor(hdr == h, device=dev), int(h))
+                   for h in np.unique(hdr)])
+        for rows, h in groups:
+            args = ((rbsp, lens) if rows is None else
+                    (rbsp[rows], lens[rows])) + (h, n_nal, cap)
+            got = hold("K3", f"{case} header {h:#x}",
+                       ebsp_flat.rbsp_to_nal_batch(*args),
+                       ebsp_flat.rbsp_to_nal_plain(*args))
+        return got
 
     cap = cases.CAP
     pat, nb = cases.byte_stream_cases()
@@ -289,7 +357,7 @@ def main() -> int:
         check_k3(f"bytes cap={k3_cap}", rbsp, lens, hdr, cases.EBSP_N_NAL,
                  k3_cap)
     rb, rb_len = cases.ebsp_saturation_case()
-    sat = check_k3("saturation", rb[None], [rb_len], [0x41], 384, cap)
+    sat = check_k3("saturation", rb[None], [rb_len], 0x41, 384, cap)
     if not int(sat[1][0]) > cap:
         raise AssertionError("K3 did not saturate past the window")
     rbsp, lens, hdr = cases.ebsp_boundary_cases()
@@ -297,8 +365,8 @@ def main() -> int:
         for k3_cap in (cap, 1000):
             check_k3(f"boundary n_nal={n_nal} cap={k3_cap}", rbsp, lens, hdr,
                      n_nal, k3_cap)
-            check_k3(f"boundary n_nal={n_nal} cap={k3_cap} int64 lengths",
-                     rbsp, lens.astype(np.int64), 0x41, n_nal, k3_cap)
+            check_k3(f"boundary n_nal={n_nal} cap={k3_cap} one header",
+                     rbsp, lens, 0x165, n_nal, k3_cap)
     # The boundary cases follow ebsp_flat.items_per_thread; the built K3
     # must own the same runs.
     for valid in range(ebsp_flat.padded_len(max(cases.EBSP_BOUNDARY_N_NALS)) + 1):
@@ -368,9 +436,35 @@ def main() -> int:
     rbsp_len = total // 8
     k3_n_nal = emit_fused.nal_bytes(s_n_rbsp, cap)
     check_k3("splice 720p B=256", rbsp_720, rbsp_len, 0x01, k3_n_nal, cap)
-    check_k3("splice 720p B=256 int32", rbsp_720, rbsp_len.to(torch.int32),
-             torch.full((B,), 0x01, dtype=torch.int32, device=dev), k3_n_nal,
-             cap)
+    strided = torch.zeros((B, s_n_rbsp + 9), dtype=torch.uint8, device=dev)
+    strided[:, 3:-6] = rbsp_720
+    check_k3("splice 720p B=256 strided rows", strided[:, 3:-6], rbsp_len,
+             0x01, k3_n_nal, cap)
+
+    # Frames whose NAL buffer passes a block's shared memory.  K1 on
+    # the 3840x2160 hint frame at 64 bits per MB, the 5120x3200 one at 32
+    # (words and NAL in global memory) and the 720p dense frame of I_PCM
+    # donors at its default budget; the 720p shapes keep both in shared
+    # memory.
+    large_k1 = _large_k1_inputs(dev, cases, ComposerConfig)
+    for name, (pat_l, nb_l, rbsp_l, kw_l) in large_k1.items():
+        plan = _kernels.emit_plan(8, emit_fused.items_per_thread(pat_l.shape[1]),
+                                  emit_fused.nal_bytes(rbsp_l, cap))
+        if tuple(plan) != (True, True):
+            raise AssertionError(f"K1 at {name}: plan {plan}, not global")
+        got = check_k1(f"large {name}", pat_l, nb_l, 0, rbsp_l, cap,
+                       append_tb=True, **kw_l)
+        if bool(got[3].any()):
+            raise AssertionError(f"K1 flagged the large frame {name}")
+    for shape in ((8, sym_pat.shape[1], n_rbsp), (8, s_pat.shape[1], s_n_rbsp),
+                  (8, part_pat.shape[1], part_rbsp)):
+        sym_bytes, n_sym, budget = shape
+        plan = _kernels.emit_plan(sym_bytes, emit_fused.items_per_thread(n_sym),
+                                  emit_fused.nal_bytes(budget, cap))
+        if tuple(plan) != (False, False):
+            raise AssertionError(f"a 720p K1 shape {shape} left shared memory")
+    if _kernels.ebsp_nal_in_global(k3_n_nal):
+        raise AssertionError("K3 at the 720p NAL size left shared memory")
 
     # The wrappers run no conversion (or any other tensor op but
     # allocations and views) around their kernel on the main path's int64
@@ -390,7 +484,9 @@ def main() -> int:
             raise AssertionError(f"{name}'s wrapper ran tensor ops {ops} on "
                                  "the entry path's inputs")
     _log(f"phase 3: K1-K4 equal their plain versions on every case, K1, K2 "
-         f"and K4 on int32 and int64 symbols, K3 on int32 and int64 lengths "
+         f"and K4 on int32 and int64 symbols, K3 on int64 lengths under each "
+         f"header byte and on strided rows; K1 on {sorted(large_k1)} with "
+         f"words and NAL in global memory, the 720p shapes in shared memory "
          f"(scroll 720p: n={sym_pat.shape[1]} symbols, n_rbsp={n_rbsp} B; "
          f"splice 720p: n={s_pat.shape[1]} symbols, n_rbsp={s_n_rbsp} B, NAL "
          f"buffer {k3_n_nal} B, mean RBSP {float(rbsp_len.float().mean()):.1f} "
@@ -410,6 +506,13 @@ def main() -> int:
     def k3_run(b):
         rows = k3_rows[b]
         args = (rbsp_720[rows], rbsp_len[rows], 0x01, k3_n_nal, cap)
+        return (lambda: ebsp_flat.rbsp_to_nal_batch(*args),
+                lambda: ebsp_flat.rbsp_to_nal_plain(*args))
+
+    def k3_large_run(n_nal):
+        rows, lens = cases.ebsp_large_cases(n_nal)
+        args = (torch.as_tensor(rows, device=dev),
+                torch.as_tensor(lens, device=dev), 0x61, n_nal, cap)
         return (lambda: ebsp_flat.rbsp_to_nal_batch(*args),
                 lambda: ebsp_flat.rbsp_to_nal_plain(*args))
 
@@ -441,6 +544,13 @@ def main() -> int:
                          *e32, exact_words),
                      lambda: bitpack_flat.pack_words_place_plain(
                          *e32, exact_words)),
+        "K1 dense I_PCM 720p B=32 (global NAL)": k1_run(
+            large_k1["dense_ipcm_720p"][:2], 0, large_k1["dense_ipcm_720p"][2],
+            align=True, append_tb=True),
+        "K1 hint 5120x3200 B=1 (global NAL)": k1_run(
+            large_k1["hint_5120x3200"][:2], 0, large_k1["hint_5120x3200"][2],
+            append_tb=True),
+        "K3 n_nal=259328 B=4 (global)": k3_large_run(259_328),
         "K3": k3_run(B),
         "K3 B=1": k3_run(1),
         "K3 B=1024": k3_run(1024),
@@ -451,6 +561,7 @@ def main() -> int:
     }
     timing = {}
     for name, (kernel, plain) in runs.items():
+        where = "" if "global" in name else " at 720p"
         p_a = timing_.call_ms(plain, 10)
         d_a = timing_.device_ms(kernel)
         c = timing_.call_ms(kernel, 20)
@@ -459,7 +570,7 @@ def main() -> int:
         p_b = timing_.call_ms(plain, 10)
         timing[name] = {"ms": c, "device_ms": statistics.median([d_a, d_b]),
                         "host_ms": h, "plain_ms": statistics.median([p_a, p_b])}
-        _log(f"phase 3: {name} at 720p: device {d_a:.5f}/{d_b:.5f} ms per "
+        _log(f"phase 3: {name}{where}: device {d_a:.5f}/{d_b:.5f} ms per "
              f"call, one call {c:.5f} ms, host issue {h:.5f} ms per call, "
              f"plain {p_a:.4f}/{p_b:.4f} ms (CUDA-event medians)")
     # Least time for each kernel's work at the timed shapes: its inputs read
@@ -491,6 +602,19 @@ def main() -> int:
         "K3 B=1024": k3_bytes(rbsp_len[k3_rows[1024]]),
         "K4": pack_bytes,
     }
+    # The global plans' timed shapes, by the same formulas.
+    for name, key in (
+            ("K1 dense I_PCM 720p B=32 (global NAL)", "dense_ipcm_720p"),
+            ("K1 hint 5120x3200 B=1 (global NAL)", "hint_5120x3200")):
+        pat_g, _nb, rbsp_g, _kw = large_k1[key]
+        b_g = pat_g.shape[0]
+        bound[name] = (b_g * pat_g.shape[1] * 8 + b_g * 4
+                       + b_g * (emit_fused.nal_bytes(rbsp_g, cap) + 16))
+    g_rows, g_lens = cases.ebsp_large_cases(259_328)
+    g_staged = np.clip(g_lens, 0, min(g_rows.shape[1],
+                                      ebsp_flat.padded_len(259_328)))
+    bound["K3 n_nal=259328 B=4 (global)"] = (int(g_staged.sum()) + 8 * len(g_lens)
+                                            + len(g_lens) * (259_328 + 4))
     compare_bytes = {"K1": B * n_s * 16 + B * (n_nal_s + 9),
                      "K2": B * n_e * 16 + B * (exact_words + 1) * 8,
                      "K3 earlier formula": (B * s_n_rbsp + 2 * 4 * B
@@ -654,9 +778,15 @@ def main() -> int:
          f"{entry_launches}")
 
     # -- 7. The per-session composer --------------------------------------------
-    session_launches = _session_phase(dev, cfg, cases, batch, _kernels, Timer)
+    session_launches, streams7 = _session_phase(dev, cfg, cases, batch,
+                                                _kernels, Timer)
 
-    # -- 8. Results ------------------------------------------------------------
+    # -- 8. The dense splice path and the large frames ---------------------------
+    dense_launches, large_launches = _dense_phase(
+        dev, cfg, cases, batch, _kernels, Timer, avref, streams7, dn32, bits32,
+        has_align)
+
+    # -- 9. Results ------------------------------------------------------------
     src = "h264_scroll_encoder_tpu_torch/csrc/emit_kernels.cu"
     rows = [
         ("emit_fused (K1)", "K1", "h264t_emit_fused",
@@ -669,12 +799,14 @@ def main() -> int:
          "h264_scroll_encoder_tpu/ops/bitpack_flat.py:261"),
     ]
     paths = {"scroll": scroll_launches, "splice": splice_launches,
-             "entry": entry_launches, "session": session_launches}
+             "entry": entry_launches, "session": session_launches,
+             "dense": dense_launches, "large": large_launches}
     # ms: one call as a caller waits for it (the method of the first port's
     # rows); device_ms: device time per call of calls queued back to back;
     # host_ms: the host's issue time per call.  launches: the kernel's
     # launches summed over the paths it runs on (phase 4's scroll golden
-    # run, 5, 6 and 7), each path counted from 0.
+    # run, 5, 6, 7 and 8's dense steps and large frames), each path
+    # counted from 0.
     kernels = []
     for name, key, sym, rep in rows:
         by_path = {p: c[sym] for p, c in paths.items() if c[sym]}
@@ -691,9 +823,9 @@ def main() -> int:
     return 0
 
 
-def _session_phase(dev, cfg, cases, batch, _kernels, Timer) -> dict:
+def _session_phase(dev, cfg, cases, batch, _kernels, Timer):
     """Phase 7: the per-session composer and the batched hint step on the
-    card; returns the launch counts of the phase."""
+    card; returns the launch counts of the phase and its streams."""
     from h264_scroll_encoder_tpu_torch.session import ComposerSession
     from h264_scroll_encoder_tpu_torch.syntax.slice_headers import (
         p_slice_header_symbols)
@@ -853,7 +985,233 @@ def _session_phase(dev, cfg, cases, batch, _kernels, Timer) -> dict:
     _log(f"phase 7: compact_batch_nal B=256 (cap = total = {total} B): "
          f"{eg_ms:.4f} ms (CUDA-event median of 20), host wall {eg_wall:.4f} "
          f"ms; packed[:total] equals the sessions' bytes, overflow at total - 1")
-    return launches
+    return launches, streams
+
+
+def _dense_phase(dev, cfg, cases, batch, _kernels, Timer, avref, streams7,
+                 dn_rows, bits_rows, rows_align):
+    """Phase 8: the dense splice path and the large frames on the card, then
+    the host checks of this slice (pixel oracle, avref, fallback frame,
+    trans-resizer); returns the launch counts of the dense steps and of
+    the large frames."""
+    from h264_scroll_encoder_tpu_torch import pixel_oracle as po
+    from h264_scroll_encoder_tpu_torch.models.splice import (
+        FrameHints, MotionRegion, transcode_pad_stream)
+    from h264_scroll_encoder_tpu_torch.ops import ebsp_flat
+    from h264_scroll_encoder_tpu_torch.session import ComposerSession
+    from h264_scroll_encoder_tpu_torch.verify import verify_stream
+
+    golden = json.loads(cases.DENSE_GOLDEN_PATH.read_text())
+    wires = {c: cases.prepare_dense_donors(c, engine="native", device=dev)
+             for c in cases.DENSE_CONFIGS}
+
+    def check(config, out, B):
+        nal, nal_len, _bits, ovf = out
+        got = cases.digest_step(nal.cpu().numpy(), nal_len.cpu().numpy(),
+                                np.zeros(B, bool), ovf.cpu().numpy())
+        if got != [golden[config][b % cases.DENSE_DONORS] for b in range(B)]:
+            raise AssertionError(f"dense {config} B={B}: digests differ from "
+                                 "golden/splice_dense_720p.json")
+
+    # The dense steps, counted from 0: K1 once per step, then one forced
+    # ebsp_exact retry (K2 once), as a session retries a flagged frame.
+    runs = {}
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    n_steps = 0
+    for config, sizes in (("representative", (256, 1024)), ("ipcm", (256,))):
+        dn, bits, align = wires[config]
+        step = cases.dense_step(cfg, config, bits, align)
+        for B in sizes:
+            args = cases.splice_session_inputs(cfg, B, dev) + (
+                cases.tile_donors(dn, B),)
+            check(config, step(*args), B)
+            timer = Timer()
+            for _ in range(10):
+                out = timer(lambda: step(*args))
+            n_steps += 11
+            check(config, out, B)
+            runs[(config, B)] = (step, args, out, timer.medians())
+    dn, bits, align = wires["representative"]
+    step, args, _out, _ = runs[("representative", 256)]
+    flagged = step(*args)
+    if bool(flagged[3].any()):
+        raise AssertionError("the dense step flagged a representative frame")
+    retry = cases.dense_step(cfg, "representative", bits, align,
+                             ebsp_exact=True)(*args)
+    check("representative", retry, 256)
+    torch.cuda.synchronize()
+    dense_launches = {k.symbol: k.launches for k in _kernels.KERNELS}
+    if (dense_launches["h264t_emit_fused"] != n_steps + 1
+            or dense_launches["h264t_pack_place"] != 1):
+        raise AssertionError(f"dense path launches {dense_launches} for "
+                             f"{n_steps + 1} steps and one retry")
+
+    # Configuration (i) against the rows step on the same donors.
+    rows_step = cases.splice_steps(cfg, int(bits_rows.max()),
+                                   rows_align)["compact"]
+    for B in (256, 1024):
+        _step, args, (nal, nal_len, _b, _o), _ = runs[("representative", B)]
+        blob = dn_rows["blob"][torch.arange(B, device=dev) % N_DONORS]
+        r_nal, r_len, _rb, r_ovf = rows_step(*args[:-1], {"blob": blob})
+        if bool(r_ovf.any()) or not torch.equal(r_len, nal_len):
+            raise AssertionError(f"rows and dense lengths differ at B={B}")
+        width = torch.arange(nal.shape[1], device=dev)[None, :] < nal_len[:, None]
+        n_r = min(r_nal.shape[1], nal.shape[1])
+        if not torch.equal(torch.where(width[:, :n_r], r_nal[:, :n_r], 0),
+                           torch.where(width[:, :n_r], nal[:, :n_r], 0)):
+            raise AssertionError(f"rows and dense bytes differ at B={B}")
+    for (config, B), (step, args, out, (ms, wall)) in runs.items():
+        try:
+            prof = _profile_launches(lambda: step(*args), 5)
+        except Exception as e:  # measurement only; outputs checked above
+            prof = None
+            _log(f"phase 8: torch.profiler failed: {e!r}")
+        prof_s = ("launches not measured (no device time)" if prof is None
+                  else f"{prof[0]:.1f} cudaLaunch calls and {prof[1]:.4f} ms "
+                       f"of device time per step (torch.profiler, 5 steps)")
+        _log(f"phase 8: dense {config} B={B}: {ms:.4f} ms (CUDA-event median "
+             f"of 10), host wall {wall:.4f} ms = {B / wall * 1e3:.1f} frames/s; "
+             f"NAL buffer {tuple(out[0].shape)}, mean nal_len "
+             f"{float(out[1].float().mean()):.1f} B; {prof_s}")
+    _log(f"phase 8: dense steps: every session equals "
+         f"golden/splice_dense_720p.json, the representative ones the rows "
+         f"step's bytes; a forced ebsp_exact retry equals too; launches "
+         f"{dense_launches}")
+
+    # The two large hint frames through ComposerSession at B = 1, counted
+    # from 0.
+    golden_l = json.loads(cases.LARGE_GOLDEN_PATH.read_text())
+    pkg = cases.port_package()
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    large = {n: cases.large_frame_stream(pkg, n, device=dev)
+             for n in cases.LARGE_FRAMES}
+    torch.cuda.synchronize()
+    compose_s = time.perf_counter() - t0
+    large_launches = {k.symbol: k.launches for k in _kernels.KERNELS}
+    if large_launches["h264t_emit_fused"] != len(large):
+        raise AssertionError(f"large frames launched {large_launches}")
+    for name, data in large.items():
+        if cases.stream_digest(data) != golden_l[name]:
+            raise AssertionError(f"{name}: digest differs from "
+                                 "golden/large_frames.json")
+        rep = verify_stream(data)
+        if not rep.ok:
+            raise AssertionError(f"{name}: verify_stream failed: {rep.errors[:3]}")
+    _log(f"phase 8: large hint frames {sorted(large)} ({compose_s:.2f} s with "
+         f"their atlases): digests equal golden/large_frames.json, "
+         f"verify_stream passes; launches {large_launches}")
+
+    # K3 past a block's shared memory (comparisons, not a path).
+    for n_nal in cases.EBSP_LARGE_N_NALS:
+        if not _kernels.ebsp_nal_in_global(n_nal):
+            raise AssertionError(f"K3 at n_nal={n_nal} kept shared memory")
+        rbsp, lens = cases.ebsp_large_cases(n_nal)
+        for k3_cap in (cases.CAP, 1000):
+            args = (torch.as_tensor(rbsp, device=dev),
+                    torch.as_tensor(lens, device=dev), 0x61, n_nal, k3_cap)
+            err = _max_abs_err(ebsp_flat.rbsp_to_nal_batch(*args),
+                               ebsp_flat.rbsp_to_nal_plain(*args))
+            if err:
+                raise AssertionError(f"K3 at n_nal={n_nal}: kernel != plain")
+    _log(f"phase 8: K3 equals its plain version at n_nal "
+         f"{list(cases.EBSP_LARGE_N_NALS)} (rows read from global memory, the "
+         f"NAL built in place), max_abs_err 0")
+
+    # The pixel oracle: a 720p session at MB-aligned offsets is exact.
+    t0 = time.perf_counter()
+    s = ComposerSession(cfg, device=dev)
+    s.write_parameter_sets()
+    s.write_test_atlases(striped=True)
+    offsets = (0, 16, 48, 96)
+    for off in offsets:
+        s.write_scroll_frame(off)
+    oracle_stream = s.getvalue()
+    pics = po.decode_stream_pixels(oracle_stream)
+    canvas = po.scroll_canvas(pics[0], pics[1])
+    for pic, off in zip(pics[2:], offsets):
+        if (po.luma_mismatch_rows(pic, po.intended_scroll_luma(
+                canvas, off, cfg.height)).size
+                or not (pic.cb == canvas.cb[off // 2: off // 2 + cfg.height // 2]).all()
+                or not (pic.cr == canvas.cr[off // 2: off // 2 + cfg.height // 2]).all()):
+            raise AssertionError(f"pixel oracle: 720p frame at {off} not exact")
+    _log(f"phase 8: pixel oracle: the 720p session at offsets {offsets} "
+         f"decodes pixel-exact ({time.perf_counter() - t0:.2f} s)")
+
+    # libavcodec, where the system has it (host code, not a device path).
+    if avref.missing() is not None:
+        _log(f"phase 8: avref unavailable ({avref.missing()}): the libavcodec "
+             f"decode and the fallback frame were not run")
+    else:
+        t0 = time.perf_counter()
+        decoded = {**streams7, **large, "oracle_720p": oracle_stream}
+        for name, data in decoded.items():
+            pics_av, nerrors = avref.decode_pictures(data)
+            if nerrors or not pics_av:
+                raise AssertionError(f"libavcodec: {name} decoded with "
+                                     f"{nerrors} errors, {len(pics_av)} pictures")
+        _log(f"phase 8: libavcodec decodes {sorted(decoded)} with 0 errors "
+             f"({time.perf_counter() - t0:.2f} s)")
+        _fallback_check(cfg, dev, avref, ComposerSession, FrameHints,
+                        MotionRegion)
+
+    # The trans-resizer on phase 7's composer stream: both engines equal.
+    data = streams7["composer_cli"]
+    t0 = time.perf_counter()
+    widened = {e: transcode_pad_stream(data, cfg.width + 16, cfg.height,
+                                       engine=e) for e in ("native", "python")}
+    if widened["native"] != widened["python"] or not verify_stream(
+            widened["native"]).ok:
+        raise AssertionError("trans-resizer: the engines differ or the "
+                             "stream fails verify_stream")
+    _log(f"phase 8: trans-resizer on the composer stream ({len(data)} B -> "
+         f"{len(widened['native'])} B at {cfg.width + 16}x{cfg.height}): both "
+         f"engines equal, verify_stream passes "
+         f"({time.perf_counter() - t0:.2f} s)")
+    return dense_launches, large_launches
+
+
+def _fallback_check(cfg, dev, avref, ComposerSession, FrameHints,
+                    MotionRegion) -> None:
+    """A 720p session on the card takes a fallback frame mid-stream: the
+    stream decodes with 0 errors, the fallback frame shows a standalone
+    x264 encode of the same pixels, and the session composes against it."""
+    W, H = cfg.width, cfg.height
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[:H, :W]
+    target = (((xx * 255) // W + rng.integers(0, 24, (H, W))).astype(np.uint8),
+              (128 + (yy[::2, ::2] * 60) // H).astype(np.uint8),
+              (128 - (xx[::2, ::2] * 60) // W).astype(np.uint8))
+    s = ComposerSession(cfg, device=dev)
+    s.write_parameter_sets()
+    s.write_test_atlases(striped=True)
+    full = (0, 0, W // 16, H // 16)
+    took = [s.write_hint_frame_or_fallback(FrameHints(motion_regions=(
+                MotionRegion(*full, ref_idx=1),))),
+            s.write_hint_frame_or_fallback(FrameHints(motion_regions=(
+                MotionRegion(*full, ref_idx=5),)), fallback_frame=target),
+            s.write_hint_frame_or_fallback(FrameHints(motion_regions=())),
+            s.write_hint_frame_or_fallback(FrameHints(motion_regions=(
+                MotionRegion(0, 0, W // 16, 2, ref_idx=0, mv_x=0, mv_y=16),)))]
+    pics, nerrors = avref.decode_pictures(s.getvalue())
+    ref, _ = avref.decode_pictures(avref.encode_x264(
+        [target], qp=20, keyint=1, refs=1,
+        extra_params="psy=0:chroma-qp-offset=0"))
+    fb = pics[3] if len(pics) == 6 else None
+    ok = (took == [False, True, False, False] and nerrors == 0 and fb is not None
+          and all((getattr(fb, p) == getattr(ref[0], p)).all()
+                  and (getattr(pics[4], p) == getattr(fb, p)).all()
+                  for p in ("y", "cb", "cr"))
+          and (pics[5].y[:32] == fb.y[16:48]).all()
+          and (pics[5].y[32:] == fb.y[32:]).all())
+    if not ok:
+        raise AssertionError(f"fallback frame: took {took}, {nerrors} decode "
+                             f"errors, {len(pics)} pictures, or pixels differ")
+    _log("phase 8: a 720p session's fallback frame: 0 decode errors, the "
+         "fallback shows the standalone x264 encode, the following frames "
+         "compose against it")
 
 
 if __name__ == "__main__":

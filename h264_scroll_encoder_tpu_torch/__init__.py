@@ -12,13 +12,18 @@ names as the JAX package, so every function has an obvious counterpart:
   syntax/    — slice headers (device symbol streams, host writers), NAL
                framing, parameter sets, Annex-B parsing.
   models/    — scroll/waypoint (floor, nearest, partitioned), sliced and
-               hint P-frames; the rows splice; I_PCM atlases, the donor
-               rewrite and the host splice path.
-  parallel/  — `SessionState`, the batched scroll, splice and hint steps,
-               egress (`compact_batch_nal`).
-  session.py — `ComposerSession`, one UI session's stream.
-  cli.py     — the composer, scroll-encoder and splice-demo CLIs.
-  verify.py  — the structural stream oracle.
+               hint P-frames; the rows and dense splices; I_PCM atlases,
+               the donor rewrite, the host splice path and the padding
+               transcode (trans-resizer).
+  parallel/  — `SessionState`, the batched scroll, splice (rows, dense)
+               and hint steps, egress (`compact_batch_nal`).
+  session.py — `ComposerSession`, one UI session's stream, with the
+               conventional-encode fallback frame.
+  cli.py     — the composer, scroll-encoder, splice-demo and trans-resizer
+               CLIs.
+  verify.py, pixel_oracle.py, avref.py — the structural stream oracle,
+               the numpy pixel decoder (ops/transform, ops/deblock) and
+               libavcodec / libx264 through csrc/avref.c.
 
 Conventions: functions take tensors with an explicit leading session
 dimension (the JAX package's `vmap` axis); the device comes from the

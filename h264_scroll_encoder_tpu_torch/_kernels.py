@@ -20,6 +20,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -118,20 +119,19 @@ class Kernel:
 
 # K1: (pat, nb, sym_bytes, pat_row, nb_row, idc, idc_row, idc_value, batch,
 #      n, items_per_thread, n_nal, n_rbsp, cap, align, append_tb, words_gmem,
-#      nal_out, len_out, bits_out, ovf_out, stream)
+#      nal_in_global, nal_out, len_out, bits_out, ovf_out, stream)
 EMIT_FUSED = Kernel("h264t_emit_fused",
                     [_P, _P, _I, _L, _L, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _P, _P, _P, _P, _P, _P])
+                     _I, _I, _P, _I, _P, _P, _P, _P, _P])
 # K2: (pat, nb, sym_bytes, pat_row, nb_row, batch, n, items_per_thread,
 #      n_words, words_gmem, words_out, total_out, stream)
 _PACK_ARGS = [_P, _P, _I, _L, _L, _I, _I, _I, _I, _P, _P, _P, _P]
 PACK_PLACE = Kernel("h264t_pack_place", _PACK_ARGS)
 
-# K3: (rbsp, rbsp_row, m, len, len_bytes, len_row, len_value, header,
-#      header_bytes, header_row, header_value, batch, n_nal, max_ins,
-#      nal_out, total_out, stream)
-EBSP_NAL = Kernel("h264t_ebsp_nal", [_P, _L, _I, _P, _I, _L, _I, _P, _I, _L, _I,
-                                     _I, _I, _I, _P, _P, _P])
+# K3: (rbsp, rbsp_row, m, rbsp_len, len_row, header, batch, n_nal, max_ins,
+#      in_global, nal_out, total_out, stream)
+EBSP_NAL = Kernel("h264t_ebsp_nal", [_P, _L, _I, _P, _L, _I, _I, _I, _I, _I,
+                                     _P, _P, _P])
 # K4: K2's block behind its own entry point and counter.
 PACK_WORDS = Kernel("h264t_pack_words", _PACK_ARGS)
 
@@ -139,30 +139,46 @@ KERNELS = (EMIT_FUSED, PACK_PLACE, EBSP_NAL, PACK_WORDS)
 
 
 @functools.lru_cache(maxsize=None)
-def _words_in_global(symbol: str, device: int, sym_bytes: int, k: int,
-                     n: int) -> bool:
+def _plan(symbol: str, device: int, *args: int) -> int:
     fn = getattr(_load(), symbol)
-    fn.argtypes, fn.restype = [_I, _I, _I], ctypes.c_int
-    answer = fn(sym_bytes, k, n)
+    fn.argtypes, fn.restype = [_I] * len(args), ctypes.c_int
+    answer = fn(*args)
     if answer < 0:
         raise RuntimeError(f"{symbol}: the CUDA runtime did not report the "
                            "card's shared-memory limit")
-    return bool(answer)
+    return answer
 
 
-def emit_words_in_global(sym_bytes: int, k: int, n_nal: int) -> bool:
-    """Whether K1 on the current device keeps its RBSP words in a global
-    scratch buffer (u32[B, n_nal / 4]) at these symbols per thread and NAL
-    size: the built kernel's shared-memory plan decides
-    (h264t_emit_words_in_global; launches nothing)."""
-    return _words_in_global("h264t_emit_words_in_global",
-                            torch.cuda.current_device(), sym_bytes, k, n_nal)
+class EmitPlan(NamedTuple):
+    """Where K1 keeps its RBSP words and builds its NAL."""
+    words_in_global: bool
+    nal_in_global: bool
+
+
+def emit_plan(sym_bytes: int, k: int, n_nal: int) -> EmitPlan:
+    """K1's shared-memory plan on the current device at these symbols per
+    thread and NAL size, as the built kernel decides (h264t_emit_plan;
+    launches nothing): whether its RBSP words go to a global scratch
+    buffer (u32[B, n_nal / 4], which the wrapper allocates) and whether it
+    builds the NAL in place in its output row.  Both are False at 720p."""
+    plan = _plan("h264t_emit_plan", torch.cuda.current_device(), sym_bytes,
+                 k, n_nal)
+    return EmitPlan(bool(plan & 1), bool(plan & 2))
 
 
 def pack_words_in_global(sym_bytes: int, k: int, n_words: int) -> bool:
-    """As emit_words_in_global, for K2/K4 (scratch u32[B, n_words])."""
-    return _words_in_global("h264t_pack_words_in_global",
-                            torch.cuda.current_device(), sym_bytes, k, n_words)
+    """Whether K2/K4 keep their words in a global scratch buffer
+    (u32[B, n_words]) at these symbols per thread and words."""
+    return bool(_plan("h264t_pack_words_in_global",
+                      torch.cuda.current_device(), sym_bytes, k, n_words))
+
+
+def ebsp_nal_in_global(n_nal: int) -> bool:
+    """Whether K3 at this NAL size reads its rows from global memory and
+    builds the NAL in place, where the staged row and the NAL pass a
+    block's shared memory (h264t_ebsp_nal_in_global)."""
+    return bool(_plan("h264t_ebsp_nal_in_global",
+                      torch.cuda.current_device(), n_nal))
 
 
 def ebsp_items_per_thread(valid: int) -> int:

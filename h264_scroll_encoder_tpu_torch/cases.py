@@ -4,9 +4,13 @@ The cases are plain numpy arrays, so the same inputs feed the JAX package
 (in the tests), the port's plain PyTorch versions and the CUDA kernels
 (on the card).  `golden/scroll_720p.json` holds the JAX package's output
 digests for the 720p scroll schedule below, `golden/splice_rows_720p.json`
-those of the 720p rows splice of seeded representative donors;
-`port_golden` and `port_splice_golden` recompute them with the port on
-any device.
+those of the 720p rows splice of seeded representative donors,
+`golden/splice_dense_720p.json` the dense splice of the same donors (and
+of I_PCM-bearing ones), `golden/session_720p.json` the session streams
+and `golden/large_frames.json` two hint frames whose NAL buffer passes a
+block's shared memory; `port_golden`, `port_splice_golden`,
+`port_dense_golden`, `port_session_golden` and `large_golden` recompute
+them with the port on any device.
 """
 
 from __future__ import annotations
@@ -357,6 +361,32 @@ def ebsp_boundary_cases(seed: int = 3):
             headers.astype(np.int32))
 
 
+# NAL sizes past one block's shared memory for K3 (staged row plus NAL):
+# the dense I_PCM splice's default buffer and the 3840x2160 hint frame's at
+# 64 bits per MB.
+EBSP_LARGE_N_NALS = (237_600, 259_328)
+
+
+def ebsp_large_cases(n_nal: int, seed: int = 4):
+    """RBSP rows for K3 at a large NAL size: random bytes in [4, 255] with
+    a `00 00 0x` triple every ~2,000 bytes (in-contract under a cap of
+    1,000), a zero-heavy row past the cap of 16, a row of 64+ byte zero
+    runs (saturating) and a short one, at lengths up to the buffer's
+    payload room.  Returns (rbsp u8[4, n_nal - 5], int64 lengths [4])."""
+    rng = np.random.default_rng(seed)
+    m = n_nal - 5
+    rows = rng.integers(4, 256, (4, m)).astype(np.uint8)
+    for start in range(100, m - 4, 1999):
+        rows[0, start:start + 2] = 0
+        rows[0, start + 2] = start % 4
+    heavy = rng.random(m) < 0.5
+    rows[1, heavy] = rng.choice([0, 1, 2, 3], int(heavy.sum()))
+    for start in range(5000, m - 200, 30_000):
+        rows[2, start:start + 70] = 0
+    lens = np.asarray([m - 1100, m - 16 - 5, m // 2, 4096], np.int64)
+    return rows, lens
+
+
 def ebsp_saturation_case():
     """A stream whose first nonzero byte lies past K3's 64-byte zero-run
     window (200 zeros, then 56 nonzero bytes): the count saturates past
@@ -558,6 +588,140 @@ def port_splice_golden(device="cuda", engine: str = "native") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The 720p dense splice (the same geometry and donors, per-MB layout).
+# ---------------------------------------------------------------------------
+
+DENSE_GOLDEN_PATH = GOLDEN_PATH.parent / "splice_dense_720p.json"
+# The 32 seeded representative donors (seeds SPLICE_DONOR_SEED + k), as
+# bench.py's _splice_config builds them; the I_PCM-bearing configuration
+# gives each one I_PCM MB at [0][0].
+DENSE_DONORS = 32
+DENSE_CONFIGS = ("representative", "ipcm")
+
+
+def dense_donor_payload(k: int, ipcm: bool = False) -> bytes:
+    """CAVLC P-slice payload (one reference) of dense donor k: the
+    representative donor grid seeded SPLICE_DONOR_SEED + k, with one I_PCM
+    macroblock at [0][0] (drawn from the same generator) when `ipcm`."""
+    from .models import mb_transcode as mbt
+    from .ops.bitio import BitWriter
+    from .utils import fixtures
+
+    rng = np.random.default_rng(SPLICE_DONOR_SEED + k)
+    grid = fixtures.representative_donor_grid(rng, SPLICE_C, SPLICE_R)
+    if ipcm:
+        grid[0][0] = fixtures.random_ipcm_mb(rng, in_p_slice=True)
+    bw = BitWriter()
+    mbt.emit_p_slice_mbs(bw, grid, 1)
+    bw.write_trailing_bits()
+    return bw.getvalue()
+
+
+def stack_dense(dds) -> dict:
+    """Either package's DonorDense list -> the dense wire as numpy arrays
+    with a leading donor axis, every donor's chunks padded with zero-width
+    slots to the widest chunk class (padding adds no bits)."""
+    S = max(dd.patterns.shape[1] for dd in dds)
+
+    def pad(a):
+        a = np.asarray(a)
+        return np.pad(a, ((0, 0), (0, S - a.shape[1])))
+
+    from .models.splice_device import ROLE_FIELDS
+
+    out = {"patterns": np.stack([pad(dd.patterns) for dd in dds]).astype(np.uint32),
+           "nbits": np.stack([pad(dd.nbits) for dd in dds]).astype(np.int32),
+           "coded": np.stack([np.asarray(dd.coded, bool) for dd in dds])}
+    for f in ROLE_FIELDS:
+        out[f] = np.stack([np.asarray(getattr(dd, f), np.int32) for dd in dds])
+    return out
+
+
+def dense_budget(cfg: ComposerConfig, config: str, donor_bits: int):
+    """The dense step's n_rbsp: the honest budget of the widest donor for
+    "representative", the emitter's default (None: the chunk class's) for
+    "ipcm"."""
+    from .models import splice_device
+
+    if config == "ipcm":
+        return None
+    return splice_device.splice_rbsp_budget(cfg, SPLICE_R * SPLICE_C,
+                                            donor_bits)
+
+
+def prepare_dense_donors(config: str, *, engine: str, device,
+                         n: int = DENSE_DONORS):
+    """The dense wire of donors 0..n-1 of `config` on `device`: (dn
+    {field: tensor [n, ...]}, max donor_bits, any has_align)."""
+    from .models import splice_device
+
+    dds = [splice_device.prepare_donor_dense_from_slice(
+               dense_donor_payload(k, config == "ipcm"), 0, SPLICE_C,
+               SPLICE_R, 1, SPLICE_NUM_REFS, engine=engine)
+           for k in range(n)]
+    dn = splice_device.donor_arrays_from_numpy(stack_dense(dds), device)
+    return (dn, max(dd.donor_bits for dd in dds),
+            any(dd.has_align for dd in dds))
+
+
+def dense_step(cfg: ComposerConfig, config: str, donor_bits: int,
+               has_align: bool, *, ebsp_exact: bool = False):
+    """The dense splice step of `config` at bench.py's geometry."""
+    return batch.make_batched_splice_step_dense(
+        cfg, SPLICE_C0, SPLICE_R0, SPLICE_C, SPLICE_R, SPLICE_NUM_REFS,
+        has_align=has_align, n_rbsp=dense_budget(cfg, config, donor_bits),
+        ebsp_exact=ebsp_exact)
+
+
+def dense_symbols(cfg: ComposerConfig, config: str, dn: dict,
+                  donor_bits: int, device):
+    """K1's input on the dense step of `config`, one session per donor of
+    `dn`: (patterns int64[B, n], nbits int64[B, n], n_rbsp)."""
+    from .models import splice_device
+
+    B = next(iter(dn.values())).shape[0]
+    return splice_device.dense_splice_symbols(
+        cfg, SPLICE_C0, SPLICE_R0, SPLICE_R, SPLICE_C, SPLICE_NUM_REFS,
+        *splice_session_inputs(cfg, B, device), dn,
+        n_rbsp=dense_budget(cfg, config, donor_bits))
+
+
+def tile_donors(dn: dict, batch_size: int) -> dict:
+    """`batch_size` sessions carrying the donors of `dn` in turn."""
+    n = next(iter(dn.values())).shape[0]
+    idx = torch.arange(batch_size) % n
+    return {k: v[idx.to(v.device)] for k, v in dn.items()}
+
+
+def dense_golden_config() -> dict:
+    return {"width": GOLDEN_WIDTH, "height": GOLDEN_HEIGHT,
+            "rect": [SPLICE_C0, SPLICE_R0, SPLICE_C, SPLICE_R],
+            "num_refs": SPLICE_NUM_REFS, "frame_num": SPLICE_FRAME_NUM,
+            "donors": DENSE_DONORS, "donor_seed": SPLICE_DONOR_SEED,
+            "configs": {"representative": "honest budget of the widest donor",
+                        "ipcm": "one I_PCM MB at [0][0], the chunk class's "
+                                "default budget"}}
+
+
+def port_dense_golden(device="cuda", engine: str = "native") -> dict:
+    """The dense golden digests computed by the port on `device`: one
+    frame per donor (B = DENSE_DONORS) of each configuration."""
+    device = resolve_device(device)
+    cfg = ComposerConfig(GOLDEN_WIDTH, GOLDEN_HEIGHT)
+    out = {"config": dense_golden_config()}
+    inputs = splice_session_inputs(cfg, DENSE_DONORS, device)
+    no_wp = np.zeros(DENSE_DONORS, bool)
+    for config in DENSE_CONFIGS:
+        dn, bits, align = prepare_dense_donors(config, engine=engine,
+                                               device=device)
+        nal, nal_len, _bits, ovf = dense_step(cfg, config, bits, align)(
+            *inputs, dn)
+        out[config] = digest_step(nal.cpu().numpy(), nal_len.cpu().numpy(),
+                                  no_wp, ovf.cpu().numpy())
+    return out
+
+
 def digest_step(nal, nal_len, emitted_waypoint, overflow):
     """Per-session digest of one step's outputs (numpy arrays): the sha256
     of the valid NAL bytes, the length and both flags."""
@@ -738,6 +902,33 @@ def session_streams(pkg, workdir, names=SESSION_STREAMS,
              "composer_cli": composer_cli, "hint_1080p": hint_1080p,
              "scroll_4k": scroll_4k}
     return {name: build[name]() for name in names}
+
+
+# Hint frames whose NAL buffer passes a block's shared memory on the card
+# (K1 builds the NAL in global memory): 3840x2160 at 64 bits per MB (NAL
+# buffer 259,328 B) and 5120x3200 at the default 32 (256,128 B).
+LARGE_GOLDEN_PATH = GOLDEN_PATH.parent / "large_frames.json"
+LARGE_FRAMES = {"hint_3840x2160_64": (3840, 2160, 64),
+                "hint_5120x3200": (5120, 3200, 32)}
+
+
+def large_frame_stream(pkg, name: str, **session_kw) -> bytes:
+    """One package's stream of LARGE_FRAMES[name]: parameter sets, the
+    striped test atlases and one hint frame of LARGE_HINT_REGIONS."""
+    w, h, bits = LARGE_FRAMES[name]
+    s = pkg.ComposerSession(pkg.ComposerConfig(w, h, rbsp_bits_per_mb=bits),
+                            **session_kw)
+    s.write_parameter_sets()
+    s.write_test_atlases(striped=True)
+    s.write_hint_frame(pkg.FrameHints(motion_regions=tuple(
+        pkg.MotionRegion(*spec) for spec in LARGE_HINT_REGIONS)))
+    return s.getvalue()
+
+
+def large_golden(pkg, names=tuple(LARGE_FRAMES), **session_kw) -> dict:
+    """The large-frame digests composed by one package."""
+    return {name: stream_digest(large_frame_stream(pkg, name, **session_kw))
+            for name in names}
 
 
 def stream_digest(data: bytes) -> dict:

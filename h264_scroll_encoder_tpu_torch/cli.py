@@ -6,11 +6,14 @@ src/main.c:14-141 (donor mode, triangle-wave scroll 0 -> height -> 0),
 I_PCM atlases, scroll starting at 496 px so waypoints engage, max offset
 height-16), and `splice-demo` embeds a donor's macroblocks into composed
 P-frames.  Their output bytes are the JAX package's.  Each takes
-`--device` (default `cuda`; `cpu` runs the kernels' plain versions):
+`--device` (default `cuda`; `cpu` runs the kernels' plain versions).
+`trans-resizer` widens a CAVLC stream with padding macroblocks (host
+code on the native CAVLC engine):
 
     python -m h264_scroll_encoder_tpu_torch.cli composer --ref-a A --ref-b B ...
     python -m h264_scroll_encoder_tpu_torch.cli scroll-encoder -n 8 ...
     python -m h264_scroll_encoder_tpu_torch.cli splice-demo --donor D ...
+    python -m h264_scroll_encoder_tpu_torch.cli trans-resizer IN OUT --out-width 720
 
 (with no program name, the arguments go to `composer`, as the JAX
 package's module does).
@@ -269,9 +272,59 @@ def splice_demo_main(argv=None) -> int:
     return 0 if rep.ok else 1
 
 
+def trans_resizer_main(argv=None) -> int:
+    """Padding transcoder CLI (trans-resizer equivalent, generalized
+    geometry; experiments/trans-resizer/trans_resizer.c:1787-1793): host
+    code on the native CAVLC engine, verified with verify_stream."""
+    from pathlib import Path
+
+    from .models.splice import transcode_pad_stream
+    from .syntax import parse as sparse
+    from .verify import verify_stream
+
+    ap = argparse.ArgumentParser(
+        prog="trans-resizer",
+        description="Widen a CAVLC H.264 stream by appending padding "
+                    "macroblocks at each row's end")
+    ap.add_argument("input")
+    ap.add_argument("output")
+    ap.add_argument("--out-width", type=int, default=720)
+    ap.add_argument("--out-height", type=int, default=None,
+                    help="default: input height")
+    ap.add_argument("--bug-compat", action="store_true",
+                    help="reproduce the C reference's duplicated final "
+                         "skip run byte-for-byte")
+    ap.add_argument("--no-verify", action="store_true")
+    args = ap.parse_args(argv)
+
+    data = Path(args.input).read_bytes()
+    try:
+        sps = next(sparse.parse_sps(u.rbsp)
+                   for u in sparse.iter_nal_units(data)
+                   if u.nal_unit_type == 7)
+        out_h = args.out_height or sps.height
+        out = transcode_pad_stream(data, args.out_width, out_h,
+                                   bug_compat=args.bug_compat)
+    except (ValueError, StopIteration) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    Path(args.output).write_bytes(out)
+    print(f"Output: {args.output} ({len(out)} bytes)")
+
+    if not args.no_verify:
+        # Self-verification, as the reference checks with ffmpeg
+        # (trans_resizer.c:2176-2186), with the structural oracle.
+        rep = verify_stream(out, strict_trailing=not args.bug_compat)
+        print("Verification:", "SUCCESS" if rep.ok else
+              f"FAILED {rep.errors[:3]}")
+        return 0 if rep.ok else 1
+    return 0
+
+
 PROGRAMS = {"composer": composer_main,
             "scroll-encoder": scroll_encoder_main,
-            "splice-demo": splice_demo_main}
+            "splice-demo": splice_demo_main,
+            "trans-resizer": trans_resizer_main}
 
 
 def main(argv=None) -> int:

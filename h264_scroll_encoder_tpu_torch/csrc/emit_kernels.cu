@@ -94,18 +94,27 @@
 // (the length read, then the staged copy it sizes, four barriers, three
 // serial passes) sets the time, not the bytes.
 //
-// Large frames (K1, K2/K4).  K1 keeps the staging area (reused for the
-// NAL) and the packed RBSP words in shared memory: max(8 * kPackThreads * k,
-// n_nal) + n_nal bytes.  At 3840x2160 and the generic 32 bits per MB
-// (n_nal 129,728) that is 259,456 bytes, over the 232,448 a block may use,
-// and K2's exact retry passes the limit from about 33,500 MBs.  Where
-// staging and words do not fit together, the wrapper passes a global
-// scratch buffer (`words_gmem`, n_words per session) and the kernel packs
-// into it instead: the same code through generic pointers, at global-memory
-// latency for the pack's atomics and the emulation-prevention reads.
-// `h264t_emit_words_in_global` / `h264t_pack_words_in_global` answer the
-// wrapper from the shared-memory plan and the card's limit, so the formula
-// lives here only.
+// Large frames.  K1 keeps the staging area (reused for the NAL) and the
+// packed RBSP words in shared memory: max(8 * kPackThreads * k, n_nal) +
+// n_nal bytes, 232,448 at most on an H100.  Its plans, tried in turn:
+//   0  words and NAL in shared memory (every 720p path);
+//   1  words in a global scratch buffer (`words_gmem`, n_words per
+//      session) the wrapper allocates, NAL in shared memory: 3840x2160 at
+//      the generic 32 bits per MB (n_nal 129,728, 259,456 bytes by plan 0);
+//   3  words in the scratch and the NAL built in place in its output row,
+//      so the block holds the staging area and the scan temporaries only
+//      (98,304 bytes at most): n_nal past ~134,000 bytes, e.g. 3840x2160
+//      at 64 bits per MB (259,328) or 5120x3200 at 32 (256,128).
+// K2/K4 keep the words in a scratch past about 33,500 MBs (its exact
+// retry).  K3 stages the padded row and then the NAL (~2 * n_nal): past a
+// block's limit (n_nal over ~116 KB) it reads the row from global memory
+// and builds the NAL in place in its output row.  The code is the same in
+// every plan, through generic pointers, at global-memory latency for what
+// left shared memory; where the NAL is built in place the copy-out writes
+// only the bytes after the payload.  `h264t_emit_plan`,
+// `h264t_pack_words_in_global` and `h264t_ebsp_nal_in_global` answer the
+// wrappers from the shared-memory plan and the card's limit, so the
+// formulas live here only.
 //
 // Plain C interface (bound with ctypes): each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() of its launch.
@@ -331,6 +340,14 @@ struct StagedBytes {
   __device__ __forceinline__ int operator()(int i) const { return i < n ? bytes[i] : 0; }
 };
 
+// K3's row read straight from global memory (its plan past a block's
+// shared memory), zero from byte n on.
+struct GlobalBytes {
+  const uint8_t* __restrict__ bytes;
+  int n;
+  __device__ __forceinline__ int operator()(int i) const { return i < n ? __ldg(bytes + i) : 0; }
+};
+
 // The window rules of the stage: whether byte i (of value `byte`, with the
 // last nonzero byte before it at `last`, -1 if none) takes a 0x03 before
 // it; `sat` is set where the rule cannot resolve its zero run.
@@ -448,6 +465,27 @@ __device__ __forceinline__ void copy_out(const uint8_t* nal, int fill, int end, 
   }
 }
 
+// The bytes of an output row after the payload where the NAL was built in
+// place: [fill, n_nal) as 0x03 below `end`, zeros after; 16-byte stores
+// over the row's aligned middle.
+__device__ void fill_tail(uint8_t* out, int fill, int end, int n_nal) {
+  const int mis = (int)(reinterpret_cast<uintptr_t>(out) & 15);
+  const int lo = min(fill + ((16 - ((mis + fill) & 15)) & 15), n_nal);
+  const int hi = max(lo, n_nal - ((mis + n_nal) & 15));
+  for (int k = fill + threadIdx.x; k < lo; k += kPackThreads) out[k] = k < end ? 3 : 0;
+  for (int k = hi + threadIdx.x; k < n_nal; k += kPackThreads) out[k] = k < end ? 3 : 0;
+  for (int c = threadIdx.x; c < (hi - lo) >> 4; c += kPackThreads) {
+    const int k0 = lo + 16 * c;
+    union {
+      uint4 v;
+      uint8_t b[16];
+    } u;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) u.b[j] = k0 + j < end ? 3 : 0;
+    reinterpret_cast<uint4*>(out + k0)[0] = u.v;
+  }
+}
+
 __device__ __forceinline__ void write_prefix(uint8_t* nal, int n_nal, uint8_t header) {
   const uint8_t prefix[5] = {0, 0, 0, 1, header};
   for (int k = 0; k < min(5, n_nal); ++k) nal[k] = prefix[k];
@@ -458,7 +496,7 @@ __global__ void __launch_bounds__(kPackThreads, 2)
     emit_fused_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row,
                       long long nb_row, const int64_t* __restrict__ idc, long long idc_row,
                       int idc_value, int n, int k, int n_nal, int n_rbsp, int cap, int align,
-                      int append_tb, uint32_t* __restrict__ words_gmem,
+                      int append_tb, uint32_t* __restrict__ words_gmem, int nal_in_global,
                       uint8_t* __restrict__ nal_out, int32_t* __restrict__ len_out,
                       int32_t* __restrict__ bits_out, uint8_t* __restrict__ ovf_out) {
   extern __shared__ uint4 pack_smem[];  // 16-byte aligned
@@ -470,9 +508,13 @@ __global__ void __launch_bounds__(kPackThreads, 2)
   const int n_words = n_nal >> 2;  // the RBSP buffer holds n_nal bytes
   uint32_t* spat = reinterpret_cast<uint32_t*>(smem);
   int32_t* snb = reinterpret_cast<int32_t*>(smem + 4 * kPackThreads * k);
-  uint8_t* nal = smem;  // reuses the staging area once the words are packed
+  uint8_t* out_row = nal_out + (size_t)s * n_nal;
+  // The NAL reuses the staging area once the words are packed, or is built
+  // in place in the output row.
+  uint8_t* nal = nal_in_global ? out_row : smem;
   uint32_t* words = words_gmem ? words_gmem + (size_t)s * n_words
-                               : reinterpret_cast<uint32_t*>(smem + staging_bytes(k, n_nal));
+                               : reinterpret_cast<uint32_t*>(
+                                     smem + staging_bytes(k, nal_in_global ? 0 : n_nal));
 
   for (int i = threadIdx.x; i < n_words; i += kPackThreads) words[i] = 0;
   int bad = 0;
@@ -500,7 +542,11 @@ __global__ void __launch_bounds__(kPackThreads, 2)
   const int ins_total = emulation_prevention(PackedBytes{words}, WordWindow(), valid, per, nal,
                                              n_nal, tmp_max, tmp_sum, sat);
   const int fill = min(5 + valid + ins_total, n_nal);
-  copy_out(nal, fill, fill, n_nal, nal_out, s);
+  if (nal_in_global) {
+    fill_tail(out_row, fill, fill, n_nal);
+  } else {
+    copy_out(nal, fill, fill, n_nal, nal_out, s);
+  }
   if (threadIdx.x == 0) {
     const int ins_eff = ins_total + (sat ? cap + 1 : 0);
     len_out[s] = 5 + rbsp_len + ins_eff;
@@ -533,24 +579,18 @@ __global__ void __launch_bounds__(kPackThreads, 2)
   if (threadIdx.x == 0) total_out[s] = total_bits;
 }
 
-// A per-session int argument of K3: element s * row of an int32 (bytes 4)
-// or int64 (bytes 8) array, row 0 broadcasting one element, or `value`
-// where p is null.  Read as int32, as the JAX wrapper casts it.
-struct SessionInt {
-  const void* p;
-  long long row;
-  int bytes;
-  int value;
-  __device__ __forceinline__ int at(int s) const {
-    if (p == nullptr) return value;
-    return bytes == 8 ? (int)static_cast<const int64_t*>(p)[s * row]
-                      : static_cast<const int32_t*>(p)[s * row];
-  }
-};
-
-// Bytes of K3's shared memory: the staging area (padded bytes plus up to
-// 15 of alignment offset), then the NAL.
+// Bytes of K3's staging area: the padded bytes plus up to 15 of alignment
+// offset.  Where the row is staged, K3's shared memory is the staging area,
+// then the NAL (ebsp_smem).
 __host__ __device__ __forceinline__ int ebsp_stage_bytes(int padded) { return padded + 16; }
+
+__host__ __device__ __forceinline__ int ebsp_padded(int n_nal) {
+  return (n_nal + 127) / 128 * 128;  // ops/ebsp_flat.padded_len
+}
+
+__host__ __device__ __forceinline__ size_t ebsp_smem(int n_nal) {
+  return (size_t)ebsp_stage_bytes(ebsp_padded(n_nal)) + (size_t)((n_nal + 15) & ~15);
+}
 
 // Bytes each thread of K3 owns for a session of `valid` bytes: ceil(valid /
 // threads), made odd so that neighbouring threads' runs fall into different
@@ -560,52 +600,64 @@ __host__ __device__ __forceinline__ int ebsp_items_per_thread(int valid) {
 }
 
 // K3.  Session s reads row s of `rbsp` (m bytes, `rbsp_row` apart), its
-// valid length and NAL header byte, and writes n_nal framed NAL bytes and
-// the insertion count: `padded` positions of the stream are considered
-// (n_nal rounded up to 128, as the JAX wrapper pads or cuts), those below
-// rbsp_len valid, those past the row zero.  The count is the insertions,
-// plus max_ins + 1 where the stream saturated; positions from the escaped
-// payload's end up to 5 + rbsp_len + count hold 0x03, zeros after, as the
-// TPU kernel's expansion leaves them.
+// valid length (int64, element s * len_row) and writes n_nal framed NAL
+// bytes under `header` and the insertion count: `padded` positions of the
+// stream are considered (n_nal rounded up to 128, as the JAX wrapper pads
+// or cuts), those below rbsp_len valid, those past the row zero.  The count
+// is the insertions, plus max_ins + 1 where the stream saturated; positions
+// from the escaped payload's end up to 5 + rbsp_len + count hold 0x03,
+// zeros after, as the TPU kernel's expansion leaves them.  `in_global`:
+// the row is read from global memory and the NAL built in place (no
+// dynamic shared memory).
 __global__ void __launch_bounds__(kPackThreads, 2)
     ebsp_nal_kernel(const uint8_t* __restrict__ rbsp, long long rbsp_row, int m,
-                    SessionInt len_arg, SessionInt header_arg, int padded, int n_nal, int max_ins,
+                    const int64_t* __restrict__ rbsp_len, long long len_row, int header,
+                    int padded, int n_nal, int max_ins, int in_global,
                     uint8_t* __restrict__ nal_out, int32_t* __restrict__ total_out) {
   extern __shared__ uint4 pack_smem[];  // 16-byte aligned
   uint8_t* stage = reinterpret_cast<uint8_t*>(pack_smem);
-  uint8_t* nal = stage + ebsp_stage_bytes(padded);
   __shared__ int tmp_max[kPackWarps];
   __shared__ int tmp_sum[kPackWarps];
   const int s = blockIdx.x;
   const int t = threadIdx.x;
   const uint8_t* src = rbsp + s * rbsp_row;
-  const int len = len_arg.at(s);
+  uint8_t* out_row = nal_out + (size_t)s * n_nal;
+  uint8_t* nal = in_global ? out_row : stage + ebsp_stage_bytes(padded);
+  const int len = (int)rbsp_len[s * len_row];  // read as int32, as the JAX wrapper casts it
   const int valid = max(min(len, padded), 0);
   const int n_load = min(valid, m);
+  if (t == 0) write_prefix(nal, n_nal, (uint8_t)header);
 
-  // Byte i goes to stage[off + i]: the row and the staging area then share
-  // their alignment mod 16, and the aligned middle moves in 16-byte copies.
-  const int off = (int)(reinterpret_cast<uintptr_t>(src) & 15);
-  const int head = min((16 - off) & 15, n_load);
-  const int n16 = (n_load - head) >> 4;
-  const int tail = head + (n16 << 4);
-  for (int c = t; c < n16; c += kPackThreads) {
-    cp_async16(stage + off + head + 16 * c, src + head + 16 * c);
+  int sat, ins;
+  if (in_global) {
+    ins = emulation_prevention(GlobalBytes{src, n_load}, ByteWindow(), valid,
+                               ebsp_items_per_thread(valid), nal, n_nal, tmp_max, tmp_sum, sat);
+  } else {
+    // Byte i goes to stage[off + i]: the row and the staging area then
+    // share their alignment mod 16, and the aligned middle moves in 16-byte
+    // copies.
+    const int off = (int)(reinterpret_cast<uintptr_t>(src) & 15);
+    const int head = min((16 - off) & 15, n_load);
+    const int n16 = (n_load - head) >> 4;
+    const int tail = head + (n16 << 4);
+    for (int c = t; c < n16; c += kPackThreads) {
+      cp_async16(stage + off + head + 16 * c, src + head + 16 * c);
+    }
+    if (t < head) stage[off + t] = src[t];
+    if (t < n_load - tail) stage[off + tail + t] = src[tail + t];
+    cp_async_wait_all();
+    __syncthreads();
+    ins = emulation_prevention(StagedBytes{stage + off, n_load}, ByteWindow(), valid,
+                               ebsp_items_per_thread(valid), nal, n_nal, tmp_max, tmp_sum, sat);
   }
-  if (t < head) stage[off + t] = src[t];
-  if (t < n_load - tail) stage[off + tail + t] = src[tail + t];
-  if (t == 0) write_prefix(nal, n_nal, (uint8_t)header_arg.at(s));
-  cp_async_wait_all();
-  __syncthreads();
-
-  int sat;
-  const int ins = emulation_prevention(StagedBytes{stage + off, n_load}, ByteWindow(), valid,
-                                       ebsp_items_per_thread(valid), nal, n_nal, tmp_max,
-                                       tmp_sum, sat);
   const int count = ins + (sat ? max_ins + 1 : 0);
   const int fill = min(5 + valid + ins, n_nal);
   const int end = (int)min(5LL + len + count, (long long)n_nal);
-  copy_out(nal, fill, end, n_nal, nal_out, s);
+  if (in_global) {
+    fill_tail(out_row, fill, end, n_nal);
+  } else {
+    copy_out(nal, fill, end, n_nal, nal_out, s);
+  }
   if (t == 0) total_out[s] = count;
 }
 
@@ -634,10 +686,17 @@ size_t dynamic_smem_limit(const void* kernel) {
   return (size_t)optin > attr.sharedSizeBytes ? (size_t)optin - attr.sharedSizeBytes : 0;
 }
 
-// K1's and K2's dynamic shared memory: the staging area, plus the RBSP words
-// unless they live in global memory.
-size_t emit_smem(int k, int n_nal, bool words_in_global) {
-  return (size_t)staging_bytes(k, n_nal) + (words_in_global ? 0 : (size_t)n_nal);
+// K1's plan bits (h264t_emit_plan): the RBSP words, and the NAL, in global
+// memory.
+constexpr int kWordsInGlobal = 1;
+constexpr int kNalInGlobal = 2;
+
+// K1's and K2's dynamic shared memory: the staging area (K1: reused for the
+// NAL unless that is built in place), plus the RBSP words unless they live
+// in global memory.
+size_t emit_smem(int k, int n_nal, int plan) {
+  return (size_t)staging_bytes(k, (plan & kNalInGlobal) ? 0 : n_nal) +
+         ((plan & kWordsInGlobal) ? 0 : (size_t)n_nal);
 }
 
 size_t pack_smem_bytes(int k, int n_words, bool words_in_global) {
@@ -658,15 +717,17 @@ template <typename Sym>
 cudaError_t launch_emit(const void* pat, const void* nb, long long pat_row, long long nb_row,
                         const int64_t* idc, long long idc_row, int idc_value, int batch, int n,
                         int k, int n_nal, int n_rbsp, int cap, int align, int append_tb,
-                        uint32_t* words_gmem, uint8_t* nal_out, int32_t* len_out,
-                        int32_t* bits_out, uint8_t* ovf_out, cudaStream_t stream) {
-  const size_t smem = emit_smem(k, n_nal, words_gmem != nullptr);
+                        uint32_t* words_gmem, int nal_in_global, uint8_t* nal_out,
+                        int32_t* len_out, int32_t* bits_out, uint8_t* ovf_out,
+                        cudaStream_t stream) {
+  const int plan = (words_gmem ? kWordsInGlobal : 0) | (nal_in_global ? kNalInGlobal : 0);
+  const size_t smem = emit_smem(k, n_nal, plan);
   cudaError_t err = set_smem((const void*)emit_fused_kernel<Sym>, smem);
   if (err != cudaSuccess) return err;
   emit_fused_kernel<Sym><<<batch, kPackThreads, smem, stream>>>(
       static_cast<const Sym*>(pat), static_cast<const Sym*>(nb), pat_row, nb_row, idc, idc_row,
-      idc_value, n, k, n_nal, n_rbsp, cap, align, append_tb, words_gmem, nal_out, len_out,
-      bits_out, ovf_out);
+      idc_value, n, k, n_nal, n_rbsp, cap, align, append_tb, words_gmem, nal_in_global != 0,
+      nal_out, len_out, bits_out, ovf_out);
   return cudaGetLastError();
 }
 
@@ -688,38 +749,45 @@ cudaError_t launch_pack(const void* pat, const void* nb, long long pat_row, long
 // K1.  pat, nb: [batch, n] rows of int32 (sym_bytes 4) or int64 (8)
 // elements with unit column stride and the given row strides, staged k per
 // thread (k >= 1); nal_ref_idc is idc[s * idc_row] (int64) or, where idc
-// is null, idc_value.  words_gmem: null, or u32[batch, n_nal / 4] scratch
-// where h264t_emit_words_in_global says so.  Outputs: nal_out u8[batch,
-// n_nal], len_out, bits_out i32[batch], ovf_out bool[batch].  A block that
-// needs more shared memory than the card allows fails with the attribute
-// call's error.
+// is null, idc_value.  words_gmem: null, or u32[batch, n_nal / 4] scratch,
+// and nal_in_global 0 or 1, as h264t_emit_plan says.  Outputs: nal_out
+// u8[batch, n_nal], len_out, bits_out i32[batch], ovf_out bool[batch].  A
+// block that needs more shared memory than the card allows fails with the
+// attribute call's error.
 extern "C" int h264t_emit_fused(const void* pat, const void* nb, int sym_bytes,
                                 long long pat_row, long long nb_row, const int64_t* idc,
                                 long long idc_row, int idc_value, int batch, int n, int k,
                                 int n_nal, int n_rbsp, int cap, int align, int append_tb,
-                                uint32_t* words_gmem, uint8_t* nal_out, int32_t* len_out,
-                                int32_t* bits_out, uint8_t* ovf_out, void* stream) {
+                                uint32_t* words_gmem, int nal_in_global, uint8_t* nal_out,
+                                int32_t* len_out, int32_t* bits_out, uint8_t* ovf_out,
+                                void* stream) {
   if (n_nal < 16 || n_nal % 4 != 0 || k < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (sym_bytes == 8)
     return (int)launch_emit<int64_t>(pat, nb, pat_row, nb_row, idc, idc_row, idc_value, batch, n,
-                                     k, n_nal, n_rbsp, cap, align, append_tb, words_gmem, nal_out,
-                                     len_out, bits_out, ovf_out, st);
+                                     k, n_nal, n_rbsp, cap, align, append_tb, words_gmem,
+                                     nal_in_global, nal_out, len_out, bits_out, ovf_out, st);
   if (sym_bytes == 4)
     return (int)launch_emit<int32_t>(pat, nb, pat_row, nb_row, idc, idc_row, idc_value, batch, n,
-                                     k, n_nal, n_rbsp, cap, align, append_tb, words_gmem, nal_out,
-                                     len_out, bits_out, ovf_out, st);
+                                     k, n_nal, n_rbsp, cap, align, append_tb, words_gmem,
+                                     nal_in_global, nal_out, len_out, bits_out, ovf_out, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// 1 where K1 at (sym_bytes, k, n_nal) keeps its RBSP words in global memory
-// on the current device (staging and words exceed a block's shared memory
-// together), 0 where they stay in shared memory, -1 if the runtime cannot
-// say.  Launches nothing.
-extern "C" int h264t_emit_words_in_global(int sym_bytes, int k, int n_nal) {
+// K1's plan at (sym_bytes, k, n_nal) on the current device: the first of 0
+// (words and NAL in shared memory), 1 (words in global memory) and 3 (words
+// and NAL in global memory) whose shared memory fits a block, as bits
+// kWordsInGlobal | kNalInGlobal; 3 where none fits (the launch then fails),
+// -1 if the runtime cannot say.  Launches nothing.
+extern "C" int h264t_emit_plan(int sym_bytes, int k, int n_nal) {
   if (sym_bytes != 4 && sym_bytes != 8) return -1;
   const size_t limit = dynamic_smem_limit(emit_kernel_of(sym_bytes));
-  return limit == 0 ? -1 : emit_smem(k, n_nal, false) > limit ? 1 : 0;
+  if (limit == 0) return -1;
+  const int plans[] = {0, kWordsInGlobal, kWordsInGlobal | kNalInGlobal};
+  for (int plan : plans) {
+    if (emit_smem(k, n_nal, plan) <= limit) return plan;
+  }
+  return kWordsInGlobal | kNalInGlobal;
 }
 
 // K2.  pat, nb and k as for K1; words_gmem null, or u32[batch, n_words]
@@ -748,26 +816,30 @@ extern "C" int h264t_pack_words_in_global(int sym_bytes, int k, int n_words) {
 }
 
 // K3.  rbsp: [batch, m] bytes with unit column stride and row stride
-// rbsp_row; rbsp_len and header as SessionInt (len, len_bytes, len_row,
-// len_value, and the same for the header).  Outputs nal_out u8[batch,
-// n_nal] and total_out i32[batch].
-extern "C" int h264t_ebsp_nal(const uint8_t* rbsp, long long rbsp_row, int m, const void* len,
-                              int len_bytes, long long len_row, int len_value, const void* header,
-                              int header_bytes, long long header_row, int header_value, int batch,
-                              int n_nal, int max_ins, uint8_t* nal_out, int32_t* total_out,
-                              void* stream) {
-  const bool len_ok = len == nullptr || len_bytes == 4 || len_bytes == 8;
-  const bool header_ok = header == nullptr || header_bytes == 4 || header_bytes == 8;
-  if (n_nal < 0 || m < 0 || !len_ok || !header_ok) return (int)cudaErrorInvalidValue;
-  const int padded = (n_nal + 127) / 128 * 128;  // ops/ebsp_flat.padded_len
-  const size_t smem = (size_t)ebsp_stage_bytes(padded) + (size_t)((n_nal + 15) & ~15);
+// rbsp_row; rbsp_len: int64, session s's at s * len_row (0 broadcasts one);
+// header: the NAL header byte; in_global as h264t_ebsp_nal_in_global says.
+// Outputs nal_out u8[batch, n_nal] and total_out i32[batch].
+extern "C" int h264t_ebsp_nal(const uint8_t* rbsp, long long rbsp_row, int m,
+                              const int64_t* rbsp_len, long long len_row, int header, int batch,
+                              int n_nal, int max_ins, int in_global, uint8_t* nal_out,
+                              int32_t* total_out, void* stream) {
+  if (n_nal < 0 || m < 0 || rbsp_len == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = in_global ? 0 : ebsp_smem(n_nal);
   cudaError_t err = set_smem((const void*)ebsp_nal_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   ebsp_nal_kernel<<<batch, kPackThreads, smem, (cudaStream_t)stream>>>(
-      rbsp, rbsp_row, m, SessionInt{len, len_row, len_bytes, len_value},
-      SessionInt{header, header_row, header_bytes, header_value}, padded, n_nal, max_ins, nal_out,
-      total_out);
+      rbsp, rbsp_row, m, rbsp_len, len_row, header, ebsp_padded(n_nal), n_nal, max_ins,
+      in_global != 0, nal_out, total_out);
   return (int)cudaGetLastError();
+}
+
+// 1 where K3 at n_nal reads its rows from global memory and builds the NAL
+// in place on the current device (the staged row and the NAL exceed a
+// block's shared memory), 0 where both stay in shared memory, -1 if the
+// runtime cannot say.  Launches nothing.
+extern "C" int h264t_ebsp_nal_in_global(int n_nal) {
+  const size_t limit = dynamic_smem_limit((const void*)ebsp_nal_kernel);
+  return limit == 0 ? -1 : ebsp_smem(n_nal) > limit ? 1 : 0;
 }
 
 // K3's bytes per thread for a session of `valid` bytes, as the kernel

@@ -1,16 +1,22 @@
-"""Dynamic-rect splice, host path.
+"""Bitstream surgery, host path: padding transcode and dynamic-rect splice.
 
-Port of the host half of h264_scroll_encoder_tpu/models/splice.py, copied
-unchanged (it has no framework dependency): `splice_p_frame` — the
-dynamic-rect splice the reference *specifies* (docs/MASTER_DESIGN.md §6
-stitch algorithm) but never implemented in its main tree: compose a
-P-frame where motion-only regions are MV/P_Skip macroblocks referencing
-the long-term atlases and a donor encoder's pre-encoded macroblocks are
-embedded at an arbitrary MB-aligned rectangle, with nC-context repair
-(coeff_token re-encoded under the output-geometry nC) and skip-run
-stitching — plus the hint types, the slice-header parse/transcode and the
-I_PCM padding helpers.  Not ported yet: `transcode_pad_stream` (the
-trans-resizer), which needs the native pad/parse entry points.
+Port of h264_scroll_encoder_tpu/models/splice.py (it has no framework
+dependency):
+
+1. `transcode_pad_stream` — the trans-resizer equivalent
+   (experiments/trans-resizer/trans_resizer.c:1787-2156): re-emit a CAVLC
+   stream at a wider geometry by appending padding macroblocks at the end
+   of each row, with regenerated SPS/PPS and transcoded slice headers, on
+   the native CAVLC engine or the Python one (`engine`, no fallback).
+
+2. `splice_p_frame` — the dynamic-rect splice the reference *specifies*
+   (docs/MASTER_DESIGN.md §6 stitch algorithm) but never implemented in
+   its main tree: compose a P-frame where motion-only regions are
+   MV/P_Skip macroblocks referencing the long-term atlases and a donor
+   encoder's pre-encoded macroblocks are embedded at an arbitrary
+   MB-aligned rectangle, with nC-context repair (coeff_token re-encoded
+   under the output-geometry nC) and skip-run stitching — plus the hint
+   types, the slice-header parse/transcode and the I_PCM padding helpers.
 """
 
 from __future__ import annotations
@@ -191,6 +197,123 @@ def write_transcoded_slice_header(bw: BitWriter, h: SliceHeaderInfo,
     if h.disable_deblock != 1:
         bw.write_se(h.alpha_offset)
         bw.write_se(h.beta_offset)
+
+
+# ---------------------------------------------------------------------------
+# Padding transcode (trans-resizer equivalent, geometry generalized).
+# ---------------------------------------------------------------------------
+
+def transcode_pad_stream(data: bytes, out_width: int, out_height: int, *,
+                         edge_y: int = 235, level_idc: int = 30,
+                         bug_compat: bool = False,
+                         engine: str = "native") -> bytes:
+    """Widen a CAVLC stream by appending padding MBs at each row's end.
+
+    Behaviour parity with the reference trans_resizer at its hardwired
+    320x320 -> 720x320 geometry; any MB-aligned out size is accepted (out
+    rows must equal the input's; out columns >= the input's).
+
+    bug_compat=True reproduces the reference's duplicated final skip run
+    (see mb_transcode.emit_p_slice_mbs) for byte-level differential
+    testing; the default emits the corrected stream.
+
+    engine: "native" (the C++ engine parses and re-emits each slice, built
+    on first use; raises if it cannot be built) or "python"
+    (models/mb_transcode).  Both give the same bytes."""
+    from .. import native_bridge
+    from ..syntax import parse
+    from ..syntax.nal import AnnexBWriter
+    from ..syntax.params import generate_pps, generate_sps
+    from .splice_device import _check_engine
+
+    _check_engine(engine)
+    sps = pps = None
+    for unit in parse.iter_nal_units(data):
+        if unit.nal_unit_type == 7 and sps is None:
+            sps = parse.parse_sps(unit.rbsp)
+        elif unit.nal_unit_type == 8 and pps is None:
+            pps = parse.parse_pps(unit.rbsp)
+    if sps is None or pps is None:
+        raise ValueError("input stream missing SPS/PPS")
+
+    in_mbw, in_mbh = sps.width // 16, sps.height // 16
+    out_mbw, out_mbh = out_width // 16, out_height // 16
+    if out_mbh != in_mbh or out_mbw < in_mbw:
+        raise ValueError("padding transcode only widens rows")
+    pad = out_mbw - in_mbw
+
+    out = AnnexBWriter()
+    num_ref_default = pps.num_ref_idx_l0_default_active_minus1 + 1
+    out.write_nal_unit(
+        generate_sps(out_width, out_height, level_idc=level_idc,
+                     max_num_ref_frames=num_ref_default,
+                     log2_max_frame_num=4),
+        3, 7)
+    out.write_nal_unit(
+        generate_pps(
+            num_ref_idx_l0_default_active_minus1=(
+                pps.num_ref_idx_l0_default_active_minus1),
+            pic_init_qp_minus26=pps.pic_init_qp_minus26,
+            chroma_qp_index_offset=pps.chroma_qp_index_offset),
+        3, 8)
+
+    for unit in parse.iter_nal_units(data):
+        if unit.nal_unit_type not in (1, 5):
+            continue
+        br = BitReader(unit.rbsp)
+        hdr = parse_slice_header(
+            br, is_idr=(unit.nal_unit_type == 5),
+            nal_ref_idc=unit.nal_ref_idc,
+            log2_max_frame_num=sps.log2_max_frame_num,
+            pps_num_ref_idx_l0_default=num_ref_default)
+        bw = BitWriter()
+        write_transcoded_slice_header(bw, hdr)
+        if not hdr.is_i and not hdr.is_p:
+            raise ValueError(f"unsupported slice type {hdr.slice_type}")
+
+        if engine == "native":
+            recs, _ = native_bridge.parse_slice_raw(
+                unit.rbsp, br.bit_position, in_mbw, in_mbh, hdr.is_p,
+                hdr.num_ref_idx_l0, bug_compat=bug_compat)
+            out_recs, aux, last_skip = native_bridge.pad_grid_raw(
+                recs, in_mbw, in_mbh, out_mbw, hdr.is_p, edge_y=edge_y)
+            phase = bw.bit_position % 8
+            payload, nbits = native_bridge.emit_slice_raw(
+                out_recs, out_mbw, in_mbh, hdr.is_p, hdr.num_ref_idx_l0,
+                unit.rbsp, aux, duplicate_final_skip=bug_compat and last_skip,
+                start_phase=phase, bug_compat=bug_compat)
+            # Bit-splice the payload after the (unaligned) header.
+            hdr_bits = np.unpackbits(
+                np.frombuffer(bw.getvalue(), np.uint8))[: bw.bit_position]
+            pay_bits = np.unpackbits(
+                np.frombuffer(payload, np.uint8))[phase:nbits]
+            merged = np.concatenate([hdr_bits, pay_bits])
+            whole = merged.size // 8 * 8
+            bw = BitWriter()
+            bw.write_bytes_aligned(np.packbits(merged[:whole]).tobytes())
+            for b in merged[whole:]:
+                bw.write_bit(int(b))
+        elif hdr.is_i:
+            grid = mbt.parse_i_slice_mbs(br, in_mbw, in_mbh,
+                                         bug_compat=bug_compat)
+            out_grid = [row + [ipcm_padding_mb(edge_y, first_padding=(p == 0))
+                               for p in range(pad)]
+                        for row in grid]
+            mbt.emit_i_slice_mbs(bw, out_grid, bug_compat=bug_compat)
+        else:
+            grid = mbt.parse_p_slice_mbs(br, in_mbw, in_mbh,
+                                         hdr.num_ref_idx_l0,
+                                         bug_compat=bug_compat)
+            out_grid = [row + [mbt.SKIP] * pad for row in grid]
+            dup = bug_compat and grid[-1][-1] is mbt.SKIP
+            mbt.emit_p_slice_mbs(bw, out_grid, hdr.num_ref_idx_l0,
+                                 duplicate_final_skip=dup,
+                                 bug_compat=bug_compat)
+
+        bw.write_trailing_bits()
+        out.write_nal_unit(bw.getvalue(), unit.nal_ref_idc,
+                           unit.nal_unit_type)
+    return out.getvalue()
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""Dynamic-rect splice over the row-contiguous donor layout, batched.
+"""Dynamic-rect splice, batched: the row-contiguous and the dense layouts.
 
-Port of the rows splice path of h264_scroll_encoder_tpu/models/
-splice_device.py: a pre-encoded CAVLC donor rect is composed into a P
-frame of static (or hinted) background.
+Port of h264_scroll_encoder_tpu/models/splice_device.py: a pre-encoded
+CAVLC donor rect is composed into a P frame of static (or hinted)
+background.
 
   host (numpy; native C++ engine or the Python one): parse the donor
     slice, resolve every residual block's coeff_token against the
@@ -19,9 +19,11 @@ frame of static (or hinted) background.
     (_finish_splice -> models/scroll.finish_slice).
 
 Every donor-dependent value (row chunks, first_c, coded mask, edge roles)
-is a tensor, so one step serves any donor of a geometry.  The JAX
-package's per-slot prepare path survives here only as the Python engine
-behind prepare_donor_dense; its dense emitter is not ported.
+is a tensor, so one step serves any donor of a geometry.  The dense
+layout (emit_spliced_frame_dense over dense_device_arrays: each donor MB
+as its own run of S chunk slots) is the rows layout's byte-for-byte
+parity partner; the JAX package's per-slot prepare path survives here as
+the Python engine behind prepare_donor_dense.
 """
 
 from __future__ import annotations
@@ -560,6 +562,17 @@ def donor_arrays_from_numpy(dn: dict, device="cuda") -> dict:
 def rows_device_arrays(dr: DonorRows, device="cuda") -> dict:
     """DonorRows -> the rows wire as tensors on `device` (no batch dim)."""
     return donor_arrays_from_numpy(rows_wire(dr), device)
+
+
+DENSE_FIELDS = ("patterns", "nbits", "coded") + ROLE_FIELDS
+
+
+def dense_device_arrays(dd: DonorDense, device="cuda") -> dict:
+    """DonorDense -> the dense wire as tensors on `device` (no batch dim):
+    chunks u32 -> int64 [M, S], nbits int32 [M, S], coded bool [M] and the
+    int32 edge roles [M] (the JAX package's dense_device_arrays keys)."""
+    return donor_arrays_from_numpy({k: getattr(dd, k) for k in DENSE_FIELDS},
+                                   device)
 
 
 def rows_flat_wire(pat: np.ndarray, nb: np.ndarray, *,
@@ -1244,7 +1257,8 @@ def _dense_prologue(cfg, r0, c0, R, C, num_refs,
         "c_pat": c_pat, "c_n": c_n,
         "bg_active": coded_f & ~in_rect.reshape(1, n_mbs),
         "sr_pat": sr_pat, "sr_n": sr_n,
-        "last_incl": last_incl,
+        "coded_f": coded_f, "last_incl": last_incl,
+        "donor_coded": donor_coded,
         "wide": wide,
     }
 
@@ -1498,6 +1512,88 @@ def _tail_skips(n_mbs: int, last_coded):
     tail = n_mbs - 1 - last_coded
     pat, n = expgolomb.ue(tail)
     return pat, torch.where(tail > 0, n, 0)
+
+
+def dense_splice_symbols(cfg: ComposerConfig, rect_mb_x: int,
+                         rect_mb_y: int, R: int, C: int, num_refs,
+                         header_patterns, header_nbits,
+                         bg_ref, bg_mv_x, bg_mv_y, bg_coded,
+                         dn: dict, *, n_rbsp: int | None = None):
+    """Symbol layout of the dense splice for a batch of sessions: returns
+    (patterns int64[B, n], nbits int64[B, n], n_rbsp) for _finish_splice.
+
+    Per session: header symbols [B, nh], background fields [B, H, W] and
+    the dense donor arrays `dn` (dense_device_arrays, with a leading [B]
+    axis): each donor MB's final bits as S chunks (patterns, nbits), its
+    coded flag and its composite edge roles.  The frame's symbols are the
+    header, the background slots above the rect, the rect rows (background
+    slots left of the rect, each donor MB as [composite skip run | S
+    chunks], background slots right of it), the slots below and the tail
+    skip run.  The default n_rbsp is the donor chunk class's budget,
+    splice_rbsp_budget(cfg, R * C, R * C * S * 32), as in the JAX package;
+    serving callers pass the honest one (dd.donor_bits)."""
+    H, W = cfg.mb_height, cfg.mb_width
+    r0, c0 = rect_mb_y, rect_mb_x
+    if r0 + R > H or c0 + C > W:
+        raise ValueError("the donor rect does not fit the frame")
+    M = R * C
+    hp = header_patterns.to(torch.int64)
+    hn = header_nbits.to(torch.int64)
+    B = hp.shape[0]
+    S = dn["patterns"].shape[-1]
+
+    pro = _dense_prologue(cfg, r0, c0, R, C, num_refs,
+                          bg_ref, bg_mv_x, bg_mv_y, bg_coded, dn)
+    bg_p, bg_n = _bg3(pro, H, W)
+    donor_coded = pro["donor_coded"]
+
+    # Donor MB slots: [composite skip run | S dense chunks].
+    def rect(x):
+        return x.reshape(B, H, W)[:, r0:r0 + R, c0:c0 + C, None]
+
+    sr_p = torch.where(donor_coded[..., None], rect(pro["sr_pat"]), 0)
+    sr_n = torch.where(donor_coded[..., None], rect(pro["sr_n"]), 0)
+    chunks_p = dn["patterns"].to(torch.int64).reshape(B, R, C, S) & U32
+    chunks_n = torch.where(donor_coded[..., None],
+                           dn["nbits"].to(torch.int64).reshape(B, R, C, S), 0)
+    donor_p = torch.cat([sr_p, chunks_p], dim=3)
+    donor_n = torch.cat([sr_n, chunks_n], dim=3)
+
+    def rows(bg, donor):
+        """Rect rows in raster order, flattened per session."""
+        return torch.cat([bg[:, r0:r0 + R, :c0].flatten(2),
+                          donor.flatten(2),
+                          bg[:, r0:r0 + R, c0 + C:].flatten(2)],
+                         dim=2).flatten(1)
+
+    ts_pat, ts_n = _tail_skips(H * W, pro["last_incl"][:, -1])
+    patterns = torch.cat([hp, bg_p[:, :r0].flatten(1), rows(bg_p, donor_p),
+                          bg_p[:, r0 + R:].flatten(1), ts_pat[:, None]], dim=1)
+    nbits = torch.cat([hn, bg_n[:, :r0].flatten(1), rows(bg_n, donor_n),
+                       bg_n[:, r0 + R:].flatten(1), ts_n[:, None]], dim=1)
+    if n_rbsp is None:
+        n_rbsp = splice_rbsp_budget(cfg, M, M * S * 32)
+    return patterns, nbits, n_rbsp
+
+
+def emit_spliced_frame_dense(cfg: ComposerConfig, rect_mb_x: int,
+                             rect_mb_y: int, R: int, C: int, num_refs,
+                             header_patterns, header_nbits,
+                             bg_ref, bg_mv_x, bg_mv_y, bg_coded,
+                             dn: dict, nal_ref_idc=0, *,
+                             has_align: bool = False,
+                             n_rbsp: int | None = None,
+                             ebsp_exact: bool = False):
+    """Dense splice of one frame per session: dense_splice_symbols, then
+    _finish_splice (K1, or K2 plus exact EBSP for `ebsp_exact`).
+    Byte-identical to emit_spliced_frame_rows on the same donor.  Returns
+    (nal u8[B, n_nal], nal_len i32[B], rbsp_bits i32[B], overflow
+    bool[B])."""
+    patterns, nbits, n_rbsp = dense_splice_symbols(
+        cfg, rect_mb_x, rect_mb_y, R, C, num_refs, header_patterns,
+        header_nbits, bg_ref, bg_mv_x, bg_mv_y, bg_coded, dn, n_rbsp=n_rbsp)
+    return _finish_splice(patterns, nbits, n_rbsp, nal_ref_idc,
+                          has_align=has_align, ebsp_exact=ebsp_exact)
 
 
 def _finish_splice(patterns, nbits, n_rbsp: int, nal_ref_idc, *,

@@ -1,10 +1,12 @@
 """ctypes bridge to the native CAVLC engine (csrc/cavlc_decode.cpp).
 
-Port of the parts of h264_scroll_encoder_tpu/native_bridge.py that the
-rows splice slice uses: the loader and `parse_slice_raw`,
-`prepare_dense_raw`, `mv_edge_roles_raw`, `prepare_rows_batch` and
-`prepare_rows_blob_batch` (plus `retarget_recs_raw`, the successive-donor
-mode of `prepare_donor_dense_from_slice`).
+Port of h264_scroll_encoder_tpu/native_bridge.py: the loader and
+`parse_slice_raw`, `prepare_dense_raw`, `mv_edge_roles_raw`,
+`prepare_rows_batch` and `prepare_rows_blob_batch` (the splice slices),
+`retarget_recs_raw` (the successive-donor mode of
+`prepare_donor_dense_from_slice`), and `emit_slice_raw`, `pad_grid_raw`,
+`parse_slice_native` and `pack_rows_native` (the trans-resizer,
+models/splice.transcode_pad_stream, and its tests).
 
 The port builds the engine itself, on first use and never at import:
 `cavlc_tables.inc` is generated from the port's own ops/cavlc_tables.py
@@ -203,6 +205,9 @@ def _bind(lib) -> None:
     rec = P(_MBRec)
     sigs = {
         "cavlc_parse_slice": [u8, L, L, I, I, I, I, rec, P(L), I],
+        "cavlc_emit_slice": [rec, I, I, I, I, u8, u8, I, L, u8, L, P(L), I],
+        "cavlc_pack_rows": [u32, i32, u8, I, I, I, I, u32, i32, i32, P(L),
+                            P(I)],
         "cavlc_prepare_dense": [rec, I, I, I, i32, I, I, I, u8, L, u32, i32,
                                 I, u8, P(L), P(I), P(I), I],
         "cavlc_mv_edge_roles": [rec, I, I, I, i32, I, i32, u8, i32, u8, i32,
@@ -283,6 +288,170 @@ def parse_slice_raw(rbsp: bytes, start_bit: int, mb_width: int,
     if err:
         raise cavlc.CAVLCError(f"native CAVLC parse failed: code {err}")
     return recs, int(end_bit.value)
+
+
+def emit_slice_raw(recs, mb_width: int, mb_height: int, is_p: bool,
+                   num_ref_idx_l0: int, src_rbsp: bytes,
+                   aux: bytes = b"", *, duplicate_final_skip: bool = False,
+                   start_phase: int = 0, capacity: int | None = None,
+                   bug_compat: bool = False):
+    """Native re-emission of an MBRec grid -> (payload_bytes, nbits).
+
+    The payload is the MB data only (no slice header or trailing bits).
+    `start_phase` is the bit phase (mod 8) of the payload's position in
+    the final stream (I_PCM alignment depends on it); the returned bytes
+    carry `start_phase` leading zero bits and nbits counts them."""
+    lib = load_library()
+    if capacity is None:
+        capacity = len(src_rbsp) + mb_width * mb_height * 400 + 4096
+    out = np.zeros(capacity, np.uint8)
+    src = np.frombuffer(src_rbsp, np.uint8)
+    aux_arr = np.frombuffer(aux, np.uint8) if aux else np.zeros(1, np.uint8)
+    nbits = ctypes.c_long(0)
+    err = lib.cavlc_emit_slice(
+        recs, mb_width, mb_height, int(is_p), num_ref_idx_l0, _u8p(src),
+        _u8p(aux_arr), int(duplicate_final_skip), start_phase, _u8p(out),
+        capacity, ctypes.byref(nbits), int(bug_compat))
+    if err:
+        raise cavlc.CAVLCError(f"native CAVLC emit failed: code {err}")
+    n = int(nbits.value)
+    return out[: (n + 7) // 8].tobytes(), n
+
+
+def pad_grid_raw(recs, in_w: int, in_h: int, out_w: int, is_p: bool, *,
+                 edge_y: int = 235):
+    """Widen a raw MBRec grid with padding records (P slices: skip; I
+    slices: I_PCM with aux payloads, the first one edge-compatible).
+    -> (out_recs, aux_bytes, last_input_is_skip)."""
+    from .models.splice import ipcm_padding_mb
+
+    out_recs = (_MBRec * (out_w * in_h))()
+    pad = out_w - in_w
+    rec_size = ctypes.sizeof(_MBRec)
+    # Aux payloads: [0] = the first padding MB (edge), [384] = a black MB.
+    aux = (ipcm_padding_mb(edge_y, first_padding=True).ipcm_samples
+           + ipcm_padding_mb().ipcm_samples)
+    for row in range(in_h):
+        ctypes.memmove(ctypes.byref(out_recs, row * out_w * rec_size),
+                       ctypes.byref(recs, row * in_w * rec_size),
+                       in_w * rec_size)
+        if not is_p:
+            for p in range(pad):
+                dst = out_recs[row * out_w + in_w + p]
+                dst.kind = 4
+                dst.mb_type = 25
+                dst.ipcm_byte_start = -((0 if p == 0 else 384) + 1)
+        # P slices: zero-initialised records are already P_Skip (kind 0).
+    return out_recs, aux, recs[in_w * in_h - 1].kind == 0
+
+
+_NO_QP = -(2 ** 31)
+
+
+def _bit_span(bits: np.ndarray, start: int, length: int) -> str:
+    return "".join("1" if b else "0" for b in bits[start:start + length])
+
+
+def _decode_tail(blk: _BlockRec, bits: np.ndarray) -> cavlc.ResidualBlock:
+    if blk.tc == 0:
+        return cavlc.EMPTY_BLOCK
+    # Levels and runs are not re-derived (the emitter needs tc, t1 and the
+    # tail bits only).
+    return cavlc.ResidualBlock(int(blk.tc), int(blk.t1),
+                               _bit_span(bits, blk.tail_start, blk.tail_len),
+                               (), int(blk.total_zeros), ())
+
+
+def _convert(rec: _MBRec, bits: np.ndarray, rbsp: bytes):
+    """One native MBRec -> models/mb_transcode.Macroblock (or mbt.SKIP)."""
+    from .models import mb_transcode as mbt
+
+    if rec.kind == 0:
+        return mbt.SKIP
+    qp = None if rec.qp_delta == _NO_QP else int(rec.qp_delta)
+    luma = tuple(_decode_tail(rec.blocks[1 + r], bits) for r in range(16))
+    chroma_ac = tuple(tuple(_decode_tail(rec.blocks[19 + c * 4 + k], bits)
+                            for k in range(4)) for c in range(2))
+    cb_dc = (_decode_tail(rec.blocks[17], bits)
+             if rec.blocks[17].tail_start or rec.blocks[17].tc else None)
+    cr_dc = (_decode_tail(rec.blocks[18], bits)
+             if rec.blocks[18].tail_start or rec.blocks[18].tc else None)
+    if (rec.cbp >> 4) & 3 == 0:
+        cb_dc = cr_dc = None
+    if rec.kind == 1:
+        return mbt.Macroblock(
+            kind="inter", mb_type=int(rec.mb_type),
+            sub_mb_types=tuple(int(s) for s in rec.sub_mb_types[:4])
+            if rec.mb_type >= 3 else (),
+            ref_idx=tuple(int(r) for r in rec.ref_idx[: rec.n_ref]),
+            mvds=tuple((int(rec.mvds[k][0]), int(rec.mvds[k][1]))
+                       for k in range(rec.n_mvds)),
+            cbp=int(rec.cbp), qp_delta=qp, luma=luma, cb_dc=cb_dc,
+            cr_dc=cr_dc, chroma_ac=chroma_ac)
+    if rec.kind == 2:
+        return mbt.Macroblock(
+            kind="i4x4", mb_type=int(rec.mb_type),
+            pred_mode_bits=_bit_span(bits, rec.pred_bits_start,
+                                     rec.pred_bits_len),
+            chroma_pred=int(rec.chroma_pred), cbp=int(rec.cbp), qp_delta=qp,
+            luma=luma, cb_dc=cb_dc, cr_dc=cr_dc, chroma_ac=chroma_ac)
+    if rec.kind == 3:
+        return mbt.Macroblock(
+            kind="i16x16", mb_type=int(rec.mb_type),
+            i16_idx=int(rec.i16_idx), chroma_pred=int(rec.chroma_pred),
+            cbp=int(rec.cbp), qp_delta=qp,
+            luma_dc=_decode_tail(rec.blocks[0], bits), luma=luma,
+            cb_dc=cb_dc, cr_dc=cr_dc, chroma_ac=chroma_ac)
+    if rec.kind == 4:
+        start = int(rec.ipcm_byte_start)
+        samples = rbsp[start:start + 384]
+        if len(samples) != 384:
+            # The native parser rejects payloads past the RBSP end, so a
+            # short one means a corrupted record: never truncate samples.
+            raise cavlc.CAVLCError(
+                f"I_PCM payload truncated ({len(samples)}/384 bytes at "
+                f"byte {start})")
+        return mbt.Macroblock(kind="ipcm", mb_type=int(rec.mb_type),
+                              ipcm_samples=samples)
+    raise cavlc.CAVLCError(f"native parser returned bad kind {rec.kind}")
+
+
+def parse_slice_native(rbsp: bytes, start_bit: int, mb_width: int,
+                       mb_height: int, is_p: bool, num_ref_idx_l0: int, *,
+                       bug_compat: bool = False):
+    """-> (grid, end_bit) as mb_transcode.parse_*_slice_mbs gives them
+    (P_Skip as mbt.SKIP), parsed by the engine."""
+    recs, end_bit = parse_slice_raw(rbsp, start_bit, mb_width, mb_height,
+                                    is_p, num_ref_idx_l0,
+                                    bug_compat=bug_compat)
+    bits = np.unpackbits(np.frombuffer(rbsp, np.uint8))
+    grid = [[_convert(recs[r * mb_width + c], bits, rbsp)
+             for c in range(mb_width)] for r in range(mb_height)]
+    return grid, end_bit
+
+
+def pack_rows_native(patterns: np.ndarray, nbits: np.ndarray,
+                     coded: np.ndarray, R: int, C: int, s_row: int):
+    """Row-contiguous repack (cavlc_pack_rows) -> (row_patterns,
+    row_nbits, first_c, donor_bits, needed), or None when the rows need
+    more than s_row slots (the caller retries with a bigger class)."""
+    lib = load_library()
+    patterns = np.ascontiguousarray(patterns, np.uint32)
+    nbits = np.ascontiguousarray(nbits, np.int32)
+    coded_u8 = np.ascontiguousarray(coded, np.uint8)
+    out_pat = np.zeros((R, s_row), np.uint32)
+    out_nb = np.zeros((R, s_row), np.int32)
+    first_c = np.zeros(R, np.int32)
+    donor_bits = ctypes.c_long(0)
+    needed = ctypes.c_int(0)
+    err = lib.cavlc_pack_rows(
+        _ptr(patterns, ctypes.c_uint32), _i32p(nbits), _u8p(coded_u8), R, C,
+        patterns.shape[1], s_row, _ptr(out_pat, ctypes.c_uint32),
+        _i32p(out_nb), _i32p(first_c), ctypes.byref(donor_bits),
+        ctypes.byref(needed))
+    if err:
+        return None
+    return out_pat, out_nb, first_c, int(donor_bits.value), needed.value
 
 
 def _ring_arrays(ring, n):

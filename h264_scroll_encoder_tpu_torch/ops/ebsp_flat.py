@@ -25,11 +25,14 @@ cyclic rolls wrap the overflow to the front of the buffer; the port's
 bytes follow the rule above in both cases, writing nothing past the
 buffer, in both the plain version and the kernel.
 
-`rbsp_to_nal_plain` is the plain PyTorch version; `rbsp_to_nal_batch`
-runs it for CPU tensors and launches `h264t_ebsp_nal`
-(csrc/emit_kernels.cu) for CUDA tensors.  The kernel reads uint8 bytes in
-place with their row stride, and int32 or int64 lengths and header bytes
-in place (a [B] or a 0-dim tensor) or a Python int by value.
+`rbsp_to_nal_plain` is the plain PyTorch version (it takes ints or int
+arrays for the lengths and header bytes, as the JAX function does);
+`rbsp_to_nal_batch` runs it for CPU tensors and launches `h264t_ebsp_nal`
+(csrc/emit_kernels.cu) for CUDA tensors, on the forms the entry path hands
+it: uint8 bytes read in place with their row stride, int64 lengths read
+in place, and one header byte, a Python int.  Past a block's shared
+memory the kernel reads the rows from global memory and builds the NAL in
+place (_kernels.ebsp_nal_in_global).
 """
 
 from __future__ import annotations
@@ -42,8 +45,6 @@ from .. import _kernels
 from .emit_fused import row_stride
 
 ZERO_RUN_WINDOW = 64
-# Per-session int dtypes the kernel reads in place.
-SESSION_INT_DTYPES = (torch.int32, torch.int64)
 
 
 def padded_len(n_nal: int) -> int:
@@ -113,34 +114,35 @@ def rbsp_to_nal_plain(rbsp, rbsp_len, header_byte, n_nal: int,
     return out[:, :n_nal].to(torch.uint8), total.to(torch.int32)
 
 
-def _session_int(x, B: int, device):
-    """K3's view of a per-session int: (int32 or int64 [B] view or None,
-    its stride, the value where there is no tensor)."""
-    if isinstance(x, numbers.Integral):
-        return None, 0, int(x)
-    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
-    if t.device != device:
-        t = t.to(device)
-    if t.dtype not in SESSION_INT_DTYPES:
-        t = t.to(torch.int64)
-    t = t.reshape(-1).expand(B)
-    return t, t.stride(0), 0
+def session_lengths(rbsp, rbsp_len):
+    """The [B] view of K3's lengths that the kernel reads in place: rbsp_len
+    must be an int64 tensor, [B] or 0-dim (one length for every session),
+    on rbsp's device.  No other form is taken (TypeError)."""
+    if not isinstance(rbsp_len, torch.Tensor) or rbsp_len.dtype != torch.int64:
+        raise TypeError("rbsp_len must be an int64 tensor, not "
+                        f"{getattr(rbsp_len, 'dtype', type(rbsp_len))}")
+    if rbsp_len.device != rbsp.device or rbsp_len.dim() > 1:
+        raise ValueError(f"rbsp_len must be [B] or 0-dim on {rbsp.device}, "
+                         f"not {tuple(rbsp_len.shape)} on {rbsp_len.device}")
+    return rbsp_len.reshape(-1).expand(rbsp.shape[0])
 
 
-def rbsp_to_nal_batch(rbsp, rbsp_len, header_byte, n_nal: int,
+def rbsp_to_nal_batch(rbsp, rbsp_len, header_byte: int, n_nal: int,
                       max_insertions: int):
     """K3 over a [B, m] batch: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors (a build or launch failure raises).  Same
-    arguments and returns as rbsp_to_nal_plain.  On the card a uint8 rbsp
-    (unit stride along each row, or ValueError), int32 or int64 tensor
-    lengths and headers, and Python ints are read as they are; any other
-    byte dtype is cast to uint8 once (the JAX wrapper's cast), any other
-    int dtype to int64.  A NAL buffer whose block needs more shared memory
-    than the card has raises from the launch."""
+    kernel for CUDA tensors (a build or launch failure raises).  Returns as
+    rbsp_to_nal_plain.  rbsp_len is an int64 tensor, [B] or 0-dim
+    (session_lengths), and header_byte a Python int, on both devices;
+    other forms raise TypeError.  On the card a uint8 rbsp (unit stride
+    along each row, or ValueError) is read as it is; any other byte dtype
+    is cast to uint8 once (the JAX wrapper's cast)."""
     if rbsp.dim() != 2:
         raise ValueError(f"rbsp must be [B, n], not {tuple(rbsp.shape)}")
+    lens = session_lengths(rbsp, rbsp_len)
+    if not isinstance(header_byte, numbers.Integral):
+        raise TypeError(f"header_byte must be an int, not {type(header_byte)}")
     if rbsp.device.type == "cpu":
-        return rbsp_to_nal_plain(rbsp, rbsp_len, header_byte, n_nal,
+        return rbsp_to_nal_plain(rbsp, lens, header_byte, n_nal,
                                  max_insertions)
     if rbsp.device.type != "cuda":
         raise ValueError(f"unsupported device {rbsp.device}")
@@ -148,19 +150,14 @@ def rbsp_to_nal_batch(rbsp, rbsp_len, header_byte, n_nal: int,
     B, m = rbsp.shape
     if rbsp.dtype != torch.uint8:
         rbsp = rbsp.to(torch.uint8)
-    rbsp_row = row_stride(rbsp)
-    n, n_row, n_value = _session_int(rbsp_len, B, dev)
-    h, h_row, h_value = _session_int(header_byte, B, dev)
     nal = torch.empty((B, n_nal), dtype=torch.uint8, device=dev)
     total = torch.empty((B,), dtype=torch.int32, device=dev)
     if B:
         with torch.cuda.device(dev):
             _kernels.EBSP_NAL.launch(
-                rbsp.data_ptr(), rbsp_row, m,
-                None if n is None else n.data_ptr(),
-                0 if n is None else n.element_size(), n_row, n_value,
-                None if h is None else h.data_ptr(),
-                0 if h is None else h.element_size(), h_row, h_value,
-                B, n_nal, max_insertions, nal.data_ptr(), total.data_ptr(),
+                rbsp.data_ptr(), row_stride(rbsp), m, lens.data_ptr(),
+                lens.stride(0), int(header_byte) & 0xFF, B, n_nal,
+                max_insertions, int(_kernels.ebsp_nal_in_global(n_nal)),
+                nal.data_ptr(), total.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     return nal, total

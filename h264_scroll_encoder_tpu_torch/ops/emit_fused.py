@@ -173,17 +173,19 @@ def emit_nal_fused_batch(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
     if B:
         with torch.cuda.device(dev):
             k = items_per_thread(n)
-            # Large frames: the RBSP words in global scratch (see the .cu).
+            # Large frames: the RBSP words in global scratch, and past that
+            # the NAL built in place in `nal` (the kernel's plan; see the .cu).
+            plan = _kernels.emit_plan(patterns.element_size(), k, n_nal)
             scratch = (torch.empty((B, n_nal // 4), dtype=torch.int32,
                                    device=dev)
-                       if _kernels.emit_words_in_global(
-                           patterns.element_size(), k, n_nal) else None)
+                       if plan.words_in_global else None)
             _kernels.EMIT_FUSED.launch(
                 patterns.data_ptr(), nbits.data_ptr(), patterns.element_size(),
                 row_stride(patterns), row_stride(nbits),
                 None if idc is None else idc.data_ptr(), idc_row, idc_value,
                 B, n, k, n_nal, n_rbsp, cap, int(align), int(append_tb),
                 None if scratch is None else scratch.data_ptr(),
+                int(plan.nal_in_global),
                 nal.data_ptr(), meta[0].data_ptr(), meta[1].data_ptr(),
                 overflow.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return nal, meta[0], meta[1], overflow

@@ -8,11 +8,12 @@ dimension on the device, and each step composes one P-frame per session.
 
 `make_batched_splice_step_rows` is the rows splice step (the serving hot
 path): a pre-encoded donor rect composed into each session's P-frame;
-`make_batched_hint_step` composes hint frames (static chrome plus motion
-regions); `compact_batch_nal` is egress, the sessions' valid bytes in one
-buffer.
+`make_batched_splice_step_dense` is the same frame over the dense (per-MB)
+donor layout, its byte-for-byte parity partner; `make_batched_hint_step`
+composes hint frames (static chrome plus motion regions);
+`compact_batch_nal` is egress, the sessions' valid bytes in one buffer.
 
-Not ported yet: the sharded step and the dense splice step.
+Not ported yet: the sharded step.
 """
 
 from __future__ import annotations
@@ -165,6 +166,32 @@ def make_batched_splice_step_rows(cfg: ComposerConfig, rect_mb_x: int,
             ebsp_exact=ebsp_exact, compact_x=compact_x, s_row=s_row,
             s_flat=s_flat, s_exc=s_exc, bg_static_skip=bg_static_skip,
             bg_budget=bg_budget)
+    return step
+
+
+def make_batched_splice_step_dense(cfg: ComposerConfig, rect_mb_x: int,
+                                   rect_mb_y: int, rect_w: int, rect_h: int,
+                                   num_refs: int = 2, *,
+                                   has_align: bool = False,
+                                   n_rbsp: int | None = None,
+                                   ebsp_exact: bool = False):
+    """The dense splice step over a batch of sessions, with the rows step's
+    arguments and returns:
+
+        step(hp, hn, bg_ref, bg_mvx, bg_mvy, bg_coded, dn)
+            -> (nal u8[B, n_nal], nal_len i32[B], rbsp_bits i32[B],
+                overflow bool[B])
+
+    where `dn` is the dense donor wire (splice_device.dense_device_arrays,
+    or a JAX one through donor_arrays_from_numpy) with a leading [B] axis.
+    The default n_rbsp is the donor chunk class's budget
+    (splice_device.emit_spliced_frame_dense); the step runs on the device
+    of its inputs."""
+    def step(hp, hn, bg_ref, bg_mvx, bg_mvy, bg_coded, dn):
+        return splice_device.emit_spliced_frame_dense(
+            cfg, rect_mb_x, rect_mb_y, rect_h, rect_w, num_refs,
+            hp, hn, bg_ref, bg_mvx, bg_mvy, bg_coded, dn,
+            has_align=has_align, n_rbsp=n_rbsp, ebsp_exact=ebsp_exact)
     return step
 
 

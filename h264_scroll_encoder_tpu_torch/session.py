@@ -268,14 +268,65 @@ class ComposerSession:
         self.frame_num += 1
         self.frames_written += 1
 
-    def write_fallback_frame(self, frame, **kw) -> None:
-        """MASTER_DESIGN §10 fallback: a full conventional encode of one
-        frame, re-ingested as a fresh atlas.  It needs the libx264 binding
-        (`avref`) and the pixel oracle (`pixel_oracle`), which the port
-        does not have yet."""
-        raise NotImplementedError(
-            "write_fallback_frame needs avref (libx264) and pixel_oracle, "
-            "which h264_scroll_encoder_tpu_torch does not port yet")
+    def write_fallback_frame(self, frame, *, qp: int = 20,
+                             x264_params: str = "",
+                             long_term_idx: int = 0) -> None:
+        """MASTER_DESIGN §10 fallback: full conventional encode of one
+        frame, on the host (no kernel runs).
+
+        `frame` is the frame's pixels (a pixel_oracle.Picture or (y, cb,
+        cr) uint8 planes at session dimensions).  x264 (avref) encodes it,
+        and the resulting IDR is re-ingested through the non-IDR-I rewrite
+        as a *reference* frame that MMCO-marks itself long-term
+        `long_term_idx`: it displays the conventional encode and becomes a
+        fresh atlas the session keeps composing against.  The MMCO 4
+        marking (max_long_term_frame_idx_plus1=2) truncates waypoint
+        long-term indices, so the waypoint chain is reset.
+
+        The encode's PPS QP base is compensated through the slice QP delta
+        (the session PPS is already on the wire); a chroma QP offset
+        mismatch cannot be compensated in the header and raises."""
+        from . import avref
+        from .pixel_oracle import Picture
+
+        if isinstance(frame, Picture):
+            frame = (frame.y, frame.cb, frame.cr)
+        y = np.asarray(frame[0])
+        if y.shape != (self.cfg.height, self.cfg.width):
+            raise ValueError(
+                f"fallback frame is {y.shape[1]}x{y.shape[0]}, session is "
+                f"{self.cfg.width}x{self.cfg.height}")
+        if "chroma-qp-offset" not in x264_params:
+            # x264's psy optimization shifts the chroma QP offset by -2
+            # after parsing its parameters; the session PPS is already on
+            # the wire, so disable psy and pin the offset to match it.
+            pin = (f"psy=0:chroma-qp-offset="
+                   f"{self.cfg.chroma_qp_index_offset}")
+            x264_params = f"{x264_params}:{pin}" if x264_params else pin
+        data = avref.encode_x264([tuple(frame)], qp=qp, keyint=1, refs=1,
+                                 extra_params=x264_params)
+        info = _parse_reference_file(data)
+        sps, pps = info["sps"], info["pps"]
+        if pps.chroma_qp_index_offset != self.cfg.chroma_qp_index_offset:
+            raise ValueError(
+                f"fallback encode chroma_qp_index_offset "
+                f"{pps.chroma_qp_index_offset} != session PPS "
+                f"{self.cfg.chroma_qp_index_offset}; pass x264_params="
+                f"'chroma-qp-offset={self.cfg.chroma_qp_index_offset}'")
+        parse_cfg = ComposerConfig(sps.width, sps.height).with_sps_params(
+            sps.log2_max_frame_num, sps.pic_order_cnt_type,
+            sps.log2_max_pic_order_cnt_lsb,
+        ).with_pps_params(pps.num_ref_idx_l0_default_active_minus1,
+                          pps.deblocking_filter_control_present_flag)
+        self.writer.append_raw(rewrite.rewrite_as_non_idr_i_frame(
+            self.cfg, parse_cfg, info["idr_rbsp"],
+            self.frame_num % (1 << self.cfg.log2_max_frame_num),
+            long_term_idx=long_term_idx,
+            qp_delta_adjust=(pps.pic_init_qp_minus26
+                             - self.cfg.pic_init_qp_minus26)))
+        self.frame_num += 1
+        self.frames_written += 1
+        self.waypoints = WaypointRegistry.empty()
 
     def write_hint_frame_or_fallback(self, hints, fallback_frame=None,
                                      **fallback_kw) -> bool:

@@ -93,21 +93,26 @@ def test_pack_words_kernel(dev, n, num_words):
     _same(got, bitpack_flat.pack_words_place_plain(*args))
 
 
+def _i64(a, dev):
+    return torch.as_tensor(np.asarray(a).astype(np.int64), device=dev)
+
+
 @pytest.mark.parametrize("cap", [cases.CAP, 1000])
 def test_ebsp_kernel(dev, cap):
     """K3 on the byte-stream, saturation and boundary cases
-    (cases.ebsp_boundary_cases at each of its NAL sizes), with int32 and
-    int64 lengths, tensor and Python-int headers, 0-dim lengths, rows read
-    through a row stride other than their length, and int32 bytes."""
+    (cases.ebsp_boundary_cases at each of its NAL sizes), with int64 [B]
+    and 0-dim lengths, header bytes of every nal_ref_idc and past 255, rows
+    read through a row stride other than their length, and int32 bytes."""
     rbsp, lens, hdr = cases.ebsp_cases()
-    args = (torch.as_tensor(rbsp, device=dev), torch.as_tensor(lens, device=dev),
-            torch.as_tensor(hdr, device=dev), cases.EBSP_N_NAL, cap)
+    args = (torch.as_tensor(rbsp, device=dev), _i64(lens, dev), int(hdr[3]),
+            cases.EBSP_N_NAL, cap)
     before = _kernels.EBSP_NAL.launches
     got = ebsp_flat.rbsp_to_nal_batch(*args)
     assert _kernels.EBSP_NAL.launches == before + 1
     _same(got, ebsp_flat.rbsp_to_nal_plain(*args))
     rb, n = cases.ebsp_saturation_case()
-    args = (torch.as_tensor(rb[None], device=dev), n, 0x41, rb.size, cap)
+    args = (torch.as_tensor(rb[None], device=dev), _i64([n], dev), 0x41,
+            rb.size, cap)
     got = ebsp_flat.rbsp_to_nal_batch(*args)
     _same(got, ebsp_flat.rbsp_to_nal_plain(*args))
     assert int(got[1][0]) > cap or cap > 100
@@ -116,10 +121,9 @@ def test_ebsp_kernel(dev, cap):
     wide = torch.zeros((rb.shape[0], rb.shape[1] + 5), dtype=torch.uint8,
                        device=dev)
     wide[:, 3:-2] = rb
-    inputs = [(rb, torch.as_tensor(lens, device=dev), torch.as_tensor(hdr, device=dev)),
-              (rb, torch.as_tensor(lens.astype(np.int64), device=dev), 0x165),
-              (wide[:, 3:-2], torch.as_tensor(lens, device=dev), 0x41),
-              (rb.to(torch.int32), torch.tensor(5000, device=dev), 1)]
+    inputs = [(rb, _i64(lens, dev), int(h)) for h in np.unique(hdr)]
+    inputs += [(wide[:, 3:-2], _i64(lens, dev), 0x41),
+               (rb.to(torch.int32), torch.tensor(5000, device=dev), 1)]
     for n_nal in cases.EBSP_BOUNDARY_N_NALS:
         for rows, n, h in inputs:
             args = (rows, n, h, n_nal, cap)
@@ -136,15 +140,49 @@ def test_ebsp_items_per_thread_is_the_kernels(dev):
 
 
 def test_ebsp_kernel_over_shared_memory_raises(dev):
-    """A NAL buffer too large for one block's shared memory raises from the
-    launch, launches nothing, and leaves no error for the next launch."""
+    """A launch whose block needs more shared memory than any plan gives —
+    K1 staging past its 24 symbols per thread, which no wrapper passes —
+    raises, launches nothing and leaves no error for the next launch: K3 at
+    a NAL buffer past a block's shared memory, which takes its global plan
+    and equals its plain version."""
+    p = torch.zeros((2, 64), dtype=torch.int64, device=dev)
+    out = torch.empty((2, 4096), dtype=torch.uint8, device=dev)
+    meta = torch.empty((3, 2), dtype=torch.int32, device=dev)
+    before = _kernels.EMIT_FUSED.launches
+    with pytest.raises(RuntimeError, match="h264t_emit_fused"):
+        _kernels.EMIT_FUSED.launch(
+            p.data_ptr(), p.data_ptr(), 8, 64, 64, None, 0, 0, 2, 64, 64,
+            4096, 4000, cases.CAP, 0, 1, None, 1, out.data_ptr(),
+            meta[0].data_ptr(), meta[1].data_ptr(), meta[2].data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    assert _kernels.EMIT_FUSED.launches == before
     rb = torch.zeros((2, 64), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        assert _kernels.ebsp_nal_in_global(300_000)
     before = _kernels.EBSP_NAL.launches
-    with pytest.raises(RuntimeError, match="h264t_ebsp_nal"):
-        ebsp_flat.rbsp_to_nal_batch(rb, 64, 0x41, 300_000, cases.CAP)
-    assert _kernels.EBSP_NAL.launches == before
-    args = (rb, 64, 0x41, 384, cases.CAP)
+    args = (rb, _i64([64, 60], dev), 0x41, 300_000, cases.CAP)
     _same(ebsp_flat.rbsp_to_nal_batch(*args), ebsp_flat.rbsp_to_nal_plain(*args))
+    assert _kernels.EBSP_NAL.launches == before + 1
+
+
+@pytest.mark.parametrize("cap", [cases.CAP, 1000])
+@pytest.mark.parametrize("n_nal", cases.EBSP_LARGE_N_NALS)
+def test_ebsp_kernel_past_shared_memory(dev, n_nal, cap):
+    """K3 at NAL buffers past a block's shared memory (rows read from
+    global memory, the NAL built in place), on rows read in place and
+    through a row stride, against its plain version."""
+    rbsp, lens = cases.ebsp_large_cases(n_nal)
+    with torch.cuda.device(dev):
+        assert _kernels.ebsp_nal_in_global(n_nal)
+    rb = torch.as_tensor(rbsp, device=dev)
+    wide = torch.zeros((rb.shape[0], rb.shape[1] + 7), dtype=torch.uint8,
+                       device=dev)
+    wide[:, 3:-4] = rb
+    for rows in (rb, wide[:, 3:-4]):
+        args = (rows, _i64(lens, dev), 0x61, n_nal, cap)
+        got = ebsp_flat.rbsp_to_nal_batch(*args)
+        _same(got, ebsp_flat.rbsp_to_nal_plain(*args))
+    assert int(got[1][0]) <= 1000 < int(got[1][1])
 
 
 @pytest.mark.parametrize("program", ["compact", "static", "ebsp_exact"])
@@ -286,18 +324,27 @@ def _hint_symbols(cfg, dev, specs):
                                   mvy[None], 2, enable_pskip=True)
 
 
+_LARGE_PLANS = {"hint_1080p": (False, False), "scroll_4k": (False, False),
+                "hint_4k": (True, False), "hint_4k_64": (True, True),
+                "hint_5120x3200": (True, True)}
+
+
 @pytest.mark.parametrize("frame", ["hint_1080p", "scroll_4k", "hint_4k",
+                                   "hint_4k_64", "hint_5120x3200",
                                    "exact_4k", "exact_4096x2160"])
 def test_kernels_on_large_frames(dev, frame):
     """K1 and K2 on the large buffers against their plain versions: the
     1080p hint frame (n_rbsp 32,736 B) and the 4K scroll fast path
-    (64,896 B) keep their words in shared memory, the 4K generic budget
+    (64,896 B) keep words and NAL in shared memory, the 4K generic budget
     (129,696 B: 259,456 B of shared memory by the in-block plan) takes
-    K1's global scratch; K2 on the 4K exact retry (129,696 B, in shared
-    memory with 4,256 B to spare) and at 4096x2160 (138,336 B, global)."""
-    w, h = {"hint_1080p": (1920, 1088), "exact_4096x2160": (4096, 2160)}.get(
-        frame, (3840, 2160))
-    cfg = ComposerConfig(w, h)
+    K1's global words; at 64 bits per MB (NAL buffer 259,328 B) and at
+    5120x3200 (256,128 B) the NAL is built in global memory too; K2 on the
+    4K exact retry (129,696 B, in shared memory with 4,256 B to spare) and
+    at 4096x2160 (138,336 B, global)."""
+    w, h = {"hint_1080p": (1920, 1088), "exact_4096x2160": (4096, 2160),
+            "hint_5120x3200": (5120, 3200)}.get(frame, (3840, 2160))
+    cfg = ComposerConfig(w, h, rbsp_bits_per_mb=64 if frame == "hint_4k_64"
+                         else 32)
     if frame.startswith("hint"):
         pat, nb, n_rbsp = _hint_symbols(cfg, dev, [
             (0, 0, cfg.mb_width, 12, 0, 0, 40), (20, 40, 60, 60, 1, 3, -16)])
@@ -319,17 +366,82 @@ def test_kernels_on_large_frames(dev, frame):
                   bitpack_flat.pack_words_place_plain(*args))
             return
         n_nal = emit_fused.nal_bytes(n_rbsp, cases.CAP)
-        assert _kernels.emit_words_in_global(8, k, n_nal) == (frame == "hint_4k")
+        assert tuple(_kernels.emit_plan(8, k, n_nal)) == _LARGE_PLANS[frame]
     assert not bool(_k1_same(pat, nb, 0, n_rbsp)[3].any())
 
 
 def test_splice_path_keeps_words_in_shared_memory(dev):
-    """The 720p splice and scroll paths are unchanged by the large-frame
-    scratch: their words stay in shared memory."""
+    """The 720p splice, scroll and partitioned paths are unchanged by the
+    large-frame plans: their words and NAL stay in shared memory, and K3's
+    720p buffers too."""
     with torch.cuda.device(dev):
-        assert not _kernels.emit_words_in_global(8, 19, 8224)
-        assert not _kernels.emit_words_in_global(4, 24, 14528)
+        for sym_bytes, k, n_nal in ((8, 19, 8224), (8, 15, 7328),
+                                    (8, 24, 14528), (4, 24, 14528)):
+            assert tuple(_kernels.emit_plan(sym_bytes, k, n_nal)) == (False, False)
         assert not _kernels.pack_words_in_global(8, 19, 2048)
+        for n_nal in cases.EBSP_BOUNDARY_N_NALS:
+            assert not _kernels.ebsp_nal_in_global(n_nal)
+
+
+@pytest.mark.parametrize("config", ["representative", "ipcm", "ipcm_exact"])
+def test_dense_step_matches_cpu(dev, config):
+    """The 720p dense splice step at B = 4 on the card (K1; K2 for the
+    `ebsp_exact` retry) against the same step on CPU tensors; the I_PCM
+    donors at the default budget take K1's global NAL (n_nal 237,600)."""
+    cfg = ComposerConfig(1280, 720)
+    name = config.split("_")[0]
+    outs = []
+    for device in ("cpu", dev):
+        dn, bits, align = cases.prepare_dense_donors(name, engine="python",
+                                                     device=device, n=4)
+        step = cases.dense_step(cfg, name, bits, align,
+                                ebsp_exact=config.endswith("exact"))
+        before = (_kernels.EMIT_FUSED.launches, _kernels.PACK_PLACE.launches)
+        outs.append(step(*cases.splice_session_inputs(cfg, 4, device), dn))
+    exact = config.endswith("exact")
+    assert (_kernels.EMIT_FUSED.launches - before[0],
+            _kernels.PACK_PLACE.launches - before[1]) == (
+                (0, 1) if exact else (1, 0))
+    torch.cuda.synchronize()
+    for c, g in zip(*outs):
+        assert torch.equal(g.cpu(), c)
+    assert not bool(outs[0][3].any())
+    if name == "ipcm":      # the exact path's buffer holds 1.5x the budget
+        assert outs[0][0].shape[1] == (356_368 if exact else 237_600)
+
+
+@pytest.mark.parametrize("config", ["ipcm"])
+def test_emit_kernel_on_dense_ipcm_symbols(dev, config):
+    """K1 against its plain version on the 720p dense frame of
+    I_PCM-bearing donors at the chunk class's default budget (NAL buffer
+    237,600 B: words and NAL in global memory)."""
+    cfg = ComposerConfig(1280, 720)
+    dn, bits, align = cases.prepare_dense_donors(config, engine="python",
+                                                 device=dev, n=4)
+    pat, nb, n_rbsp = cases.dense_symbols(cfg, config, dn, bits, dev)
+    k = emit_fused.items_per_thread(pat.shape[1])
+    n_nal = emit_fused.nal_bytes(n_rbsp, cases.CAP)
+    assert n_nal == 237_600
+    with torch.cuda.device(dev):
+        assert tuple(_kernels.emit_plan(8, k, n_nal)) == (True, True)
+    args = (pat, nb, 0, n_rbsp, cases.CAP)
+    kw = dict(align=align, append_tb=True)
+    got = emit_fused.emit_nal_fused_batch(*args, **kw)
+    _same(got, emit_fused.emit_nal_fused_plain(*args, **kw))
+    assert not bool(got[3].any())
+
+
+def test_dense_golden_on_card(dev):
+    want = json.loads(cases.DENSE_GOLDEN_PATH.read_text())
+    assert cases.port_dense_golden(dev) == want
+
+
+def test_large_frames_golden_on_card(dev):
+    """The two large hint frames (NAL buffers past a block's shared
+    memory) through ComposerSession on the card equal the JAX package's
+    digests (golden/large_frames.json)."""
+    want = json.loads(cases.LARGE_GOLDEN_PATH.read_text())
+    assert cases.large_golden(cases.port_package(), device=dev) == want
 
 
 def test_session_golden_on_card(dev, tmp_path):

@@ -43,6 +43,19 @@ def _assert_matches(got, tot, want, want_tot, cap):
         np.testing.assert_array_equal(got, np.asarray(want))
 
 
+def _batch_by_header(rbsp, lens, hdr, n_nal, cap):
+    """rbsp_to_nal_batch over rows with per-row header bytes: one call per
+    header value (the wrapper takes one int header), int64 lengths."""
+    nal = torch.zeros((len(lens), n_nal), dtype=torch.uint8)
+    tot = torch.zeros(len(lens), dtype=torch.int32)
+    for h in np.unique(hdr):
+        rows = np.flatnonzero(hdr == h)
+        nal[rows], tot[rows] = ebsp_flat.rbsp_to_nal_batch(
+            torch.as_tensor(rbsp[rows]),
+            torch.as_tensor(lens[rows].astype(np.int64)), int(h), n_nal, cap)
+    return nal, tot
+
+
 @pytest.mark.parametrize("cap", [CAP, 1000])
 @pytest.mark.parametrize("zero_heavy", [False, True])
 def test_plain_matches_jax_flat(zero_heavy, cap):
@@ -50,8 +63,9 @@ def test_plain_matches_jax_flat(zero_heavy, cap):
         pad = _case(zero_heavy, n, 100 * k + zero_heavy)
         want, want_tot = jflat.rbsp_to_nal_flat(jnp.asarray(pad), n, 0x41,
                                                 pad.size, cap)
-        nal, tot = ebsp_flat.rbsp_to_nal_batch(torch.as_tensor(pad)[None], n,
-                                               0x41, pad.size, cap)
+        nal, tot = ebsp_flat.rbsp_to_nal_batch(torch.as_tensor(pad)[None],
+                                               torch.tensor([n]), 0x41,
+                                               pad.size, cap)
         assert nal.dtype == torch.uint8 and tot.dtype == torch.int32
         _assert_matches(nal[0].numpy(), tot[0], want, want_tot, cap)
 
@@ -69,14 +83,12 @@ def test_plain_matches_jax_pallas_interpret(zero_heavy):
 
 @pytest.mark.parametrize("cap", [CAP, 1000])
 def test_batch_of_sessions_matches_per_session_jax(cap):
-    """One [K, m] call with per-session lengths and header bytes, against
-    the JAX function per session (the input is cut or zero-padded to the
-    next multiple of 128 bytes of n_nal, as the JAX wrapper does)."""
+    """[K, m] calls with per-session lengths (one call per header byte),
+    against the JAX function per session (the input is cut or zero-padded
+    to the next multiple of 128 bytes of n_nal, as the JAX wrapper does)."""
     rbsp, lens, hdr = cases.ebsp_cases()
     n_nal = cases.EBSP_N_NAL
-    nal, tot = ebsp_flat.rbsp_to_nal_batch(torch.as_tensor(rbsp),
-                                           torch.as_tensor(lens),
-                                           torch.as_tensor(hdr), n_nal, cap)
+    nal, tot = _batch_by_header(rbsp, lens, hdr, n_nal, cap)
     assert nal.shape == (len(lens), n_nal)
     for b in range(len(lens)):
         want, want_tot = jflat.rbsp_to_nal_flat(
@@ -136,12 +148,10 @@ def _assert_rows_match(nal, tot, want, want_tot, lens, n_nal, cap):
 @pytest.mark.parametrize("n_nal", cases.EBSP_BOUNDARY_N_NALS)
 def test_boundary_cases_match_jax_flat(n_nal, cap):
     """The run and staging boundaries of the CUDA K3 at 720p lengths
-    (cases.ebsp_boundary_cases), one [K, m] call with int32 lengths and
-    header bytes, against the JAX function per session."""
+    (cases.ebsp_boundary_cases), [K, m] calls with int64 lengths (one per
+    header byte), against the JAX function per session."""
     rbsp, lens, hdr = cases.ebsp_boundary_cases()
-    nal, tot = ebsp_flat.rbsp_to_nal_batch(torch.as_tensor(rbsp),
-                                           torch.as_tensor(lens),
-                                           torch.as_tensor(hdr), n_nal, cap)
+    nal, tot = _batch_by_header(rbsp, lens, hdr, n_nal, cap)
     assert nal.shape == (len(lens), n_nal)
     want, want_tot = _jax_rows(rbsp, lens, hdr, n_nal, cap)
     compared = _assert_rows_match(nal, tot, want, want_tot, lens, n_nal, cap)
@@ -174,9 +184,9 @@ def test_plain_casts_bytes_to_uint8_like_jax(dtype):
     rows[3] = rng.integers(-300, 600, 64)
     lens = np.asarray([10, 64, 64, 50], np.int32)
     hdr = np.full(4, 0x41, np.int32)
-    nal, tot = ebsp_flat.rbsp_to_nal_batch(torch.as_tensor(rows),
-                                           torch.as_tensor(lens), 0x41, 128,
-                                           1000)
+    nal, tot = ebsp_flat.rbsp_to_nal_batch(
+        torch.as_tensor(rows), torch.as_tensor(lens.astype(np.int64)), 0x41,
+        128, 1000)
     want, want_tot = _jax_rows(rows, lens, hdr, 128, 1000)
     assert _assert_rows_match(nal, tot, want, want_tot, lens, 128, 1000) == 4
     assert int(tot[0]) == 2
@@ -206,21 +216,29 @@ def test_out_of_buffer_nal_is_the_large_buffer_prefix():
 
 
 def test_session_ints_are_read_in_place():
-    """The kernel's per-session lengths and header bytes: int32 and int64
-    [B] and 0-dim tensors as views of their own storage (stride 0 for one
-    value), Python ints by value; other dtypes converted once to int64."""
-    B, dev = 4, torch.device("cpu")
+    """The kernel's per-session lengths: int64 [B] and 0-dim tensors as
+    views of their own storage (stride 0 for one value)."""
+    B = 4
+    rbsp = torch.zeros((B, 8), dtype=torch.uint8)
     for x in (torch.arange(B, dtype=torch.int64),
-              torch.arange(2 * B, dtype=torch.int32)[::2],
+              torch.arange(2 * B, dtype=torch.int64)[::2],
               torch.tensor(7, dtype=torch.int64)):
-        t, row, value = ebsp_flat._session_int(x, B, dev)
-        assert t.data_ptr() == x.data_ptr() and t.dtype == x.dtype
-        assert row == (x.stride(0) if x.dim() else 0) and value == 0
+        t = ebsp_flat.session_lengths(rbsp, x)
+        assert t.data_ptr() == x.data_ptr() and t.dtype == torch.int64
+        assert t.stride(0) == (x.stride(0) if x.dim() else 0)
         assert t.tolist() == x.expand(B).tolist()
-    assert ebsp_flat._session_int(np.int64(300), B, dev) == (None, 0, 300)
-    t, row, _ = ebsp_flat._session_int(torch.arange(B, dtype=torch.int16), B,
-                                       dev)
-    assert t.dtype == torch.int64 and row == 1
+
+
+@pytest.mark.parametrize("length,header", [
+    (5, 0x41), (np.int64(5), 0x41), (torch.tensor([5], dtype=torch.int32), 0x41),
+    (torch.tensor([5, 5], dtype=torch.int16), 0x41),
+    (torch.tensor([5]), torch.tensor(0x41)), (torch.tensor([5]), 65.0)])
+def test_wrapper_takes_only_int64_lengths_and_an_int_header(length, header):
+    """The forms only tests handed K3 — Python-int and int32 lengths, tensor
+    headers — raise; the plain version still takes them, as JAX does."""
+    rbsp = torch.zeros((1, 16), dtype=torch.uint8)
+    with pytest.raises(TypeError):
+        ebsp_flat.rbsp_to_nal_batch(rbsp, length, header, 128, CAP)
 
 
 def test_rejects_unbatched_input():

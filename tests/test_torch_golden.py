@@ -21,7 +21,13 @@ digest of the batched hint step at B = 256 (`cases.hint_step_inputs`).
 The partitioned, nearest and large-frame entries are held against the JAX
 package in tests/test_torch_hints.py.
 
-Regenerate all three files with `python tests/test_torch_golden.py` (the
+h264_scroll_encoder_tpu_torch/golden/splice_dense_720p.json holds the
+digests of the 720p dense splice (the same geometry) of the 32 seeded
+donors of `cases.dense_donor_payload`, representative at the honest
+budget and I_PCM-bearing at the chunk class's default budget (NAL buffer
+237,600 B); the port's side is tested in tests/test_torch_dense.py.
+
+Regenerate all four files with `python tests/test_torch_golden.py` (the
 tests fail whenever their contents differ from the JAX package's output).
 """
 
@@ -140,6 +146,41 @@ def jax_splice_golden() -> dict:
     return out
 
 
+def jax_dense_golden() -> dict:
+    """The dense splice golden digests, computed by the JAX package (Python
+    donor engine, the dense emitter per session, staged back end)."""
+    jcfg = JaxConfig(cases.GOLDEN_WIDTH, cases.GOLDEN_HEIGHT)
+    R, C = cases.SPLICE_R, cases.SPLICE_C
+    hp, hn = jax_header(
+        jcfg, jnp.int32(cases.SPLICE_FRAME_NUM),
+        jnp.int32(2 * cases.SPLICE_FRAME_NUM), is_reference=False,
+        long_term_idx=-1, num_waypoints=jnp.int32(0),
+        wp_long_term_idx=jnp.zeros(MAX_WAYPOINTS, jnp.int32),
+        wp_valid=jnp.zeros(MAX_WAYPOINTS, bool))
+    zero = jnp.zeros((jcfg.mb_height, jcfg.mb_width), jnp.int32)
+    out = {"config": cases.dense_golden_config()}
+    no_wp = np.zeros(cases.DENSE_DONORS, bool)
+    for config in cases.DENSE_CONFIGS:
+        dds = [jax_sd.prepare_donor_dense_from_slice(
+                   cases.dense_donor_payload(k, config == "ipcm"), 0, C, R, 1,
+                   cases.SPLICE_NUM_REFS, engine="python")
+               for k in range(cases.DENSE_DONORS)]
+        wire = cases.stack_dense(dds)
+        n_rbsp = (None if config == "ipcm" else jax_sd.splice_rbsp_budget(
+            jcfg, R * C, max(dd.donor_bits for dd in dds)))
+        emit = jax.jit(functools.partial(
+            jax_sd.emit_spliced_frame_dense, jcfg, cases.SPLICE_C0,
+            cases.SPLICE_R0, R, C, cases.SPLICE_NUM_REFS,
+            has_align=any(dd.has_align for dd in dds), n_rbsp=n_rbsp))
+        frames = [emit(hp, hn, zero, zero, zero, zero.astype(bool),
+                       {k: jnp.asarray(v[b]) for k, v in wire.items()})
+                  for b in range(cases.DENSE_DONORS)]
+        nal, nal_len, _bits, ovf = (np.stack([np.asarray(f[i]) for f in frames])
+                                    for i in range(4))
+        out[config] = cases.digest_step(nal, nal_len, no_wp, ovf)
+    return out
+
+
 @contextlib.contextmanager
 def _jitted_sliced_frames():
     """The JAX session calls scroll_frame_sliced without jit (~30 s a 720p
@@ -202,6 +243,28 @@ def test_splice_golden_file_is_jax_output():
     assert committed["ebsp_exact"] == committed["compact"]
 
 
+def test_dense_golden_file_is_jax_output():
+    committed = json.loads(cases.DENSE_GOLDEN_PATH.read_text())
+    assert committed == jax_dense_golden()
+
+
+@pytest.mark.parametrize("name", sorted(cases.LARGE_FRAMES))
+def test_large_golden_file_is_jax_output(name):
+    committed = json.loads(cases.LARGE_GOLDEN_PATH.read_text())
+    assert set(committed) == set(cases.LARGE_FRAMES)
+    assert committed[name] == cases.large_golden(JAX_PKG, (name,))[name]
+
+
+@pytest.mark.parametrize("name", sorted(cases.LARGE_FRAMES))
+def test_port_matches_large_golden(name):
+    """The port's session composes the large hint frames (on the card: the
+    NAL built in global memory) as the JAX package does, here through the
+    plain versions."""
+    committed = json.loads(cases.LARGE_GOLDEN_PATH.read_text())
+    got = cases.large_golden(cases.port_package(), (name,), device="cpu")
+    assert got[name] == committed[name]
+
+
 def test_port_matches_splice_golden():
     committed = json.loads(cases.SPLICE_GOLDEN_PATH.read_text())
     assert cases.port_splice_golden(device="cpu", engine="python") == committed
@@ -233,6 +296,12 @@ if __name__ == "__main__":
     cases.SPLICE_GOLDEN_PATH.write_text(
         json.dumps(jax_splice_golden(), indent=1) + "\n")
     print(f"wrote {cases.SPLICE_GOLDEN_PATH}")
+    cases.DENSE_GOLDEN_PATH.write_text(
+        json.dumps(jax_dense_golden(), indent=1) + "\n")
+    print(f"wrote {cases.DENSE_GOLDEN_PATH}")
+    cases.LARGE_GOLDEN_PATH.write_text(
+        json.dumps(cases.large_golden(JAX_PKG), indent=1) + "\n")
+    print(f"wrote {cases.LARGE_GOLDEN_PATH}")
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         cases.SESSION_GOLDEN_PATH.write_text(

@@ -382,11 +382,15 @@ def _cavlc_donor(tmp) -> str:
                                    "-o", str(tmp / "c.h264")]),
     lambda tmp: cli.splice_demo_main(["--donor", _cavlc_donor(tmp),
                                       "-o", str(tmp / "s.h264")]),
+    lambda tmp: sd.dense_device_arrays(_prep(PREP_CASES[0])[1]),
+    lambda tmp: cases.port_dense_golden(),
+    lambda tmp: cases.large_golden(cases.port_package()),
 ], ids=["create", "from_numpy", "port_golden", "port_splice_golden",
         "rows_device_arrays", "donor_arrays_from_numpy", "serving",
         "ComposerSession", "make_batched_hint_step", "emit_hint_frame",
         "hint_fields", "registry_as_arrays", "port_session_golden",
-        "scroll_encoder_cli", "composer_cli", "splice_demo_cli"])
+        "scroll_encoder_cli", "composer_cli", "splice_demo_cli",
+        "dense_device_arrays", "port_dense_golden", "large_golden"])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     """Without CUDA, every entry point's default device raises instead of
     falling back to the CPU (the CLIs through their --device default)."""

@@ -27,4 +27,4 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 25     # every module was imported
+    assert int(r.stdout.split()[-1]) >= 40     # every module was imported

@@ -28,7 +28,7 @@ from h264_scroll_encoder_tpu.ops import bitio as jbitio
 from h264_scroll_encoder_tpu.syntax import parse as jparse
 from h264_scroll_encoder_tpu.syntax import slice_headers as jheaders
 from h264_scroll_encoder_tpu.utils import fixtures as jfixtures
-from h264_scroll_encoder_tpu_torch import cli, session, verify
+from h264_scroll_encoder_tpu_torch import avref, cli, session, verify
 from h264_scroll_encoder_tpu_torch.config import ComposerConfig
 from h264_scroll_encoder_tpu_torch.models import ipcm, rewrite, scroll, splice
 from h264_scroll_encoder_tpu_torch.ops import bitio
@@ -484,8 +484,10 @@ def test_session_registry_and_fallback():
     assert count.tolist() == [8] and off[0, 7] == 8 * 496
 
     s = session.ComposerSession(ComposerConfig(64, 48), device="cpu")
-    with pytest.raises(NotImplementedError, match="avref"):
-        s.write_fallback_frame(None)
+    planes = (np.full((48, 64), 90, np.uint8), np.full((24, 32), 128, np.uint8),
+              np.full((24, 32), 128, np.uint8))
+    with pytest.raises(ValueError, match="session is"):
+        s.write_fallback_frame(tuple(p[:16] for p in planes))
     good = splice.FrameHints(motion_regions=(splice.MotionRegion(0, 0, 2, 2,
                                                                  mv_y=4),))
     bad = splice.FrameHints(motion_regions=(splice.MotionRegion(0, 0, 9, 2),))
@@ -494,8 +496,13 @@ def test_session_registry_and_fallback():
     assert s.write_hint_frame_or_fallback(good) is False
     with pytest.raises(splice.HintsNotServable):
         s.write_hint_frame_or_fallback(bad)
-    with pytest.raises(NotImplementedError, match="pixel_oracle"):
-        s.write_hint_frame_or_fallback(bad, fallback_frame=np.zeros((48, 64)))
+    if avref.available():
+        # The fallback frame (x264 through avref) becomes the fresh atlas.
+        assert s.write_hint_frame_or_fallback(bad, fallback_frame=planes)
+        assert s.waypoints.count == 0 and s.frames_written == 2
+    else:
+        with pytest.raises(RuntimeError, match="avref"):
+            s.write_hint_frame_or_fallback(bad, fallback_frame=planes)
     assert verify.verify_stream(s.getvalue()).ok
 
 
