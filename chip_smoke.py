@@ -80,12 +80,31 @@ result line):
      libavcodec (avref, where the system has it) on phase 7's and this
      phase's streams and on a 720p session with a fallback frame, and the
      trans-resizer on phase 7's composer stream (both engines equal).
-  9. Print the kernel table (one JSON line; `ms` is one call on an idle
+  9. Serving ("serving"): make_sharded_step at 1280x720, B = 256, over
+     phase 4's 16 frames with the sessions split over every card (two
+     blocks on cuda:0 on a one-card machine): every session's bytes,
+     lengths and flags equal the unsharded step's, egress across the
+     blocks (compact_sharded_nal) equals compact_batch_nal on the whole
+     batch, and K1 launches once per block per step.  Then the splice
+     serving loop at bench.py's geometry (B = 256, fresh donors from the
+     32 representative donors through the native engine each step),
+     evicted with save_serving_state after 3 of 6 steps and restored with
+     load_serving_state: every NAL equals the uninterrupted run's; a
+     ComposerSession through save_session / restore_session continues
+     byte for byte; parallel.dryrun.dryrun_multigpu on the card; the
+     serving, splice-serving and full-pipeline examples, generate_refs,
+     run_e2e.sh at 1280x720 with 60 frames, and the MP4 mux of phase 7's
+     scroll-encoder stream (box structure, one sample per frame); the
+     video-in-corner demo and netflix_scroll --demo where avref builds.
+     Times: the sharded and unsharded steps (host wall, device time per
+     block by torch.profiler), save and load of the B = 256 serving state
+     (and its npz bytes), the mux.
+ 10. Print the kernel table (one JSON line; `ms` is one call on an idle
      card, as in the first port's rows, with `device_ms` and `host_ms`
      beside it; `launches` sums the paths, `launches_by_path` splits
      them), the card's name and power limit, and the result line.
 
-Launch counters are set to 0 just before each path (4, 5, 6, 7, 8) and
+Launch counters are set to 0 just before each path (4, 5, 6, 7, 8, 9) and
 read just after; every kernel must have launched on its path.
 """
 
@@ -786,7 +805,13 @@ def main() -> int:
         dev, cfg, cases, batch, _kernels, Timer, avref, streams7, dn32, bits32,
         has_align)
 
-    # -- 9. Results ------------------------------------------------------------
+    # -- 9. Serving: sharded step, eviction, dry run, examples, scripts ---------
+    t_serving = time.perf_counter()
+    serving_launches = _serving_phase(dev, cfg, cases, batch, _kernels, Timer,
+                                      avref, streams7, schedule, payloads)
+    _log(f"phase 9: {time.perf_counter() - t_serving:.2f} s in all")
+
+    # -- 10. Results -----------------------------------------------------------
     src = "h264_scroll_encoder_tpu_torch/csrc/emit_kernels.cu"
     rows = [
         ("emit_fused (K1)", "K1", "h264t_emit_fused",
@@ -800,13 +825,14 @@ def main() -> int:
     ]
     paths = {"scroll": scroll_launches, "splice": splice_launches,
              "entry": entry_launches, "session": session_launches,
-             "dense": dense_launches, "large": large_launches}
+             "dense": dense_launches, "large": large_launches,
+             "serving": serving_launches}
     # ms: one call as a caller waits for it (the method of the first port's
     # rows); device_ms: device time per call of calls queued back to back;
     # host_ms: the host's issue time per call.  launches: the kernel's
     # launches summed over the paths it runs on (phase 4's scroll golden
-    # run, 5, 6, 7 and 8's dense steps and large frames), each path
-    # counted from 0.
+    # run, 5, 6, 7, 8's dense steps and large frames, and 9's sharded
+    # steps and serving loop), each path counted from 0.
     kernels = []
     for name, key, sym, rep in rows:
         by_path = {p: c[sym] for p, c in paths.items() if c[sym]}
@@ -1212,6 +1238,344 @@ def _fallback_check(cfg, dev, avref, ComposerSession, FrameHints,
     _log("phase 8: a 720p session's fallback frame: 0 decode errors, the "
          "fallback shows the standalone x264 encode, the following frames "
          "compose against it")
+
+
+
+def _block_devices(dev):
+    """Phase 9's device list: every card, or two blocks on the one card."""
+    count = torch.cuda.device_count()
+    if count > 1:
+        return [torch.device("cuda", i) for i in range(count)], f"{count} cards"
+    return [dev, dev], "two blocks on cuda:0 (one card)"
+
+
+def _serving_phase(dev, cfg, cases, batch, _kernels, Timer, avref, streams7,
+                   schedule, payloads):
+    """Phase 9: the sharded scroll step, eviction and restore mid-stream on
+    the splice serving loop, the multi-device dry run, and the examples
+    and scripts on the card; returns the launch counts of the sharded
+    steps and the serving loop."""
+    from h264_scroll_encoder_tpu_torch.models import scroll
+    from h264_scroll_encoder_tpu_torch.parallel import dryrun
+    from h264_scroll_encoder_tpu_torch.session import ComposerSession
+    from h264_scroll_encoder_tpu_torch.syntax import parse
+    from h264_scroll_encoder_tpu_torch.utils import snapshot
+    from h264_scroll_encoder_tpu_torch.utils.trace import StageTimer
+
+    devices, layout = _block_devices(dev)
+    n_blocks = len(devices)
+    B = schedule.shape[1]
+    step_u = batch.make_batched_step(cfg)
+    step_s = batch.make_sharded_step(cfg, devices)
+
+    # (a) The sharded scroll step over phase 4's schedule, counted from 0.
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    states = batch.shard_batch(batch.SessionState.create(B, device=dev),
+                               devices)
+    sharded = []
+    for offs in schedule:
+        states, outs = step_s(states, batch.shard_batch(offs, devices))
+        sharded.append(outs)
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    k1 = _kernels.EMIT_FUSED.launches
+    if k1 != n_blocks * len(schedule):
+        raise AssertionError(f"K1 launched {k1} times for {n_blocks} blocks x "
+                             f"{len(schedule)} sharded steps")
+    # A forced ebsp_exact frame on one shard: K2, then exact EBSP, with the
+    # bounded frame's bytes.
+    st0 = states[0]
+    offs0 = batch.shard_batch(schedule[-1], devices)[0]
+    with batch.on_device(devices[0]):
+        frame_args = (cfg, st0.frame_num, offs0, st0.wp_offsets, st0.wp_ltidx,
+                      st0.wp_valid, st0.wp_count)
+        exact = scroll.scroll_frame(*frame_args, ebsp_exact=True)
+        bounded = scroll.scroll_frame(*frame_args)
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in _kernels.KERNELS}
+    if launches["h264t_pack_place"] != 1:
+        raise AssertionError(f"the shard's ebsp_exact frame launched {launches}")
+    n = min(exact[0].shape[1], bounded[0].shape[1])
+    if not (torch.equal(exact[1], bounded[1]) and not bool(bounded[3].any())
+            and torch.equal(dryrun.valid_bytes(*exact[:2])[:, :n],
+                            dryrun.valid_bytes(*bounded[:2])[:, :n])):
+        raise AssertionError("the shard's ebsp_exact frame changed its bytes")
+
+    state_u = batch.SessionState.create(B, device=dev)
+    for t, offs in enumerate(schedule):
+        state_u, out_u = step_u(state_u, offs)
+        out_s = batch.gather_batch(sharded[t], dev)
+        if bool(out_u[4].any()):
+            raise AssertionError(f"unsharded step {t} overflowed")
+        if not (all(torch.equal(a, b) for a, b in zip(out_u[1:], out_s[1:]))
+                and torch.equal(dryrun.valid_bytes(*out_u[:2]),
+                                dryrun.valid_bytes(*out_s[:2]))):
+            raise AssertionError(f"sharded step {t} differs from unsharded")
+        cap = B * out_u[0].shape[1]
+        want = batch.compact_batch_nal(out_u[0], out_u[1], cap)
+        got = batch.compact_sharded_nal([o[0] for o in sharded[t]],
+                                        [o[1] for o in sharded[t]], cap, dev)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"egress across the blocks differs at step {t}")
+    final = batch.gather_batch(states, dev)
+    if not all(torch.equal(getattr(final, f), getattr(state_u, f))
+               for f in ("frame_num", "wp_offsets", "wp_ltidx", "wp_valid",
+                         "wp_count")):
+        raise AssertionError("sharded and unsharded final states differ")
+    _log(f"phase 9: sharded scroll step over {layout}, {len(schedule)} steps "
+         f"at B={B} 720p: every session's bytes, lengths and flags equal the "
+         f"unsharded step's, egress across the blocks equals "
+         f"compact_batch_nal; K1 launched {k1} times = once per block per "
+         f"step; a forced ebsp_exact frame on one shard launched K2 once, "
+         f"bytes unchanged")
+
+    # Times: host wall (CUDA events and host clock to a synchronise) and
+    # device time per block (torch.profiler), sharded against unsharded, on
+    # the same inputs, in turns.
+    offs_blocks = batch.shard_batch(schedule[0], devices)
+    blocks0 = batch.shard_batch(batch.SessionState.create(B, device=dev),
+                                devices)
+    state0 = batch.SessionState.create(B, device=dev)
+    runs = {"unsharded": lambda: step_u(state0, schedule[0]),
+            "sharded": lambda: step_s(blocks0, offs_blocks)}
+    timers = {name: Timer() for name in runs}
+    for name in ("unsharded", "sharded", "sharded", "unsharded"):
+        for _ in range(3):
+            runs[name]()
+        for _ in range(10):
+            timers[name](runs[name])
+    for name, fn in runs.items():
+        try:
+            prof = _profile_launches(fn, 5)
+        except Exception as e:  # measurement only; outputs checked above
+            prof = None
+            _log(f"phase 9: torch.profiler failed: {e!r}")
+        ms, wall = timers[name].medians()
+        per = 1 if name == "unsharded" else n_blocks
+        prof_s = ("device time not measured" if prof is None else
+                  f"{prof[0]:.1f} cudaLaunch calls and {prof[1]:.4f} ms of "
+                  f"device time per step, {prof[1] / per:.4f} ms per block "
+                  f"of {B // per} sessions (torch.profiler, 5 steps)")
+        _log(f"phase 9: {name} scroll step B={B} 720p: {ms:.4f} ms "
+             f"(CUDA-event median of 20), host wall {wall:.4f} ms (median); "
+             f"{prof_s}")
+
+    # (b) The splice serving loop at bench.py's geometry, B = 256: fresh
+    # donors each step from the 32 representative donors through the
+    # native engine (blob wire); evicted after 3 of 6 steps and restored.
+    T, EVICT = 6, 3
+    ctx0 = {"step": 0, "rotation": 5}
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    uninterrupted = _serving_run(cfg, cases, batch, payloads, dev, B,
+                                 _serving_state(batch, B, dev), ctx0, 0, T)[1]
+    state, first = _serving_run(cfg, cases, batch, payloads, dev, B,
+                                _serving_state(batch, B, dev), ctx0, 0, EVICT)
+    timer = StageTimer()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/serving.npz"
+        ctx = dict(ctx0, step=EVICT)
+        for _ in range(20):
+            with timer.stage("save"):
+                snapshot.save_serving_state(path, state, ctx)
+            with timer.stage("load"):
+                restored = snapshot.load_serving_state(path, device=dev)
+                torch.cuda.synchronize()
+        npz_bytes = len(open(path, "rb").read())
+        del state, restored
+        state2, ctx2 = snapshot.load_serving_state(path, device=dev)
+    if ctx2 != ctx:
+        raise AssertionError("the restored host context differs")
+    rest = _serving_run(cfg, cases, batch, payloads, dev, B, state2, ctx2,
+                        ctx2["step"], T)[1]
+    for t, (got, want) in enumerate(zip(first + rest, uninterrupted)):
+        if not (torch.equal(got[1], want[1])
+                and torch.equal(dryrun.valid_bytes(*got),
+                                dryrun.valid_bytes(*want))):
+            raise AssertionError(f"serving step {t}: NALs after eviction "
+                                 "differ from the uninterrupted run's")
+    torch.cuda.synchronize()
+    loop = {k.symbol: k.launches for k in _kernels.KERNELS}
+    if loop["h264t_emit_fused"] != 2 * T:
+        raise AssertionError(f"serving loop launches {loop} in {2 * T} steps")
+    for k, n in loop.items():
+        launches[k] += n
+    _log(f"phase 9: splice serving loop B={B} (23x23 MBs at MB (30, 10), fresh "
+         f"donors each step), evicted after {EVICT} of {T} steps with "
+         f"save_serving_state and restored with load_serving_state: every "
+         f"NAL equals the uninterrupted run's; save "
+         f"{timer.stages['save'].mean_ms} ms, load (to the card) "
+         f"{timer.stages['load'].mean_ms} ms (means of 20), npz {npz_bytes} B")
+
+    # A ComposerSession through save_session / restore_session.
+    a = ComposerSession(cfg, device=dev)
+    a.write_parameter_sets()
+    a.write_test_atlases(striped=True)
+    for off in (0, 496, 496, 600):
+        a.write_scroll_or_waypoint_frame(off)
+    with tempfile.TemporaryDirectory() as tmp:
+        snapshot.save_session(a, f"{tmp}/session.json")
+        b = ComposerSession(cfg, device=dev)
+        snapshot.restore_session(b, f"{tmp}/session.json")
+    for off in (700, 992, 992, 40):
+        for s in (a, b):
+            s.write_scroll_or_waypoint_frame(off)
+        if (list(parse.iter_nal_units(a.getvalue()))[-1].data
+                != list(parse.iter_nal_units(b.getvalue()))[-1].data):
+            raise AssertionError(f"restored session differs at offset {off}")
+    _log("phase 9: a 720p ComposerSession restored by restore_session "
+         "continues byte for byte (4 frames, 2 waypoints)")
+
+    # (c) The multi-device dry run on the card.
+    t0 = time.perf_counter()
+    report = dryrun.dryrun_multigpu(devices)
+    _log(f"phase 9: dryrun_multigpu over {layout}: sharded == unsharded on "
+         f"{report} ({time.perf_counter() - t0:.2f} s)")
+
+    # (d) The examples and scripts on the card.
+    _examples_and_scripts(dev, cfg, avref, streams7)
+    return launches
+
+
+def _serving_state(batch, B, dev):
+    """Sessions at distinct frame_nums (no waypoints: two references, the
+    rows step's num_refs)."""
+    state = batch.SessionState.create(B, device=dev)
+    state.frame_num += torch.arange(B, device=dev, dtype=torch.int32) % 5
+    return state
+
+
+def _serving_run(cfg, cases, batch, payloads, dev, B, state, ctx, t0, t1):
+    """Steps t0..t1-1 of the splice serving loop: each step the 32 donors
+    go through the native engine into the blob wire, session b carries
+    donor (b + rotation * t) % 32.  Returns (state, [(nal, nal_len)])."""
+    from h264_scroll_encoder_tpu_torch.syntax.slice_headers import (
+        p_slice_header_symbols)
+
+    zero = torch.zeros((B, cfg.mb_height, cfg.mb_width), dtype=torch.int32,
+                       device=dev)
+    out = []
+    for t in range(t0, t1):
+        dn, bits, align = cases.prepare_splice_donors(payloads, engine="native",
+                                                      device=dev)
+        step = cases.splice_steps(cfg, int(bits.max()),
+                                  bool(align.any()))["compact"]
+        pick = (torch.arange(B, device=dev) + ctx["rotation"] * t) % len(payloads)
+        fn = state.frame_num.to(torch.int64) % (1 << cfg.log2_max_frame_num)
+        hp, hn = p_slice_header_symbols(
+            cfg, fn, fn * 2, False, -1, state.wp_count.to(torch.int64),
+            state.wp_ltidx.to(torch.int64), state.wp_valid)
+        nal, nal_len, _bits, ovf = step(hp, hn, zero, zero, zero, zero.bool(),
+                                        {"blob": dn["blob"][pick]})
+        if bool(ovf.any()):
+            raise AssertionError(f"serving step {t} overflowed")
+        out.append((nal, nal_len))
+        state = batch.SessionState(state.frame_num + 1, state.wp_offsets,
+                                   state.wp_ltidx, state.wp_valid,
+                                   state.wp_count)
+    return state, out
+
+
+def _examples_and_scripts(dev, cfg, avref, streams7) -> None:
+    """Phase 9 (d): the port's examples and scripts on the card."""
+    import os
+    from pathlib import Path
+
+    from h264_scroll_encoder_tpu_torch.examples import (full_pipeline_demo,
+                                                        serving_demo,
+                                                        splice_serving_demo)
+    from h264_scroll_encoder_tpu_torch.scripts import generate_refs
+    from h264_scroll_encoder_tpu_torch.utils import mp4mux
+    from h264_scroll_encoder_tpu_torch.utils.trace import StageTimer
+    from h264_scroll_encoder_tpu_torch.verify import verify_stream
+
+    repo = Path(__file__).resolve().parent
+    quiet = lambda *a, **k: None  # noqa: E731
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        streams = serving_demo.run(dev, out_dir=tmp / "serving", log=quiet)
+        t1 = time.perf_counter()
+        nals = splice_serving_demo.run(dev, log=quiet)
+        nals_cpu = splice_serving_demo.run("cpu", log=quiet)
+        if nals != nals_cpu:
+            raise AssertionError("splice_serving_demo: card and CPU NALs differ")
+        t2 = time.perf_counter()
+        data, mp4 = full_pipeline_demo.run(tmp / "full.h264", dev, log=quiet)
+        t3 = time.perf_counter()
+        _log(f"phase 9: examples on the card: serving_demo ({len(streams)} "
+             f"sessions x 40 frames at 720p, {sum(map(len, streams))} B, "
+             f"verify_stream and the snapshot round trip pass; {t1 - t0:.2f} "
+             f"s), splice_serving_demo (8 NALs equal the CPU run's, "
+             f"verify_stream passes; {t2 - t1:.2f} s), full_pipeline_demo "
+             f"({len(data)} B stream, verify_stream passes, {len(mp4)} B MP4; "
+             f"{t3 - t2:.2f} s)")
+
+        if generate_refs.main(["--out-dir", str(tmp / "refs"),
+                               "--device", str(dev)]) != 0:
+            raise AssertionError("generate_refs failed")
+        for name in ("ref_a.h264", "ref_b.h264"):
+            rep = verify_stream((tmp / "refs" / name).read_bytes())
+            if not rep.ok or rep.frame_count != 1:
+                raise AssertionError(f"generate_refs {name}: {rep.errors[:3]}")
+
+        t0 = time.perf_counter()
+        env = dict(os.environ, OUT=str(tmp / "e2e"), W=str(cfg.width),
+                   H=str(cfg.height), FRAMES="60", DEVICE=str(dev),
+                   PYTHON=sys.executable)
+        r = subprocess.run(["bash", str(repo / "h264_scroll_encoder_tpu_torch"
+                                        / "scripts" / "run_e2e.sh")],
+                           env=env, capture_output=True, text=True)
+        if r.returncode != 0 or r.stdout.count('"ok": true') != 2:
+            raise AssertionError(f"run_e2e.sh failed ({r.returncode}):\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+        e2e_mp4 = (tmp / "e2e" / "scroll.mp4").read_bytes()
+        if e2e_mp4 != mp4mux.mux((tmp / "e2e" / "scroll.h264").read_bytes()):
+            raise AssertionError("run_e2e.sh: the MP4 differs from its stream's")
+        _log(f"phase 9: run_e2e.sh at {cfg.width}x{cfg.height}, 60 frames, on "
+             f"the card: both streams verify, the MP4 muxes "
+             f"({time.perf_counter() - t0:.2f} s)")
+
+    # The MP4 mux of phase 7's scroll-encoder stream.
+    stream = streams7["scroll_encoder_cli"]
+    timer = StageTimer()
+    for _ in range(5):
+        with timer.stage("mux"):
+            mp4 = mp4mux.mux(stream)
+    boxes, pos = [], 0
+    while pos < len(mp4):
+        size, kind = int.from_bytes(mp4[pos:pos + 4], "big"), mp4[pos + 4:pos + 8]
+        boxes.append(kind)
+        pos += size
+    frames = verify_stream(stream).frame_count
+    _sps, _pps, samples, sync = mp4mux.annexb_to_samples(stream)
+    if (boxes != [b"ftyp", b"moov", b"mdat"] or pos != len(mp4)
+            or len(samples) != frames or sync != [1]):
+        raise AssertionError(f"mp4mux: boxes {boxes}, {len(samples)} samples "
+                             f"for {frames} frames, sync {sync}")
+    _log(f"phase 9: mp4mux of the scroll-encoder stream ({len(stream)} B, "
+         f"{frames} frames): {len(mp4)} B, ftyp/moov/mdat, one sample per "
+         f"frame; {timer.stages['mux'].mean_ms} ms (mean of 5)")
+
+    if avref.missing() is not None:
+        _log(f"phase 9: avref unavailable ({avref.missing()}): "
+             f"video_in_corner_demo and netflix_scroll --demo were not run")
+        return
+    from h264_scroll_encoder_tpu_torch.examples import video_in_corner_demo
+    from h264_scroll_encoder_tpu_torch.scripts import netflix_scroll
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        video_in_corner_demo.main_batched(f"{tmp}/vic.h264", device=dev,
+                                          log=quiet)
+        if netflix_scroll.main(["--demo", "-n", "60", "--device", str(dev),
+                                "-o", f"{tmp}/netflix.mp4",
+                                "--extract-frames"]) != 0:
+            raise AssertionError("netflix_scroll --demo failed")
+    _log(f"phase 9: video_in_corner_demo --batched (1280x720, B = 4, equal to "
+         f"the host path, 0 libavcodec errors) and netflix_scroll --demo (60 "
+         f"frames, 0 errors) on the card ({time.perf_counter() - t0:.2f} s)")
 
 
 if __name__ == "__main__":

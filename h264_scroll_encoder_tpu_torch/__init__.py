@@ -16,7 +16,11 @@ names as the JAX package, so every function has an obvious counterpart:
                the donor rewrite, the host splice path and the padding
                transcode (trans-resizer).
   parallel/  — `SessionState`, the batched scroll, splice (rows, dense)
-               and hint steps, egress (`compact_batch_nal`).
+               and hint steps, egress (`compact_batch_nal`); several
+               devices: `make_sharded_step`, `shard_batch` /
+               `gather_batch`, `run_on_blocks`, `compact_sharded_nal`,
+               and `parallel/dryrun` (every serving program sharded against
+               unsharded: `python -m ...parallel.dryrun`).
   session.py — `ComposerSession`, one UI session's stream, with the
                conventional-encode fallback frame.
   cli.py     — the composer, scroll-encoder, splice-demo and trans-resizer
@@ -24,6 +28,19 @@ names as the JAX package, so every function has an obvious counterpart:
   verify.py, pixel_oracle.py, avref.py — the structural stream oracle,
                the numpy pixel decoder (ops/transform, ops/deblock) and
                libavcodec / libx264 through csrc/avref.c.
+  utils/     — `snapshot` (session eviction and restore, files shared
+               with the JAX package), `trace` (stage timers, bitstream
+               traces, `torch_profile`), `mp4mux` (MP4 egress: `python -m
+               ...utils.mp4mux IN OUT`), fixtures and kernel timing.
+  examples/  — serving_demo, splice_serving_demo, full_pipeline_demo,
+               video_in_corner_demo: `python -m ...examples.<name>`.
+  scripts/   — generate_refs, parity_sweep, netflix_scroll (`python -m
+               ...scripts.<name>`) and run_e2e.sh (`bash`).
+               Examples and scripts take `--device` (default cuda; `--device
+               cpu` runs the plain versions).  The x264 ones
+               (video_in_corner_demo, netflix_scroll, generate_refs --x264)
+               need the system libavcodec and libx264 and exit 1 without
+               them.
 
 Conventions: functions take tensors with an explicit leading session
 dimension (the JAX package's `vmap` axis); the device comes from the

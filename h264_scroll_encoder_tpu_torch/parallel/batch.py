@@ -13,11 +13,20 @@ donor layout, its byte-for-byte parity partner; `make_batched_hint_step`
 composes hint frames (static chrome plus motion regions);
 `compact_batch_nal` is egress, the sessions' valid bytes in one buffer.
 
-Not ported yet: the sharded step.
+Across devices (the JAX package's "sessions" mesh axis) sessions split
+into equal contiguous blocks, one per device (`shard_batch`; `gather_batch`
+reads them back); the hot path needs no collectives.  `run_on_blocks`
+calls a step on every block with the block's card current:
+`make_sharded_step` is the scroll step run so, and the rows, dense and
+hint steps run sharded the same way, since they run on the device of
+their inputs.  `compact_sharded_nal` is egress across the blocks: the
+blocks' rows gathered onto one device (the one cross-device copy), then
+`compact_batch_nal`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -128,6 +137,109 @@ def make_batched_step(cfg: ComposerConfig, *, enable_pskip: bool = False,
     nal_len i32[B], emitted_waypoint bool[B], rbsp_bits i32[B],
     overflow bool[B])).  Runs on the device of the state's tensors."""
     return functools.partial(_session_step, cfg, enable_pskip, emit_waypoints)
+
+
+def block_device(device) -> torch.device:
+    """A block's device with its index (a bare "cuda" is the current card)."""
+    dev = _kernels.resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def on_device(device):
+    """The context a block's work is issued in: its card made current (the
+    kernel plans and the streams are per card); nothing on the CPU."""
+    device = torch.device(device)
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def shard_batch(x, devices) -> list:
+    """Split a batch over `devices`, as jax.device_put with a
+    NamedSharding(mesh, P("sessions")) places it: sessions split into equal
+    contiguous blocks along the leading axis, block i on devices[i] (a
+    device may repeat).  `x` is a tensor or array, a dict or tuple of them
+    (a donor wire, a step's outputs) or a SessionState; returns one such
+    block per device.  A batch that does not divide raises ValueError."""
+    devices = [block_device(d) for d in devices]
+    n = len(devices)
+    if isinstance(x, SessionState):
+        parts = {f: shard_batch(getattr(x, f), devices) for f in _FIELDS}
+        return [SessionState(**{f: parts[f][i] for f in _FIELDS})
+                for i in range(n)]
+    if isinstance(x, dict):
+        parts = {k: shard_batch(v, devices) for k, v in x.items()}
+        return [{k: parts[k][i] for k in x} for i in range(n)]
+    if isinstance(x, tuple):
+        parts = [shard_batch(v, devices) for v in x]
+        return [tuple(p[i] for p in parts) for i in range(n)]
+    x = torch.as_tensor(x)
+    B = x.shape[0]
+    if n == 0 or B % n:
+        raise ValueError(f"a batch of {B} sessions does not split into "
+                         f"equal blocks over {n} devices")
+    size = B // n
+    return [x[i * size:(i + 1) * size].to(d) for i, d in enumerate(devices)]
+
+
+def gather_batch(blocks, device=None):
+    """Inverse of shard_batch: the blocks' sessions concatenated in order on
+    `device` (default: the first block's device)."""
+    first = blocks[0]
+    if isinstance(first, SessionState):
+        return SessionState(**{f: gather_batch([getattr(b, f) for b in blocks],
+                                               device) for f in _FIELDS})
+    if isinstance(first, dict):
+        return {k: gather_batch([b[k] for b in blocks], device) for k in first}
+    if isinstance(first, tuple):
+        return tuple(gather_batch(list(p), device) for p in zip(*blocks))
+    dev = first.device if device is None else block_device(device)
+    return torch.cat([b.to(dev) for b in blocks])
+
+
+def run_on_blocks(step, devices, *blocks) -> list:
+    """step(*args) on every block, the i-th call with devices[i] current
+    and args its i-th entry of each of `blocks` (per-device lists, as
+    shard_batch returns them); returns the per-block outputs.  Nothing
+    waits on a card between blocks, so the cards run their blocks side by
+    side; a repeated device runs its blocks one after another."""
+    outs = []
+    for dev, args in zip(devices, zip(*blocks)):
+        with on_device(dev):
+            outs.append(step(*args))
+    return outs
+
+
+def make_sharded_step(cfg: ComposerConfig, devices, *,
+                      enable_pskip: bool = False, emit_waypoints: bool = True):
+    """The batched step with the session axis split over `devices`, the
+    counterpart of the JAX package's make_sharded_step over a 1-D
+    "sessions" mesh:
+
+        step(states, offsets) -> (states, outs)
+
+    with one SessionState block and one offsets block per device
+    (shard_batch), in the order of `devices`; returns the new state blocks
+    and one (nal, nal_len, emitted_waypoint, rbsp_bits, overflow) per
+    block, every output on its block's device.  Sessions are independent,
+    so there are no collectives; the blocks run through run_on_blocks, and
+    a device may repeat."""
+    devices = tuple(block_device(d) for d in devices)
+    step = make_batched_step(cfg, enable_pskip=enable_pskip,
+                             emit_waypoints=emit_waypoints)
+
+    def sharded(states, offsets):
+        if len(states) != len(devices) or len(offsets) != len(devices):
+            raise ValueError(f"{len(states)} state and {len(offsets)} offset "
+                             f"blocks for {len(devices)} devices")
+        for dev, state in zip(devices, states):
+            if state.frame_num.device != dev:
+                raise ValueError(f"a state block on {state.frame_num.device} "
+                                 f"is not on its device {dev}")
+        results = run_on_blocks(step, devices, states, offsets)
+        return [r[0] for r in results], [r[1] for r in results]
+    return sharded
 
 
 def make_batched_splice_step_rows(cfg: ComposerConfig, rect_mb_x: int,
@@ -285,3 +397,12 @@ def compact_batch_nal(nal, nal_len, cap: int):
     col = (pos - (incl - lens)[session]).clamp(0, N - 1)
     packed = torch.where(pos < total, nal[session, col], 0).to(torch.uint8)
     return packed, total.to(torch.int32), total > cap
+
+
+def compact_sharded_nal(nal_blocks, len_blocks, cap: int, device=None):
+    """compact_batch_nal over a batch split into blocks (shard_batch): the
+    blocks' NAL rows and lengths gathered onto `device` (default: the
+    first block's device), then compacted there; the returns equal
+    compact_batch_nal's on the whole batch, overflow included."""
+    return compact_batch_nal(gather_batch(nal_blocks, device),
+                             gather_batch(len_blocks, device), cap)

@@ -462,3 +462,76 @@ def test_compact_batch_nal_on_card(dev):
                                        torch.as_tensor(lens), cap)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
+
+
+def _card_blocks(dev):
+    """Every card, or two blocks on the one card."""
+    n = torch.cuda.device_count()
+    return ([torch.device("cuda", i) for i in range(n)] if n > 1
+            else [dev, dev])
+
+
+def test_sharded_step_on_card(dev):
+    """make_sharded_step at 720p, B = 16, over the cards (two blocks on
+    cuda:0 on one card): every output equals the unsharded step's on the
+    card and on the CPU, egress across the blocks equals compact_batch_nal,
+    and K1 launches once per block per step."""
+    cfg = ComposerConfig(1280, 720)
+    devices = _card_blocks(dev)
+    sched = torch.as_tensor(cases.bench_schedule(720, 16, 4))
+    sstep = batch.make_sharded_step(cfg, devices)
+    ustep = batch.make_batched_step(cfg)
+    blocks = batch.shard_batch(batch.SessionState.create(16, device=dev),
+                               devices)
+    card = batch.SessionState.create(16, device=dev)
+    cpu = batch.SessionState.create(16, device="cpu")
+    for offs in sched:
+        _kernels.reset_launch_counts()
+        blocks, outs = sstep(blocks, batch.shard_batch(offs, devices))
+        torch.cuda.synchronize()
+        assert _kernels.EMIT_FUSED.launches == len(devices)
+        card, want = ustep(card, offs.to(dev))
+        cpu, want_cpu = ustep(cpu, offs)
+        got = batch.gather_batch(outs, dev)
+        for g, w, c in zip(got, want, want_cpu):
+            assert torch.equal(g, w) and torch.equal(g.cpu(), c)
+        cap = int(want[1].sum())
+        packed = batch.compact_sharded_nal([o[0] for o in outs],
+                                           [o[1] for o in outs], cap, dev)
+        for g, w in zip(packed, batch.compact_batch_nal(want[0], want[1], cap)):
+            assert torch.equal(g, w)
+
+
+def test_serving_state_restores_on_card(dev, tmp_path):
+    """A state saved on the CPU and loaded onto the card continues
+    byte for byte; and one saved on the card loads on the CPU."""
+    from h264_scroll_encoder_tpu_torch.utils import snapshot
+
+    cfg = ComposerConfig(64, 1024)
+    step = batch.make_batched_step(cfg)
+    sched = torch.as_tensor([[0, 496, 992, 40], [496, 496, 992, 44],
+                             [600, 700, 1000, 48], [992, 40, 8, 52]],
+                            dtype=torch.int32)
+    cpu = batch.SessionState.create(4, device="cpu")
+    for offs in sched[:2]:
+        cpu, _ = step(cpu, offs)
+    snapshot.save_serving_state(tmp_path / "s.npz", cpu, {"step": 2})
+    card, ctx = snapshot.load_serving_state(tmp_path / "s.npz", device=dev)
+    assert ctx == {"step": 2} and card.frame_num.device == dev
+    for offs in sched[2:]:
+        cpu, want = step(cpu, offs)
+        card, got = step(card, offs.to(dev))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    snapshot.save_batch_state(card, tmp_path / "b.npz")
+    back = snapshot.load_batch_state(tmp_path / "b.npz", device="cpu")
+    assert back.to_numpy().keys() == cpu.to_numpy().keys()
+    for f, a in back.to_numpy().items():
+        np.testing.assert_array_equal(a, cpu.to_numpy()[f])
+
+
+def test_dryrun_multigpu_on_card(dev):
+    from h264_scroll_encoder_tpu_torch.parallel import dryrun
+
+    report = dryrun.dryrun_multigpu(_card_blocks(dev))
+    assert report["egress ring"] == 4 * 2 * len(_card_blocks(dev))
