@@ -99,13 +99,29 @@ result line):
      Times: the sharded and unsharded steps (host wall, device time per
      block by torch.profiler), save and load of the B = 256 serving state
      (and its npz bytes), the mux.
- 10. Print the kernel table (one JSON line; `ms` is one call on an idle
+ 10. The measurement probes ("probes"): P1 (h264t_emit_stage: K1 cut
+     after each of its stages), P2 (h264t_pack_place_u16: K2 with 8-bit
+     staged widths and 16-bit positions) and P3 (h264t_pack_place_tiled:
+     K2 with T sessions a block), from csrc/probe_kernels.cu, held against
+     their plain versions exactly on the JAX probes' inputs (8,483
+     symbols, widths 0-8), the 720p compact splice symbols and a session
+     past 65,536 bits (P2), at every stage and every T; P2 must refuse
+     2,049 words and P3 a batch its T does not divide, launching nothing.
+     Then every measurement script of h264_scroll_encoder_tpu_torch
+     .scripts (emit_stage_probe, emit_wrap_probe, pack_u16_probe,
+     pack_tiled_probe, splice_stage_profile, symbols_stage_probe,
+     step_xprof, step_cost, ebsp_stage_probe, ebsp_sizing_probe,
+     gpu_parity_probe) runs through its main at a small depth, each
+     table printed on a line of its own; every probe kernel must launch
+     in that run.  P1 at each stage, P2 and P3 at each T are timed as in
+     phase 3 at the 720p splice shapes, B = 256.
+ 11. Print the kernel table (one JSON line; `ms` is one call on an idle
      card, as in the first port's rows, with `device_ms` and `host_ms`
      beside it; `launches` sums the paths, `launches_by_path` splits
      them), the card's name and power limit, and the result line.
 
-Launch counters are set to 0 just before each path (4, 5, 6, 7, 8, 9) and
-read just after; every kernel must have launched on its path.
+Launch counters are set to 0 just before each path (4, 5, 6, 7, 8, 9, 10)
+and read just after; every kernel must have launched on its path.
 """
 
 from __future__ import annotations
@@ -198,24 +214,11 @@ class Timer:
 
 
 def _profile_launches(fn, steps: int):
-    """(cudaLaunchKernel calls per step, device ms per step) over `steps`
-    calls of fn under torch.profiler, or None when the profiler records no
-    device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """utils/timing.profile_launches: (cudaLaunch calls per step, device ms
+    per step) under torch.profiler, or None without device time."""
+    from h264_scroll_encoder_tpu_torch.utils import timing
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    launches = sum(e.count for e in events if e.key.startswith("cudaLaunch"))
-    # Device-side events only: a CPU op's self device time repeats its
-    # kernels' time.
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    if dev_us <= 0:
-        return None
-    return launches / steps, dev_us / 1e3 / steps
+    return timing.profile_launches(fn, steps)
 
 
 def _large_k1_inputs(dev, cases, ComposerConfig) -> dict:
@@ -811,7 +814,15 @@ def main() -> int:
                                       avref, streams7, schedule, payloads)
     _log(f"phase 9: {time.perf_counter() - t_serving:.2f} s in all")
 
-    # -- 10. Results -----------------------------------------------------------
+    # -- 10. The measurement probes ------------------------------------------
+    t_probes = time.perf_counter()
+    probe_launches, probe_rows = _probes_phase(
+        dev, cfg, cases, _kernels, timing_,
+        splice=(s_pat, s_nb, s_idc, s_n_rbsp, splice_kw),
+        exact=(exact_pat, exact_nb, exact_words))
+    _log(f"phase 10: {time.perf_counter() - t_probes:.2f} s in all")
+
+    # -- 11. Results -----------------------------------------------------------
     src = "h264_scroll_encoder_tpu_torch/csrc/emit_kernels.cu"
     rows = [
         ("emit_fused (K1)", "K1", "h264t_emit_fused",
@@ -826,13 +837,14 @@ def main() -> int:
     paths = {"scroll": scroll_launches, "splice": splice_launches,
              "entry": entry_launches, "session": session_launches,
              "dense": dense_launches, "large": large_launches,
-             "serving": serving_launches}
+             "serving": serving_launches, "probes": probe_launches}
     # ms: one call as a caller waits for it (the method of the first port's
     # rows); device_ms: device time per call of calls queued back to back;
     # host_ms: the host's issue time per call.  launches: the kernel's
     # launches summed over the paths it runs on (phase 4's scroll golden
-    # run, 5, 6, 7, 8's dense steps and large frames, and 9's sharded
-    # steps and serving loop), each path counted from 0.
+    # run, 5, 6, 7, 8's dense steps and large frames, 9's sharded steps
+    # and serving loop, and 10's measurement scripts), each path counted
+    # from 0.  The probes (P1-P3) run on phase 10's path only.
     kernels = []
     for name, key, sym, rep in rows:
         by_path = {p: c[sym] for p, c in paths.items() if c[sym]}
@@ -841,6 +853,10 @@ def main() -> int:
                         "launches_by_path": by_path, "max_abs_err": errs[key],
                         **timing[key], "bound_ms": bound_ms[key],
                         "bound_by": "bytes", "library_ms": None})
+    for row in probe_rows:
+        by_path = {"probes": probe_launches[row.pop("counter")]}
+        kernels.append({**row, "launches": by_path["probes"],
+                        "launches_by_path": by_path})
     print(json.dumps({"kernels": kernels}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {
@@ -1576,6 +1592,185 @@ def _examples_and_scripts(dev, cfg, avref, streams7) -> None:
     _log(f"phase 9: video_in_corner_demo --batched (1280x720, B = 4, equal to "
          f"the host path, 0 libavcodec errors) and netflix_scroll --demo (60 "
          f"frames, 0 errors) on the card ({time.perf_counter() - t0:.2f} s)")
+
+
+# Phase 10's scripts and the arguments that keep the phase short: B = 256
+# (the 4B shapes 1,024), two steps a chain, one chain.
+PROBE_SCRIPTS = (
+    ("emit_stage_probe", []), ("emit_wrap_probe", []),
+    ("pack_u16_probe", []), ("pack_tiled_probe", []),
+    ("splice_stage_profile", []), ("splice_stage_profile", ["--static"]),
+    ("symbols_stage_probe", []), ("step_xprof", []), ("step_cost", []),
+    ("ebsp_stage_probe", []), ("ebsp_sizing_probe", []),
+    ("gpu_parity_probe", []))
+PROBE_DEPTH = ["--steps", "2", "--reps", "1"]
+
+
+def _probes_phase(dev, cfg, cases, _kernels, timing_, *, splice, exact):
+    """Phase 10: P1-P3 against their plain versions, the measurement
+    scripts on the card (counted from 0), and the probes' timings; returns
+    the scripts' launch counts and the probes' rows of the kernel table
+    (each with its counter's name under "counter")."""
+    import contextlib
+    import importlib
+    import io
+
+    from h264_scroll_encoder_tpu_torch.ops import bitpack_flat, emit_fused, probes
+    from h264_scroll_encoder_tpu_torch.scripts import _probe_common as common
+    from h264_scroll_encoder_tpu_torch.scripts import (pack_tiled_probe,
+                                                       pack_u16_probe)
+
+    t0 = time.perf_counter()
+    s_pat, s_nb, s_idc, s_n_rbsp, splice_kw = splice
+    e_pat, e_nb, e_words = exact
+    cap, B = cases.CAP, s_pat.shape[0]
+    errs = {}
+
+    def hold(name, case, got, want):
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"{name} {case}: kernel != plain (max err {err})")
+        errs[name] = max(errs.get(name, 0), err)
+
+    # (a) Exactness: every stage, P2 and every T on the JAX probes' inputs
+    # and the 720p compact splice symbols, on int64 and int32 symbols.
+    p_pat, p_nb = common.probe_symbols(B, dev)
+    rep = common.rep_budget("native")
+    p1_inputs = {"JAX probe input": (p_pat, p_nb, 0, rep, {"append_tb": True}),
+                 "splice 720p B=256": splice}
+    for case, (pat, nb, idc, n_rbsp, kw) in p1_inputs.items():
+        for int32 in (False, True):
+            p, n = ((cases.int32_bits(pat), cases.int32_bits(nb)) if int32
+                    else (pat, nb))
+            for stage in probes.EMIT_STAGES:
+                args = (stage, p, n, idc, n_rbsp, cap)
+                hold(f"P1 {stage}", f"{case} int{32 if int32 else 64}",
+                     probes.emit_stage_batch(*args, **kw),
+                     probes.emit_stage_plain(*args, **kw))
+    pack_inputs = [("JAX probe input", p_pat, p_nb, 2048),
+                   ("splice 720p exact B=256", e_pat, e_nb, e_words)]
+    pack_inputs += [(f"pack_u16_probe case {i}", *(torch.as_tensor(a, device=dev)
+                                                   for a in case), 2048)
+                    for i, case in enumerate(pack_u16_probe.exact_cases())]
+    tiled_case = tuple(torch.as_tensor(a, device=dev)
+                       for a in pack_tiled_probe.exact_case())
+    for case, pat, nb, nw in pack_inputs:
+        want = bitpack_flat.pack_words_place_plain(pat, nb, nw)
+        hold("P2", case, probes.pack_place_u16_batch(pat, nb, nw), want)
+        if pat.shape[0] % 16 == 0:
+            for tile in probes.TILES:
+                hold(f"P3 T={tile}", case,
+                     probes.pack_place_tiled_batch(pat, nb, nw, tile), want)
+    for tile in probes.TILES:
+        hold(f"P3 T={tile}", "pack_tiled_probe case",
+             probes.pack_place_tiled_batch(*tiled_case, 2048, tile),
+             bitpack_flat.pack_words_place_plain(*tiled_case, 2048))
+    hostile = tuple(torch.as_tensor(a, device=dev)
+                    for a in pack_u16_probe.hostile_case())
+    if int(probes.pack_place_u16_batch(*hostile, 2048)[1][0]) <= 65_536:
+        raise AssertionError("the hostile P2 case stayed under 65,536 bits")
+    before = _kernels.launch_counts()
+    for call, what in (
+            (lambda: probes.pack_place_u16_batch(p_pat, p_nb, 2049),
+             "P2 took 2,049 words"),
+            (lambda: probes.pack_place_tiled_batch(p_pat[:12], p_nb[:12], 2048,
+                                                   8),
+             "P3 took B = 12 at T = 8")):
+        try:
+            call()
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(what)
+    if _kernels.launch_counts() != before:
+        raise AssertionError("a refused probe call launched a kernel")
+    _log(f"phase 10: P1 at every stage, P2 and P3 at every T equal their "
+         f"plain versions (max_abs_err {max(errs.values())}) on the JAX "
+         f"probes' input (8,483 symbols, n_rbsp {rep}), the 720p compact "
+         f"splice symbols (and P2's eight cases, one past 65,536 bits), on "
+         f"int64 and int32; P2 refuses 2,049 words and P3 B % T != 0 before "
+         f"launching ({time.perf_counter() - t0:.2f} s)")
+
+    # (b) The scripts on the card, counted from 0.
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    for name, extra in PROBE_SCRIPTS:
+        mod = importlib.import_module(
+            f"h264_scroll_encoder_tpu_torch.scripts.{name}")
+        out = io.StringIO()
+        ts = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = mod.main(PROBE_DEPTH + extra)
+        if rc != 0:
+            raise AssertionError(f"{name} {extra} exited {rc}")
+        table = json.loads(out.getvalue().strip().splitlines()[-1])
+        table["seconds"] = round(time.perf_counter() - ts, 2)
+        print(json.dumps(table), flush=True)
+    torch.cuda.synchronize()
+    launches = _kernels.launch_counts()
+    for k in _kernels.PROBE_KERNELS:
+        if launches[k.name] == 0:
+            raise AssertionError(f"{k.name} never launched on the probes path")
+    _log(f"phase 10: {len(PROBE_SCRIPTS)} script runs on the card "
+         f"({time.perf_counter() - t1:.2f} s); launches {launches}")
+
+    # (c) Timing at the 720p splice shapes, B = 256, as phase 3 times: the
+    # stage's P1 on the compact step's symbols, P2 and P3 on the
+    # ebsp_exact retry's (K2's input).  Bound: inputs read once and
+    # outputs written once at 3.35 TB/s, symbols counted as int32.
+    t2 = time.perf_counter()
+    n_s, n_e = s_pat.shape[1], e_pat.shape[1]
+    n_nal = emit_fused.nal_bytes(s_n_rbsp, cap)
+    sym_in = B * n_s * 8 + B * 4
+    out_bytes = {"launch": B * 16, "stage": B * 16, "scan": B * 16,
+                 "pack": B * (n_nal + 16), "ep": B * 16, "full": B * (n_nal + 16)}
+    pack_bytes = B * n_e * 8 + B * (e_words + 1) * 4
+    runs = []
+    for stage in probes.EMIT_STAGES:
+        args = (stage, s_pat, s_nb, s_idc, s_n_rbsp, cap)
+        runs.append((f"emit_stage[{stage}] (P1)", f"h264t_emit_stage[{stage}]",
+                     f"P1 {stage}",
+                     "h264_scroll_encoder_tpu/ops/emit_fused.py:214"
+                     if stage == "full" else "scripts/emit_stage_probe.py:57",
+                     lambda a=args: probes.emit_stage_batch(*a, **splice_kw),
+                     lambda a=args: probes.emit_stage_plain(*a, **splice_kw),
+                     (0 if stage == "launch" else sym_in) + out_bytes[stage]))
+    runs.append(("pack_place_u16 (P2)", "h264t_pack_place_u16", "P2",
+                 "scripts/pack_u16_probe.py:115",
+                 lambda: probes.pack_place_u16_batch(e_pat, e_nb, e_words),
+                 lambda: probes.pack_place_u16_plain(e_pat, e_nb, e_words),
+                 pack_bytes))
+    for tile in probes.TILES:
+        runs.append((f"pack_place_tiled T={tile} (P3)", "h264t_pack_place_tiled",
+                     f"P3 T={tile}", "scripts/pack_tiled_probe.py:116",
+                     lambda t=tile: probes.pack_place_tiled_batch(
+                         e_pat, e_nb, e_words, t),
+                     lambda t=tile: probes.pack_place_tiled_plain(
+                         e_pat, e_nb, e_words, t), pack_bytes))
+    rows = []
+    src = "h264_scroll_encoder_tpu_torch/csrc/probe_kernels.cu"
+    for name, counter, err_key, rep_line, kernel, plain, nbytes in runs:
+        p_a = timing_.call_ms(plain, 5)
+        d_a = timing_.device_ms(kernel)
+        c = timing_.call_ms(kernel, 20)
+        h = timing_.host_ms(kernel)
+        d_b = timing_.device_ms(kernel)
+        p_b = timing_.call_ms(plain, 5)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep_line, "counter": counter,
+                     "max_abs_err": errs[err_key], "ms": c,
+                     "device_ms": statistics.median([d_a, d_b]), "host_ms": h,
+                     "plain_ms": statistics.median([p_a, p_b]),
+                     "bound_ms": nbytes / HBM_BYTES_PER_MS, "bound_by": "bytes",
+                     "library_ms": None})
+        _log(f"phase 10: {name} at 720p splice B={B}: device {d_a:.5f}/"
+             f"{d_b:.5f} ms per call, one call {c:.5f} ms, host issue "
+             f"{h:.5f} ms, plain {p_a:.4f}/{p_b:.4f} ms, bound "
+             f"{nbytes / HBM_BYTES_PER_MS:.5f} ms ({nbytes} B)")
+    _log(f"phase 10: timing {time.perf_counter() - t2:.2f} s")
+    return launches, rows
 
 
 if __name__ == "__main__":

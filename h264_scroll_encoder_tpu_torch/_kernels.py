@@ -2,11 +2,14 @@
 
 On first CUDA use the sources are compiled with nvcc for sm_90a into a
 shared library with a plain C interface, cached under `_build/` (listed
-in .gitignore) by a hash of the sources and flags, and loaded with
-ctypes.  Nothing is built or loaded at import time.
+in .gitignore) by a hash of the sources, the headers they share
+(csrc/*.cuh) and the flags, and loaded with ctypes.  Nothing is built or
+loaded at import time.
 
 Each kernel is a `Kernel` whose `launches` counter goes up by one per
-launch, so a run can show which kernels its main path went through.
+launch, so a run can show which kernels its main path went through:
+KERNELS are the production kernels K1-K4, PROBE_KERNELS the measurement
+probes P1-P3 (ops/probes.py; P1 one counter per stage).
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(_CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD_DIR / f"libh264t_kernels_{h.hexdigest()[:16]}.so"
@@ -96,10 +99,12 @@ _L = ctypes.c_longlong
 
 class Kernel:
     """One extern "C" entry of the kernel library; `launches` counts the
-    launches made through `launch`."""
+    launches made through `launch`.  `name` tells apart counters that
+    share an entry (P1's stages); it defaults to the symbol."""
 
-    def __init__(self, symbol: str, argtypes):
+    def __init__(self, symbol: str, argtypes, name: str | None = None):
         self.symbol = symbol
+        self.name = name or symbol
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
@@ -137,6 +142,21 @@ PACK_WORDS = Kernel("h264t_pack_words", _PACK_ARGS)
 
 KERNELS = (EMIT_FUSED, PACK_PLACE, EBSP_NAL, PACK_WORDS)
 
+# P1: (stage, then K1's arguments, probe_meta, probe_words, stream); one
+# counter per stage, in csrc's order (0 launch ... 5 full).
+EMIT_STAGES = ("launch", "stage", "scan", "pack", "ep", "full")
+EMIT_STAGE = {st: Kernel("h264t_emit_stage",
+                         [_I] + EMIT_FUSED.argtypes[:-1] + [_P, _P, _P],
+                         name=f"h264t_emit_stage[{st}]")
+              for st in EMIT_STAGES}
+# P2: K2's arguments without the words scratch.
+_PACK_NARROW_ARGS = [_P, _P, _I, _L, _L, _I, _I, _I, _I, _P, _P, _P]
+PACK_PLACE_U16 = Kernel("h264t_pack_place_u16", _PACK_NARROW_ARGS)
+# P3: (tile, then P2's arguments); one counter for every tile.
+PACK_PLACE_TILED = Kernel("h264t_pack_place_tiled", [_I] + _PACK_NARROW_ARGS)
+
+PROBE_KERNELS = (*EMIT_STAGE.values(), PACK_PLACE_U16, PACK_PLACE_TILED)
+
 
 @functools.lru_cache(maxsize=None)
 def _plan(symbol: str, device: int, *args: int) -> int:
@@ -144,8 +164,8 @@ def _plan(symbol: str, device: int, *args: int) -> int:
     fn.argtypes, fn.restype = [_I] * len(args), ctypes.c_int
     answer = fn(*args)
     if answer < 0:
-        raise RuntimeError(f"{symbol}: the CUDA runtime did not report the "
-                           "card's shared-memory limit")
+        raise RuntimeError(f"{symbol}{args}: the CUDA runtime did not report "
+                           "the card's shared-memory limit or occupancy")
     return answer
 
 
@@ -181,6 +201,31 @@ def ebsp_nal_in_global(n_nal: int) -> bool:
                       torch.cuda.current_device(), n_nal))
 
 
+def blocks_per_sm(symbol: str, *args: int) -> int:
+    """Resident blocks per SM of a kernel at a launch's shared memory, as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them on the
+    current device (launches nothing): `symbol` is one of
+    h264t_emit_blocks_per_sm (sym_bytes, k, n_nal, plan bits),
+    h264t_pack_blocks_per_sm (sym_bytes, k, n_words, words in global),
+    h264t_pack_u16_blocks_per_sm (sym_bytes, k, n_words) and
+    h264t_pack_tiled_blocks_per_sm (tile, sym_bytes, k, n_words)."""
+    return _plan(symbol, torch.cuda.current_device(), *args)
+
+
+def pack_tiled_items(sym_bytes: int, tile: int, n: int, n_words: int,
+                     max_items: int) -> int:
+    """P3's symbols per thread at this tile: ceil(n / (threads / tile))
+    capped at max_items and lowered until `tile` sessions' staging and
+    words fit a block (h264t_pack_tiled_items); 0 where nothing fits."""
+    return _plan("h264t_pack_tiled_items", torch.cuda.current_device(),
+                 sym_bytes, tile, n, n_words, max_items)
+
+
+def pack_u16_max_words() -> int:
+    """The most words P2 keeps, as the built probe has it."""
+    return _plan("h264t_pack_u16_max_words", torch.cuda.current_device())
+
+
 def ebsp_items_per_thread(valid: int) -> int:
     """K3's bytes per thread for a session of `valid` bytes, as the built
     kernel computes them (h264t_ebsp_items_per_thread; launches nothing)."""
@@ -201,5 +246,10 @@ def resolve_device(device) -> torch.device:
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
+    for k in KERNELS + PROBE_KERNELS:
         k.launches = 0
+
+
+def launch_counts() -> dict:
+    """{name: launches} of every kernel, production and probe."""
+    return {k.name: k.launches for k in KERNELS + PROBE_KERNELS}

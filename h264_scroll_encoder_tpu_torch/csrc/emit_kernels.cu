@@ -44,9 +44,9 @@
 //     64-bit register window and stores the words that lie wholly inside
 //     its run with plain shared stores, OR-ing atomically only the <= 2
 //     words it shares with its neighbours.
-//   - Emulation prevention (K1).  `emulation_prevention` below, over the
-//     packed words: the NAL is assembled in shared memory over the dead
-//     staging area and written out with 16-byte stores.
+//   - Emulation prevention (K1).  `emulation_prevention` (emit_device.cuh),
+//     over the packed words: the NAL is assembled in shared memory over
+//     the dead staging area and written out with 16-byte stores.
 // Six barriers per 720p session for K1, three for K2/K4.  Measured as
 // device time at 720p splice shapes, B = 256 (PERF.md): K1 runs at ~1.8x
 // the time its int64 bytes need at the card's memory rate and within 7% of
@@ -74,9 +74,10 @@
 //     The row is read in place with its stride (the wrapper copies
 //     nothing); bytes past the row up to rbsp_len read as zeros, as the
 //     JAX wrapper's zero pad makes them.
-//   - Emulation prevention, shared with K1: `emulation_prevention`, a
-//     template over the byte accessor (K1: MSB-first packed words; K3:
-//     staged bytes) and the window rule (K1: 16 words; K3: 64 bytes).
+//   - Emulation prevention, shared with K1: `emulation_prevention`
+//     (emit_device.cuh), a template over the byte accessor (K1:
+//     MSB-first packed words; K3: staged bytes) and the window rule (K1:
+//     16 words; K3: 64 bytes).
 //     Each thread owns a contiguous run of bytes, ceil(valid / threads)
 //     made odd (11 at 720p) so that neighbouring threads' runs fall into
 //     different shared-memory banks.  Its last nonzero byte, one block
@@ -116,381 +117,18 @@
 // wrappers from the shared-memory plan and the card's limit, so the
 // formulas live here only.
 //
+// The device code the kernels share (staging, scans, pack, emulation
+// prevention, copy-out, K1's session) lives in emit_device.cuh, which the
+// measurement probes (probe_kernels.cu) include too.
+//
 // Plain C interface (bound with ctypes): each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() of its launch.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "emit_device.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-
-// Zero-run window of K1's bounded emulation prevention, in 4-byte words.
-constexpr int kWindowWords = 16;
-
-// Threads per block of all the kernels, set by the build (_kernels.py
-// holds the one value); the K1 and K2/K4 wrappers pass the symbols per
-// thread, k.
-#ifndef H264T_PACK_THREADS
-#error "build with -DH264T_PACK_THREADS=<threads> (h264_scroll_encoder_tpu_torch/_kernels.py)"
-#endif
-constexpr int kPackThreads = H264T_PACK_THREADS;
-static_assert(kPackThreads % 32 == 0 && kPackThreads <= 1024, "whole warps, one block");
-constexpr int kPackWarps = kPackThreads / 32;
-
-// The position map of a run of symbols, pos -> has ? ceil8(pos + a) + b
-// : pos + a.  A symbol of width w is (0, w, 0); an I_PCM alignment
-// sentinel (negative width under `align`) rounds the position up to a byte
-// boundary and is (1, 0, 0).  The family is closed under composition, so
-// one block scan gives every symbol's bit position with the alignment
-// slots resolved to (-pos) mod 8 bits.
-struct PosMap {
-  int has;
-  int a;
-  int b;
-};
-
-__device__ __forceinline__ int ceil8(int x) { return (x + 7) & ~7; }
-
-__device__ __forceinline__ int apply_map(PosMap f, int pos) {
-  return f.has ? ceil8(pos + f.a) + f.b : pos + f.a;
-}
-
-struct ComposeOp {  // f first, then g
-  __device__ __forceinline__ PosMap operator()(PosMap f, PosMap g) const {
-    if (!g.has) return f.has ? PosMap{1, f.a, f.b + g.a} : PosMap{0, f.a + g.a, 0};
-    if (!f.has) return PosMap{1, f.a + g.a, g.b};
-    return PosMap{1, f.a, ceil8(f.b + g.a) + g.b};
-  }
-};
-
-struct SumOp {
-  __device__ __forceinline__ int operator()(int x, int y) const { return x + y; }
-};
-
-struct MaxOp {
-  __device__ __forceinline__ int operator()(int x, int y) const { return x > y ? x : y; }
-};
-
-__device__ __forceinline__ int shfl_up(int x, int o) { return __shfl_up_sync(kFull, x, o); }
-
-__device__ __forceinline__ PosMap shfl_up(PosMap x, int o) {
-  return PosMap{__shfl_up_sync(kFull, x.has, o), __shfl_up_sync(kFull, x.a, o),
-                __shfl_up_sync(kFull, x.b, o)};
-}
-
-__device__ __forceinline__ int shfl_idx(int x, int src) { return __shfl_sync(kFull, x, src); }
-
-__device__ __forceinline__ PosMap shfl_idx(PosMap x, int src) {
-  return PosMap{__shfl_sync(kFull, x.has, src), __shfl_sync(kFull, x.a, src),
-                __shfl_sync(kFull, x.b, src)};
-}
-
-// Exclusive block scan of one value per thread of a kPackThreads block,
-// with one barrier: every warp scans the warp totals itself.  `tmp` holds
-// kPackWarps elements and serves one scan between two other barriers.
-template <typename T, typename Op>
-__device__ __forceinline__ void scan_once(T v, T ident, Op op, T* tmp, T& excl, T& total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  T x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    T u = shfl_up(x, o);
-    if (lane >= o) x = op(u, x);
-  }
-  if (lane == 31) tmp[warp] = x;
-  __syncthreads();
-  T w = lane < kPackWarps ? tmp[lane] : ident;
-#pragma unroll
-  for (int o = 1; o < kPackWarps; o <<= 1) {
-    T u = shfl_up(w, o);
-    if (lane >= o) w = op(u, w);
-  }
-  const T before = shfl_idx(w, warp > 0 ? warp - 1 : 0);
-  total = shfl_idx(w, kPackWarps - 1);
-  T xe = shfl_up(x, 1);
-  if (lane == 0) xe = ident;
-  excl = warp > 0 ? op(before, xe) : xe;
-}
-
-// 4-byte asynchronous copy from global to shared memory (sm_80+).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-// 16-byte asynchronous copy from global to shared memory; both addresses
-// 16-byte aligned.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ PosMap symbol_map(int w, bool align, int& bad) {
-  if (w >= 0) return PosMap{0, w, 0};
-  if (align) return PosMap{1, 0, 0};
-  bad = 1;  // a sentinel without `align` is out of contract: zero bits, flagged
-  return PosMap{0, 0, 0};
-}
-
-// One packed word of a run whose bits are [lo, hi): a plain store when the
-// word lies wholly inside the run, an atomic OR when a neighbour shares it.
-// The words start zeroed, so zero words are skipped; bits past n_words drop.
-__device__ __forceinline__ void put_word(uint32_t* words, int n_words, int k, uint32_t v, int lo,
-                                         int hi) {
-  if (v == 0 || k >= n_words) return;
-  if ((k << 5) >= lo && (k << 5) + 32 <= hi) {
-    words[k] = v;
-  } else {
-    atomicOr(&words[k], v);
-  }
-}
-
-// Packs one thread's run of k staged symbols, MSB first, into the words;
-// the run's bits are [pos, end).  Mirrors ops/bitpack.pack_words symbol for
-// symbol: the low min(w, 32) bits of each pattern, an alignment sentinel
-// as (-pos) mod 8 bits of its pattern under `align` and as none without.
-__device__ void place_run(const uint32_t* sp, const int32_t* sn, int k, bool align, int pos,
-                          int end, uint32_t* words, int n_words) {
-  const int lo = pos;
-  int wi = pos >> 5;
-  uint64_t win = 0;  // words wi and wi + 1
-  for (int j = 0; j < k; ++j) {
-    const int w = sn[j];
-    const int next = w >= 0 ? pos + w : (align ? ceil8(pos) : pos);
-    const int width = min(next - pos, 32);
-    if (width > 0) {
-      while ((pos >> 5) > wi) {
-        put_word(words, n_words, wi, (uint32_t)(win >> 32), lo, end);
-        win <<= 32;
-        ++wi;
-      }
-      uint32_t p = sp[j];
-      if (width < 32) p &= (1u << width) - 1u;
-      win |= (uint64_t)p << (64 - (pos - (wi << 5)) - width);
-    }
-    pos = next;
-  }
-  put_word(words, n_words, wi, (uint32_t)(win >> 32), lo, end);
-  put_word(words, n_words, wi + 1, (uint32_t)win, lo, end);
-}
-
-// Bytes of the staging area (and, for K1, of the NAL that reuses it).
-__host__ __device__ __forceinline__ int staging_bytes(int k, int n_nal) {
-  const int stage = 8 * kPackThreads * k;
-  const int nal = (n_nal + 15) & ~15;
-  return stage > nal ? stage : nal;
-}
-
-// Packs one session's row of n symbols (int32 or int64 elements, of which
-// the low 32 bits are read) into the zeroed shared words and returns the
-// total bit count; `bad` is set where a sentinel arrives without `align`.
-// Chunks of kPackThreads * k symbols are staged in turn (one at 720p).
-template <typename Sym>
-__device__ int pack_session(const Sym* __restrict__ pat, const Sym* __restrict__ nb, int n, int k,
-                            bool align, uint32_t* spat, int32_t* snb, uint32_t* words,
-                            int n_words, PosMap* tmp, int& bad) {
-  const int chunk = kPackThreads * k;
-  const int r0 = threadIdx.x * k;
-  int carry = 0;
-  for (int base = 0; base < n; base += chunk) {
-    if (base > 0) __syncthreads();  // the previous chunk is placed
-    for (int j = 0; j < k; ++j) {
-      const int c = j * kPackThreads + threadIdx.x;  // coalesced
-      if (base + c < n) {
-        cp_async4(&spat[c], &pat[base + c]);
-        cp_async4(&snb[c], &nb[base + c]);
-      } else {
-        spat[c] = 0;
-        snb[c] = 0;
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    PosMap m{0, 0, 0};
-    for (int j = 0; j < k; ++j) m = ComposeOp()(m, symbol_map(snb[r0 + j], align, bad));
-    PosMap excl, total;
-    scan_once(m, PosMap{0, 0, 0}, ComposeOp(), tmp, excl, total);
-    const int start = apply_map(excl, carry);
-    place_run(spat + r0, snb + r0, k, align, start, apply_map(m, start), words, n_words);
-    carry = apply_map(total, carry);
-  }
-  if (n <= 0) __syncthreads();  // the words are zeroed before anything is placed
-  return carry;
-}
-
-// Byte i of the RBSP, for the emulation-prevention stage.  K1 reads its
-// MSB-first packed words; K3 its staged bytes, zero from byte n on.
-struct PackedBytes {
-  const uint32_t* words;
-  __device__ __forceinline__ int operator()(int i) const {
-    return (int)((words[i >> 2] >> (24 - 8 * (i & 3))) & 0xffu);
-  }
-};
-
-struct StagedBytes {
-  const uint8_t* bytes;
-  int n;
-  __device__ __forceinline__ int operator()(int i) const { return i < n ? bytes[i] : 0; }
-};
-
-// K3's row read straight from global memory (its plan past a block's
-// shared memory), zero from byte n on.
-struct GlobalBytes {
-  const uint8_t* __restrict__ bytes;
-  int n;
-  __device__ __forceinline__ int operator()(int i) const { return i < n ? __ldg(bytes + i) : 0; }
-};
-
-// The window rules of the stage: whether byte i (of value `byte`, with the
-// last nonzero byte before it at `last`, -1 if none) takes a 0x03 before
-// it; `sat` is set where the rule cannot resolve its zero run.
-//
-// K1's 16-word window: byte i is unresolved iff (i >> 2) > 16 and its zero
-// run t >= 64 + (i & 3); an unresolved byte never inserts and saturates
-// the stream.
-struct WordWindow {
-  __device__ __forceinline__ bool operator()(int i, int last, int byte, int& sat) const {
-    const int t = i - 1 - last;
-    const bool unresolved = (i >> 2) > kWindowWords && t >= 4 * kWindowWords + (i & 3);
-    sat |= unresolved;
-    return byte <= 3 && t >= 2 && (t & 1) == 0 && !unresolved;
-  }
-};
-
-// K3's zero-run window in bytes (h264_scroll_encoder_tpu ops/ebsp
-// ZERO_RUN_WINDOW): byte i is resolved iff a nonzero byte lies before it
-// at most 64 back; otherwise t = min(i, 255), the insertion test still
-// applies with that t, and the stream saturates where i > 64.
-constexpr int kZeroRunWindow = 64;
-
-struct ByteWindow {
-  __device__ __forceinline__ bool operator()(int i, int last, int byte, int& sat) const {
-    const bool found = last >= 0 && i - last <= kZeroRunWindow;
-    const int t = found ? i - 1 - last : min(i, 255);
-    sat |= !found && i > kZeroRunWindow;
-    return byte <= 3 && t >= 2 && (t & 1) == 0;
-  }
-};
-
-// The emulation-prevention stage of K1 and K3 over one session's `valid`
-// RBSP bytes, `per` to a thread (a contiguous run each).  Byte i lands in
-// the NAL at 5 + i + (insertions up to and including i), and an inserting
-// byte leaves 0x03 in the hole before it, so every position from 5 up to
-// min(5 + valid + insertions, n_nal) is written exactly once.  Returns the
-// insertion count; `sat` gets the block's OR of the rule's flag.  Ends on a
-// barrier, so the NAL in shared memory is complete on return.
-template <typename ByteAt, typename Rule>
-__device__ int emulation_prevention(ByteAt at, Rule rule, int valid, int per, uint8_t* nal,
-                                    int n_nal, int* tmp_max, int* tmp_sum, int& sat) {
-  const int b0 = min((int)threadIdx.x * per, valid);
-  const int b1 = min(b0 + per, valid);
-  int last = -1;
-  for (int i = b1 - 1; i >= b0; --i) {
-    if (at(i)) {
-      last = i;
-      break;
-    }
-  }
-  int before, unused;
-  scan_once(last, -1, MaxOp(), tmp_max, before, unused);
-  int count = 0;
-  int run_sat = 0;
-  last = before;
-  for (int i = b0; i < b1; ++i) {
-    const int byte = at(i);
-    count += rule(i, last, byte, run_sat);
-    if (byte) last = i;
-  }
-  int ins_before, ins_total;
-  scan_once(count, 0, SumOp(), tmp_sum, ins_before, ins_total);
-  last = before;
-  int dst = 5 + b0 + ins_before;
-  for (int i = b0; i < b1; ++i, ++dst) {
-    const int byte = at(i);
-    int ignored = 0;
-    if (rule(i, last, byte, ignored)) {
-      if (dst < n_nal) nal[dst] = 3;
-      ++dst;
-    }
-    if (dst < n_nal) nal[dst] = (uint8_t)byte;
-    if (byte) last = i;
-  }
-  sat = __syncthreads_or(run_sat);
-  return ins_total;
-}
-
-// Writes one session's n_nal NAL bytes: positions below `fill` from the
-// NAL in shared memory, then 0x03 below `end`, then zeros, in stores of
-// V.  `nal` is 16-byte aligned and `out` aligned to V.
-template <typename V>
-__device__ void store_nal(const uint8_t* nal, int fill, int end, int n_nal, uint8_t* out) {
-  constexpr int W = sizeof(V);
-  for (int c = threadIdx.x; c < n_nal / W; c += kPackThreads) {
-    const int k0 = c * W;
-    union {
-      V v;
-      uint8_t b[W];
-    } u;
-    if (k0 + W <= fill) {
-      u.v = reinterpret_cast<const V*>(nal)[c];
-    } else {
-#pragma unroll
-      for (int j = 0; j < W; ++j) {
-        const int k = k0 + j;
-        u.b[j] = k < fill ? nal[k] : (k < end ? 3 : 0);
-      }
-    }
-    reinterpret_cast<V*>(out)[c] = u.v;
-  }
-}
-
-// Row s of an output of n_nal-byte rows: 16-byte stores where n_nal is a
-// multiple of 16, 4-byte where it is a multiple of 4, single bytes else.
-__device__ __forceinline__ void copy_out(const uint8_t* nal, int fill, int end, int n_nal,
-                                         uint8_t* nal_out, int s) {
-  uint8_t* out = nal_out + (size_t)s * n_nal;
-  if ((n_nal & 15) == 0) {
-    store_nal<uint4>(nal, fill, end, n_nal, out);
-  } else if ((n_nal & 3) == 0) {
-    store_nal<uint32_t>(nal, fill, end, n_nal, out);
-  } else {
-    store_nal<uint8_t>(nal, fill, end, n_nal, out);
-  }
-}
-
-// The bytes of an output row after the payload where the NAL was built in
-// place: [fill, n_nal) as 0x03 below `end`, zeros after; 16-byte stores
-// over the row's aligned middle.
-__device__ void fill_tail(uint8_t* out, int fill, int end, int n_nal) {
-  const int mis = (int)(reinterpret_cast<uintptr_t>(out) & 15);
-  const int lo = min(fill + ((16 - ((mis + fill) & 15)) & 15), n_nal);
-  const int hi = max(lo, n_nal - ((mis + n_nal) & 15));
-  for (int k = fill + threadIdx.x; k < lo; k += kPackThreads) out[k] = k < end ? 3 : 0;
-  for (int k = hi + threadIdx.x; k < n_nal; k += kPackThreads) out[k] = k < end ? 3 : 0;
-  for (int c = threadIdx.x; c < (hi - lo) >> 4; c += kPackThreads) {
-    const int k0 = lo + 16 * c;
-    union {
-      uint4 v;
-      uint8_t b[16];
-    } u;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) u.b[j] = k0 + j < end ? 3 : 0;
-    reinterpret_cast<uint4*>(out + k0)[0] = u.v;
-  }
-}
-
-__device__ __forceinline__ void write_prefix(uint8_t* nal, int n_nal, uint8_t header) {
-  const uint8_t prefix[5] = {0, 0, 0, 1, header};
-  for (int k = 0; k < min(5, n_nal); ++k) nal[k] = prefix[k];
-}
-
+// K1: one session per block (emit_session in emit_device.cuh, all of it).
 template <typename Sym>
 __global__ void __launch_bounds__(kPackThreads, 2)
     emit_fused_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row,
@@ -499,60 +137,9 @@ __global__ void __launch_bounds__(kPackThreads, 2)
                       int append_tb, uint32_t* __restrict__ words_gmem, int nal_in_global,
                       uint8_t* __restrict__ nal_out, int32_t* __restrict__ len_out,
                       int32_t* __restrict__ bits_out, uint8_t* __restrict__ ovf_out) {
-  extern __shared__ uint4 pack_smem[];  // 16-byte aligned
-  uint8_t* smem = reinterpret_cast<uint8_t*>(pack_smem);
-  __shared__ PosMap tmp_map[kPackWarps];
-  __shared__ int tmp_max[kPackWarps];
-  __shared__ int tmp_sum[kPackWarps];
-  const int s = blockIdx.x;
-  const int n_words = n_nal >> 2;  // the RBSP buffer holds n_nal bytes
-  uint32_t* spat = reinterpret_cast<uint32_t*>(smem);
-  int32_t* snb = reinterpret_cast<int32_t*>(smem + 4 * kPackThreads * k);
-  uint8_t* out_row = nal_out + (size_t)s * n_nal;
-  // The NAL reuses the staging area once the words are packed, or is built
-  // in place in the output row.
-  uint8_t* nal = nal_in_global ? out_row : smem;
-  uint32_t* words = words_gmem ? words_gmem + (size_t)s * n_words
-                               : reinterpret_cast<uint32_t*>(
-                                     smem + staging_bytes(k, nal_in_global ? 0 : n_nal));
-
-  for (int i = threadIdx.x; i < n_words; i += kPackThreads) words[i] = 0;
-  int bad = 0;
-  int total_bits = pack_session(pat + s * pat_row, nb + s * nb_row, n, k, align != 0, spat, snb,
-                                words, n_words, tmp_map, bad);
-  if (append_tb) {  // rbsp_trailing_bits: a stop bit, zeros to the byte
-    const int w = 1 + ((8 - ((total_bits + 1) & 7)) & 7);
-    const int w0 = total_bits >> 5;
-    const uint64_t v = (uint64_t)(1u << (w - 1)) << (64 - (total_bits & 31) - w);
-    if (threadIdx.x == 0 && w0 < n_words) atomicOr(&words[w0], (uint32_t)(v >> 32));
-    if (threadIdx.x == 0 && (uint32_t)v && w0 + 1 < n_words) atomicOr(&words[w0 + 1], (uint32_t)v);
-    total_bits += w;
-  }
-  bad = __syncthreads_or(bad);  // the words are packed; the staging area is free
-
-  if (threadIdx.x == 0) {
-    const int64_t h = idc ? idc[s * idc_row] : idc_value;
-    write_prefix(nal, n_nal, (uint8_t)(((h & 3) << 5) | 1));
-  }
-  // Whole words of the stream per thread.
-  const int rbsp_len = total_bits >> 3;
-  const int valid = min(rbsp_len, n_nal);
-  const int per = 4 * ((((valid + 3) >> 2) + kPackThreads - 1) / kPackThreads);
-  int sat;
-  const int ins_total = emulation_prevention(PackedBytes{words}, WordWindow(), valid, per, nal,
-                                             n_nal, tmp_max, tmp_sum, sat);
-  const int fill = min(5 + valid + ins_total, n_nal);
-  if (nal_in_global) {
-    fill_tail(out_row, fill, fill, n_nal);
-  } else {
-    copy_out(nal, fill, fill, n_nal, nal_out, s);
-  }
-  if (threadIdx.x == 0) {
-    const int ins_eff = ins_total + (sat ? cap + 1 : 0);
-    len_out[s] = 5 + rbsp_len + ins_eff;
-    bits_out[s] = total_bits;
-    ovf_out[s] = (total_bits > n_rbsp * 8 || ins_eff > cap || bad) ? 1 : 0;
-  }
+  emit_session<kStageFull>(pat, nb, pat_row, nb_row, idc, idc_row, idc_value, n, k, n_nal, n_rbsp,
+                           cap, align, append_tb, words_gmem, nal_in_global, nal_out, len_out,
+                           bits_out, ovf_out, nullptr, nullptr);
 }
 
 template <typename Sym>
@@ -659,48 +246,6 @@ __global__ void __launch_bounds__(kPackThreads, 2)
     copy_out(nal, fill, end, n_nal, nal_out, s);
   }
   if (t == 0) total_out[s] = count;
-}
-
-// Opts the kernel in to `bytes` of dynamic shared memory.  A refusal is
-// returned and cleared, so that the next launch's cudaGetLastError()
-// reports that launch's own error.
-cudaError_t set_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) cudaGetLastError();
-  return err;
-}
-
-// Bytes of shared memory a block of `kernel` may use besides its static
-// arrays, on the current device; 0 where the runtime cannot say.
-size_t dynamic_smem_limit(const void* kernel) {
-  int dev = 0, optin = 0;
-  cudaFuncAttributes attr;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) {
-    cudaGetLastError();
-    return 0;
-  }
-  return (size_t)optin > attr.sharedSizeBytes ? (size_t)optin - attr.sharedSizeBytes : 0;
-}
-
-// K1's plan bits (h264t_emit_plan): the RBSP words, and the NAL, in global
-// memory.
-constexpr int kWordsInGlobal = 1;
-constexpr int kNalInGlobal = 2;
-
-// K1's and K2's dynamic shared memory: the staging area (K1: reused for the
-// NAL unless that is built in place), plus the RBSP words unless they live
-// in global memory.
-size_t emit_smem(int k, int n_nal, int plan) {
-  return (size_t)staging_bytes(k, (plan & kNalInGlobal) ? 0 : n_nal) +
-         ((plan & kWordsInGlobal) ? 0 : (size_t)n_nal);
-}
-
-size_t pack_smem_bytes(int k, int n_words, bool words_in_global) {
-  return (size_t)staging_bytes(k, 0) + (words_in_global ? 0 : 4 * (size_t)n_words);
 }
 
 const void* emit_kernel_of(int sym_bytes) {
@@ -852,4 +397,17 @@ extern "C" int h264t_pack_words(const void* pat, const void* nb, int sym_bytes, 
                                 void* stream) {
   return h264t_pack_place(pat, nb, sym_bytes, pat_row, nb_row, batch, n, k, n_words, words_gmem,
                           words_out, total_out, stream);
+}
+
+// Resident blocks per SM of K1 at (sym_bytes, k, n_nal) on plan `plan`
+// (h264t_emit_plan's bits), and of K2/K4 at (sym_bytes, k, n_words), on
+// the current device; -1 if the runtime cannot say.  Launches nothing.
+extern "C" int h264t_emit_blocks_per_sm(int sym_bytes, int k, int n_nal, int plan) {
+  if (sym_bytes != 4 && sym_bytes != 8) return -1;
+  return blocks_per_sm(emit_kernel_of(sym_bytes), emit_smem(k, n_nal, plan));
+}
+
+extern "C" int h264t_pack_blocks_per_sm(int sym_bytes, int k, int n_words, int words_in_global) {
+  if (sym_bytes != 4 && sym_bytes != 8) return -1;
+  return blocks_per_sm(pack_kernel_of(sym_bytes), pack_smem_bytes(k, n_words, words_in_global));
 }

@@ -1,0 +1,288 @@
+"""Measurement probes of K1 and K2 (P1-P3), each with its plain version.
+
+The counterparts of the JAX package's Pallas probes, in the idiom of
+ops/bitpack_flat: CPU tensors run the plain version, CUDA tensors launch
+the kernel (csrc/probe_kernels.cu, built from K1's and K2's own device
+code in csrc/emit_device.cuh), anything else raises, and a failed build
+or launch raises.
+
+  P1  `emit_stage_batch(stage, ...)` — scripts/emit_stage_probe.py's
+      `_stage_kernel`: K1 cut off after each stage of its Hopper chain
+      (EMIT_STAGES: launch, stage, scan, pack, ep, full), every cut ending
+      in a write that depends on everything before it.  Outputs of a cut
+      stage: meta int32[B, 4] (and for `pack` the words):
+        launch  zeros
+        stage   [XOR of the session's staged words: the low 32 bits of
+                 every pattern and width, 0, 0, 0]
+        scan    [total bits, XOR of the threads' start bits, 0, 0]
+        pack    [total bits before the trailing bits, 0, 0, 0], and the
+                 words int32[B, n_nal // 4] (uint32 bit patterns)
+        ep      [insertions, saturated (0/1), XOR of the NAL's first
+                 min(5 + valid + insertions, n_nal) bytes as
+                 little-endian 32-bit words, 0]
+      `full` is K1 and returns what emit_nal_fused_batch returns.
+  P2  `pack_place_u16_batch` — scripts/pack_u16_probe.py's
+      `_place_kernel_u16`: K2 with 8-bit staged widths and 16-bit
+      positions (carry-out tracked); K2's contract for num_words <=
+      U16_MAX_WORDS, refused above it.
+  P3  `pack_place_tiled_batch` — scripts/pack_tiled_probe.py's tiled
+      `_pack_kernel3`: K2 with `tile` sessions a block; K2's contract,
+      refused where B % tile != 0.
+
+The plain versions of P2 and P3 are K2's (ops/bitpack_flat) behind their
+own refusals; P1's stages have plain versions of their own outputs.
+"""
+
+from __future__ import annotations
+
+import numbers
+
+import torch
+
+from .. import _kernels
+from . import ebsp
+from .bitpack import pack_words, trailing_bits_symbol, words_to_bytes
+from .bitpack_flat import pack_words_place_plain
+from .emit_fused import (PACK_MAX_ITEMS, _resolve_align, check_symbols,
+                         emit_nal_fused_plain, items_per_thread, nal_bytes,
+                         nal_prefix, row_stride)
+
+EMIT_STAGES = _kernels.EMIT_STAGES
+# P2 keeps at most this many words: 65,536 bits, the reach of a 16-bit
+# position (csrc/probe_kernels.cu kU16MaxWords).
+U16_MAX_WORDS = 2048
+TILES = (1, 2, 4, 8, 16)
+
+
+def xor_reduce(x):
+    """XOR of each row of an integer [B, m] tensor: int64[B] (0 for m = 0)."""
+    x = x.to(torch.int64)
+    while x.shape[1] > 1:
+        if x.shape[1] % 2:
+            x = torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
+        x = x[:, 0::2] ^ x[:, 1::2]
+    return x[:, 0] if x.shape[1] else x.new_zeros(x.shape[0])
+
+
+def _as_int32(x):
+    """int64 holding 32-bit patterns -> int32 with the same low 32 bits."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def _resolved_widths(nbits, align: bool):
+    """The widths K1 packs: alignment sentinels as (-pos) mod 8 bits under
+    `align`, as none without."""
+    nbits = nbits.to(torch.int64)
+    return _resolve_align(nbits) if align else nbits.clamp(min=0)
+
+
+def emit_stage_plain(stage: str, patterns, nbits, nal_ref_idc, n_rbsp: int,
+                     cap: int, *, align: bool = False, append_tb: bool = False):
+    """Plain PyTorch version of P1 at `stage` (see the module docstring);
+    arguments as ops/emit_fused.emit_nal_fused_plain."""
+    if stage not in EMIT_STAGES:
+        raise ValueError(f"unknown stage {stage!r}; one of {EMIT_STAGES}")
+    if stage == "full":
+        return emit_nal_fused_plain(patterns, nbits, nal_ref_idc, n_rbsp, cap,
+                                    align=align, append_tb=append_tb)
+    B, n = patterns.shape
+    dev = patterns.device
+    meta = torch.zeros((B, 4), dtype=torch.int64, device=dev)
+    n_nal = nal_bytes(n_rbsp, cap)
+    if stage == "stage":
+        meta[:, 0] = xor_reduce((patterns.to(torch.int64) ^ nbits.to(torch.int64))
+                                & 0xFFFFFFFF)
+        return (_as_int32(meta),)
+    widths = _resolved_widths(nbits, align)
+    incl = torch.cumsum(widths, dim=1)
+    total = incl[:, -1] if n else widths.new_zeros(B)
+    if stage == "scan":
+        # Thread t of the chunk at `base` starts at the bit offset of
+        # symbol base + t * k (the total where that lies past n).
+        k = items_per_thread(n)
+        offsets = torch.cat([torch.zeros_like(widths[:, :1]), incl], dim=1)
+        firsts = [torch.clamp(base + torch.arange(_kernels.PACK_THREADS,
+                                                  device=dev) * k, max=n)
+                  for base in range(0, n, _kernels.PACK_THREADS * k)]
+        if firsts:
+            starts = offsets[:, torch.cat(firsts)]
+            meta[:, 1] = xor_reduce(starts & 0xFFFFFFFF)
+        meta[:, 0] = total
+        return (_as_int32(meta),)
+    if stage == "launch":
+        return (_as_int32(meta),)
+    if stage == "pack":
+        words, total = pack_words(patterns, widths, n_nal // 4)
+        meta[:, 0] = total
+        return _as_int32(meta), _as_int32(words)
+    # ep: the bounded rule of ops/ebsp.rbsp_to_ebsp_bounded, with its
+    # insertions and saturation kept apart.
+    pat = patterns.to(torch.int64)
+    if append_tb:
+        tb_pat, tb_n = trailing_bits_symbol(widths.sum(dim=1))
+        pat = torch.cat([pat, tb_pat[:, None]], dim=1)
+        widths = torch.cat([widths, tb_n[:, None]], dim=1)
+    words, total_bits = pack_words(pat, widths, n_nal // 4)
+    rbsp = words_to_bytes(words)
+    rbsp_len = total_bits >> 3
+    valid, t, ins = ebsp._insertion_flags(rbsp, rbsp_len)
+    i = torch.arange(rbsp.shape[1], device=dev)
+    unresolved = (((i >> 2) > ebsp.EBSP_WINDOW_WORDS)[None, :]
+                  & (t >= 4 * ebsp.EBSP_WINDOW_WORDS + (i & 3)[None, :]))
+    ins = ins & ~unresolved
+    ins_total = ins.sum(dim=1)
+    nal = torch.cat([nal_prefix(nal_ref_idc, B, dev),
+                     ebsp._expand(rbsp, valid, ins, n_nal - 5)], dim=1)
+    fill = torch.clamp(5 + torch.clamp(rbsp_len, max=n_nal) + ins_total,
+                       max=n_nal)
+    pos = torch.arange(n_nal, device=dev)
+    le = torch.where(pos[None, :] < fill[:, None],
+                     nal.to(torch.int64) << (8 * (pos & 3))[None, :], 0)
+    meta[:, 0] = ins_total
+    meta[:, 1] = (valid & unresolved).any(dim=1).to(torch.int64)
+    meta[:, 2] = xor_reduce(le)
+    return (_as_int32(meta),)
+
+
+def emit_stage_batch(stage: str, patterns, nbits, nal_ref_idc, n_rbsp: int,
+                     cap: int, *, align: bool = False, append_tb: bool = False):
+    """P1 at `stage` over a [B, n] batch: the plain version for CPU
+    tensors, the CUDA kernel (K1's block, plan and shared memory) for CUDA
+    tensors.  Arguments as emit_nal_fused_batch; returns as
+    emit_stage_plain."""
+    if stage not in EMIT_STAGES:
+        raise ValueError(f"unknown stage {stage!r}; one of {EMIT_STAGES}")
+    check_symbols(patterns, nbits)
+    if patterns.device.type == "cpu":
+        return emit_stage_plain(stage, patterns, nbits, nal_ref_idc, n_rbsp,
+                                cap, align=align, append_tb=append_tb)
+    dev = patterns.device
+    B, n = patterns.shape
+    n_nal = nal_bytes(n_rbsp, cap)
+    if isinstance(nal_ref_idc, numbers.Integral):
+        idc, idc_row, idc_value = None, 0, int(nal_ref_idc)
+    else:
+        idc = torch.as_tensor(nal_ref_idc, device=dev)
+        if idc.dtype != torch.int64:
+            idc = idc.to(torch.int64)
+        idc = idc.reshape(-1).expand(B)
+        idc_row, idc_value = idc.stride(0), 0
+    full = stage == "full"
+    meta = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    words = (torch.empty((B, n_nal // 4), dtype=torch.int32, device=dev)
+             if stage == "pack" else None)
+    with torch.cuda.device(dev):
+        k = items_per_thread(n)
+        plan = _kernels.emit_plan(patterns.element_size(), k, n_nal)
+        nal = (torch.empty((B, n_nal), dtype=torch.uint8, device=dev)
+               if full or (stage == "ep" and plan.nal_in_global) else None)
+        res = (torch.empty((2, B), dtype=torch.int32, device=dev)
+               if full else None)
+        ovf = torch.empty((B,), dtype=torch.bool, device=dev) if full else None
+        if B:
+            scratch = (torch.empty((B, n_nal // 4), dtype=torch.int32,
+                                   device=dev)
+                       if plan.words_in_global else None)
+            ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+            _kernels.EMIT_STAGE[stage].launch(
+                EMIT_STAGES.index(stage),
+                patterns.data_ptr(), nbits.data_ptr(), patterns.element_size(),
+                row_stride(patterns), row_stride(nbits),
+                ptr(idc), idc_row, idc_value,
+                B, n, k, n_nal, n_rbsp, cap, int(align), int(append_tb),
+                ptr(scratch), int(plan.nal_in_global), ptr(nal),
+                ptr(res if res is None else res[0]),
+                ptr(res if res is None else res[1]), ptr(ovf),
+                meta.data_ptr(), ptr(words),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if full:
+        return nal, res[0], res[1], ovf
+    return (meta,) if words is None else (meta, words)
+
+
+def _pack_args(patterns, nbits, num_words: int):
+    check_symbols(patterns, nbits)
+    if num_words < 0:
+        raise ValueError(f"num_words must be >= 0, not {num_words}")
+
+
+def pack_place_u16_plain(patterns, nbits, num_words: int):
+    """Plain version of P2: K2's (pack_words_place_plain), for num_words <=
+    U16_MAX_WORDS (ValueError above)."""
+    if num_words > U16_MAX_WORDS:
+        raise ValueError(f"P2 keeps at most {U16_MAX_WORDS} words (65,536 "
+                         f"bits), not {num_words}")
+    return pack_words_place_plain(patterns, nbits, num_words)
+
+
+def pack_place_u16_batch(patterns, nbits, num_words: int):
+    """P2 over a [B, n] batch: K2's contract for num_words <= 2,048, which
+    is checked before anything launches.  Returns (words int64[B,
+    num_words] holding uint32 values, total_bits int64[B])."""
+    _pack_args(patterns, nbits, num_words)
+    if num_words > U16_MAX_WORDS:
+        raise ValueError(f"P2 keeps at most {U16_MAX_WORDS} words (65,536 "
+                         f"bits), not {num_words}")
+    if patterns.device.type == "cpu":
+        return pack_place_u16_plain(patterns, nbits, num_words)
+    dev = patterns.device
+    B, n = patterns.shape
+    words = torch.empty((B, num_words), dtype=torch.int64, device=dev)
+    total = torch.empty((B,), dtype=torch.int64, device=dev)
+    if B:
+        with torch.cuda.device(dev):
+            _kernels.PACK_PLACE_U16.launch(
+                patterns.data_ptr(), nbits.data_ptr(), patterns.element_size(),
+                row_stride(patterns), row_stride(nbits), B, n,
+                items_per_thread(n), num_words, words.data_ptr(),
+                total.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return words, total
+
+
+def _check_tile(batch: int, tile: int):
+    if tile not in TILES:
+        raise ValueError(f"tile must be one of {TILES}, not {tile}")
+    if batch % tile:
+        raise ValueError(f"batch {batch} is not a multiple of tile {tile}")
+
+
+def pack_place_tiled_plain(patterns, nbits, num_words: int, tile: int):
+    """Plain version of P3: K2's, for B % tile == 0 (ValueError else)."""
+    _check_tile(patterns.shape[0], tile)
+    return pack_words_place_plain(patterns, nbits, num_words)
+
+
+def tiled_items(patterns, num_words: int, tile: int) -> int:
+    """P3's symbols per thread on the card for these symbols (ValueError
+    where `tile` sessions' words leave no room for staging)."""
+    k = _kernels.pack_tiled_items(patterns.element_size(), tile,
+                                  patterns.shape[1], num_words, PACK_MAX_ITEMS)
+    if k < 1:
+        raise ValueError(f"{tile} sessions of {num_words} words do not fit a "
+                         "block's shared memory")
+    return k
+
+
+def pack_place_tiled_batch(patterns, nbits, num_words: int, tile: int):
+    """P3 over a [B, n] batch with `tile` sessions a block: K2's contract;
+    B % tile != 0 raises ValueError before anything launches.  Returns
+    (words int64[B, num_words] holding uint32 values, total_bits
+    int64[B])."""
+    _pack_args(patterns, nbits, num_words)
+    _check_tile(patterns.shape[0], tile)
+    if patterns.device.type == "cpu":
+        return pack_place_tiled_plain(patterns, nbits, num_words, tile)
+    dev = patterns.device
+    B, n = patterns.shape
+    words = torch.empty((B, num_words), dtype=torch.int64, device=dev)
+    total = torch.empty((B,), dtype=torch.int64, device=dev)
+    if B:
+        with torch.cuda.device(dev):
+            _kernels.PACK_PLACE_TILED.launch(
+                tile, patterns.data_ptr(), nbits.data_ptr(),
+                patterns.element_size(), row_stride(patterns),
+                row_stride(nbits), B, n, tiled_items(patterns, num_words, tile),
+                num_words, words.data_ptr(), total.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    return words, total

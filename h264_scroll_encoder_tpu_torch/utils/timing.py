@@ -11,10 +11,20 @@ Two measurements of a function that launches device work:
              never wait on the device themselves.
   host_ms    the host's time to issue one call, over many calls issued
              back to back: what a host-bound step pays for it.
+  chained_ms the JAX probes' method (scripts/emit_stage_probe.py `timed`,
+             a lax.scan chain) with CUDA events: each step perturbs its
+             input by the previous step's checksum, on the device, so no
+             step can be hoisted or skipped; the chain is queued behind a
+             sleep kernel, as device_ms is, so the device runs it back to
+             back and the time per step is device time; best of 3.
+
+and `profile_launches`, the launches and device time per call that
+torch.profiler records.
 """
 
 from __future__ import annotations
 
+import math
 import statistics
 import time
 
@@ -89,3 +99,81 @@ def host_ms(fn, calls: int = 200) -> float:
     ms = (time.perf_counter() - t0) * 1e3 / calls
     torch.cuda.synchronize()
     return ms
+
+
+def chained_ms(fn, x, steps: int = 8, reps: int = 3) -> float:
+    """Best of `reps` chains of `steps` calls fn(xp), in ms per step.
+
+    xp is a copy of the [B, ...] tensor x.  Before each step column 0 of
+    xp is XORed, in place and on the device, with the parity of the
+    running checksum; after it every tensor fn returns is summed into the
+    checksum.  Nothing waits on the device inside a chain.  On a CUDA
+    tensor each timed chain is queued behind a sleep kernel that covers
+    twice the host's time to issue a chain, and CUDA events time it from
+    the sleep's end: the device time of `steps` steps run back to back
+    (a chain that waits on the device itself, or overflows the launch
+    queue, adds the host's gaps).  On a CPU tensor the host clock times
+    it, which is no device time.  Two chains run first: a warm-up, and
+    one whose issue time sizes the sleep."""
+    xp = x.clone()
+    chk = torch.zeros((), dtype=torch.int64, device=x.device)
+
+    def chain():
+        nonlocal chk
+        for _ in range(steps):
+            xp[:, 0] ^= (chk & 1).to(xp.dtype)
+            out = fn(xp)
+            for o in out if isinstance(out, (tuple, list)) else (out,):
+                chk = chk + o.sum(dtype=torch.int64)
+
+    chain()
+    cuda = x.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chain()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        cycles = int(_sleep_cycles_per_ms() * (2 * issue_ms + 1.0))
+    best = math.inf
+    for _ in range(reps):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            start.record()
+            chain()
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            chain()
+            ms = (time.perf_counter() - t0) * 1e3
+        best = min(best, ms / steps)
+    return best
+
+
+def profile_launches(fn, calls: int):
+    """(cudaLaunch calls per call, device ms per call) over `calls` calls
+    of fn under torch.profiler, or None when the profiler records no
+    device time (a CPU run, or a profiler that cannot see the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        for _ in range(calls):
+            fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key.startswith("cudaLaunch"))
+    # Device-side events only: a CPU op's self device time repeats its
+    # kernels' time.
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    if dev_us <= 0:
+        return None
+    return launches / calls, dev_us / 1e3 / calls

@@ -535,3 +535,139 @@ def test_dryrun_multigpu_on_card(dev):
 
     report = dryrun.dryrun_multigpu(_card_blocks(dev))
     assert report["egress ring"] == 4 * 2 * len(_card_blocks(dev))
+
+
+# ---------------------------------------------------------------------------
+# The measurement probes (P1-P3, csrc/probe_kernels.cu) and the shared
+# header they are built from (csrc/emit_device.cuh).
+# ---------------------------------------------------------------------------
+
+def _probe_shapes(dev):
+    """P1's inputs: {name: (patterns, nbits, nal_ref_idc, n_rbsp, kwargs)}
+    at the 720p splice (B = 256) and scroll shapes and on K1's global
+    plan (the dense frame of I_PCM donors, B = 4)."""
+    from h264_scroll_encoder_tpu_torch.scripts import _probe_common as common
+
+    cfg = ComposerConfig(1280, 720)
+    payloads = [cases.splice_donor_payload(k) for k in range(4)]
+    dn, bits, align = cases.prepare_splice_donors(payloads, engine="python",
+                                                  device=dev)
+    n_rbsp = cases.splice_budget(cfg, int(bits.max()), static_bg=False)
+    pat, nb = cases.splice_symbols(cfg, dn, 256, n_rbsp, dev)
+    out = {"splice": (pat, nb, 0, n_rbsp, dict(align=bool(align.any()),
+                                               append_tb=True))}
+    s_pat, s_nb, idc, s_rbsp = common.scroll_symbols(cfg, 256, dev)
+    out["scroll"] = (s_pat, s_nb, idc, s_rbsp, dict(append_tb=True))
+    d_dn, d_bits, d_align = cases.prepare_dense_donors("ipcm", engine="python",
+                                                       device=dev, n=4)
+    d_pat, d_nb, d_rbsp = cases.dense_symbols(cfg, "ipcm", d_dn, d_bits, dev)
+    out["dense_ipcm"] = (d_pat, d_nb, 0, d_rbsp, dict(align=d_align,
+                                                      append_tb=True))
+    return out
+
+
+def test_emit_stage_kernel_at_every_stage(dev):
+    """P1 at each stage equals its plain version on the 720p splice and
+    scroll symbols and on K1's global plan; `full` equals K1."""
+    from h264_scroll_encoder_tpu_torch.ops import probes
+
+    for name, (pat, nb, idc, n_rbsp, kw) in _probe_shapes(dev).items():
+        for int32 in (False, True):
+            p, n = ((cases.int32_bits(pat), cases.int32_bits(nb)) if int32
+                    else (pat, nb))
+            for stage in probes.EMIT_STAGES:
+                args = (stage, p, n, idc, n_rbsp, cases.CAP)
+                got = probes.emit_stage_batch(*args, **kw)
+                _same(got, probes.emit_stage_plain(*args, **kw))
+            _same(probes.emit_stage_batch("full", p, n, idc, n_rbsp, cases.CAP,
+                                          **kw),
+                  emit_fused.emit_nal_fused_batch(p, n, idc, n_rbsp, cases.CAP,
+                                                  **kw))
+
+
+def test_pack_u16_kernel_on_the_exact_cases(dev):
+    """P2 equals K2 and K2's plain version on the JAX probe's eight cases
+    and on a session whose bits pass 65,536, and refuses 2,049 words."""
+    from h264_scroll_encoder_tpu_torch.ops import probes
+    from h264_scroll_encoder_tpu_torch.scripts import pack_u16_probe
+
+    for pat, nb in pack_u16_probe.exact_cases():
+        for int32 in (False, True):
+            p, n = (_cu(pat, dev, int32), _cu(nb, dev, int32))
+            want = bitpack_flat.pack_words_place_plain(p, n, 2048)
+            _same(probes.pack_place_u16_batch(p, n, 2048), want)
+            _same(bitpack_flat.pack_words_place_batch(p, n, 2048), want)
+    p, n = (_cu(a, dev) for a in pack_u16_probe.hostile_case())
+    assert int(probes.pack_place_u16_batch(p, n, 2048)[1][0]) > 65_536
+    with torch.cuda.device(dev):
+        assert _kernels.pack_u16_max_words() == probes.U16_MAX_WORDS
+    launched = _kernels.PACK_PLACE_U16.launches
+    with pytest.raises(ValueError):
+        probes.pack_place_u16_batch(p, n, 2049)
+    assert _kernels.PACK_PLACE_U16.launches == launched
+
+
+@pytest.mark.parametrize("tile", [1, 2, 4, 8, 16])
+def test_pack_tiled_kernel_at_every_tile(dev, tile):
+    """P3 at each tile equals K2's plain version at B = 256 on the JAX
+    probe's input and on its B = 16 check, and refuses B % T != 0."""
+    from h264_scroll_encoder_tpu_torch.ops import probes
+    from h264_scroll_encoder_tpu_torch.scripts import (_probe_common,
+                                                       pack_tiled_probe)
+
+    pat, nb = _probe_common.probe_symbols(256, dev)
+    for p, n in ((pat, nb), (cases.int32_bits(pat), cases.int32_bits(nb)),
+                 tuple(_cu(a, dev) for a in pack_tiled_probe.exact_case())):
+        _same(probes.pack_place_tiled_batch(p, n, 2048, tile),
+              bitpack_flat.pack_words_place_plain(p, n, 2048))
+    if tile > 1:
+        launched = _kernels.PACK_PLACE_TILED.launches
+        with pytest.raises(ValueError):
+            probes.pack_place_tiled_batch(pat[:tile + 1], nb[:tile + 1], 2048,
+                                          tile)
+        assert _kernels.PACK_PLACE_TILED.launches == launched
+
+
+def _digest(outs) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(str(o.dtype).encode())
+        h.update(o.to(torch.int64).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def test_production_kernels_unchanged_by_the_shared_header(dev):
+    """K1-K4 on phase 3's byte, alignment, pack and EBSP cases give the
+    digests their plain versions give on the CPU: moving their device
+    code into csrc/emit_device.cuh changed no output."""
+    pat, nb = cases.byte_stream_cases()
+    a_pat, a_nb = cases.align_cases()
+    b_pat, b_nb, b_rbsp = cases.pack_boundary_cases(19 * 512 + 1)
+    rbsp, lens, _hdr = cases.ebsp_cases()
+    runs = [
+        (emit_fused.emit_nal_fused_batch, emit_fused.emit_nal_fused_plain,
+         (pat, nb, 2, cases.N_RBSP, cases.CAP), dict(append_tb=True)),
+        (emit_fused.emit_nal_fused_batch, emit_fused.emit_nal_fused_plain,
+         (a_pat, a_nb, 3, cases.N_RBSP, cases.CAP),
+         dict(align=True, append_tb=True)),
+        (emit_fused.emit_nal_fused_batch, emit_fused.emit_nal_fused_plain,
+         (b_pat, b_nb, 0, b_rbsp, cases.CAP), dict(align=True, append_tb=True)),
+        (bitpack_flat.pack_words_place_batch, bitpack_flat.pack_words_place_plain,
+         (b_pat.clip(min=0), b_nb.clip(min=0), b_rbsp // 4), {}),
+        (bitpack_flat.pack_words_batch, bitpack_flat.pack_words_place_plain,
+         (b_pat.clip(min=0), b_nb.clip(min=0), b_rbsp // 8), {}),
+    ]
+    for kernel, plain, (p, n, *rest), kw in runs:
+        on_card = kernel(_cu(p, dev), _cu(n, dev), *rest, **kw)
+        on_cpu = plain(torch.as_tensor(np.asarray(p).astype(np.int64)),
+                       torch.as_tensor(np.asarray(n).astype(np.int64)), *rest,
+                       **kw)
+        assert _digest(on_card) == _digest(on_cpu)
+    rb = torch.as_tensor(rbsp, device=dev)
+    ln = torch.as_tensor(lens.astype(np.int64), device=dev)
+    assert (_digest(ebsp_flat.rbsp_to_nal_batch(rb, ln, 0x41, cases.EBSP_N_NAL,
+                                                cases.CAP))
+            == _digest(ebsp_flat.rbsp_to_nal_plain(rb.cpu(), ln.cpu(), 0x41,
+                                                   cases.EBSP_N_NAL, cases.CAP)))

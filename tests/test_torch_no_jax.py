@@ -22,13 +22,20 @@ print(' '.join(names))
 print(len(names))
 """
 
-# Modules of the last slice (utilities, the dry run, examples, scripts):
-# walk_packages must reach them, so their __init__ files must exist.
+# Modules of the later slices (utilities, the dry run, examples, scripts,
+# the measurement probes): walk_packages must reach them, so their
+# __init__ files must exist.
 NEW_MODULES = (
     "utils.snapshot", "utils.trace", "utils.mp4mux", "parallel.dryrun",
     "examples.serving_demo", "examples.splice_serving_demo",
     "examples.full_pipeline_demo", "examples.video_in_corner_demo",
-    "scripts.generate_refs", "scripts.parity_sweep", "scripts.netflix_scroll")
+    "scripts.generate_refs", "scripts.parity_sweep", "scripts.netflix_scroll",
+    "ops.probes", "scripts._probe_common", "scripts.emit_stage_probe",
+    "scripts.emit_wrap_probe", "scripts.pack_u16_probe",
+    "scripts.pack_tiled_probe", "scripts.splice_stage_profile",
+    "scripts.symbols_stage_probe", "scripts.step_xprof", "scripts.step_cost",
+    "scripts.ebsp_stage_probe", "scripts.ebsp_sizing_probe",
+    "scripts.gpu_parity_probe")
 
 
 def test_port_imports_no_jax():
