@@ -7,8 +7,9 @@ result line):
 
   1. Require CUDA; print the torch, CUDA, nvcc and card versions.
   2. Build, started together: the kernels (K1 h264t_emit_fused, K2
-     h264t_pack_place, K3 h264t_ebsp_nal, K4 h264t_pack_words) from
-     h264_scroll_encoder_tpu_torch/csrc/*.cu with nvcc, the native CAVLC
+     h264t_pack_place, K3 h264t_ebsp_nal, K4 h264t_pack_words, and the
+     probes P1-P6) from h264_scroll_encoder_tpu_torch/csrc/*.cu with one
+     nvcc per source, then one link, the native CAVLC
      engine from csrc/cavlc_decode.cpp with g++, and avref from
      csrc/avref.c with gcc where the system has libavcodec (else a line
      says what is missing).
@@ -114,7 +115,19 @@ result line):
      gpu_parity_probe) runs through its main at a small depth, each
      table printed on a line of its own; every probe kernel must launch
      in that run.  P1 at each stage, P2 and P3 at each T are timed as in
-     phase 3 at the 720p splice shapes, B = 256.
+     phase 3 at the 720p splice shapes, B = 256.  Beside them the probes
+     of XLA races: P4 (h264t_cavlc_lockstep, csrc/cavlc_lockstep.cu:
+     lockstep CAVLC residual decode, one thread a donor lane) on the JAX
+     probe's 256 lanes x 256 blocks (seed 5) and on hostile blocks,
+     against its plain version and the host truth of ops/cavlc; P5/P6
+     (h264t_ebsp_variant: K3 with its emulation-prevention stage or
+     framing swapped, variants runs, ballot, shared, direct, lanes) against
+     K3 and K3's plain version on the fused probe's exactness cases, the
+     scripts' B = 256 payloads at their NAL sizes and hostile rows (all
+     zeros, all 0x03, a row past the cap); the scripts cavlc_device_probe
+     (with a 4,224-lane row), ebsp_cumsum_probe and ebsp_fused_probe; and
+     their timings (P4 at the probe's shape, P5 at the cumsum probe's,
+     P6 at the fused probe's serving-rep shape).
  11. Print the kernel table (one JSON line; `ms` is one call on an idle
      card, as in the first port's rows, with `device_ms` and `host_ms`
      beside it; `launches` sums the paths, `launches_by_path` splits
@@ -152,6 +165,17 @@ def _smi() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+def _one_call_ms(fn) -> float:
+    """CUDA-event time of one fn() in ms, with no warm-up."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def _max_abs_err(got, want) -> int:
@@ -844,7 +868,7 @@ def main() -> int:
     # launches summed over the paths it runs on (phase 4's scroll golden
     # run, 5, 6, 7, 8's dense steps and large frames, 9's sharded steps
     # and serving loop, and 10's measurement scripts), each path counted
-    # from 0.  The probes (P1-P3) run on phase 10's path only.
+    # from 0.  The probes (P1-P6) run on phase 10's path only.
     kernels = []
     for name, key, sym, rep in rows:
         by_path = {p: c[sym] for p, c in paths.items() if c[sym]}
@@ -1595,19 +1619,21 @@ def _examples_and_scripts(dev, cfg, avref, streams7) -> None:
 
 
 # Phase 10's scripts and the arguments that keep the phase short: B = 256
-# (the 4B shapes 1,024), two steps a chain, one chain.
+# (the 4B shapes 1,024), two steps a chain, one chain; P4's extra row at
+# 4,224 lanes, one block of 32 lanes on each of the H100's 132 SMs.
 PROBE_SCRIPTS = (
     ("emit_stage_probe", []), ("emit_wrap_probe", []),
     ("pack_u16_probe", []), ("pack_tiled_probe", []),
     ("splice_stage_profile", []), ("splice_stage_profile", ["--static"]),
     ("symbols_stage_probe", []), ("step_xprof", []), ("step_cost", []),
     ("ebsp_stage_probe", []), ("ebsp_sizing_probe", []),
-    ("gpu_parity_probe", []))
+    ("gpu_parity_probe", []), ("cavlc_device_probe", ["--wide", "4224"]),
+    ("ebsp_cumsum_probe", []), ("ebsp_fused_probe", []))
 PROBE_DEPTH = ["--steps", "2", "--reps", "1"]
 
 
 def _probes_phase(dev, cfg, cases, _kernels, timing_, *, splice, exact):
-    """Phase 10: P1-P3 against their plain versions, the measurement
+    """Phase 10: P1-P6 against their plain versions, the measurement
     scripts on the card (counted from 0), and the probes' timings; returns
     the scripts' launch counts and the probes' rows of the kernel table
     (each with its counter's name under "counter")."""
@@ -1615,9 +1641,14 @@ def _probes_phase(dev, cfg, cases, _kernels, timing_, *, splice, exact):
     import importlib
     import io
 
-    from h264_scroll_encoder_tpu_torch.ops import bitpack_flat, emit_fused, probes
+    from h264_scroll_encoder_tpu_torch.ops import (bitpack_flat, cavlc_lockstep,
+                                                   ebsp_flat, emit_fused, probes)
     from h264_scroll_encoder_tpu_torch.scripts import _probe_common as common
-    from h264_scroll_encoder_tpu_torch.scripts import (pack_tiled_probe,
+    from h264_scroll_encoder_tpu_torch.scripts import (cavlc_device_probe,
+                                                       ebsp_cumsum_probe,
+                                                       ebsp_fused_probe,
+                                                       ebsp_stage_probe,
+                                                       pack_tiled_probe,
                                                        pack_u16_probe)
 
     t0 = time.perf_counter()
@@ -1692,6 +1723,64 @@ def _probes_phase(dev, cfg, cases, _kernels, timing_, *, splice, exact):
          f"int64 and int32; P2 refuses 2,049 words and P3 B % T != 0 before "
          f"launching ({time.perf_counter() - t0:.2f} s)")
 
+    # (a2) P4 on the JAX probe's streams (256 lanes x 256 blocks, seed 5)
+    # and the hostile blocks, against its plain version and the host truth;
+    # every P5/P6 variant against K3's plain version and K3 at the scripts'
+    # shapes, on the fused probe's exactness cases and on hostile rows.
+    t_new = time.perf_counter()
+    luts = cavlc_lockstep.device_luts(dev)
+    c_np, c_truth, _c_bits = cavlc_lockstep.probe_streams()
+    h_np, h_truth = cavlc_device_probe.hostile_streams()
+    p4_inputs = {"JAX probe streams": (c_np, c_truth),
+                 "hostile blocks": (h_np, h_truth)}
+    p4_end, p4_plain_ms = {}, {}
+    for case, (data_np, truth) in p4_inputs.items():
+        data = torch.as_tensor(data_np, device=dev)
+        k = truth.shape[1]
+        got = cavlc_lockstep.decode_lockstep_batch(data, k, luts)
+        # The plain decode is seconds of small ops on the card: this one
+        # call is also its timing (plain_ms of the kernels line).
+        want = []
+        p4_plain_ms[case] = _one_call_ms(lambda: want.extend(
+            cavlc_lockstep.decode_lockstep_plain(data, k, luts)))
+        hold("P4", case, got, want)
+        if not np.array_equal(got[1].cpu().numpy(), truth):
+            raise AssertionError(f"P4 {case}: device decode != host truth")
+        p4_end[case] = got[0]
+    c_data = torch.as_tensor(c_np, device=dev)
+    h_rows, h_lens = ebsp_cumsum_probe.hostile_rows()
+    x_rows, x_lens = ebsp_fused_probe.exact_cases()
+    serving = ebsp_stage_probe.payload(B, 5960, dev)
+    ebsp_inputs = [
+        ("fused probe exactness cases", torch.as_tensor(x_rows, device=dev),
+         torch.as_tensor(x_lens, device=dev),
+         ebsp_fused_probe.n_nal_of(ebsp_fused_probe.EXACT_BYTES)),
+        ("cumsum probe serving-rep", *serving,
+         ebsp_cumsum_probe.n_nal_of(5960)),
+        ("fused probe serving-rep", *serving, ebsp_fused_probe.n_nal_of(5960)),
+        ("fused probe profiler-rep", *ebsp_stage_probe.payload(B, 16384, dev),
+         ebsp_fused_probe.n_nal_of(16384))]
+    ebsp_inputs += [(f"hostile rows n_nal {n}", torch.as_tensor(h_rows, device=dev),
+                     torch.as_tensor(h_lens, device=dev), n)
+                    for n in (ebsp_cumsum_probe.n_nal_of(5960),
+                              ebsp_fused_probe.n_nal_of(5960))]
+    over = 0
+    for case, rows, lens, n_nal in ebsp_inputs:
+        args = (rows, lens, 0x41, n_nal, cap)
+        want = ebsp_flat.rbsp_to_nal_plain(*args)
+        hold("K3", case, ebsp_flat.rbsp_to_nal_batch(*args), want)
+        for v in probes.EBSP_VARIANTS:
+            hold(f"P5/P6 {v}", case, probes.ebsp_variant_batch(v, *args), want)
+        over += int((want[1] > cap).sum())
+    if over < 3:
+        raise AssertionError("the hostile rows stayed under the cap")
+    _log(f"phase 10: P4 equals its plain version and the host truth on the "
+         f"JAX probe's {c_truth.shape[0]} x {c_truth.shape[1]} blocks and "
+         f"{h_truth.shape[0]} lanes of hostile blocks; P5/P6 "
+         f"({', '.join(probes.EBSP_VARIANTS)}) equal K3 and its plain version "
+         f"on {len(ebsp_inputs)} inputs ({over} sessions past the cap) "
+         f"({time.perf_counter() - t_new:.2f} s)")
+
     # (b) The scripts on the card, counted from 0.
     t1 = time.perf_counter()
     torch.cuda.synchronize()
@@ -1749,23 +1838,62 @@ def _probes_phase(dev, cfg, cases, _kernels, timing_, *, splice, exact):
                          e_pat, e_nb, e_words, t),
                      lambda t=tile: probes.pack_place_tiled_plain(
                          e_pat, e_nb, e_words, t), pack_bytes))
-    rows = []
     src = "h264_scroll_encoder_tpu_torch/csrc/probe_kernels.cu"
-    for name, counter, err_key, rep_line, kernel, plain, nbytes in runs:
-        p_a = timing_.call_ms(plain, 5)
+    runs = [(*r, src, f"720p splice B={B}") for r in runs]
+    # P4 on the JAX probe's streams: its bound counts the stream bytes the
+    # lanes decoded (the cursor's bytes) and the int32 results.
+    k4 = cavlc_lockstep.BLOCKS
+    p4_bytes = (int(((p4_end["JAX probe streams"].to(torch.int64) + 7) // 8)
+                    .sum()) + c_data.shape[0] * (k4 * 5 + 1) * 4)
+    runs.append(("cavlc_lockstep (P4)", "h264t_cavlc_lockstep", "P4",
+                 "scripts/cavlc_device_probe.py:127",
+                 lambda: cavlc_lockstep.decode_lockstep_batch(c_data, k4, luts),
+                 None,                 # the plain decode is timed in (a2)
+                 p4_bytes, "h264_scroll_encoder_tpu_torch/csrc/cavlc_lockstep.cu",
+                 f"the JAX probe's {c_data.shape[0]} lanes x {k4} blocks"))
+    # P5 at the cumsum probe's serving-rep shape, P6 at the fused probe's:
+    # the valid bytes read once, the lengths, the NAL and the count.
+    p5_p6 = {"runs": ("P5", "scripts/ebsp_cumsum_probe.py:36",
+                      ebsp_cumsum_probe.n_nal_of(5960)),
+             "ballot": ("P5", "scripts/ebsp_cumsum_probe.py:48",
+                        ebsp_cumsum_probe.n_nal_of(5960)),
+             "shared": ("P6", "scripts/ebsp_fused_probe.py:158",
+                        ebsp_fused_probe.n_nal_of(5960)),
+             "lanes": ("P6", "scripts/ebsp_fused_probe.py:40",
+                       ebsp_fused_probe.n_nal_of(5960)),
+             "direct": ("P6", "scripts/ebsp_fused_probe.py:170",
+                        ebsp_fused_probe.n_nal_of(5960))}
+    s_rows, s_lens = serving
+    for v, (probe, rep_line, v_nal) in p5_p6.items():
+        v_bytes = int(s_lens.sum()) + B * (8 + v_nal + 4)
+        runs.append((f"ebsp_variant[{v}] ({probe})", f"h264t_ebsp_variant[{v}]",
+                     f"P5/P6 {v}", rep_line,
+                     lambda v=v, n=v_nal: probes.ebsp_variant_batch(
+                         v, s_rows, s_lens, 0x41, n, cap),
+                     lambda v=v, n=v_nal: probes.ebsp_variant_plain(
+                         v, s_rows, s_lens, 0x41, n, cap),
+                     v_bytes, src, f"n_rbsp 5960, n_nal {v_nal}, B={B}"))
+    rows = []
+    for name, counter, err_key, rep_line, kernel, plain, nbytes, source, shape \
+            in runs:
+        if plain is None:
+            p_a = p_b = p4_plain_ms["JAX probe streams"]
+        else:
+            p_a = timing_.call_ms(plain, 5)
         d_a = timing_.device_ms(kernel)
         c = timing_.call_ms(kernel, 20)
         h = timing_.host_ms(kernel)
         d_b = timing_.device_ms(kernel)
-        p_b = timing_.call_ms(plain, 5)
-        rows.append({"name": name, "route": "cuda", "source": src,
+        if plain is not None:
+            p_b = timing_.call_ms(plain, 5)
+        rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": rep_line, "counter": counter,
                      "max_abs_err": errs[err_key], "ms": c,
                      "device_ms": statistics.median([d_a, d_b]), "host_ms": h,
                      "plain_ms": statistics.median([p_a, p_b]),
                      "bound_ms": nbytes / HBM_BYTES_PER_MS, "bound_by": "bytes",
                      "library_ms": None})
-        _log(f"phase 10: {name} at 720p splice B={B}: device {d_a:.5f}/"
+        _log(f"phase 10: {name} at {shape}: device {d_a:.5f}/"
              f"{d_b:.5f} ms per call, one call {c:.5f} ms, host issue "
              f"{h:.5f} ms, plain {p_a:.4f}/{p_b:.4f} ms, bound "
              f"{nbytes / HBM_BYTES_PER_MS:.5f} ms ({nbytes} B)")

@@ -9,7 +9,8 @@ loaded at import time.
 Each kernel is a `Kernel` whose `launches` counter goes up by one per
 launch, so a run can show which kernels its main path went through:
 KERNELS are the production kernels K1-K4, PROBE_KERNELS the measurement
-probes P1-P3 (ops/probes.py; P1 one counter per stage).
+probes P1-P6 (ops/probes.py, ops/cavlc_lockstep.py; P1 one counter per
+stage, P5/P6 one per variant).
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # cases.ebsp_boundary_cases).
 PACK_THREADS = 512
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC",
-              f"-DH264T_PACK_THREADS={PACK_THREADS}")
+              "-Xcompiler", "-fPIC", f"-DH264T_PACK_THREADS={PACK_THREADS}")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lock = threading.Lock()
 _lib = None
@@ -56,31 +57,40 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources() + sorted(_CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD_DIR / f"libh264t_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Runs the commands side by side; raises with the output of the
+    first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (so, se) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}) on {c[-1]}:\n"
+                               f"{so}\n{se}")
+
+
 def build() -> Path:
     """Compile csrc/*.cu (if the cached library is missing) and return its
-    path.  Raises with nvcc's output when the build fails."""
+    path: one nvcc per source, all started together, then one link.
+    Raises with nvcc's output when the build fails."""
     out = library_path()
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
-        os.replace(tmp, out)      # atomic: concurrent builders race safely
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in _sources()]
+        _run_all([[nvcc_path(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(_sources(), objs)])
+        lib = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc_path(), *LINK_FLAGS, "-o", lib, *objs]])
+        os.replace(lib, out)      # atomic: concurrent builders race safely
     return out
 
 
@@ -155,7 +165,19 @@ PACK_PLACE_U16 = Kernel("h264t_pack_place_u16", _PACK_NARROW_ARGS)
 # P3: (tile, then P2's arguments); one counter for every tile.
 PACK_PLACE_TILED = Kernel("h264t_pack_place_tiled", [_I] + _PACK_NARROW_ARGS)
 
-PROBE_KERNELS = (*EMIT_STAGE.values(), PACK_PLACE_U16, PACK_PLACE_TILED)
+# P4: (data, row, nbytes, batch, k, ct, tz, rb, end_out, out, stream).
+CAVLC_LOCKSTEP = Kernel("h264t_cavlc_lockstep",
+                        [_P, _L, _I, _I, _I, _P, _P, _P, _P, _P, _P])
+# P5/P6: (stage, then K3's arguments); one counter per variant, in
+# ops/probes.EBSP_VARIANTS' order; `shared` and `direct` run stage 0
+# (K3's own), `direct` on K3's global plan.
+EBSP_VARIANTS = ("runs", "ballot", "shared", "direct", "lanes")
+EBSP_VARIANT = {v: Kernel("h264t_ebsp_variant", [_I] + EBSP_NAL.argtypes,
+                          name=f"h264t_ebsp_variant[{v}]")
+                for v in EBSP_VARIANTS}
+
+PROBE_KERNELS = (*EMIT_STAGE.values(), PACK_PLACE_U16, PACK_PLACE_TILED,
+                 CAVLC_LOCKSTEP, *EBSP_VARIANT.values())
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,10 +1,10 @@
 // Device code shared by the production kernels (emit_kernels.cu: K1-K4)
-// and the measurement probes (probe_kernels.cu: P1-P3), so that a probe
-// runs K1's and K2's own code and not a copy of it.  Everything here sits
-// in an anonymous namespace: each translation unit that includes it gets
-// its own instances.
+// and the measurement probes (probe_kernels.cu: P1-P3, P5/P6), so that a
+// probe runs K1's, K2's and K3's own code and not a copy of it.
+// Everything here sits in an anonymous namespace: each translation unit
+// that includes it gets its own instances.
 //
-// Three compile-time parameters let a probe cut or reshape that code
+// Five compile-time parameters let a probe cut or reshape that code
 // without changing what K1-K4 compile to (their instances take the
 // defaults, under which every `if constexpr` branch below drops out):
 //   Stage  how far K1's chain runs (emit_session, pack_session): a stage
@@ -14,6 +14,10 @@
 //          own named barrier (P3, TileGroup).
 //   W      the staged width type of place_run: int32 (K1, K2) or uint8
 //          (P2's narrow staging).
+//   Variant  K3's emulation-prevention stage (ebsp_session): per-thread
+//          runs (K3, kEpRuns), warp ballots (P5, kEpBallot) or the first
+//          pass's 16-bit lanes reread (P6, kEpLanes).
+//   Lanes  whether emulation_prevention keeps those lanes (false: K1, K3).
 
 #pragma once
 
@@ -343,9 +347,15 @@ struct ByteWindow {
 // min(5 + valid + insertions, n_nal) is written exactly once.  Returns the
 // insertion count; `sat` gets the block's OR of the rule's flag.  Ends on a
 // barrier, so the NAL in shared memory is complete on return.
-template <typename ByteAt, typename Rule>
+//
+// Lanes (P6's `lanes`; K1 and K3 take the default, false): the counting
+// pass also stores byte | insert << 8 of each byte as a 16-bit lane in
+// `lanes` (shared, `valid` entries), and the scatter pass reads the lanes
+// instead of reading the byte and evaluating the rule again.
+template <typename ByteAt, typename Rule, bool Lanes = false>
 __device__ int emulation_prevention(ByteAt at, Rule rule, int valid, int per, uint8_t* nal,
-                                    int n_nal, int* tmp_max, int* tmp_sum, int& sat) {
+                                    int n_nal, int* tmp_max, int* tmp_sum, int& sat,
+                                    uint16_t* lanes = nullptr) {
   const int b0 = min((int)threadIdx.x * per, valid);
   const int b1 = min(b0 + per, valid);
   int last = -1;
@@ -362,7 +372,13 @@ __device__ int emulation_prevention(ByteAt at, Rule rule, int valid, int per, ui
   last = before;
   for (int i = b0; i < b1; ++i) {
     const int byte = at(i);
-    count += rule(i, last, byte, run_sat);
+    if constexpr (Lanes) {
+      const int insert = rule(i, last, byte, run_sat);
+      lanes[i] = (uint16_t)(byte | (insert << 8));
+      count += insert;
+    } else {
+      count += rule(i, last, byte, run_sat);
+    }
     if (byte) last = i;
   }
   int ins_before, ins_total;
@@ -370,14 +386,89 @@ __device__ int emulation_prevention(ByteAt at, Rule rule, int valid, int per, ui
   last = before;
   int dst = 5 + b0 + ins_before;
   for (int i = b0; i < b1; ++i, ++dst) {
-    const int byte = at(i);
-    int ignored = 0;
-    if (rule(i, last, byte, ignored)) {
-      if (dst < n_nal) nal[dst] = 3;
-      ++dst;
+    if constexpr (Lanes) {
+      const int lane = lanes[i];
+      if (lane >> 8) {
+        if (dst < n_nal) nal[dst] = 3;
+        ++dst;
+      }
+      if (dst < n_nal) nal[dst] = (uint8_t)lane;
+    } else {
+      const int byte = at(i);
+      int ignored = 0;
+      if (rule(i, last, byte, ignored)) {
+        if (dst < n_nal) nal[dst] = 3;
+        ++dst;
+      }
+      if (dst < n_nal) nal[dst] = (uint8_t)byte;
+      if (byte) last = i;
     }
-    if (dst < n_nal) nal[dst] = (uint8_t)byte;
-    if (byte) last = i;
+  }
+  sat = __syncthreads_or(run_sat);
+  return ins_total;
+}
+
+// P5's `ballot` stage: emulation_prevention's contract (K3's rule) with a
+// warp, not a thread, as the unit: warp w owns the contiguous segment of
+// `steps` 32-byte steps from w * 32 * steps and takes 32 consecutive bytes
+// a step, one a lane, so its shared-memory reads are consecutive bytes.
+// The last nonzero byte before lane l comes from __ballot_sync of the
+// nonzero bytes below it and __clz, carried across steps; the insertions
+// from a ballot of the rule, __popc of the lanes below, and one carry scan
+// across the warps (the TPU probe's [R, 128] two-level scan in the card's
+// idiom).  Each step's insertion mask is kept in `masks` (shared,
+// kPackWarps * steps words), so the scatter pass evaluates nothing again.
+// Three passes: the segment's last nonzero byte from its end, the count,
+// the scatter; two block scans between them, as in emulation_prevention.
+template <typename ByteAt, typename Rule>
+__device__ int emulation_prevention_ballot(ByteAt at, Rule rule, int valid, uint8_t* nal,
+                                           int n_nal, uint32_t* masks, int* tmp_max,
+                                           int* tmp_sum, int& sat) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int steps = (valid + 32 * kPackWarps - 1) / (32 * kPackWarps);
+  const int w0 = warp * 32 * steps;
+  uint32_t* wmasks = masks + warp * steps;
+  int last = -1;  // the segment's last nonzero byte (the same in every lane)
+  for (int s = steps - 1; s >= 0 && last < 0; --s) {
+    const int i = w0 + 32 * s + lane;
+    const unsigned nz = __ballot_sync(kFull, i < valid && at(i) != 0);
+    if (nz) last = w0 + 32 * s + 31 - __clz((int)nz);
+  }
+  // Lane 31 alone carries the warp's value, so every lane's exclusive scan
+  // covers exactly the warps before its own.
+  int before, unused;
+  scan_once(lane == 31 ? last : -1, -1, MaxOp(), tmp_max, before, unused);
+  int cur = before;  // the last nonzero byte before the current step
+  int count = 0;
+  int run_sat = 0;
+  for (int s = 0; s < steps; ++s) {
+    const int base = w0 + 32 * s;
+    const int i = base + lane;
+    const bool in = i < valid;
+    const int byte = in ? at(i) : 0;
+    const unsigned nz = __ballot_sync(kFull, byte != 0);
+    const unsigned prev = nz & below;
+    const int last_i = prev ? base + 31 - __clz((int)prev) : cur;
+    const unsigned im = __ballot_sync(kFull, in && rule(i, last_i, byte, run_sat));
+    if (lane == 0) wmasks[s] = im;
+    count += __popc(im);
+    if (nz) cur = base + 31 - __clz((int)nz);
+  }
+  int ins_before, ins_total;  // the barrier inside also publishes the masks
+  scan_once(lane == 31 ? count : 0, 0, SumOp(), tmp_sum, ins_before, ins_total);
+  int done = ins_before;  // insertions before the current step
+  for (int s = 0; s < steps; ++s) {
+    const int i = w0 + 32 * s + lane;
+    const unsigned im = wmasks[s];
+    if (i < valid) {
+      const int insert = (im >> lane) & 1;
+      const int dst = 5 + i + done + __popc(im & below) + insert;
+      if (insert && dst - 1 < n_nal) nal[dst - 1] = 3;
+      if (dst < n_nal) nal[dst] = (uint8_t)at(i);
+    }
+    done += __popc(im);
   }
   sat = __syncthreads_or(run_sat);
   return ins_total;
@@ -446,6 +537,120 @@ __device__ void fill_tail(uint8_t* out, int fill, int end, int n_nal) {
 __device__ __forceinline__ void write_prefix(uint8_t* nal, int n_nal, uint8_t header) {
   const uint8_t prefix[5] = {0, 0, 0, 1, header};
   for (int k = 0; k < min(5, n_nal); ++k) nal[k] = prefix[k];
+}
+
+// Bytes of K3's staging area: the padded bytes plus up to 15 of alignment
+// offset.  Where the row is staged, K3's shared memory is the staging area,
+// then the NAL (ebsp_smem).
+__host__ __device__ __forceinline__ int ebsp_stage_bytes(int padded) { return padded + 16; }
+
+__host__ __device__ __forceinline__ int ebsp_padded(int n_nal) {
+  return (n_nal + 127) / 128 * 128;  // ops/ebsp_flat.padded_len
+}
+
+__host__ __device__ __forceinline__ size_t ebsp_smem(int n_nal) {
+  return (size_t)ebsp_stage_bytes(ebsp_padded(n_nal)) + (size_t)((n_nal + 15) & ~15);
+}
+
+// Bytes each thread of K3 owns for a session of `valid` bytes: ceil(valid /
+// threads), made odd so that neighbouring threads' runs fall into different
+// shared-memory banks.  Exported as h264t_ebsp_items_per_thread.
+__host__ __device__ __forceinline__ int ebsp_items_per_thread(int valid) {
+  return ((valid + kPackThreads - 1) / kPackThreads) | 1;
+}
+
+// K3's emulation-prevention stage and P5/P6's variants of it
+// (h264t_ebsp_variant).  K3 runs kEpRuns.
+enum : int {
+  kEpRuns = 0,    // emulation_prevention: a contiguous run of bytes a thread
+  kEpBallot = 1,  // emulation_prevention_ballot: 32 consecutive bytes a warp step
+  kEpLanes = 2,   // emulation_prevention<Lanes>: the first pass's 16-bit lanes reread
+};
+
+// Shared memory of a staged session (ebsp_smem) past the NAL, by variant:
+// the ballot masks (a word per warp step) or the 16-bit lanes.
+__host__ __device__ __forceinline__ size_t ebsp_extra_smem(int variant, int padded) {
+  return variant == kEpBallot ? 4 * ((size_t)padded / 32 + kPackWarps)
+         : variant == kEpLanes ? 2 * (size_t)padded
+                               : 0;
+}
+
+// One session of K3 (block s).  It reads row s of `rbsp` (m bytes,
+// `rbsp_row` apart), its valid length (int64, element s * len_row) and
+// writes n_nal framed NAL bytes under `header` and the insertion count:
+// `padded` positions of the stream are considered (n_nal rounded up to
+// 128, as the JAX wrapper pads or cuts), those below rbsp_len valid, those
+// past the row zero.  The count is the insertions, plus max_ins + 1 where
+// the stream saturated; positions from the escaped payload's end up to
+// 5 + rbsp_len + count hold 0x03, zeros after, as the TPU kernel's
+// expansion leaves them.  `in_global`: the row is read from global memory
+// and the NAL built in place (no dynamic shared memory; kEpRuns only).
+// Variant: the emulation-prevention stage of a staged session (kEpRuns for
+// K3; the others only for P5/P6, whose scratch follows the NAL).
+template <int Variant = kEpRuns>
+__device__ __forceinline__ void ebsp_session(const uint8_t* __restrict__ rbsp, long long rbsp_row,
+                                             int m, const int64_t* __restrict__ rbsp_len,
+                                             long long len_row, int header, int padded, int n_nal,
+                                             int max_ins, int in_global,
+                                             uint8_t* __restrict__ nal_out,
+                                             int32_t* __restrict__ total_out) {
+  extern __shared__ uint4 pack_smem[];  // 16-byte aligned
+  uint8_t* stage = reinterpret_cast<uint8_t*>(pack_smem);
+  __shared__ int tmp_max[kPackWarps];
+  __shared__ int tmp_sum[kPackWarps];
+  const int s = blockIdx.x;
+  const int t = threadIdx.x;
+  const uint8_t* src = rbsp + s * rbsp_row;
+  uint8_t* out_row = nal_out + (size_t)s * n_nal;
+  uint8_t* nal = in_global ? out_row : stage + ebsp_stage_bytes(padded);
+  const int len = (int)rbsp_len[s * len_row];  // read as int32, as the JAX wrapper casts it
+  const int valid = max(min(len, padded), 0);
+  const int n_load = min(valid, m);
+  if (t == 0) write_prefix(nal, n_nal, (uint8_t)header);
+
+  int sat, ins;
+  if (in_global) {
+    ins = emulation_prevention(GlobalBytes{src, n_load}, ByteWindow(), valid,
+                               ebsp_items_per_thread(valid), nal, n_nal, tmp_max, tmp_sum, sat);
+  } else {
+    // Byte i goes to stage[off + i]: the row and the staging area then
+    // share their alignment mod 16, and the aligned middle moves in 16-byte
+    // copies.
+    const int off = (int)(reinterpret_cast<uintptr_t>(src) & 15);
+    const int head = min((16 - off) & 15, n_load);
+    const int n16 = (n_load - head) >> 4;
+    const int tail = head + (n16 << 4);
+    for (int c = t; c < n16; c += kPackThreads) {
+      cp_async16(stage + off + head + 16 * c, src + head + 16 * c);
+    }
+    if (t < head) stage[off + t] = src[t];
+    if (t < n_load - tail) stage[off + tail + t] = src[tail + t];
+    cp_async_wait_all();
+    __syncthreads();
+    if constexpr (Variant == kEpBallot) {
+      ins = emulation_prevention_ballot(StagedBytes{stage + off, n_load}, ByteWindow(), valid,
+                                        nal, n_nal,
+                                        reinterpret_cast<uint32_t*>(nal + ((n_nal + 15) & ~15)),
+                                        tmp_max, tmp_sum, sat);
+    } else if constexpr (Variant == kEpLanes) {
+      ins = emulation_prevention<StagedBytes, ByteWindow, true>(
+          StagedBytes{stage + off, n_load}, ByteWindow(), valid, ebsp_items_per_thread(valid),
+          nal, n_nal, tmp_max, tmp_sum, sat,
+          reinterpret_cast<uint16_t*>(nal + ((n_nal + 15) & ~15)));
+    } else {
+      ins = emulation_prevention(StagedBytes{stage + off, n_load}, ByteWindow(), valid,
+                                 ebsp_items_per_thread(valid), nal, n_nal, tmp_max, tmp_sum, sat);
+    }
+  }
+  const int count = ins + (sat ? max_ins + 1 : 0);
+  const int fill = min(5 + valid + ins, n_nal);
+  const int end = (int)min(5LL + len + count, (long long)n_nal);
+  if (in_global) {
+    fill_tail(out_row, fill, end, n_nal);
+  } else {
+    copy_out(nal, fill, end, n_nal, nal_out, s);
+  }
+  if (t == 0) total_out[s] = count;
 }
 
 // One session of K1 (block s), cut after `Stage` for P1.  K1 runs it at

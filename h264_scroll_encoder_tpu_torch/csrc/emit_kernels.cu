@@ -118,8 +118,8 @@
 // formulas live here only.
 //
 // The device code the kernels share (staging, scans, pack, emulation
-// prevention, copy-out, K1's session) lives in emit_device.cuh, which the
-// measurement probes (probe_kernels.cu) include too.
+// prevention, copy-out, K1's and K3's sessions) lives in emit_device.cuh,
+// which the measurement probes (probe_kernels.cu) include too.
 //
 // Plain C interface (bound with ctypes): each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() of its launch.
@@ -166,86 +166,15 @@ __global__ void __launch_bounds__(kPackThreads, 2)
   if (threadIdx.x == 0) total_out[s] = total_bits;
 }
 
-// Bytes of K3's staging area: the padded bytes plus up to 15 of alignment
-// offset.  Where the row is staged, K3's shared memory is the staging area,
-// then the NAL (ebsp_smem).
-__host__ __device__ __forceinline__ int ebsp_stage_bytes(int padded) { return padded + 16; }
-
-__host__ __device__ __forceinline__ int ebsp_padded(int n_nal) {
-  return (n_nal + 127) / 128 * 128;  // ops/ebsp_flat.padded_len
-}
-
-__host__ __device__ __forceinline__ size_t ebsp_smem(int n_nal) {
-  return (size_t)ebsp_stage_bytes(ebsp_padded(n_nal)) + (size_t)((n_nal + 15) & ~15);
-}
-
-// Bytes each thread of K3 owns for a session of `valid` bytes: ceil(valid /
-// threads), made odd so that neighbouring threads' runs fall into different
-// shared-memory banks.  Exported as h264t_ebsp_items_per_thread.
-__host__ __device__ __forceinline__ int ebsp_items_per_thread(int valid) {
-  return ((valid + kPackThreads - 1) / kPackThreads) | 1;
-}
-
-// K3.  Session s reads row s of `rbsp` (m bytes, `rbsp_row` apart), its
-// valid length (int64, element s * len_row) and writes n_nal framed NAL
-// bytes under `header` and the insertion count: `padded` positions of the
-// stream are considered (n_nal rounded up to 128, as the JAX wrapper pads
-// or cuts), those below rbsp_len valid, those past the row zero.  The count
-// is the insertions, plus max_ins + 1 where the stream saturated; positions
-// from the escaped payload's end up to 5 + rbsp_len + count hold 0x03,
-// zeros after, as the TPU kernel's expansion leaves them.  `in_global`:
-// the row is read from global memory and the NAL built in place (no
-// dynamic shared memory).
+// K3: one session per block (ebsp_session in emit_device.cuh, its default
+// stage).
 __global__ void __launch_bounds__(kPackThreads, 2)
     ebsp_nal_kernel(const uint8_t* __restrict__ rbsp, long long rbsp_row, int m,
                     const int64_t* __restrict__ rbsp_len, long long len_row, int header,
                     int padded, int n_nal, int max_ins, int in_global,
                     uint8_t* __restrict__ nal_out, int32_t* __restrict__ total_out) {
-  extern __shared__ uint4 pack_smem[];  // 16-byte aligned
-  uint8_t* stage = reinterpret_cast<uint8_t*>(pack_smem);
-  __shared__ int tmp_max[kPackWarps];
-  __shared__ int tmp_sum[kPackWarps];
-  const int s = blockIdx.x;
-  const int t = threadIdx.x;
-  const uint8_t* src = rbsp + s * rbsp_row;
-  uint8_t* out_row = nal_out + (size_t)s * n_nal;
-  uint8_t* nal = in_global ? out_row : stage + ebsp_stage_bytes(padded);
-  const int len = (int)rbsp_len[s * len_row];  // read as int32, as the JAX wrapper casts it
-  const int valid = max(min(len, padded), 0);
-  const int n_load = min(valid, m);
-  if (t == 0) write_prefix(nal, n_nal, (uint8_t)header);
-
-  int sat, ins;
-  if (in_global) {
-    ins = emulation_prevention(GlobalBytes{src, n_load}, ByteWindow(), valid,
-                               ebsp_items_per_thread(valid), nal, n_nal, tmp_max, tmp_sum, sat);
-  } else {
-    // Byte i goes to stage[off + i]: the row and the staging area then
-    // share their alignment mod 16, and the aligned middle moves in 16-byte
-    // copies.
-    const int off = (int)(reinterpret_cast<uintptr_t>(src) & 15);
-    const int head = min((16 - off) & 15, n_load);
-    const int n16 = (n_load - head) >> 4;
-    const int tail = head + (n16 << 4);
-    for (int c = t; c < n16; c += kPackThreads) {
-      cp_async16(stage + off + head + 16 * c, src + head + 16 * c);
-    }
-    if (t < head) stage[off + t] = src[t];
-    if (t < n_load - tail) stage[off + tail + t] = src[tail + t];
-    cp_async_wait_all();
-    __syncthreads();
-    ins = emulation_prevention(StagedBytes{stage + off, n_load}, ByteWindow(), valid,
-                               ebsp_items_per_thread(valid), nal, n_nal, tmp_max, tmp_sum, sat);
-  }
-  const int count = ins + (sat ? max_ins + 1 : 0);
-  const int fill = min(5 + valid + ins, n_nal);
-  const int end = (int)min(5LL + len + count, (long long)n_nal);
-  if (in_global) {
-    fill_tail(out_row, fill, end, n_nal);
-  } else {
-    copy_out(nal, fill, end, n_nal, nal_out, s);
-  }
-  if (t == 0) total_out[s] = count;
+  ebsp_session(rbsp, rbsp_row, m, rbsp_len, len_row, header, padded, n_nal, max_ins, in_global,
+               nal_out, total_out);
 }
 
 const void* emit_kernel_of(int sym_bytes) {

@@ -1,6 +1,7 @@
-// Hand-written Hopper (sm_90a) measurement probes of K1 and K2: the
-// counterparts of the JAX package's Pallas probes, built from K1's and K2's
-// own code (emit_device.cuh), not from a copy of it.
+// Hand-written Hopper (sm_90a) measurement probes of K1, K2 and K3: the
+// counterparts of the JAX package's Pallas probes (P1-P3) and of two of its
+// XLA races (P5/P6), built from K1's, K2's and K3's own code
+// (emit_device.cuh), not from a copy of it.
 //
 // P1  h264t_emit_stage       — replaces scripts/emit_stage_probe.py
 //     `_stage_kernel` (stages copy, cumsum, place, scan; `full` is
@@ -35,8 +36,34 @@
 //     are scheduled in hardware.  The probe measures what tiling costs
 //     here instead: more chunks per session and fewer resident blocks.
 //
-// What bounds them: as K1 and K2 (emit_kernels.cu) — one session's chain
-// of load round trips and barriers, not its bytes.
+// P5/P6 h264t_ebsp_variant — stand for the XLA scans that
+//     scripts/ebsp_cumsum_probe.py and scripts/ebsp_fused_probe.py race
+//     inside the bounded EBSP stage (no Pallas kernel): K3's session
+//     (ebsp_session) with its emulation-prevention stage swapped, K3's
+//     contract and outputs.  Variants (ops/probes.EBSP_VARIANTS):
+//       runs / shared  K3 itself: a contiguous run of bytes a thread, a
+//                      max-scan for the last nonzero byte, a sum-scan of
+//                      the insertions, the NAL in shared memory, then
+//                      store_nal's 16-byte stores (the JAX probes'
+//                      int32-cumsum and 3-array forms);
+//       ballot         a warp takes 32 consecutive bytes a step: the last
+//                      nonzero byte from __ballot_sync and __clz carried
+//                      across steps, the insertions from a ballot of the
+//                      rule and __popc, one carry scan across warps (the
+//                      u8 two-level [R, 128] scan);
+//       direct         K3's in_global plan forced on where K3 would stage:
+//                      the row read from global memory and the NAL built
+//                      in place in its output row with the prefix, no
+//                      shared-memory NAL (the fused framing);
+//       lanes          the counting pass stores byte | insert << 8 as a
+//                      16-bit lane in shared memory, and the scatter pass
+//                      rereads the lanes instead of the rule (the fused
+//                      u16 lane).
+//     Every variant computes K3's function (ops/ebsp_flat
+//     rbsp_to_nal_plain is the plain version of all of them).
+//
+// What bounds them: as K1, K2 and K3 (emit_kernels.cu) — one session's
+// chain of load round trips and barriers, not its bytes.
 //
 // Plain C interface (bound with ctypes): each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() of its launch.
@@ -261,6 +288,26 @@ void launch_tiled_of(int tile, const void* pat, const void* nb, long long pat_ro
   }
 }
 
+// P5/P6: K3's session with the emulation-prevention stage `Variant`.
+template <int Variant>
+__global__ void __launch_bounds__(kPackThreads, 2)
+    ebsp_variant_kernel(const uint8_t* __restrict__ rbsp, long long rbsp_row, int m,
+                        const int64_t* __restrict__ rbsp_len, long long len_row, int header,
+                        int padded, int n_nal, int max_ins, int in_global,
+                        uint8_t* __restrict__ nal_out, int32_t* __restrict__ total_out) {
+  ebsp_session<Variant>(rbsp, rbsp_row, m, rbsp_len, len_row, header, padded, n_nal, max_ins,
+                        in_global, nal_out, total_out);
+}
+
+const void* ebsp_variant_of(int variant) {
+  switch (variant) {
+    case kEpRuns: return (const void*)ebsp_variant_kernel<kEpRuns>;
+    case kEpBallot: return (const void*)ebsp_variant_kernel<kEpBallot>;
+    case kEpLanes: return (const void*)ebsp_variant_kernel<kEpLanes>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 // P1.  K1's arguments (h264t_emit_fused, with the plan K1's wrapper
@@ -375,4 +422,39 @@ extern "C" int h264t_pack_u16_blocks_per_sm(int sym_bytes, int k, int n_words) {
 extern "C" int h264t_pack_tiled_blocks_per_sm(int tile, int sym_bytes, int k, int n_words) {
   const void* kernel = tiled_kernel_of(tile, sym_bytes);
   return kernel ? blocks_per_sm(kernel, tiled_smem_bytes(tile, k, n_words)) : -1;
+}
+
+// P5/P6.  K3's arguments (h264t_ebsp_nal) after the stage: 0 runs (K3's
+// own, also P6's `shared` and, with in_global 1, `direct`), 1 ballot, 2
+// lanes.  in_global 1 is taken by the runs stage only (else
+// cudaErrorInvalidValue, launching nothing); a staged session of ballot or
+// lanes also holds its masks or lanes after the NAL (ebsp_extra_smem), and
+// a block that cannot fail with the attribute call's error.
+extern "C" int h264t_ebsp_variant(int variant, const uint8_t* rbsp, long long rbsp_row, int m,
+                                  const int64_t* rbsp_len, long long len_row, int header,
+                                  int batch, int n_nal, int max_ins, int in_global,
+                                  uint8_t* nal_out, int32_t* total_out, void* stream) {
+  const void* kernel = ebsp_variant_of(variant);
+  if (kernel == nullptr || n_nal < 0 || m < 0 || rbsp_len == nullptr ||
+      (in_global && variant != kEpRuns))
+    return (int)cudaErrorInvalidValue;
+  const int padded = ebsp_padded(n_nal);
+  const size_t smem = in_global ? 0 : ebsp_smem(n_nal) + ebsp_extra_smem(variant, padded);
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define H264T_VARIANT_CASE(V)                                                                 \
+  case V:                                                                                     \
+    ebsp_variant_kernel<V><<<batch, kPackThreads, smem, st>>>(rbsp, rbsp_row, m, rbsp_len,    \
+                                                              len_row, header, padded, n_nal, \
+                                                              max_ins, in_global != 0,        \
+                                                              nal_out, total_out);            \
+    break;
+  switch (variant) {
+    H264T_VARIANT_CASE(kEpRuns)
+    H264T_VARIANT_CASE(kEpBallot)
+    H264T_VARIANT_CASE(kEpLanes)
+  }
+#undef H264T_VARIANT_CASE
+  return (int)cudaGetLastError();
 }

@@ -10,12 +10,13 @@ zero bytes immediately before byte i:
 so emulation prevention is a running max (last nonzero index), a prefix
 sum of insertions and one scatter.
 
-Two device forms over [B, n] byte tensors:
+Three device forms over [B, n] byte tensors:
 
   rbsp_to_ebsp          exact: the staged `ebsp_exact` retry path.
   rbsp_to_ebsp_bounded  the bounded rule of the fused emit kernel (K1,
                         ops/emit_fused): a byte whose zero run it cannot
                         resolve inside a 16-word window flags the frame.
+  ebsp_to_rbsp          the inverse: emulation-prevention bytes removed.
 
 plus numpy host versions for tests.
 """
@@ -101,6 +102,35 @@ def rbsp_to_ebsp_bounded(rbsp, n, max_out: int, max_insertions: int):
     out_len = (n.to(torch.int64) + ins.sum(dim=1)
                + sat.to(torch.int64) * (max_insertions + 1))
     return _expand(rbsp, valid, ins, max_out), out_len
+
+
+def ebsp_to_rbsp(ebsp, n, max_out: int):
+    """Strip emulation-prevention bytes: remove each 0x03 within the first
+    n[b] bytes that has at least two zero bytes before it and a byte <= 3
+    after it (also within n[b]).
+
+    Args:
+      ebsp: uint8[B, size] padded payloads (other integer dtypes are cast).
+      n: int[B] valid lengths.
+      max_out: output capacity; kept bytes past it drop.
+
+    Returns (rbsp uint8[B, max_out], out_len int64[B]): out_len counts every
+    kept byte, also those past max_out.
+    """
+    b = ebsp.to(torch.uint8)
+    B, size = b.shape
+    idx = torch.arange(size, device=b.device)
+    n = n.to(torch.int64)
+    valid = idx[None, :] < n[:, None]
+    t = _zero_run_before(b, valid)
+    nxt = torch.cat([b[:, 1:], torch.full_like(b[:, :1], 0xFF)], dim=1)
+    has_next = idx[None, :] + 1 < n[:, None]
+    remove = valid & (b == 3) & has_next & (nxt <= 3) & (t >= 2)
+    keep = (valid & ~remove).to(torch.int64)
+    pos = torch.cumsum(keep, dim=1) - keep
+    out = torch.zeros((B, max_out + 1), dtype=torch.uint8, device=b.device)
+    out.scatter_(1, torch.where((keep > 0) & (pos < max_out), pos, max_out), b)
+    return out[:, :max_out], keep.sum(dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Measurement probes of K1 and K2 (P1-P3), each with its plain version.
+"""Measurement probes of K1, K2 and K3 (P1-P3, P5/P6), each with its
+plain version.
 
 The counterparts of the JAX package's Pallas probes, in the idiom of
 ops/bitpack_flat: CPU tensors run the plain version, CUDA tensors launch
@@ -29,8 +30,17 @@ or launch raises.
       `_pack_kernel3`: K2 with `tile` sessions a block; K2's contract,
       refused where B % tile != 0.
 
+  P5/P6  `ebsp_variant_batch(variant, ...)` — the counterparts of
+      scripts/ebsp_cumsum_probe.py's and scripts/ebsp_fused_probe.py's
+      races inside the bounded EBSP stage: K3 (ops/ebsp_flat) with its
+      emulation-prevention stage or its framing swapped (EBSP_VARIANTS:
+      runs and shared are K3 itself, ballot scans with warp ballots,
+      direct builds the NAL in place in the output row, lanes rereads the
+      first pass's 16-bit lanes; csrc/probe_kernels.cu).  K3's contract.
+
 The plain versions of P2 and P3 are K2's (ops/bitpack_flat) behind their
-own refusals; P1's stages have plain versions of their own outputs.
+own refusals, that of every P5/P6 variant K3's (rbsp_to_nal_plain); P1's
+stages have plain versions of their own outputs.
 """
 
 from __future__ import annotations
@@ -40,7 +50,7 @@ import numbers
 import torch
 
 from .. import _kernels
-from . import ebsp
+from . import ebsp, ebsp_flat
 from .bitpack import pack_words, trailing_bits_symbol, words_to_bytes
 from .bitpack_flat import pack_words_place_plain
 from .emit_fused import (PACK_MAX_ITEMS, _resolve_align, check_symbols,
@@ -286,3 +296,61 @@ def pack_place_tiled_batch(patterns, nbits, num_words: int, tile: int):
                 num_words, words.data_ptr(), total.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     return words, total
+
+
+EBSP_VARIANTS = _kernels.EBSP_VARIANTS
+# The emulation-prevention stage each variant runs (csrc: 0 K3's runs, 1
+# ballot, 2 lanes).
+_EBSP_STAGE = {"runs": 0, "ballot": 1, "shared": 0, "direct": 0, "lanes": 2}
+
+
+def _check_variant(variant: str):
+    if variant not in EBSP_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {EBSP_VARIANTS}")
+
+
+def ebsp_variant_plain(variant: str, rbsp, rbsp_len, header_byte, n_nal: int,
+                       max_insertions: int):
+    """Plain version of P5/P6 at `variant`: K3's (rbsp_to_nal_plain)."""
+    _check_variant(variant)
+    return ebsp_flat.rbsp_to_nal_plain(rbsp, rbsp_len, header_byte, n_nal,
+                                       max_insertions)
+
+
+def ebsp_variant_batch(variant: str, rbsp, rbsp_len, header_byte: int,
+                       n_nal: int, max_insertions: int):
+    """P5/P6 at `variant` over a [B, m] batch: the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors.  Arguments and returns as
+    ops/ebsp_flat.rbsp_to_nal_batch (uint8 rows with unit stride along
+    each row, int64 lengths, an int header).  runs and shared take K3's
+    plan, direct K3's global plan at every size; ballot and lanes stage the
+    row, and a NAL whose staged block passes a block's shared memory
+    fails at launch (RuntimeError)."""
+    _check_variant(variant)
+    if rbsp.dim() != 2:
+        raise ValueError(f"rbsp must be [B, n], not {tuple(rbsp.shape)}")
+    lens = ebsp_flat.session_lengths(rbsp, rbsp_len)
+    if not isinstance(header_byte, numbers.Integral):
+        raise TypeError(f"header_byte must be an int, not {type(header_byte)}")
+    if rbsp.device.type == "cpu":
+        return ebsp_variant_plain(variant, rbsp, lens, header_byte, n_nal,
+                                  max_insertions)
+    if rbsp.device.type != "cuda":
+        raise ValueError(f"unsupported device {rbsp.device}")
+    if rbsp.dtype != torch.uint8:
+        raise TypeError(f"rbsp must be uint8 on the card, not {rbsp.dtype}")
+    dev = rbsp.device
+    B, m = rbsp.shape
+    nal = torch.empty((B, n_nal), dtype=torch.uint8, device=dev)
+    total = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B:
+        with torch.cuda.device(dev):
+            stage = _EBSP_STAGE[variant]
+            in_global = (variant == "direct"
+                         or (stage == 0 and _kernels.ebsp_nal_in_global(n_nal)))
+            _kernels.EBSP_VARIANT[variant].launch(
+                stage, rbsp.data_ptr(), row_stride(rbsp), m, lens.data_ptr(),
+                lens.stride(0), int(header_byte) & 0xFF, B, n_nal,
+                max_insertions, int(in_global), nal.data_ptr(),
+                total.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return nal, total

@@ -20,6 +20,9 @@ profiles), each printing its table as one JSON line last:
     ebsp_stage_probe      K3 against the plain bounded EBSP
     ebsp_sizing_probe     K3 at the 1.5x and the rbsp + cap NAL sizes
     gpu_parity_probe      K1 == plain on the splice emit; K2's race
+    cavlc_device_probe    lockstep CAVLC decode (P4) against host donor prep
+    ebsp_cumsum_probe     K3's insertion scan: runs against ballots (P5)
+    ebsp_fused_probe      K3's framing: shared NAL, lanes, in place (P6)
 
     python -m h264_scroll_encoder_tpu_torch.scripts.<name> [--device cpu]
 

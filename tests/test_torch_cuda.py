@@ -671,3 +671,88 @@ def test_production_kernels_unchanged_by_the_shared_header(dev):
                                                 cases.CAP))
             == _digest(ebsp_flat.rbsp_to_nal_plain(rb.cpu(), ln.cpu(), 0x41,
                                                    cases.EBSP_N_NAL, cases.CAP)))
+
+
+# ---------------------------------------------------------------------------
+# P4 (csrc/cavlc_lockstep.cu) and P5/P6 (h264t_ebsp_variant in
+# csrc/probe_kernels.cu).
+# ---------------------------------------------------------------------------
+
+def test_cavlc_lockstep_kernel(dev):
+    """P4 equals its plain version and the host truth on the probe's
+    streams (64 lanes x 64 blocks, and 300 lanes: a partial block of
+    lanes), on the hostile streams, on rows read through a row stride, and
+    on corrupted streams that run off their rows (bytes past a row read
+    as zeros in both)."""
+    from h264_scroll_encoder_tpu_torch.ops import cavlc_lockstep as L
+    from h264_scroll_encoder_tpu_torch.scripts import cavlc_device_probe
+
+    luts = L.device_luts(dev)
+    data, truth, _bits = L.probe_streams(64, 64, L.SEED)
+    h_data, h_truth = cavlc_device_probe.hostile_streams(8)
+    wide = np.tile(data, (5, 1))[:300]
+    bad = data.copy()
+    bad[:, ::7] ^= 0x5A
+    for d, k, want in ((data, 64, truth), (h_data, h_truth.shape[1], h_truth),
+                       (wide, 64, np.tile(truth, (5, 1, 1))[:300]),
+                       (bad, 96, None)):
+        x = torch.as_tensor(d, device=dev)
+        before = _kernels.CAVLC_LOCKSTEP.launches
+        got = L.decode_lockstep_batch(x, k, luts)
+        assert _kernels.CAVLC_LOCKSTEP.launches == before + 1
+        _same(got, L.decode_lockstep_plain(x, k, luts))
+        if want is not None:
+            np.testing.assert_array_equal(got[1].cpu().numpy(), want)
+    x = torch.zeros((64, data.shape[1] + 3), dtype=torch.uint8, device=dev)
+    x[:, 3:] = torch.as_tensor(data, device=dev)
+    _same(L.decode_lockstep_batch(x[:, 3:], 64, luts),
+          L.decode_lockstep_plain(x[:, 3:], 64, luts))
+
+
+def _ebsp_variant_inputs(dev):
+    """[(rows, lengths, n_nal)]: the fused probe's exact cases, the cumsum
+    and fused probes' B = 256 payloads at their NAL sizes, hostile rows
+    (all zeros, all 0x03, a row past the cap) and rows read through a
+    stride."""
+    from h264_scroll_encoder_tpu_torch.scripts import (ebsp_cumsum_probe,
+                                                       ebsp_fused_probe,
+                                                       ebsp_stage_probe)
+
+    rows, lens = ebsp_fused_probe.exact_cases()
+    out = [(torch.as_tensor(rows, device=dev), _i64(lens, dev),
+            ebsp_fused_probe.n_nal_of(ebsp_fused_probe.EXACT_BYTES))]
+    for n_rbsp in (5960, 16384):
+        rb, ln = ebsp_stage_probe.payload(256, n_rbsp, dev)
+        out.append((rb, ln, ebsp_fused_probe.n_nal_of(n_rbsp)))
+        if n_rbsp == 5960:
+            out.append((rb, ln, ebsp_cumsum_probe.n_nal_of(n_rbsp)))
+    hostile, h_lens = ebsp_cumsum_probe.hostile_rows()
+    wide = torch.zeros((3, 5967), dtype=torch.uint8, device=dev)
+    wide[:, 5:-2] = torch.as_tensor(hostile, device=dev)
+    for n_nal in (ebsp_cumsum_probe.n_nal_of(5960),
+                  ebsp_fused_probe.n_nal_of(5960)):
+        out.append((torch.as_tensor(hostile, device=dev), _i64(h_lens, dev),
+                    n_nal))
+        out.append((wide[:, 5:-2], _i64([5000, 64, 5960], dev), n_nal))
+    return out
+
+
+@pytest.mark.parametrize("variant", ["runs", "ballot", "shared", "direct",
+                                     "lanes"])
+def test_ebsp_variant_kernel(dev, variant):
+    """Each P5/P6 variant equals K3 and K3's plain version (bytes and
+    count, also past the cap) on every input, one launch a call."""
+    from h264_scroll_encoder_tpu_torch.ops import probes
+
+    over = 0
+    for rows, lens, n_nal in _ebsp_variant_inputs(dev):
+        args = (rows, lens, 0x41, n_nal, cases.CAP)
+        counter = _kernels.EBSP_VARIANT[variant]
+        before = counter.launches
+        got = probes.ebsp_variant_batch(variant, *args)
+        assert counter.launches == before + 1
+        want = ebsp_flat.rbsp_to_nal_plain(*args)
+        _same(got, want)
+        _same(ebsp_flat.rbsp_to_nal_batch(*args), want)
+        over += int((got[1] > cases.CAP).sum())
+    assert over >= 6      # all zeros and the salted row, at each NAL size

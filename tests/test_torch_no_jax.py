@@ -23,7 +23,7 @@ print(len(names))
 """
 
 # Modules of the later slices (utilities, the dry run, examples, scripts,
-# the measurement probes): walk_packages must reach them, so their
+# the measurement probes P1-P6): walk_packages must reach them, so their
 # __init__ files must exist.
 NEW_MODULES = (
     "utils.snapshot", "utils.trace", "utils.mp4mux", "parallel.dryrun",
@@ -35,7 +35,9 @@ NEW_MODULES = (
     "scripts.pack_tiled_probe", "scripts.splice_stage_profile",
     "scripts.symbols_stage_probe", "scripts.step_xprof", "scripts.step_cost",
     "scripts.ebsp_stage_probe", "scripts.ebsp_sizing_probe",
-    "scripts.gpu_parity_probe")
+    "scripts.gpu_parity_probe", "ops.cavlc_lockstep",
+    "scripts.cavlc_device_probe", "scripts.ebsp_cumsum_probe",
+    "scripts.ebsp_fused_probe")
 
 
 def test_port_imports_no_jax():

@@ -209,6 +209,9 @@ SCRIPTS = {
     "ebsp_stage_probe": _TINY,
     "ebsp_sizing_probe": _TINY,
     "gpu_parity_probe": _TINY + ["--engine", "python"],
+    "cavlc_device_probe": _TINY + _DONORS + ["--blocks", "8", "--wide", "8"],
+    "ebsp_cumsum_probe": _TINY,
+    "ebsp_fused_probe": _TINY,
 }
 
 
