@@ -3,7 +3,10 @@
     python3 chip_smoke.py
 
 Phases (any failure raises; the script then exits non-zero and prints no
-result line):
+result line).  Every step and session frame is compiled as the JAX
+package jits it (utils/graphs): the first call of a key runs eagerly and
+captures a CUDA graph, later calls replay it; a replay counts each kernel
+it launches, so K1 still counts once per step or frame:
 
   1. Require CUDA; print the torch, CUDA, nvcc and card versions.
   2. Build, started together: the kernels (K1 h264t_emit_fused, K2
@@ -128,13 +131,29 @@ result line):
      (with a 4,224-lane row), ebsp_cumsum_probe and ebsp_fused_probe; and
      their timings (P4 at the probe's shape, P5 at the cumsum probe's,
      P6 at the fused probe's serving-rep shape).
- 11. Print the kernel table (one JSON line; `ms` is one call on an idle
+ 11. The compiled steps ("graphs"): every graphed path at 720p (the
+     scroll step, the rows compact, static-chrome and ebsp_exact programs,
+     the dense and hint steps at B = 256 and the compact and static ones
+     at 1,024, the session's scroll and waypoint frames and their
+     ebsp_exact retries, its sliced and hint frames) captured afresh and
+     driven over 8 calls with changing inputs: each call equals its
+     `.eager` byte for byte (NAL, lengths, bits, flags, next state), its
+     outputs survive the next call, one capture per key, and each replay
+     is one graph launch running K1 (K2 on the exact paths).  Per path,
+     graphed against eager in one run: CUDA API launches, device kernels
+     and device time per call (torch.profiler), host wall and CUDA-event
+     time (in turns), busy share, capture ms and pool bytes.  The sharded
+     step's blocks against its .eager; the golden digests on replays; the
+     batch-1 session's p50 and p90, graphed and eager; a step with an
+     .item() refused at capture on every call (no eager fallback).  The
+     table is one JSON line, {"graphs": ...}.
+ 12. Print the kernel table (one JSON line; `ms` is one call on an idle
      card, as in the first port's rows, with `device_ms` and `host_ms`
      beside it; `launches` sums the paths, `launches_by_path` splits
      them), the card's name and power limit, and the result line.
 
-Launch counters are set to 0 just before each path (4, 5, 6, 7, 8, 9, 10)
-and read just after; every kernel must have launched on its path.
+Launch counters are set to 0 just before each path (4, 5, 6, 7, 8, 9, 10,
+11) and read just after; every kernel must have launched on its path.
 """
 
 from __future__ import annotations
@@ -238,7 +257,7 @@ class Timer:
 
 
 def _profile_launches(fn, steps: int):
-    """utils/timing.profile_launches: (cudaLaunch calls per step, device ms
+    """utils/timing.profile_launches: (CUDA API launches per step, device ms
     per step) under torch.profiler, or None without device time."""
     from h264_scroll_encoder_tpu_torch.utils import timing
 
@@ -796,7 +815,7 @@ def main() -> int:
                      "measured (no device time)")
             else:
                 _log(f"phase 5: splice {name} B={B_s} under torch.profiler: "
-                     f"{prof[0]:.1f} cudaLaunch calls per step, device time "
+                     f"{prof[0]:.1f} CUDA API launches per step, device time "
                      f"{prof[1]:.4f} ms per step")
 
     # -- 6. K3 and K4 through their own entry points ----------------------------
@@ -846,7 +865,13 @@ def main() -> int:
         exact=(exact_pat, exact_nb, exact_words))
     _log(f"phase 10: {time.perf_counter() - t_probes:.2f} s in all")
 
-    # -- 11. Results -----------------------------------------------------------
+    # -- 11. The compiled steps (CUDA graphs) ------------------------------------
+    t_graphs = time.perf_counter()
+    graph_launches = _graphs_phase(dev, cfg, cases, batch, _kernels, timing_,
+                                   Timer, schedule, dn32, bits32, has_align)
+    _log(f"phase 11: {time.perf_counter() - t_graphs:.2f} s in all")
+
+    # -- 12. Results -----------------------------------------------------------
     src = "h264_scroll_encoder_tpu_torch/csrc/emit_kernels.cu"
     rows = [
         ("emit_fused (K1)", "K1", "h264t_emit_fused",
@@ -861,14 +886,16 @@ def main() -> int:
     paths = {"scroll": scroll_launches, "splice": splice_launches,
              "entry": entry_launches, "session": session_launches,
              "dense": dense_launches, "large": large_launches,
-             "serving": serving_launches, "probes": probe_launches}
+             "serving": serving_launches, "probes": probe_launches,
+             "graphs": graph_launches}
     # ms: one call as a caller waits for it (the method of the first port's
     # rows); device_ms: device time per call of calls queued back to back;
     # host_ms: the host's issue time per call.  launches: the kernel's
     # launches summed over the paths it runs on (phase 4's scroll golden
     # run, 5, 6, 7, 8's dense steps and large frames, 9's sharded steps
-    # and serving loop, and 10's measurement scripts), each path counted
-    # from 0.  The probes (P1-P6) run on phase 10's path only.
+    # and serving loop, 10's measurement scripts and 11's graphed paths),
+    # each path counted from 0; a graph replay counts each kernel it
+    # launches.  The probes (P1-P6) run on phase 10's path only.
     kernels = []
     for name, key, sym, rep in rows:
         by_path = {p: c[sym] for p, c in paths.items() if c[sym]}
@@ -988,14 +1015,15 @@ def _session_phase(dev, cfg, cases, batch, _kernels, Timer):
          f"max {ms[-1]:.4f} ms; card {_smi()}")
     if per_frame is not None:
         _log(f"phase 7: one batch-1 scroll frame under torch.profiler: "
-             f"{per_frame[0]:.1f} cudaLaunch calls, device time "
+             f"{per_frame[0]:.1f} CUDA API launches, device time "
              f"{per_frame[1]:.4f} ms")
-    # Tensor ops (besides allocations and views) of one frame, and of its
-    # P slice header's symbol stream alone.
+    # Tensor ops (besides allocations and views) of one frame run op by op
+    # (the frame graph's .eager), and of its P slice header's symbol
+    # stream alone.
     frame_num, _off, _wp_off, wp_lt, wp_valid, count = probe._frame_args(500)
     poc = frame_num * 2
     frame_ops = cases.compute_ops(
-        lambda: probe.write_scroll_or_waypoint_frame(500))
+        lambda: probe._scroll_fn.eager(probe._frame_row(500)))
     header_ops = cases.compute_ops(lambda: p_slice_header_symbols(
         cfg, frame_num, poc, False, -1, count, wp_lt, wp_valid))
     _log(f"phase 7: one batch-1 scroll frame runs {len(frame_ops)} tensor "
@@ -1043,7 +1071,7 @@ def _session_phase(dev, cfg, cases, batch, _kernels, Timer):
     for name, got in prof.items():
         if got is not None:
             _log(f"phase 7: {name} B=256 under torch.profiler: {got[0]:.1f} "
-                 f"cudaLaunch calls per call, device time {got[1]:.4f} ms")
+                 f"CUDA API launches per call, device time {got[1]:.4f} ms")
     _log(f"phase 7: hint step (compact_x) B=256 720p: digest equals the golden "
          f"file; {step_ms:.4f} ms (CUDA-event median of 20), host wall "
          f"{step_wall:.4f} ms; NAL buffer {tuple(nal.shape)}, {total} valid B "
@@ -1134,7 +1162,7 @@ def _dense_phase(dev, cfg, cases, batch, _kernels, Timer, avref, streams7,
             prof = None
             _log(f"phase 8: torch.profiler failed: {e!r}")
         prof_s = ("launches not measured (no device time)" if prof is None
-                  else f"{prof[0]:.1f} cudaLaunch calls and {prof[1]:.4f} ms "
+                  else f"{prof[0]:.1f} CUDA API launches and {prof[1]:.4f} ms "
                        f"of device time per step (torch.profiler, 5 steps)")
         _log(f"phase 8: dense {config} B={B}: {ms:.4f} ms (CUDA-event median "
              f"of 10), host wall {wall:.4f} ms = {B / wall * 1e3:.1f} frames/s; "
@@ -1394,7 +1422,7 @@ def _serving_phase(dev, cfg, cases, batch, _kernels, Timer, avref, streams7,
         ms, wall = timers[name].medians()
         per = 1 if name == "unsharded" else n_blocks
         prof_s = ("device time not measured" if prof is None else
-                  f"{prof[0]:.1f} cudaLaunch calls and {prof[1]:.4f} ms of "
+                  f"{prof[0]:.1f} CUDA API launches and {prof[1]:.4f} ms of "
                   f"device time per step, {prof[1] / per:.4f} ms per block "
                   f"of {B // per} sessions (torch.profiler, 5 steps)")
         _log(f"phase 9: {name} scroll step B={B} 720p: {ms:.4f} ms "
@@ -1900,6 +1928,273 @@ def _probes_phase(dev, cfg, cases, _kernels, timing_, *, splice, exact):
     _log(f"phase 10: timing {time.perf_counter() - t2:.2f} s")
     return launches, rows
 
+
+
+def _graph_paths(dev, cfg, cases, batch, schedule, dn32, bits32, has_align):
+    """Phase 11's graphed paths at 720p: {name: (step, args_at, kernel)},
+    args_at(t, outs) giving call t's arguments (changing every call: the
+    scroll offsets and state, fresh donors and frame numbers, rolled hint
+    sessions, the session's offsets and registry) and `kernel` the name of
+    the device kernel each replay must run (K1's, or K2's on the exact
+    paths)."""
+    from h264_scroll_encoder_tpu_torch import session
+    from h264_scroll_encoder_tpu_torch.config import MAX_WAYPOINTS
+    from h264_scroll_encoder_tpu_torch.models import hints
+    from h264_scroll_encoder_tpu_torch.models.splice import (FrameHints,
+                                                             MotionRegion)
+    from h264_scroll_encoder_tpu_torch.syntax.slice_headers import (
+        p_slice_header_symbols)
+
+    k1, k2 = "emit_fused_kernel", "pack_place"
+    paths = {}
+    state0 = batch.SessionState.create(schedule.shape[1], device=dev)
+    paths["scroll step B=256"] = (
+        batch.make_batched_step(cfg),
+        lambda t, o: (state0 if o is None else o[0], schedule[t]), k1)
+
+    def splice_args(dn, B):
+        z = torch.zeros((B, MAX_WAYPOINTS), dtype=torch.int64, device=dev)
+        zero = torch.zeros((B, cfg.mb_height, cfg.mb_width), dtype=torch.int32,
+                           device=dev)
+
+        def args_at(t, _outs):
+            fn = torch.full((B,), 3 + t, dtype=torch.int64, device=dev)
+            hp, hn = p_slice_header_symbols(cfg, fn, 2 * fn, False, -1, 0, z,
+                                            z.bool())
+            rows = (torch.arange(B, device=dev) + 5 * t) % N_DONORS
+            return (hp, hn, zero, zero, zero, zero.bool(),
+                    {k: v[rows] for k, v in dn.items()})
+        return args_at
+
+    steps = cases.splice_steps(cfg, int(bits32.max()), has_align)
+    for name, B in (("compact", 256), ("compact", 1024), ("static", 256),
+                    ("static", 1024), ("ebsp_exact", 256)):
+        paths[f"rows {name} B={B}"] = (steps[name], splice_args(dn32, B),
+                                       k2 if name == "ebsp_exact" else k1)
+    dn, bits, align = cases.prepare_dense_donors("representative",
+                                                 engine="native", device=dev)
+    paths["dense B=256"] = (cases.dense_step(cfg, "representative", bits,
+                                             align), splice_args(dn, 256), k1)
+    hint_in = cases.hint_step_inputs()
+    names = ("frame_num", "ref", "mv_x", "mv_y", "wp_count", "wp_ltidx",
+             "wp_valid")
+    paths["hint step B=256"] = (
+        batch.make_batched_hint_step(cfg, compact_x=True, device=dev),
+        lambda t, o: tuple(torch.as_tensor(np.roll(hint_in[k], t, axis=0) + (
+            t if k == "frame_num" else 0), device=dev) for k in names), k1)
+
+    s = session.ComposerSession(cfg, device=dev)
+    offsets = (16, 496, 500, 700, 992, 1000, 1200, 1400)
+
+    def frame_row(t, _outs):
+        s.frame_num = 2 + t
+        if t in (2, 5) and s.waypoints.count < 2:
+            s.waypoints.register(496 * (t // 2))
+        return (s._frame_row(offsets[t]),)
+
+    for kind in ("scroll_frame", "waypoint_frame"):
+        for exact in (False, True):
+            fn = session.graphed_frame(kind, cfg, False, "floor", exact)
+            paths[fn.name] = (fn, frame_row, k2 if exact else k1)
+    paths["session sliced frame"] = (
+        session.graphed_sliced_frame(cfg, False),
+        lambda t, o: (s._frame_row(40 * t), cases.SESSION_ROWS_PER_SLICE), k1)
+    paths["session hint frame"] = (
+        hints.graphed_hint_frame(cfg, True),
+        lambda t, o: (torch.as_tensor(hints.hint_frame_row(
+            cfg, 2 + t, FrameHints(motion_regions=(MotionRegion(
+                0, 2 * t, cfg.mb_width, 2 * t + 4, ref_idx=t % 2,
+                mv_y=-4 * t),))), device=dev),), k1)
+    return paths
+
+
+def _graphs_phase(dev, cfg, cases, batch, _kernels, timing_, Timer, schedule,
+                  dn32, bits32, has_align):
+    """Phase 11: every graphed path (utils/graphs, the port's jax.jit) at
+    720p.  Each is captured afresh and driven over 8 calls with changing
+    inputs, each call equal to its `.eager` byte for byte and its outputs
+    unchanged by the next call, with one capture for the key; each replay
+    is one graph launch that runs K1 (K2 on the exact paths).  Then per
+    path, graphed against eager on the same inputs in one run: CUDA API
+    launches and device kernels per call and device time (torch.profiler),
+    host wall and CUDA-event time (Timer, in turns), capture ms and pool
+    bytes; the sharded step's blocks against its .eager; the golden
+    digests on replays; the batch-1 session's p50 and p90, graphed and
+    eager; a step with an .item() refused at capture, with no eager
+    fallback.  Returns the launch counts of the 8-call runs."""
+    from h264_scroll_encoder_tpu_torch.session import ComposerSession
+    from h264_scroll_encoder_tpu_torch.utils import graphs
+
+    _log(f"phase 11: before: {torch.cuda.memory_reserved(dev)} B reserved on "
+         f"the card")
+    paths = _graph_paths(dev, cfg, cases, batch, schedule, dn32, bits32,
+                         has_align)
+    for step in {id(p[0]): p[0] for p in paths.values()}.values():
+        step.reset()    # a step may serve two paths (B = 256 and 1,024)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    calls = {}
+    for name, (step, args_at, _kernel) in paths.items():
+        outs, captures = cases.graph_replays(step, args_at)
+        if captures != 1:
+            raise AssertionError(f"{name}: {captures} captures for one key")
+        calls[name] = args_at(1, outs)
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in _kernels.KERNELS}
+    _log(f"phase 11: {len(paths)} graphed paths, 8 calls each with changing "
+         f"inputs: every call equals its .eager byte for byte, its outputs "
+         f"survive the next call, one capture per key; launches {launches}")
+
+    rows = {}
+    for name, (step, _args_at, kernel) in paths.items():
+        args = calls[name]
+        prof = {}
+        for mode, fn in (("graphed", step), ("eager", step.eager)):
+            got = timing_.profile_step(lambda: fn(*args), 5)
+            if got is None:
+                raise AssertionError(f"{name}: torch.profiler saw no device "
+                                     "time")
+            prof[mode] = got
+        g = prof["graphed"]
+        runs = sum(n for k, n in g["kernel_counts"].items() if kernel in k)
+        if g["api_by_kind"].get("cudaGraphLaunch") != 1 or runs != 5:
+            raise AssertionError(f"{name}: 5 replays made "
+                                 f"{g['api_by_kind']} and ran {kernel} "
+                                 f"{runs} times")
+        timers = {"graphed": Timer(), "eager": Timer()}
+        for mode in ("graphed", "eager", "eager", "graphed"):
+            fn = step if mode == "graphed" else step.eager
+            fn(*args)
+            for _ in range(10):
+                timers[mode](lambda: fn(*args))
+        stats = step.graphs[step.key(*args)]
+        row = {"capture_ms": stats.capture_ms, "pool_bytes": stats.pool_bytes}
+        for mode in ("graphed", "eager"):
+            cuda_ms, wall = timers[mode].medians()
+            p = prof[mode]
+            row[mode] = {"api_launches": p["api_launches"],
+                         "api_by_kind": p["api_by_kind"],
+                         "kernels": p["kernels"], "device_ms": p["device_ms"],
+                         "cuda_event_ms": cuda_ms, "wall_ms": wall,
+                         "busy": p["device_ms"] / wall}
+        rows[name] = row
+        _log(f"phase 11: {name}: " + "; ".join(
+            f"{mode} {r['api_launches']:.1f} CUDA API launches "
+            f"({', '.join(f'{k} {v:.1f}' for k, v in r['api_by_kind'].items())})"
+            f", {r['kernels']:.1f} kernels, device {r['device_ms']:.4f} ms, "
+            f"host wall {r['wall_ms']:.4f} ms, CUDA events "
+            f"{r['cuda_event_ms']:.4f} ms, busy {r['busy']:.1%}"
+            for mode, r in ((m, row[m]) for m in ("graphed", "eager")))
+            + f"; capture {row['capture_ms']:.1f} ms, pool "
+              f"{row['pool_bytes']} B")
+
+    # The sharded step: one graph per device, its blocks against .eager.
+    devices, layout = _block_devices(dev)
+    sstep = batch.make_sharded_step(cfg, devices)
+    blocks = batch.shard_batch(batch.SessionState.create(
+        schedule.shape[1], device=dev), devices)
+    for offs in schedule[:8]:
+        offs_b = batch.shard_batch(offs, devices)
+        new, outs = sstep(blocks, offs_b)
+        want_state, want = sstep.eager(blocks, offs_b)
+        got_all = [*batch.gather_batch(outs, dev),
+                   *vars(batch.gather_batch(new, dev)).values()]
+        want_all = [*batch.gather_batch(want, dev),
+                    *vars(batch.gather_batch(want_state, dev)).values()]
+        if not all(torch.equal(a, b) for a, b in zip(got_all, want_all)):
+            raise AssertionError("the sharded step's graphs differ from eager")
+        blocks = new
+    timers = {"graphed": Timer(), "eager": Timer()}
+    offs_b = batch.shard_batch(schedule[0], devices)
+    for mode in ("graphed", "eager", "eager", "graphed"):
+        fn = sstep if mode == "graphed" else sstep.eager
+        for _ in range(10):
+            timers[mode](lambda: fn(blocks, offs_b))
+    _log(f"phase 11: sharded scroll step over {layout}, 8 steps: blocks equal "
+         f".eager (NAL, lengths, flags, next state); host wall graphed "
+         f"{timers['graphed'].medians()[1]:.4f} ms, eager "
+         f"{timers['eager'].medians()[1]:.4f} ms (medians of 20)")
+
+    # Golden digests on replays: each golden run a second time, when every
+    # step of it replays a graph captured by the first.
+    for label, run, path in (
+            ("scroll", lambda: cases.port_golden(dev), cases.GOLDEN_PATH),
+            ("splice rows", lambda: cases.port_splice_golden(dev),
+             cases.SPLICE_GOLDEN_PATH),
+            ("splice dense", lambda: cases.port_dense_golden(dev),
+             cases.DENSE_GOLDEN_PATH)):
+        run()
+        if run() != json.loads(path.read_text()):
+            raise AssertionError(f"{label}: replayed digests differ from "
+                                 f"{path.name}")
+    hint_step = batch.make_batched_hint_step(cfg, compact_x=True, device=dev)
+    for _ in range(2):
+        nal, nal_len, _bits, ovf = cases.run_hint_step(
+            hint_step, cases.hint_step_inputs())
+    if cases.hint_step_digest(nal.cpu().numpy(), nal_len.cpu().numpy(),
+                              ovf.cpu().numpy()) != json.loads(
+            cases.SESSION_GOLDEN_PATH.read_text())["hint_step"]:
+        raise AssertionError("hint step: replayed digest differs")
+    _log("phase 11: golden digests hold on replays: scroll_720p, "
+         "splice_rows_720p, splice_dense_720p, the hint step (the session "
+         "streams of phase 7 were composed on the frame graphs)")
+
+    # The batch-1 session, graphed and eager, in turns.
+    offsets = cases.session_scroll_offsets()[:64]
+    frame_ms = {"graphed": [], "eager": []}
+    for mode in ("graphed", "eager", "eager", "graphed"):
+        s = ComposerSession(cfg, device=dev)
+        if mode == "eager":
+            s._scroll_fn, s._waypoint_fn = (s._scroll_fn.eager,
+                                            s._waypoint_fn.eager)
+        s.write_parameter_sets()
+        s.write_test_atlases(striped=True)
+        for off in offsets:
+            t0 = time.perf_counter()
+            s.write_scroll_or_waypoint_frame(off)
+            frame_ms[mode].append((time.perf_counter() - t0) * 1e3)
+    for mode, ms in frame_ms.items():
+        ms = sorted(ms)
+        rows[f"session batch-1 {mode}"] = {
+            "p50_ms": statistics.median(ms),
+            "p90_ms": ms[int(0.9 * (len(ms) - 1))]}
+        _log(f"phase 11: batch-1 session, {mode} frames: "
+             f"write_scroll_or_waypoint_frame p50 "
+             f"{rows[f'session batch-1 {mode}']['p50_ms']:.4f} ms, p90 "
+             f"{rows[f'session batch-1 {mode}']['p90_ms']:.4f} ms "
+             f"({len(ms)} frames, host wall, bytes on the host; tick "
+             f"16.7 ms); card {_smi()}")
+
+    pools = {step.name: sum(c["pool_bytes"] for c in step.stats())
+             for step, _a, _k in paths.values()}
+    _log(f"phase 11: pool bytes of the paths' live graphs: {pools}; "
+         f"{torch.cuda.memory_reserved(dev)} B reserved on the card")
+    for step in {id(p[0]): p[0] for p in paths.values()}.values():
+        step.reset()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _log(f"phase 11: after freeing the paths' graphs: "
+         f"{torch.cuda.memory_reserved(dev)} B reserved")
+
+    # A step that reads a device value on the host cannot be captured.
+    bad = graphs.graphed(lambda x: x * int(x.sum().item()), "item step")
+    x = torch.ones(4, device=dev)
+    for _ in range(2):
+        try:
+            bad(x)
+        except graphs.GraphCaptureError as e:
+            if "item step" not in str(e):
+                raise AssertionError(f"the capture error names no step: {e}")
+        else:
+            raise AssertionError("a step with .item() was captured, or ran "
+                                 "eagerly without raising")
+    if bad.captures or bad.graphs or not torch.equal(
+            x + 1, torch.full((4,), 2.0, device=dev)):
+        raise AssertionError("the refused capture left a graph or a fault")
+    _log("phase 11: a step with .item() raises GraphCaptureError at capture "
+         "on every call; no eager fallback; the card keeps working")
+    print(json.dumps({"graphs": rows}), flush=True)
+    return launches
 
 if __name__ == "__main__":
     sys.exit(main())

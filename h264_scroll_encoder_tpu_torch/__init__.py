@@ -28,10 +28,13 @@ names as the JAX package, so every function has an obvious counterpart:
   verify.py, pixel_oracle.py, avref.py — the structural stream oracle,
                the numpy pixel decoder (ops/transform, ops/deblock) and
                libavcodec / libx264 through csrc/avref.c.
-  utils/     — `snapshot` (session eviction and restore, files shared
-               with the JAX package), `trace` (stage timers, bitstream
-               traces, `torch_profile`), `mp4mux` (MP4 egress: `python -m
-               ...utils.mp4mux IN OUT`), fixtures and kernel timing.
+  utils/     — `graphs` (the compiled steps: each step captured once
+               per key as a CUDA graph and replayed, the port's
+               `jax.jit`), `snapshot` (session eviction and restore,
+               files shared with the JAX package), `trace` (stage timers,
+               bitstream traces, `torch_profile`), `mp4mux` (MP4 egress:
+               `python -m ...utils.mp4mux IN OUT`), fixtures and kernel
+               timing.
   examples/  — serving_demo, splice_serving_demo, full_pipeline_demo,
                video_in_corner_demo: `python -m ...examples.<name>`.
   scripts/   — generate_refs, parity_sweep, netflix_scroll (`python -m

@@ -107,16 +107,25 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 
 
+def _capturing() -> bool:
+    """Whether the current stream is being captured into a CUDA graph."""
+    return torch.cuda.is_current_stream_capturing()
+
+
 class Kernel:
     """One extern "C" entry of the kernel library; `launches` counts the
-    launches made through `launch`.  `name` tells apart counters that
-    share an entry (P1's stages); it defaults to the symbol."""
+    launches of its kernel.  A launch made while a CUDA graph is captured
+    runs nothing then: it counts in `captured`, and utils/graphs adds it
+    to `launches` on each replay of that graph (count_replay).  `name`
+    tells apart counters that share an entry (P1's stages); it defaults
+    to the symbol."""
 
     def __init__(self, symbol: str, argtypes, name: str | None = None):
         self.symbol = symbol
         self.name = name or symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.captured = 0
         self._fn = None
 
     def launch(self, *args):
@@ -129,7 +138,10 @@ class Kernel:
         if err != 0:
             raise RuntimeError(
                 f"{self.symbol}: CUDA launch failed with cudaError_t {err}")
-        self.launches += 1
+        if _capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
 
 
 # K1: (pat, nb, sym_bytes, pat_row, nb_row, idc, idc_row, idc_value, batch,
@@ -273,5 +285,19 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """{name: launches} of every kernel, production and probe."""
+    """{name: launches} of every kernel, production and probe, graph
+    replays included."""
     return {k.name: k.launches for k in KERNELS + PROBE_KERNELS}
+
+
+def captured_counts() -> dict:
+    """{Kernel: launches recorded into CUDA graphs so far}; the difference
+    across one capture is what each replay of that graph launches."""
+    return {k: k.captured for k in KERNELS + PROBE_KERNELS}
+
+
+def count_replay(launches: dict) -> None:
+    """Adds one replay of a graph that launches {Kernel: n} to the
+    counters."""
+    for k, n in launches.items():
+        k.launches += n

@@ -276,6 +276,38 @@ def compute_ops(fn) -> list[str]:
     return seen
 
 
+def graph_replays(step, args_at, steps: int = 8):
+    """`steps` consecutive calls of a graphed step (utils/graphs) and of its
+    `.eager` on the same arguments, args_at(t, outs) giving call t's from
+    the previous graphed outputs (None at t = 0).  Raises unless every
+    output of every call is equal byte for byte, shape and dtype
+    included, and unless each call's graphed outputs are unchanged after
+    the next call (the caller owns them).  Returns (the last graphed
+    outputs, the captures the calls made)."""
+    import torch.utils._pytree as pytree
+
+    def leaves(x):
+        return [v for v in pytree.tree_leaves(x) if isinstance(v, torch.Tensor)]
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+            for x, y in zip(a, b))
+
+    captures = step.captures
+    outs = kept = None
+    for t in range(steps):
+        args = args_at(t, outs)
+        prev, outs = outs, step(*args)
+        if not same(leaves(outs), leaves(step.eager(*args))):
+            raise AssertionError(f"{step.name}: call {t} differs from eager")
+        if prev is not None and not same(leaves(prev), kept):
+            raise AssertionError(f"{step.name}: call {t - 1}'s outputs changed "
+                                 f"in call {t}")
+        kept = [x.clone() for x in leaves(outs)]
+    return outs, step.captures - captures
+
+
 # Boundary cases of the CUDA K3 (csrc/emit_kernels.cu): each of the
 # PACK_THREADS threads owns a contiguous run of ops/ebsp_flat
 # .items_per_thread(valid) bytes (11 at 5,000 bytes, 13 at 6,500; the card

@@ -10,6 +10,10 @@ with long-term ref atlas" configuration.
 
 The dynamic-rect donor path lives in models/splice_device.py (device) and
 models/splice.py (host); this module is the donor-less fast path.
+
+`emit_hint_frame` runs one session's frame as one CUDA graph per
+configuration on the card (utils/graphs; the JAX package's
+`_jitted_hint_frame`), its inputs in one copy of one packed row.
 """
 
 from __future__ import annotations
@@ -20,8 +24,24 @@ import torch
 from .. import _kernels
 from ..config import ComposerConfig, MAX_WAYPOINTS
 from ..syntax.slice_headers import p_slice_header_symbols
+from ..utils import graphs
 from . import scroll as scroll_model
 from .splice import FrameHints
+
+
+def _field_grids(cfg: ComposerConfig, hints: FrameHints):
+    """hint_fields' (ref, mv_x, mv_y) as numpy int32 grids [h, w]."""
+    H, W = cfg.mb_height, cfg.mb_width
+    ref = np.zeros((H, W), np.int32)
+    mvx = np.zeros((H, W), np.int32)
+    mvy = np.zeros((H, W), np.int32)
+    for reg in hints.motion_regions:
+        ys = slice(max(0, reg.mb_y0), min(H, reg.mb_y1))
+        xs = slice(max(0, reg.mb_x0), min(W, reg.mb_x1))
+        ref[ys, xs] = reg.ref_idx
+        mvx[ys, xs] = reg.mv_x * 4
+        mvy[ys, xs] = reg.mv_y * 4
+    return ref, mvx, mvy
 
 
 def hint_fields(cfg: ComposerConfig, hints: FrameHints, device="cuda"):
@@ -33,17 +53,8 @@ def hint_fields(cfg: ComposerConfig, hints: FrameHints, device="cuda"):
     Later regions win where they overlap (z-order, MASTER_DESIGN §10).
     """
     device = _kernels.resolve_device(device)
-    H, W = cfg.mb_height, cfg.mb_width
-    ref = np.zeros((H, W), np.int32)
-    mvx = np.zeros((H, W), np.int32)
-    mvy = np.zeros((H, W), np.int32)
-    for reg in hints.motion_regions:
-        ys = slice(max(0, reg.mb_y0), min(H, reg.mb_y1))
-        xs = slice(max(0, reg.mb_x0), min(W, reg.mb_x1))
-        ref[ys, xs] = reg.ref_idx
-        mvx[ys, xs] = reg.mv_x * 4
-        mvy[ys, xs] = reg.mv_y * 4
-    return tuple(torch.as_tensor(a, device=device) for a in (ref, mvx, mvy))
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _field_grids(cfg, hints))
 
 
 def hint_frame(cfg: ComposerConfig, frame_num, ref, mv_x, mv_y,
@@ -67,6 +78,27 @@ def hint_frame(cfg: ComposerConfig, frame_num, ref, mv_x, mv_y,
         nal_ref_idc=0, enable_pskip=enable_pskip, compact_x=compact_x)
 
 
+@graphs.step_factory
+def graphed_hint_frame(cfg: ComposerConfig, enable_pskip: bool):
+    """hint_frame of one session from one packed int32 row — frame_num,
+    num_waypoints, the registry's long-term indices and validity
+    (MAX_WAYPOINTS each), then the ref, mv_x and mv_y grids (h * w each) —
+    as one graph per configuration (the JAX package's _jitted_hint_frame):
+    row -> (nal u8[1, n_nal], nal_len i32[1], rbsp_bits i32[1],
+    overflow bool[1])."""
+    H, W, M = cfg.mb_height, cfg.mb_width, MAX_WAYPOINTS
+
+    def frame(row):
+        o, n = 2 + 2 * M, H * W
+        grids = [row[o + k * n:o + (k + 1) * n].view(1, H, W)
+                 for k in range(3)]
+        return hint_frame(cfg, row[0:1], *grids, row[1:2],
+                          row[2:2 + M].view(1, M),
+                          row[2 + M:2 + 2 * M].view(1, M).to(torch.bool),
+                          enable_pskip=enable_pskip)
+    return graphs.graphed(frame, "session hint frame")
+
+
 def emit_hint_frame(cfg: ComposerConfig, frame_num: int, hints: FrameHints,
                     *, enable_pskip: bool = True, num_waypoints=0,
                     wp_ltidx=None, wp_valid=None, device="cuda"):
@@ -78,16 +110,24 @@ def emit_hint_frame(cfg: ComposerConfig, frame_num: int, hints: FrameHints,
     Returns (nal u8[1, n_nal], nal_len i32[1], rbsp_bits i32[1],
     overflow bool[1])."""
     device = _kernels.resolve_device(device)
-    ref, mvx, mvy = hint_fields(cfg, hints, device)
+    row = hint_frame_row(cfg, frame_num, hints, num_waypoints, wp_ltidx,
+                         wp_valid)
+    return graphed_hint_frame(cfg, enable_pskip)(
+        torch.from_numpy(row).to(device))
 
-    def registry(x, dtype):
+
+def hint_frame_row(cfg: ComposerConfig, frame_num: int, hints: FrameHints,
+                   num_waypoints=0, wp_ltidx=None, wp_valid=None):
+    """graphed_hint_frame's packed row (numpy int32) of one session's
+    frame: its registry as emit_hint_frame takes it (none when omitted)."""
+    def registry(x):
         if x is None:
-            return torch.zeros((1, MAX_WAYPOINTS), dtype=dtype, device=device)
-        return torch.as_tensor(x, device=device).to(dtype).reshape(
-            1, MAX_WAYPOINTS)
+            return np.zeros(MAX_WAYPOINTS, np.int32)
+        if isinstance(x, torch.Tensor):
+            x = x.cpu()
+        return np.asarray(x).astype(np.int32).reshape(MAX_WAYPOINTS)
 
-    return hint_frame(
-        cfg, torch.tensor([frame_num], device=device), ref[None], mvx[None],
-        mvy[None], torch.as_tensor(num_waypoints, device=device).reshape(1),
-        registry(wp_ltidx, torch.int32), registry(wp_valid, torch.bool),
-        enable_pskip=enable_pskip)
+    return np.concatenate([
+        np.asarray([frame_num, num_waypoints], np.int32),
+        registry(wp_ltidx), registry(wp_valid),
+        *(g.reshape(-1) for g in _field_grids(cfg, hints))])

@@ -147,8 +147,8 @@ def mb_fields(cfg: ComposerConfig, offset_px, wp_offsets, wp_valid,
     """Per-MB (ref_idx, mv_y_qpel) grids for scroll or waypoint frames."""
     return mb_fields_traced(cfg, offset_px, wp_offsets, wp_valid,
                             num_waypoints,
-                            torch.as_tensor(is_waypoint_frame,
-                                            device=wp_offsets.device),
+                            torch.full((), bool(is_waypoint_frame),
+                                       device=wp_offsets.device),
                             boundary_policy=boundary_policy)
 
 
@@ -648,7 +648,8 @@ def _scroll_or_waypoint(cfg, frame_num, offset_px, wp_offsets, wp_ltidx,
             cfg, hp, hn, offset_px,
             *region_params(cfg, offset_px, wp_offsets, wp_valid,
                            num_waypoints,
-                           torch.as_tensor(waypoint, device=wp_offsets.device)),
+                           torch.full((), waypoint,
+                                      device=wp_offsets.device)),
             num_refs=2 + num_waypoints, nal_ref_idc=nal_ref_idc,
             enable_pskip=enable_pskip, ebsp_exact=ebsp_exact)
     ref, mv_y = mb_fields(cfg, offset_px, wp_offsets, wp_valid,

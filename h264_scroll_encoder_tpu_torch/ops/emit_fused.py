@@ -66,11 +66,13 @@ def _resolve_align(nbits):
 def nal_prefix(nal_ref_idc, batch: int, device):
     """Annex-B start code plus the NAL header byte (coded slice, the given
     nal_ref_idc): uint8[batch, 5]."""
-    idc = torch.as_tensor(nal_ref_idc, device=device).to(torch.int64)
-    header = ((idc & 3) << 5) | 1
     prefix = torch.zeros((batch, 5), dtype=torch.int64, device=device)
     prefix[:, 3] = 1
-    prefix[:, 4] = header.expand(batch)
+    if isinstance(nal_ref_idc, numbers.Integral):
+        prefix[:, 4] = ((int(nal_ref_idc) & 3) << 5) | 1
+    else:
+        idc = torch.as_tensor(nal_ref_idc, device=device).to(torch.int64)
+        prefix[:, 4] = (((idc & 3) << 5) | 1).expand(batch)
     return prefix.to(torch.uint8)
 
 

@@ -54,6 +54,11 @@ def te(v, num_values):
     num_values == 1: zero bits; == 2: one inverted bit; > 2: ue(v).
     """
     v = torch.as_tensor(v).to(torch.int64) & U32
+    if isinstance(num_values, int):
+        # Filled on the device: a CUDA graph captures the fill, where it
+        # refuses a host copy.
+        num_values = torch.full((), num_values, dtype=torch.int64,
+                                device=v.device)
     num_values = torch.as_tensor(num_values, device=v.device).to(torch.int64)
     ue_pat, ue_n = ue(v)
     one_bit_pat = 1 - (v & 1)

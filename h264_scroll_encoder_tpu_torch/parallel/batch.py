@@ -22,6 +22,13 @@ hint steps run sharded the same way, since they run on the device of
 their inputs.  `compact_sharded_nal` is egress across the blocks: the
 blocks' rows gathered onto one device (the one cross-device copy), then
 `compact_batch_nal`.
+
+Every step is compiled as the JAX package's `jax.jit(jax.vmap(...))` is:
+each factory (cached, as the JAX factories are) returns a
+utils/graphs.Graphed, which on the card captures the step once per
+batch shape and device as a CUDA graph and replays it on every later
+call; `.eager` runs the same step op by op.  On CPU tensors the step
+runs eagerly.
 """
 
 from __future__ import annotations
@@ -32,11 +39,13 @@ import functools
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from .. import _kernels
 from ..config import ComposerConfig, MAX_WAYPOINTS
 from ..models import hints, scroll, splice_device
 from ..models.splice_device import donor_arrays_from_numpy  # noqa: F401
+from ..utils import graphs
 
 _FIELDS = ("frame_num", "wp_offsets", "wp_ltidx", "wp_valid", "wp_count")
 
@@ -88,6 +97,13 @@ class SessionState:
                    wp_count=t("wp_count", torch.int32))
 
 
+# A SessionState is a node of torch's pytrees, so a graphed step keys and
+# copies its fields as it does any tensor argument.
+pytree.register_pytree_node(
+    SessionState, lambda s: ([getattr(s, f) for f in _FIELDS], None),
+    lambda fields, _: SessionState(*fields))
+
+
 def _session_step(cfg: ComposerConfig, enable_pskip: bool,
                   emit_waypoints: bool, state: SessionState, offset_px):
     """One composed frame per session.
@@ -131,12 +147,16 @@ def _session_step(cfg: ComposerConfig, enable_pskip: bool,
     return state, (nal, nal_len, needs, rbsp_bits, overflow | exhausted)
 
 
+@graphs.step_factory
 def make_batched_step(cfg: ComposerConfig, *, enable_pskip: bool = False,
                       emit_waypoints: bool = True):
     """(SessionState[B], offsets int[B]) -> (SessionState[B], (nal u8[B, N],
     nal_len i32[B], emitted_waypoint bool[B], rbsp_bits i32[B],
-    overflow bool[B])).  Runs on the device of the state's tensors."""
-    return functools.partial(_session_step, cfg, enable_pskip, emit_waypoints)
+    overflow bool[B])).  Runs on the device of the state's tensors; on the
+    card one CUDA graph per batch size and device (utils/graphs)."""
+    return graphs.graphed(
+        functools.partial(_session_step, cfg, enable_pskip, emit_waypoints),
+        "scroll step")
 
 
 def block_device(device) -> torch.device:
@@ -224,24 +244,33 @@ def make_sharded_step(cfg: ComposerConfig, devices, *,
     and one (nal, nal_len, emitted_waypoint, rbsp_bits, overflow) per
     block, every output on its block's device.  Sessions are independent,
     so there are no collectives; the blocks run through run_on_blocks, and
-    a device may repeat."""
+    a device may repeat.  On the cards the step is make_batched_step's
+    graph: one per device, each captured with its card current; the
+    returned function's `.eager` runs the blocks op by op."""
     devices = tuple(block_device(d) for d in devices)
     step = make_batched_step(cfg, enable_pskip=enable_pskip,
                              emit_waypoints=emit_waypoints)
 
-    def sharded(states, offsets):
-        if len(states) != len(devices) or len(offsets) != len(devices):
-            raise ValueError(f"{len(states)} state and {len(offsets)} offset "
-                             f"blocks for {len(devices)} devices")
-        for dev, state in zip(devices, states):
-            if state.frame_num.device != dev:
-                raise ValueError(f"a state block on {state.frame_num.device} "
-                                 f"is not on its device {dev}")
-        results = run_on_blocks(step, devices, states, offsets)
-        return [r[0] for r in results], [r[1] for r in results]
+    def over_blocks(step):
+        def sharded(states, offsets):
+            if len(states) != len(devices) or len(offsets) != len(devices):
+                raise ValueError(f"{len(states)} state and {len(offsets)} "
+                                 f"offset blocks for {len(devices)} devices")
+            for dev, state in zip(devices, states):
+                if state.frame_num.device != dev:
+                    raise ValueError(f"a state block on "
+                                     f"{state.frame_num.device} is not on "
+                                     f"its device {dev}")
+            results = run_on_blocks(step, devices, states, offsets)
+            return [r[0] for r in results], [r[1] for r in results]
+        return sharded
+
+    sharded = over_blocks(step)
+    sharded.eager = over_blocks(step.eager)
     return sharded
 
 
+@graphs.step_factory
 def make_batched_splice_step_rows(cfg: ComposerConfig, rect_mb_x: int,
                                   rect_mb_y: int, rect_w: int, rect_h: int,
                                   num_refs: int = 2, *,
@@ -269,7 +298,10 @@ def make_batched_splice_step_rows(cfg: ComposerConfig, rect_mb_x: int,
     geometry, the row chunk class and the n_rbsp budget.  Modes as in
     splice_device.rows_splice_symbols (compact_x, bg_static_skip,
     bg_budget; flat and blob wires need s_row / s_flat / s_exc); the step
-    runs on the device of its inputs."""
+    runs on the device of its inputs.  On the card it is one CUDA graph
+    per batch size and donor wire shape (utils/graphs): a fresh donor of
+    the same classes replays it, as the JAX package's one compiled
+    program serves every such donor."""
     def step(hp, hn, bg_ref, bg_mvx, bg_mvy, bg_coded, dn):
         return splice_device.emit_spliced_frame_rows(
             cfg, rect_mb_x, rect_mb_y, rect_h, rect_w, num_refs,
@@ -278,9 +310,13 @@ def make_batched_splice_step_rows(cfg: ComposerConfig, rect_mb_x: int,
             ebsp_exact=ebsp_exact, compact_x=compact_x, s_row=s_row,
             s_flat=s_flat, s_exc=s_exc, bg_static_skip=bg_static_skip,
             bg_budget=bg_budget)
-    return step
+    program = ("static-chrome" if bg_static_skip
+               else "compact" if compact_x else "generic")
+    return graphs.graphed(step, f"rows splice step ({program}"
+                          f"{', ebsp_exact' if ebsp_exact else ''})")
 
 
+@graphs.step_factory
 def make_batched_splice_step_dense(cfg: ComposerConfig, rect_mb_x: int,
                                    rect_mb_y: int, rect_w: int, rect_h: int,
                                    num_refs: int = 2, *,
@@ -298,15 +334,18 @@ def make_batched_splice_step_dense(cfg: ComposerConfig, rect_mb_x: int,
     or a JAX one through donor_arrays_from_numpy) with a leading [B] axis.
     The default n_rbsp is the donor chunk class's budget
     (splice_device.emit_spliced_frame_dense); the step runs on the device
-    of its inputs."""
+    of its inputs, on the card as one CUDA graph per batch size and donor
+    wire shape (utils/graphs)."""
     def step(hp, hn, bg_ref, bg_mvx, bg_mvy, bg_coded, dn):
         return splice_device.emit_spliced_frame_dense(
             cfg, rect_mb_x, rect_mb_y, rect_h, rect_w, num_refs,
             hp, hn, bg_ref, bg_mvx, bg_mvy, bg_coded, dn,
             has_align=has_align, n_rbsp=n_rbsp, ebsp_exact=ebsp_exact)
-    return step
+    return graphs.graphed(step, "dense splice step"
+                          + (" (ebsp_exact)" if ebsp_exact else ""))
 
 
+@graphs.step_factory
 def make_batched_hint_step(cfg: ComposerConfig, *, enable_pskip: bool = True,
                            compact_x: bool = False, device="cuda"):
     """The hint-frame step over a batch of sessions on `device` (the card
@@ -323,7 +362,8 @@ def make_batched_hint_step(cfg: ComposerConfig, *, enable_pskip: bool = True,
     P_Skip runs.  compact_x packs each MB into two symbol slots instead of
     three, valid whenever every mv_x is zero (the vertical-scroll serving
     shape) and byte-identical to the generic layout there.  Inputs may be
-    numpy arrays or tensors; they are placed on `device`."""
+    numpy arrays or tensors; they are placed on `device`, where the card
+    runs the step as one CUDA graph per batch size (utils/graphs)."""
     device = _kernels.resolve_device(device)
 
     def step(frame_num, ref, mv_x, mv_y, wp_count, wp_ltidx, wp_valid):
@@ -332,7 +372,7 @@ def make_batched_hint_step(cfg: ComposerConfig, *, enable_pskip: bool = True,
                                 t(wp_count), t(wp_ltidx), t(wp_valid),
                                 enable_pskip=enable_pskip,
                                 compact_x=compact_x)
-    return step
+    return graphs.graphed(step, "hint step", device)
 
 
 def _checksum(nal):
@@ -351,7 +391,9 @@ def run_frames(cfg: ComposerConfig, state: SessionState, offsets,
     two-NAL behaviour: a step that emits a waypoint does not consume the
     session's schedule entry — the session keeps its own schedule pointer
     and re-presents the same offset next step for the scroll frame
-    (trailing steps past the schedule replay its last entry).
+    (trailing steps past the schedule replay its last entry).  The step
+    is make_batched_step's graph, replayed T times (the JAX package's
+    lax.scan).
     """
     step = make_batched_step(cfg, enable_pskip=enable_pskip,
                              emit_waypoints=emit_waypoints)

@@ -73,7 +73,7 @@ def chained(fn, x, args) -> float:
 
 
 def launches(fn, calls: int = 10):
-    """(cudaLaunch calls, device ms) per call by torch.profiler after a
+    """(CUDA API launches, device ms) per call by torch.profiler after a
     warm call, or None where it records no device time (always on the
     CPU)."""
     fn()

@@ -19,7 +19,9 @@ call (utils/timing.host_ms: calls issued back to back):
   wrapper      emit_nal_fused_batch, all of it
 
 with the device time per call of the floor and of the wrapper beside
-them (calls queued back to back).  On the CPU the wrapper runs the plain
+them (calls queued back to back).  The wrapper runs eagerly, as the
+steps' `.eager` runs it; inside a step's CUDA graph (utils/graphs) none
+of this host time recurs on a replay.  On the CPU the wrapper runs the plain
 version and the pieces that need the card are not measured.
 
     python -m h264_scroll_encoder_tpu_torch.scripts.emit_wrap_probe \

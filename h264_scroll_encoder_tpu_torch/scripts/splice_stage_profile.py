@@ -10,8 +10,10 @@ frame, B sessions, one seeded donor, seed 7), with utils/timing
   pack     K2 (pack_words_place_batch) at the same shapes
   ebsp     K3 (rbsp_to_nal_batch) at the same budget on random bytes
   full     the shipped step (parallel/batch.make_batched_splice_step_rows)
+           run op by op: its `.eager`, as every stage above runs
+  graphed  the shipped step as it serves: its CUDA graph replayed
 
-and beside each its cudaLaunch calls and device time per call by
+and beside each its CUDA API launches and device time per call by
 torch.profiler.  `--dense` takes the dense donor grid family
 (fixtures.dense_donor_grid), `--static` the static-chrome program.
 
@@ -86,7 +88,8 @@ def main(argv=None) -> int:
     n_nal = emit_fused.nal_bytes(n_rbsp, cap)
     nw = (n_rbsp + 3) // 4
     stages = {
-        "full": (lambda h: step(h, *rest), hp),
+        "full": (lambda h: step.eager(h, *rest), hp),
+        "graphed": (lambda h: step(h, *rest), hp),
         "symbols": (symbols, hp),
         "finish": (lambda p: splice_device._finish_splice(
             p, nb, n_rbsp, 0, has_align=has_align, ebsp_exact=False), pat),

@@ -2,10 +2,11 @@
 
 Port of scripts/step_cost.py, which reads XLA's cost_analysis ("bytes
 accessed") and a shape census of the compiled step.  PyTorch compiles
-nothing, so the counterpart counts the step as it runs: every aten op of
-one compact rows step (chip_smoke.py's phase 5 step at bench.py's
-geometry, B sessions) is seen through the dispatcher with the shapes and
-dtypes of its tensor arguments and results, and
+nothing, so the counterpart counts the step as it runs op by op (its
+`.eager`, not its CUDA graph, which the dispatcher does not see into):
+every aten op of one compact rows step (chip_smoke.py's phase 5 step at
+bench.py's geometry, B sessions) is seen through the dispatcher with the
+shapes and dtypes of its tensor arguments and results, and
 
   - the bytes each op reads (its tensor arguments, each once, a
     broadcast view at most its storage) and writes (its tensor results),

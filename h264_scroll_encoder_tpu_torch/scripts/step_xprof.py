@@ -3,7 +3,9 @@
 Port of scripts/step_xprof.py (which reads an XLA device trace): the
 compact rows splice step at bench.py's geometry (chip_smoke.py's phase 5
 step: the 32 seeded representative donors on the blob wire, tiled over B
-sessions) under torch.profiler over a few warm steps, and from its trace
+sessions), run op by op (the step's `.eager`, not its CUDA graph, so
+that each op is its own launch in the trace) under torch.profiler over a
+few warm steps, and from its trace
 
   - the top device kernels by total time, with their count per step;
   - the device's busy time per step against the host wall, and the
@@ -31,13 +33,13 @@ TOP = 15  # kernels (CPU ops) and gaps listed
 
 
 def compact_step(args, dev):
-    """(fn running one compact rows step, its argument tuple)."""
+    """(fn running one compact rows step op by op, its argument tuple)."""
     cfg = ComposerConfig(1280, 720)
     dn, bits, align = common.splice_donors(args, dev)
     step = cases.splice_steps(cfg, int(bits.max()), bool(align.any()))["compact"]
     blob = dn["blob"][torch.arange(args.batch, device=dev) % dn["blob"].shape[0]]
     inputs = cases.splice_session_inputs(cfg, args.batch, dev) + ({"blob": blob},)
-    return step, inputs
+    return step.eager, inputs
 
 
 def main(argv=None) -> int:

@@ -13,8 +13,9 @@ bench.py's geometry, chip_smoke.py's phase 5 input), each alone:
   bg3       prologue + _bg3 (the background symbol grids)
   layout    all of rows_splice_symbols, the shipped stage
 
-For each: the time per step of a chain (utils/timing.chained_ms, CUDA
-events), the cudaLaunch calls and device time per call (torch.profiler)
+Each runs op by op, as the step's `.eager` does (no CUDA graph), and for
+each: the time per step of a chain (utils/timing.chained_ms, CUDA
+events), the CUDA API launches and device time per call (torch.profiler)
 and the host's issue time per call (utils/timing.host_ms): together they
 show where the compact step's launches come from.
 

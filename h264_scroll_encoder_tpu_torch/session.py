@@ -13,14 +13,19 @@ single-session path dispatches the scroll frame except on the steps that
 also emit a waypoint reference frame; the batched step in
 parallel/batch.py keeps the registry on the device instead.
 
-Each device frame comes back to the host in one synchronising copy: the
-NAL buffer, its length and its overflow flag together.
+Each device frame is compiled as the JAX session's `_jitted_scroll` and
+`_jitted_waypoint` are: one CUDA graph per frame kind and configuration,
+shared by the sessions of that configuration and replayed each frame
+(utils/graphs), its `ebsp_exact` retry a graph of its own captured on the
+first overflow.  A frame's per-call values (frame_num, offset, waypoint
+registry) reach the card in one copy of one packed int32 row, and the
+frame comes back to the host in one synchronising copy: the NAL buffer,
+its length and its overflow flag together.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from pathlib import Path
 
 import numpy as np
@@ -33,6 +38,7 @@ from .models import ipcm, rewrite, scroll
 from .syntax import parse
 from .syntax.nal import AnnexBWriter, write_nal_unit
 from .syntax.params import generate_pps, generate_sps
+from .utils import graphs
 
 
 @dataclasses.dataclass
@@ -84,6 +90,53 @@ class WaypointRegistry:
                 t(valid, bool), t(self.count, np.int32))
 
 
+# A frame's per-call values packed into one int32 row (one copy to the
+# device): frame_num, offset, the registry's offsets, long-term indices
+# and validity (MAX_WAYPOINTS each), and its count.
+FRAME_ROW = 3 + 3 * MAX_WAYPOINTS
+
+
+def unpack_frame_row(row):
+    """(frame_num [1], offset [1], wp_offsets [1, W], wp_ltidx [1, W],
+    wp_valid bool [1, W], count [1]) of one session, the arguments of the
+    scroll model's frame functions, from a packed row int32[FRAME_ROW]."""
+    W = MAX_WAYPOINTS
+    return (row[0:1], row[1:2], row[2:2 + W].view(1, W),
+            row[2 + W:2 + 2 * W].view(1, W),
+            row[2 + 2 * W:2 + 3 * W].view(1, W).to(torch.bool),
+            row[2 + 3 * W:3 + 3 * W])
+
+
+@graphs.step_factory
+def graphed_frame(kind: str, cfg: ComposerConfig, enable_pskip: bool,
+                  boundary_policy: str = "floor", ebsp_exact: bool = False):
+    """models/scroll.<kind> ("scroll_frame" or "waypoint_frame") of one
+    session from its packed row, as one graph per configuration (the JAX
+    session's _jitted_scroll and _jitted_waypoint): row -> (nal u8[1,
+    n_nal], nal_len i32[1], rbsp_bits i32[1], overflow bool[1])."""
+    def frame(row):
+        return getattr(scroll, kind)(
+            cfg, *unpack_frame_row(row), enable_pskip=enable_pskip,
+            boundary_policy=boundary_policy, ebsp_exact=ebsp_exact)
+    return graphs.graphed(frame, f"session {kind}"
+                          + (" (ebsp_exact)" if ebsp_exact else ""))
+
+
+@graphs.step_factory
+def graphed_sliced_frame(cfg: ComposerConfig, enable_pskip: bool,
+                         ebsp_exact: bool = False):
+    """models/scroll.scroll_frame_sliced of one session from its packed
+    row, as one graph per configuration and slice height:
+    (row, rows_per_slice) -> its K slices' (nal, nal_len, rbsp_bits,
+    overflow), each with K rows."""
+    def frame(row, rows_per_slice):
+        return scroll.scroll_frame_sliced(
+            cfg, *unpack_frame_row(row), rows_per_slice=rows_per_slice,
+            enable_pskip=enable_pskip, ebsp_exact=ebsp_exact)
+    return graphs.graphed(frame, "session sliced frame"
+                          + (" (ebsp_exact)" if ebsp_exact else ""))
+
+
 def _fetch(frame):
     """One synchronising device-to-host copy of a frame function's outputs
     (nal, nal_len, rbsp_bits, overflow): (NAL rows as numpy u8[K, n_nal],
@@ -116,9 +169,11 @@ class ComposerSession:
         self.frame_num = 0
         self.waypoints = WaypointRegistry.empty()
         self.frames_written = 0
-        kw = dict(enable_pskip=enable_pskip, boundary_policy=boundary_policy)
-        self._scroll_fn = functools.partial(scroll.scroll_frame, cfg, **kw)
-        self._waypoint_fn = functools.partial(scroll.waypoint_frame, cfg, **kw)
+        # Frame functions of one packed row (graphed_frame).
+        self._scroll_fn = graphed_frame("scroll_frame", cfg, enable_pskip,
+                                        boundary_policy)
+        self._waypoint_fn = graphed_frame("waypoint_frame", cfg,
+                                          enable_pskip, boundary_policy)
 
     # -- setup paths --------------------------------------------------------
 
@@ -193,12 +248,21 @@ class ComposerSession:
         self._emit(self._waypoint_fn, offset_px, waypoint=True)
         self.waypoints.register(offset_px)
 
+    def _frame_row(self, offset_px: int) -> torch.Tensor:
+        """This frame's packed row (FRAME_ROW) on the session's device, made
+        by one copy."""
+        W, wp = MAX_WAYPOINTS, self.waypoints
+        row = np.zeros(FRAME_ROW, np.int32)
+        row[0], row[1] = self.frame_num, offset_px
+        row[2:2 + W] = wp.offsets
+        row[2 + W:2 + 2 * W] = wp.long_term_idx
+        row[2 + 2 * W:2 + 2 * W + wp.count] = 1
+        row[2 + 3 * W] = wp.count
+        return torch.from_numpy(row).to(self.device)
+
     def _frame_args(self, offset_px: int):
         """(frame_num, offset, registry...) as one session's tensors."""
-        dev = self.device
-        return (torch.tensor([self.frame_num], device=dev),
-                torch.tensor([offset_px], device=dev),
-                *self.waypoints.as_arrays(dev))
+        return unpack_frame_row(self._frame_row(offset_px))
 
     def write_scroll_frame_sliced(self, offset_px: int,
                                   rows_per_slice: int) -> None:
@@ -208,14 +272,11 @@ class ComposerSession:
         still emitted single-slice."""
         if self.waypoints.needs_waypoint(offset_px):
             self.write_waypoint_frame(offset_px)
-        frame_num, offset, wp_off, wp_lt, wp_valid, count = self._frame_args(
-            offset_px)
+        row = self._frame_row(offset_px)
 
         def emit(ebsp_exact):
-            return _fetch(scroll.scroll_frame_sliced(
-                self.cfg, frame_num, offset, wp_off, wp_lt, wp_valid, count,
-                rows_per_slice=rows_per_slice,
-                enable_pskip=self.enable_pskip, ebsp_exact=ebsp_exact))
+            return _fetch(graphed_sliced_frame(
+                self.cfg, self.enable_pskip, ebsp_exact)(row, rows_per_slice))
 
         nals, lens, ovf = emit(False)
         if ovf.any():
@@ -254,14 +315,14 @@ class ComposerSession:
                 raise ValueError(
                     f"motion region ref_idx {region.ref_idx} outside the "
                     f"active reference list (size {count + 2})")
-        _, wp_lt, wp_valid, _ = self.waypoints.as_arrays(self.device)
+        valid = np.arange(MAX_WAYPOINTS) < count
         # Hint frames are a new capability (no C equivalent to byte-match),
         # so they always use the validated P_Skip path — that is the point
         # of static chrome.
         nal, nal_len, overflow = _fetch(emit_hint_frame(
             self.cfg, self.frame_num, hints, enable_pskip=True,
-            num_waypoints=count, wp_ltidx=wp_lt, wp_valid=wp_valid,
-            device=self.device))
+            num_waypoints=count, wp_ltidx=self.waypoints.long_term_idx,
+            wp_valid=valid, device=self.device))
         if overflow[0]:
             raise OverflowError("hint frame exceeds the RBSP budget")
         self.writer.append_raw(nal[0][: int(nal_len[0])].tobytes())
@@ -415,8 +476,8 @@ class ComposerSession:
         self.frames_written += 1
 
     def _emit(self, fn, offset_px: int, *, waypoint: bool = False) -> None:
-        args = self._frame_args(offset_px)
-        nal, nal_len, overflow = _fetch(fn(*args))
+        row = self._frame_row(offset_px)
+        nal, nal_len, overflow = _fetch(fn(row))
         if overflow[0]:
             # The fast path statically bounds emulation-prevention work
             # (MAX_EBSP_INSERTIONS / the zero-run window) and uses a tight
@@ -424,10 +485,10 @@ class ComposerSession:
             # through the exact unbounded path (K2's pack) at
             # cfg.rbsp_bits_per_mb before concluding the RBSP bit budget
             # itself was exceeded.
-            exact = scroll.waypoint_frame if waypoint else scroll.scroll_frame
-            nal, nal_len, overflow = _fetch(exact(
-                self.cfg, *args, enable_pskip=self.enable_pskip,
-                boundary_policy=self.boundary_policy, ebsp_exact=True))
+            exact = graphed_frame(
+                "waypoint_frame" if waypoint else "scroll_frame", self.cfg,
+                self.enable_pskip, self.boundary_policy, ebsp_exact=True)
+            nal, nal_len, overflow = _fetch(exact(row))
         if overflow[0]:
             raise OverflowError(
                 f"frame at offset {offset_px} exceeds the RBSP budget of "

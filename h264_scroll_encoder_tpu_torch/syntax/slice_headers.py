@@ -54,6 +54,10 @@ def p_slice_header_symbols(cfg: ComposerConfig, frame_num, poc_lsb,
     dev = frame_num.device
 
     def vec(x, dtype=torch.int64):
+        if isinstance(x, (bool, int)):
+            # A value every session shares is filled on the device: a CUDA
+            # graph captures the fill, where it refuses a host copy.
+            return torch.full((B,), x, dtype=dtype, device=dev)
         t = torch.as_tensor(x, device=dev).to(dtype)
         return t.expand(B) if t.dim() == 0 else t
 

@@ -18,8 +18,8 @@ Two measurements of a function that launches device work:
              sleep kernel, as device_ms is, so the device runs it back to
              back and the time per step is device time; best of 3.
 
-and `profile_launches`, the launches and device time per call that
-torch.profiler records.
+and `profile_launches` / `profile_step`, the CUDA API launches, device
+kernels and device time per call that torch.profiler records.
 """
 
 from __future__ import annotations
@@ -154,26 +154,63 @@ def chained_ms(fn, x, steps: int = 8, reps: int = 3) -> float:
     return best
 
 
-def profile_launches(fn, calls: int):
-    """(cudaLaunch calls per call, device ms per call) over `calls` calls
-    of fn under torch.profiler, or None when the profiler records no
-    device time (a CPU run, or a profiler that cannot see the card)."""
-    from torch.profiler import ProfilerActivity, profile
+# CUDA runtime calls that put work on a stream: kernel launches, graph
+# launches, copies and fills.
+_API_LAUNCHES = ("cudaLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset")
 
+
+def profile_step(fn, calls: int):
+    """fn's launches and device work per call over `calls` calls under
+    torch.profiler, or None when the profiler records no device time (a
+    CPU run, or a profiler that cannot see the card):
+
+      api_launches    CUDA runtime calls that queue work (kernel and graph
+                      launches, copies, fills) per call;
+      api_by_kind     those calls by name (cudaLaunchKernel,
+                      cudaGraphLaunch, cudaMemcpyAsync, ...), per call;
+      kernels         device kernels per call (a graph's count each);
+      device_ms       device time per call, kernels and copies;
+      kernel_counts   {device kernel name: runs in all `calls` calls}.
+
+    One call runs first as the profiler's warm-up, unrecorded (the first
+    kernels a trace starts on can go unrecorded), and the device is
+    synchronised after each call.
+    """
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        for _ in range(calls):
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=calls,
+                                   repeat=1)) as prof:
+        for _ in range(calls + 1):
             fn()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+            if cuda:
+                torch.cuda.synchronize()
+            prof.step()
     events = prof.key_averages()
-    launches = sum(e.count for e in events if e.key.startswith("cudaLaunch"))
-    # Device-side events only: a CPU op's self device time repeats its
-    # kernels' time.
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    api = {e.key: e.count / calls for e in events
+           if e.key.startswith(_API_LAUNCHES)}
+    # Device-side events only (a CPU op's self device time repeats its
+    # kernels' time), without the profiler's own step ranges, which span
+    # each whole call on the device's timeline.
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")]
+    dev_us = sum(e.self_device_time_total for e in dev)
     if dev_us <= 0:
         return None
-    return launches / calls, dev_us / 1e3 / calls
+    kernels = {e.key: e.count for e in dev
+               if not e.key.startswith(("Memcpy", "Memset"))}
+    return {"api_launches": sum(api.values()), "api_by_kind": api,
+            "kernels": sum(kernels.values()) / calls,
+            "device_ms": dev_us / 1e3 / calls, "kernel_counts": kernels}
+
+
+def profile_launches(fn, calls: int):
+    """(CUDA API launches per call, device ms per call) of profile_step, or
+    None without device time."""
+    got = profile_step(fn, calls)
+    return None if got is None else (got["api_launches"], got["device_ms"])

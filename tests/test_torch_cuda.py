@@ -756,3 +756,242 @@ def test_ebsp_variant_kernel(dev, variant):
         _same(ebsp_flat.rbsp_to_nal_batch(*args), want)
         over += int((got[1] > cases.CAP).sum())
     assert over >= 6      # all zeros and the salted row, at each NAL size
+
+
+# ---------------------------------------------------------------------------
+# Compiled steps (utils/graphs): every graphed path at 720p, replayed over
+# 8 calls with changing inputs against its eager run, byte for byte.
+# ---------------------------------------------------------------------------
+
+def _replays_run_k1(fn, calls=3, kernel="emit_fused_kernel"):
+    """fn is one graph launch a call, whose replays each run the kernel."""
+    from h264_scroll_encoder_tpu_torch.utils import timing
+
+    got = timing.profile_step(fn, calls)
+    assert got is not None, "torch.profiler saw no device time"
+    assert got["api_by_kind"].get("cudaGraphLaunch") == 1
+    runs = sum(n for k, n in got["kernel_counts"].items() if kernel in k)
+    assert runs == calls, got["kernel_counts"]
+
+
+def _splice_call(cfg, dn32, B, dev):
+    """Call t of the rows or dense splice step: the header of frame 3 + t
+    and the 32 donors rotated by t over B sessions."""
+    def args_at(t, _outs):
+        fn = torch.full((B,), 3 + t, dtype=torch.int64, device=dev)
+        z = torch.zeros((B, MAX_WAYPOINTS), dtype=torch.int64, device=dev)
+        hp, hn = slice_headers.p_slice_header_symbols(
+            cfg, fn, 2 * fn, False, -1, 0, z, z.bool())
+        zero = torch.zeros((B, cfg.mb_height, cfg.mb_width),
+                           dtype=torch.int32, device=dev)
+        rows = (torch.arange(B, device=dev) + t) % 32
+        return (hp, hn, zero, zero, zero, zero.bool(),
+                {k: v[rows] for k, v in dn32.items()})
+    return args_at
+
+
+def test_graphed_scroll_step_on_card(dev):
+    """The B = 256 scroll step: 8 replays equal eager (NAL, lengths,
+    bits, flags, next state), one capture, each replay one graph launch
+    running K1 and counted once in K1's launches."""
+    cfg, B = ComposerConfig(1280, 720), 256
+    sched = torch.as_tensor(cases.bench_schedule(720, B, 8), device=dev)
+    step = batch.make_batched_step(cfg)
+    step.reset()
+    state = batch.SessionState.create(B, device=dev)
+    outs, captures = cases.graph_replays(
+        step, lambda t, o: (state if o is None else o[0], sched[t]))
+    assert captures == 1 and step.stats()[0]["pool_bytes"] > 0
+    state = outs[0]
+    _kernels.reset_launch_counts()
+    step(state, sched[0])
+    torch.cuda.synchronize()
+    assert _kernels.EMIT_FUSED.launches == 1
+    _replays_run_k1(lambda: step(state, sched[0]))
+
+
+@pytest.mark.parametrize("program", ["compact", "static", "ebsp_exact"])
+def test_graphed_rows_step_serves_fresh_donors_on_card(dev, program):
+    """The rows splice programs at B = 256: fresh donors every call replay
+    one graph (one capture), equal to eager; the exact retry runs K2."""
+    cfg, B = ComposerConfig(1280, 720), 256
+    pays = [cases.splice_donor_payload(k) for k in range(32)]
+    dn, bits, align = cases.prepare_splice_donors(pays, engine="native",
+                                                  device=dev)
+    step = cases.splice_steps(cfg, int(bits.max()), bool(align.any()))[program]
+    step.reset()
+    args_at = _splice_call(cfg, dn, B, dev)
+    outs, captures = cases.graph_replays(step, args_at)
+    assert captures == 1 and not bool(outs[3].any())
+    _replays_run_k1(lambda: step(*args_at(0, None)),
+                    kernel=("pack_place" if program == "ebsp_exact"
+                            else "emit_fused_kernel"))
+
+
+def test_graphed_dense_step_on_card(dev):
+    cfg, B = ComposerConfig(1280, 720), 256
+    dn, bits, align = cases.prepare_dense_donors("representative",
+                                                 engine="native", device=dev)
+    step = cases.dense_step(cfg, "representative", bits, align)
+    step.reset()
+    args_at = _splice_call(cfg, dn, B, dev)
+    outs, captures = cases.graph_replays(step, args_at)
+    assert captures == 1 and not bool(outs[3].any())
+    _replays_run_k1(lambda: step(*args_at(1, None)))
+
+
+def test_graphed_hint_step_on_card(dev):
+    """The B = 256 hint step, its sessions rolled and frame numbers moved
+    each call; the golden digest holds on a replay."""
+    cfg = ComposerConfig(1280, 720)
+    step = batch.make_batched_hint_step(cfg, compact_x=True, device=dev)
+    step.reset()
+    base = cases.hint_step_inputs()
+    names = ("frame_num", "ref", "mv_x", "mv_y", "wp_count", "wp_ltidx",
+             "wp_valid")
+
+    def args_at(t, _outs):
+        return tuple(torch.as_tensor(np.roll(base[k], t, axis=0) + (
+            t if k == "frame_num" else 0), device=dev) for k in names)
+
+    outs, captures = cases.graph_replays(step, args_at)
+    assert captures == 1
+    nal, nal_len, _bits, ovf = cases.run_hint_step(step, base)
+    want = json.loads(cases.SESSION_GOLDEN_PATH.read_text())["hint_step"]
+    assert cases.hint_step_digest(nal.cpu().numpy(), nal_len.cpu().numpy(),
+                                  ovf.cpu().numpy()) == want
+    _replays_run_k1(lambda: step(*args_at(2, None)))
+
+
+@pytest.mark.parametrize("kind,exact", [("scroll_frame", False),
+                                        ("scroll_frame", True),
+                                        ("waypoint_frame", False),
+                                        ("waypoint_frame", True)])
+def test_graphed_session_frames_on_card(dev, kind, exact):
+    """The session's frame graphs (and their ebsp_exact retries) over 8
+    frames of one session's packed rows, offsets and registry changing."""
+    from h264_scroll_encoder_tpu_torch import session
+
+    cfg = ComposerConfig(1280, 720)
+    fn = session.graphed_frame(kind, cfg, False, "floor", exact)
+    fn.reset()
+    s = session.ComposerSession(cfg, device=dev)
+    offsets = (16, 496, 500, 700, 992, 1000, 1200, 1400)
+
+    def args_at(t, _outs):
+        s.frame_num = 2 + t
+        if t in (2, 5):
+            s.waypoints.register(496 * (t // 2))
+        return (s._frame_row(offsets[t]),)
+
+    outs, captures = cases.graph_replays(fn, args_at)
+    assert captures == 1 and outs[0].shape[0] == 1
+    row = s._frame_row(700)
+    _replays_run_k1(lambda: fn(row),
+                    kernel="pack_place" if exact else "emit_fused_kernel")
+
+
+def test_graphed_session_sliced_and_hint_frames_on_card(dev):
+    from h264_scroll_encoder_tpu_torch import session
+    from h264_scroll_encoder_tpu_torch.models import hints
+    from h264_scroll_encoder_tpu_torch.models.splice import (FrameHints,
+                                                             MotionRegion)
+
+    cfg = ComposerConfig(1280, 720)
+    s = session.ComposerSession(cfg, device=dev)
+    sliced = session.graphed_sliced_frame(cfg, False)
+    sliced.reset()
+    outs, captures = cases.graph_replays(
+        sliced, lambda t, o: (s._frame_row(40 * t), 9))
+    assert captures == 1 and outs[0].shape[:2] == (1, 5)
+    hint = hints.graphed_hint_frame(cfg, True)
+    hint.reset()
+
+    def hint_row(t, _outs):
+        regions = (MotionRegion(0, 2 * t, 80, 2 * t + 4, ref_idx=t % 2,
+                                mv_y=-4 * t),)
+        return (torch.as_tensor(hints.hint_frame_row(
+            cfg, 2 + t, FrameHints(motion_regions=regions)), device=dev),)
+
+    outs, captures = cases.graph_replays(hint, hint_row)
+    assert captures == 1
+    row = hint_row(3, None)[0]
+    _replays_run_k1(lambda: hint(row))
+
+
+def test_graphed_session_streams_equal_eager_on_card(dev, monkeypatch):
+    """A ComposerSession on the frame graphs writes the stream that one
+    on the eager frame functions writes: scroll and waypoint frames, a
+    forced ebsp_exact retry, sliced and hint frames."""
+    from h264_scroll_encoder_tpu_torch import session
+    from h264_scroll_encoder_tpu_torch.models import hints
+    from h264_scroll_encoder_tpu_torch.models.splice import (FrameHints,
+                                                             MotionRegion)
+
+    cfg = ComposerConfig(1280, 720)
+
+    def drive(s):
+        s.write_parameter_sets()
+        s.write_test_atlases(striped=True)
+        for off in (0, 64, 496, 500, 720, 992, 1100):
+            s.write_scroll_or_waypoint_frame(off)
+        s.write_scroll_frame_sliced(1200, 9)
+        s.write_hint_frame(FrameHints(motion_regions=(
+            MotionRegion(0, 4, 80, 20, ref_idx=1, mv_y=-32),)))
+        fast = s._scroll_fn
+        s._scroll_fn = lambda row: (*fast(row)[:3],
+                                    torch.ones(1, dtype=torch.bool, device=dev))
+        s.write_scroll_frame(1300)
+        return s.getvalue()
+
+    graphed = drive(session.ComposerSession(cfg, device=dev))
+    for mod, name in ((session, "graphed_frame"),
+                      (session, "graphed_sliced_frame"),
+                      (hints, "graphed_hint_frame")):
+        make = getattr(mod, name)
+        monkeypatch.setattr(mod, name,
+                            lambda *a, make=make, **k: make(*a, **k).eager)
+    assert drive(session.ComposerSession(cfg, device=dev)) == graphed
+
+
+def test_graphed_sharded_step_on_card(dev):
+    """make_sharded_step's blocks replay one graph per device (two blocks
+    on cuda:0 on one card share it) and equal its .eager."""
+    cfg, B = ComposerConfig(1280, 720), 256
+    devices = _card_blocks(dev)
+    sched = torch.as_tensor(cases.bench_schedule(720, B, 8))
+    sstep = batch.make_sharded_step(cfg, devices)
+    blocks = batch.shard_batch(batch.SessionState.create(B, device=dev),
+                               devices)
+    for offs in sched:
+        offs_b = batch.shard_batch(offs, devices)
+        new, outs = sstep(blocks, offs_b)
+        want_state, want = sstep.eager(blocks, offs_b)
+        torch.cuda.synchronize()
+        for g, w in zip(batch.gather_batch(outs, dev),
+                        batch.gather_batch(want, dev)):
+            assert torch.equal(g, w)
+        for g, w in zip(batch.gather_batch(new, dev).to_numpy().values(),
+                        batch.gather_batch(want_state, dev).to_numpy().values()):
+            np.testing.assert_array_equal(g, w)
+        blocks = new
+    step = batch.make_batched_step(cfg)
+    keys = {k for k in step.graphs
+            if any(leaf[:2] == ("tensor", (B // len(devices),))
+                   for leaf in k[1])}
+    assert len(keys) == len({str(d) for d in devices})
+
+
+def test_capture_failure_raises_without_eager_fallback(dev):
+    """A step that reads a device value on the host (.item()) cannot be
+    captured: every call raises GraphCaptureError naming the step, and no
+    call returns an eager result; the card keeps working."""
+    from h264_scroll_encoder_tpu_torch.utils import graphs
+
+    g = graphs.graphed(lambda x: x * int(x.sum().item()), "item step")
+    x = torch.ones(4, device=dev)
+    for _ in range(2):
+        with pytest.raises(graphs.GraphCaptureError, match="item step"):
+            g(x)
+    assert g.captures == 0 and not g.graphs
+    assert torch.equal(x + 1, torch.full((4,), 2.0, device=dev))
