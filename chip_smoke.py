@@ -21,10 +21,12 @@ it launches, so K1 still counts once per step or frame:
      byte-stream, overflow, alignment, saturation, truncation and pack
      boundary cases of the tests (K3's at each of its NAL sizes, with int64
      lengths under each header byte, and rows read through a stride),
-     K1 on the frames whose NAL passes a block's shared memory (3840x2160
-     at 64 bits per MB, 5120x3200, the 720p dense frame of I_PCM donors:
-     words and NAL in global memory, the 720p shapes' plans in shared
-     memory), real 1280x720 scroll
+     K1 on the frames whose session passes a block's shared memory
+     (3840x2160 at 32 and 64 bits per MB, 5120x3200, the 720p dense frame
+     of I_PCM donors) and K2 on the exact retry at 4096x2160 and
+     5120x3200, each on a thread-block cluster of the size the library's
+     plan gives (asserted: 8, 8, 16, 4; 8, 16; the 720p shapes one block
+     a session), real 1280x720 scroll
      and splice symbol batches at B = 256 (K1, K2, K4; K1 also at
      B = 1,024), K1, K2 and K4 on int32 and on int64 symbols, and the
      splice frames' RBSP bytes (K3); K3's bytes per thread, which the
@@ -35,7 +37,11 @@ it launches, so K1 still counts once per step or frame:
      header (K3).  Time each kernel's device time per call (calls queued
      back to back), one call as a caller waits for it, the host's issue
      time per call, and the plain version (CUDA-event medians); K1 also on
-     int32 symbols, K1 and K3 also at B = 1 and 1,024.
+     int32 symbols, K1 and K3 also at B = 1 and 1,024, K1 and K2 on every
+     large shape (the dense I_PCM frame at B = 32 and 256) beside its
+     bound and its earlier (one-block, global-memory) time, and K1 on the
+     1920x1088 hint and 3840x2160 scroll frames that one block stages in
+     several chunks.
   4. The scroll path — `parallel.batch.make_batched_step` at 1280x720 —
      over 16 frames of the benchmark's schedule at B = 256, then the
      golden batch-8 schedule and one `ebsp_exact` (K2) frame per session,
@@ -74,7 +80,7 @@ it launches, so K1 still counts once per step or frame:
      1,024 (every session's digest equals golden/splice_dense_720p.json
      and its bytes the rows step's), and over the same donors with one
      I_PCM MB each at the default budget, B = 256 (NAL buffer 237,600 B:
-     K1 builds words and NAL in global memory), and one forced
+     K1 on clusters of 4 blocks), and one forced
      `ebsp_exact` retry (K1 then K2, bytes unchanged); step times (CUDA
      events, host wall) and launches per step (torch.profiler).  Then
      3840x2160 at 64 bits per MB and 5120x3200 hint frames through
@@ -173,6 +179,27 @@ import torch
 # H100 SXM device memory bandwidth (NVIDIA's data sheet), bytes per ms.
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
 N_DONORS = 32
+# K1's and K2's shapes past a block's shared memory (cases.large_emit_inputs,
+# large_pack_inputs): the blocks a session the library's plan must give on
+# an H100, and the rows phase 3 times.
+LARGE_CLUSTERS = {"hint_3840x2160": 8, "hint_3840x2160_64": 8,
+                  "hint_5120x3200": 16, "dense_ipcm_720p": 4,
+                  "exact_4096x2160": 8, "exact_5120x3200": 16}
+LARGE_K1_ROWS = {"K1 hint 3840x2160 B=1 (cluster 8)": "hint_3840x2160",
+                 "K1 hint 3840x2160 64 bits/MB B=1 (cluster 8)": "hint_3840x2160_64",
+                 "K1 hint 5120x3200 B=1 (cluster 16)": "hint_5120x3200",
+                 "K1 dense I_PCM 720p B=32 (cluster 4)": "dense_ipcm_720p"}
+LARGE_K2_ROWS = {"K2 exact 4096x2160 B=1 (cluster 8)": "exact_4096x2160",
+                 "K2 exact 5120x3200 B=1 (cluster 16)": "exact_5120x3200"}
+# K1 on the shapes one block holds in several staged chunks
+# (cases.multichunk_emit_inputs), timed beside them.
+MULTICHUNK_K1_ROWS = {"K1 hint 1920x1088 B=1 (one block, 3 chunks)": "hint_1920x1088",
+                      "K1 scroll 3840x2160 B=1 (one block, 8 chunks)": "scroll_3840x2160"}
+# Device ms per call of the same shapes on the one-block plans that kept
+# the words (and the NAL) in global memory, where PERF.md has them (NVIDIA
+# H100 80GB HBM3, 700 W): logged beside this run's times for comparison.
+EARLIER_DEVICE_MS = {"K1 dense I_PCM 720p B=32 (cluster 4)": 0.0854,
+                     "K1 hint 5120x3200 B=1 (cluster 16)": 0.1604}
 
 
 def _log(msg: str) -> None:
@@ -262,36 +289,6 @@ def _profile_launches(fn, steps: int):
     from h264_scroll_encoder_tpu_torch.utils import timing
 
     return timing.profile_launches(fn, steps)
-
-
-def _large_k1_inputs(dev, cases, ComposerConfig) -> dict:
-    """K1's inputs on frames whose NAL buffer passes a block's shared
-    memory: {name: (patterns, nbits, n_rbsp, kwargs)} for the two large
-    hint frames (B = 1, the session's frame) and the 720p dense frames of
-    the 32 I_PCM-bearing donors."""
-    from h264_scroll_encoder_tpu_torch.models import hints, scroll, splice
-    from h264_scroll_encoder_tpu_torch.syntax.slice_headers import (
-        p_slice_header_symbols)
-
-    out = {}
-    z = torch.zeros((1, 8), dtype=torch.int64, device=dev)
-    for name, (w, h, bits) in cases.LARGE_FRAMES.items():
-        cfg = ComposerConfig(w, h, rbsp_bits_per_mb=bits)
-        ref, mvx, mvy = hints.hint_fields(cfg, splice.FrameHints(
-            motion_regions=tuple(splice.MotionRegion(*s)
-                                 for s in cases.LARGE_HINT_REGIONS)), dev)
-        hp, hn = p_slice_header_symbols(
-            cfg, torch.tensor([2], device=dev), torch.tensor([4], device=dev),
-            False, -1, 0, z, z.bool())
-        pat, nb, n_rbsp = scroll.p_frame_symbols(
-            cfg, hp, hn, ref[None], mvx[None], mvy[None], 2, enable_pskip=True)
-        out[name] = (pat, nb, n_rbsp, {})
-    cfg = ComposerConfig(cases.GOLDEN_WIDTH, cases.GOLDEN_HEIGHT)
-    dn, bits, align = cases.prepare_dense_donors("ipcm", engine="native",
-                                                 device=dev)
-    pat, nb, n_rbsp = cases.dense_symbols(cfg, "ipcm", dn, bits, dev)
-    out["dense_ipcm_720p"] = (pat, nb, n_rbsp, {"align": align})
-    return out
 
 
 def main() -> int:
@@ -506,28 +503,52 @@ def main() -> int:
     check_k3("splice 720p B=256 strided rows", strided[:, 3:-6], rbsp_len,
              0x01, k3_n_nal, cap)
 
-    # Frames whose NAL buffer passes a block's shared memory.  K1 on
-    # the 3840x2160 hint frame at 64 bits per MB, the 5120x3200 one at 32
-    # (words and NAL in global memory) and the 720p dense frame of I_PCM
-    # donors at its default budget; the 720p shapes keep both in shared
-    # memory.
-    large_k1 = _large_k1_inputs(dev, cases, ComposerConfig)
+    # Sessions that pass a block's shared memory run on a thread-block
+    # cluster: K1 on the 3840x2160 hint frames at 32 and 64 bits per MB,
+    # the 5120x3200 one and the 720p dense frame of I_PCM donors at its
+    # default budget; K2 on the exact retry at 4096x2160 and 5120x3200.
+    # The 720p shapes keep one block a session.
+    large_k1 = cases.large_emit_inputs(dev)
+    large_k2 = cases.large_pack_inputs(dev)
+    multichunk = cases.multichunk_emit_inputs(dev)
+    for name, (pat_l, nb_l, rbsp_l, kw_l) in multichunk.items():
+        n_l = pat_l.shape[1]
+        if _kernels.emit_plan(8, n_l, emit_fused.items_per_thread(n_l),
+                              emit_fused.nal_bytes(rbsp_l, cap)) != 1:
+            raise AssertionError(f"K1 at {name} left one block a session")
+        check_k1(f"multichunk {name}", pat_l, nb_l, 0, rbsp_l, cap,
+                 append_tb=True, **kw_l)
     for name, (pat_l, nb_l, rbsp_l, kw_l) in large_k1.items():
-        plan = _kernels.emit_plan(8, emit_fused.items_per_thread(pat_l.shape[1]),
-                                  emit_fused.nal_bytes(rbsp_l, cap))
-        if tuple(plan) != (True, True):
-            raise AssertionError(f"K1 at {name}: plan {plan}, not global")
+        n_l = pat_l.shape[1]
+        c = _kernels.emit_plan(8, n_l, emit_fused.items_per_thread(n_l),
+                               emit_fused.nal_bytes(rbsp_l, cap))
+        if c != LARGE_CLUSTERS[name]:
+            raise AssertionError(f"K1 at {name}: {c} blocks a session, not "
+                                 f"{LARGE_CLUSTERS[name]}")
         got = check_k1(f"large {name}", pat_l, nb_l, 0, rbsp_l, cap,
                        append_tb=True, **kw_l)
         if bool(got[3].any()):
             raise AssertionError(f"K1 flagged the large frame {name}")
+    for name, (pat_l, nb_l, words_l) in large_k2.items():
+        n_l = pat_l.shape[1]
+        c = _kernels.pack_plan(8, n_l, emit_fused.items_per_thread(n_l),
+                               words_l)
+        if c != LARGE_CLUSTERS[name]:
+            raise AssertionError(f"K2 at {name}: {c} blocks a session, not "
+                                 f"{LARGE_CLUSTERS[name]}")
+        check_pack("K2", f"large {name}", pat_l, nb_l, words_l)
+    for n_c in (0, 9219, 64_798, 129_640, 256_040, 600_000):
+        for c in emit_fused.CLUSTER_SIZES:
+            if _kernels.cluster_items(n_c, c) != \
+                    emit_fused.cluster_items_per_thread(n_c, c):
+                raise AssertionError(f"cluster items at n={n_c}, C={c}")
     for shape in ((8, sym_pat.shape[1], n_rbsp), (8, s_pat.shape[1], s_n_rbsp),
                   (8, part_pat.shape[1], part_rbsp)):
         sym_bytes, n_sym, budget = shape
-        plan = _kernels.emit_plan(sym_bytes, emit_fused.items_per_thread(n_sym),
-                                  emit_fused.nal_bytes(budget, cap))
-        if tuple(plan) != (False, False):
-            raise AssertionError(f"a 720p K1 shape {shape} left shared memory")
+        c = _kernels.emit_plan(sym_bytes, n_sym, emit_fused.items_per_thread(n_sym),
+                               emit_fused.nal_bytes(budget, cap))
+        if c != 1:
+            raise AssertionError(f"a 720p K1 shape {shape} took {c} blocks")
     if _kernels.ebsp_nal_in_global(k3_n_nal):
         raise AssertionError("K3 at the 720p NAL size left shared memory")
 
@@ -550,8 +571,10 @@ def main() -> int:
                                  "the entry path's inputs")
     _log(f"phase 3: K1-K4 equal their plain versions on every case, K1, K2 "
          f"and K4 on int32 and int64 symbols, K3 on int64 lengths under each "
-         f"header byte and on strided rows; K1 on {sorted(large_k1)} with "
-         f"words and NAL in global memory, the 720p shapes in shared memory "
+         f"header byte and on strided rows; K1 on {sorted(large_k1)} and K2 "
+         f"on {sorted(large_k2)} on clusters of "
+         f"{[LARGE_CLUSTERS[k] for k in (*large_k1, *large_k2)]} blocks, the "
+         f"720p shapes on one block a session "
          f"(scroll 720p: n={sym_pat.shape[1]} symbols, n_rbsp={n_rbsp} B; "
          f"splice 720p: n={s_pat.shape[1]} symbols, n_rbsp={s_n_rbsp} B, NAL "
          f"buffer {k3_n_nal} B, mean RBSP {float(rbsp_len.float().mean()):.1f} "
@@ -609,12 +632,20 @@ def main() -> int:
                          *e32, exact_words),
                      lambda: bitpack_flat.pack_words_place_plain(
                          *e32, exact_words)),
-        "K1 dense I_PCM 720p B=32 (global NAL)": k1_run(
-            large_k1["dense_ipcm_720p"][:2], 0, large_k1["dense_ipcm_720p"][2],
-            align=True, append_tb=True),
-        "K1 hint 5120x3200 B=1 (global NAL)": k1_run(
-            large_k1["hint_5120x3200"][:2], 0, large_k1["hint_5120x3200"][2],
-            append_tb=True),
+        **{label: k1_run(large_k1[key][:2], 0, large_k1[key][2],
+                         append_tb=True, **large_k1[key][3])
+           for label, key in LARGE_K1_ROWS.items()},
+        "K1 dense I_PCM 720p B=256 (cluster 4)": k1_run(
+            tuple(x[torch.arange(B, device=dev) % x.shape[0]]
+                  for x in large_k1["dense_ipcm_720p"][:2]), 0,
+            large_k1["dense_ipcm_720p"][2], append_tb=True,
+            **large_k1["dense_ipcm_720p"][3]),
+        **{label: (lambda a=large_k2[key]: bitpack_flat.pack_words_place_batch(*a),
+                   lambda a=large_k2[key]: bitpack_flat.pack_words_place_plain(*a))
+           for label, key in LARGE_K2_ROWS.items()},
+        **{label: k1_run(multichunk[key][:2], 0, multichunk[key][2],
+                         append_tb=True)
+           for label, key in MULTICHUNK_K1_ROWS.items()},
         "K3 n_nal=259328 B=4 (global)": k3_large_run(259_328),
         "K3": k3_run(B),
         "K3 B=1": k3_run(1),
@@ -626,7 +657,8 @@ def main() -> int:
     }
     timing = {}
     for name, (kernel, plain) in runs.items():
-        where = "" if "global" in name else " at 720p"
+        where = ("" if any(w in name for w in ("cluster", "global", "block"))
+                 else " at 720p")
         p_a = timing_.call_ms(plain, 10)
         d_a = timing_.device_ms(kernel)
         c = timing_.call_ms(kernel, 20)
@@ -667,14 +699,29 @@ def main() -> int:
         "K3 B=1024": k3_bytes(rbsp_len[k3_rows[1024]]),
         "K4": pack_bytes,
     }
-    # The global plans' timed shapes, by the same formulas.
-    for name, key in (
-            ("K1 dense I_PCM 720p B=32 (global NAL)", "dense_ipcm_720p"),
-            ("K1 hint 5120x3200 B=1 (global NAL)", "hint_5120x3200")):
+    # The cluster plan's timed shapes, by the same formulas.
+    for name, key in (*LARGE_K1_ROWS.items(),
+                      ("K1 dense I_PCM 720p B=256 (cluster 4)", "dense_ipcm_720p")):
         pat_g, _nb, rbsp_g, _kw = large_k1[key]
-        b_g = pat_g.shape[0]
+        b_g = B if "B=256" in name else pat_g.shape[0]
         bound[name] = (b_g * pat_g.shape[1] * 8 + b_g * 4
                        + b_g * (emit_fused.nal_bytes(rbsp_g, cap) + 16))
+    for name, key in LARGE_K2_ROWS.items():
+        pat_g, _nb, words_g = large_k2[key]
+        bound[name] = pat_g.shape[1] * 8 + (words_g + 1) * 4
+    for name, key in MULTICHUNK_K1_ROWS.items():
+        pat_g, _nb, rbsp_g, _kw = multichunk[key]
+        bound[name] = (pat_g.shape[1] * 8 + 4
+                       + emit_fused.nal_bytes(rbsp_g, cap) + 16)
+    _log("phase 3: K1 and K2 on clusters, device ms per call against the "
+         "earlier one-block plans' (words, and NAL, in global memory; "
+         "PERF.md's NVIDIA H100 80GB HBM3 700 W run, where timed) and the "
+         "bound: " + "; ".join(
+             f"{name}: {timing[name]['device_ms']:.5f} (earlier "
+             f"{EARLIER_DEVICE_MS.get(name, 'not timed')}, bound "
+             f"{bound[name] / HBM_BYTES_PER_MS:.5f})"
+             for name in (*LARGE_K1_ROWS, "K1 dense I_PCM 720p B=256 (cluster 4)",
+                          *LARGE_K2_ROWS, *MULTICHUNK_K1_ROWS)))
     g_rows, g_lens = cases.ebsp_large_cases(259_328)
     g_staged = np.clip(g_lens, 0, min(g_rows.shape[1],
                                       ebsp_flat.padded_len(259_328)))
@@ -896,14 +943,25 @@ def main() -> int:
     # and serving loop, 10's measurement scripts and 11's graphed paths),
     # each path counted from 0; a graph replay counts each kernel it
     # launches.  The probes (P1-P6) run on phase 10's path only.
+    # large: K1's and K2's rows on the cluster plan, and K1's on the shapes
+    # one block stages in several chunks (phase 3), each with its blocks a
+    # session and its bound.
+    large_rows = {"K1": {**LARGE_K1_ROWS,
+                         "K1 dense I_PCM 720p B=256 (cluster 4)": "dense_ipcm_720p",
+                         **MULTICHUNK_K1_ROWS},
+                  "K2": LARGE_K2_ROWS}
     kernels = []
     for name, key, sym, rep in rows:
         by_path = {p: c[sym] for p, c in paths.items() if c[sym]}
+        large = {label: {"cluster": LARGE_CLUSTERS.get(shape, 1), **timing[label],
+                         "bound_ms": bound_ms[label]}
+                 for label, shape in large_rows.get(key, {}).items()}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, "max_abs_err": errs[key],
                         **timing[key], "bound_ms": bound_ms[key],
-                        "bound_by": "bytes", "library_ms": None})
+                        "bound_by": "bytes", "library_ms": None,
+                        **({"large": large} if large else {})})
     for row in probe_rows:
         by_path = {"probes": probe_launches[row.pop("counter")]}
         kernels.append({**row, "launches": by_path["probes"],

@@ -24,7 +24,6 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import NamedTuple
 
 import torch
 
@@ -145,14 +144,14 @@ class Kernel:
 
 
 # K1: (pat, nb, sym_bytes, pat_row, nb_row, idc, idc_row, idc_value, batch,
-#      n, items_per_thread, n_nal, n_rbsp, cap, align, append_tb, words_gmem,
-#      nal_in_global, nal_out, len_out, bits_out, ovf_out, stream)
+#      n, items_per_thread, n_nal, n_rbsp, cap, align, append_tb, cluster,
+#      nal_out, len_out, bits_out, ovf_out, stream)
 EMIT_FUSED = Kernel("h264t_emit_fused",
                     [_P, _P, _I, _L, _L, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _P, _I, _P, _P, _P, _P, _P])
+                     _I, _I, _I, _P, _P, _P, _P, _P])
 # K2: (pat, nb, sym_bytes, pat_row, nb_row, batch, n, items_per_thread,
-#      n_words, words_gmem, words_out, total_out, stream)
-_PACK_ARGS = [_P, _P, _I, _L, _L, _I, _I, _I, _I, _P, _P, _P, _P]
+#      n_words, cluster, words_out, total_out, stream)
+_PACK_ARGS = [_P, _P, _I, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P]
 PACK_PLACE = Kernel("h264t_pack_place", _PACK_ARGS)
 
 # K3: (rbsp, rbsp_row, m, rbsp_len, len_row, header, batch, n_nal, max_ins,
@@ -171,7 +170,7 @@ EMIT_STAGE = {st: Kernel("h264t_emit_stage",
                          [_I] + EMIT_FUSED.argtypes[:-1] + [_P, _P, _P],
                          name=f"h264t_emit_stage[{st}]")
               for st in EMIT_STAGES}
-# P2: K2's arguments without the words scratch.
+# P2: K2's arguments without the cluster.
 _PACK_NARROW_ARGS = [_P, _P, _I, _L, _L, _I, _I, _I, _I, _P, _P, _P]
 PACK_PLACE_U16 = Kernel("h264t_pack_place_u16", _PACK_NARROW_ARGS)
 # P3: (tile, then P2's arguments); one counter for every tile.
@@ -203,28 +202,26 @@ def _plan(symbol: str, device: int, *args: int) -> int:
     return answer
 
 
-class EmitPlan(NamedTuple):
-    """Where K1 keeps its RBSP words and builds its NAL."""
-    words_in_global: bool
-    nal_in_global: bool
+def emit_plan(sym_bytes: int, n: int, k: int, n_nal: int) -> int:
+    """K1's plan on the current device for sessions of n symbols (k a
+    thread on one block) into n_nal NAL bytes, as the built kernel decides
+    (h264t_emit_plan; launches nothing): the blocks a session, 1 where one
+    block's shared memory holds it (every 720p shape), else the cluster
+    plan's C in ops/emit_fused.CLUSTER_SIZES; 0 where nothing fits."""
+    return _plan("h264t_emit_plan", torch.cuda.current_device(), sym_bytes,
+                 n, k, n_nal)
 
 
-def emit_plan(sym_bytes: int, k: int, n_nal: int) -> EmitPlan:
-    """K1's shared-memory plan on the current device at these symbols per
-    thread and NAL size, as the built kernel decides (h264t_emit_plan;
-    launches nothing): whether its RBSP words go to a global scratch
-    buffer (u32[B, n_nal / 4], which the wrapper allocates) and whether it
-    builds the NAL in place in its output row.  Both are False at 720p."""
-    plan = _plan("h264t_emit_plan", torch.cuda.current_device(), sym_bytes,
-                 k, n_nal)
-    return EmitPlan(bool(plan & 1), bool(plan & 2))
+def pack_plan(sym_bytes: int, n: int, k: int, n_words: int) -> int:
+    """As emit_plan, for K2/K4 (h264t_pack_plan) at n_words words."""
+    return _plan("h264t_pack_plan", torch.cuda.current_device(), sym_bytes,
+                 n, k, n_words)
 
 
-def pack_words_in_global(sym_bytes: int, k: int, n_words: int) -> bool:
-    """Whether K2/K4 keep their words in a global scratch buffer
-    (u32[B, n_words]) at these symbols per thread and words."""
-    return bool(_plan("h264t_pack_words_in_global",
-                      torch.cuda.current_device(), sym_bytes, k, n_words))
+def cluster_items(n: int, c: int) -> int:
+    """Symbols a thread of a cluster block owns per staged chunk, as the
+    built kernels compute them (h264t_cluster_items; launches nothing)."""
+    return _plan("h264t_cluster_items", torch.cuda.current_device(), n, c)
 
 
 def ebsp_nal_in_global(n_nal: int) -> bool:
@@ -239,8 +236,8 @@ def blocks_per_sm(symbol: str, *args: int) -> int:
     """Resident blocks per SM of a kernel at a launch's shared memory, as
     cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them on the
     current device (launches nothing): `symbol` is one of
-    h264t_emit_blocks_per_sm (sym_bytes, k, n_nal, plan bits),
-    h264t_pack_blocks_per_sm (sym_bytes, k, n_words, words in global),
+    h264t_emit_blocks_per_sm (sym_bytes, k, n_nal, cluster),
+    h264t_pack_blocks_per_sm (sym_bytes, k, n_words, cluster),
     h264t_pack_u16_blocks_per_sm (sym_bytes, k, n_words) and
     h264t_pack_tiled_blocks_per_sm (tile, sym_bytes, k, n_words)."""
     return _plan(symbol, torch.cuda.current_device(), *args)

@@ -937,8 +937,8 @@ def session_streams(pkg, workdir, names=SESSION_STREAMS,
 
 
 # Hint frames whose NAL buffer passes a block's shared memory on the card
-# (K1 builds the NAL in global memory): 3840x2160 at 64 bits per MB (NAL
-# buffer 259,328 B) and 5120x3200 at the default 32 (256,128 B).
+# (K1 runs each session on a thread-block cluster): 3840x2160 at 64 bits
+# per MB (NAL buffer 259,328 B) and 5120x3200 at the default 32 (256,128 B).
 LARGE_GOLDEN_PATH = GOLDEN_PATH.parent / "large_frames.json"
 LARGE_FRAMES = {"hint_3840x2160_64": (3840, 2160, 64),
                 "hint_5120x3200": (5120, 3200, 32)}
@@ -965,6 +965,97 @@ def large_golden(pkg, names=tuple(LARGE_FRAMES), **session_kw) -> dict:
 
 def stream_digest(data: bytes) -> dict:
     return {"sha256": hashlib.sha256(data).hexdigest(), "bytes": len(data)}
+
+
+# K1's and K2's shapes past one block's shared memory (their cluster plan),
+# as chip_smoke.py and kernel_ab.py time them: the hint frames of
+# LARGE_FRAMES and 3840x2160 at the generic 32 bits per MB, and the exact
+# retry's buffers at 4096x2160 and 5120x3200.
+LARGE_EMIT_FRAMES = {"hint_3840x2160": (3840, 2160, 32), **LARGE_FRAMES}
+LARGE_PACK_FRAMES = {"exact_4096x2160": (4096, 2160),
+                     "exact_5120x3200": (5120, 3200)}
+
+
+def large_emit_inputs(device, *, engine: str = "native",
+                      names=(*LARGE_EMIT_FRAMES, "dense_ipcm_720p")) -> dict:
+    """K1's inputs on frames whose session passes one block's shared
+    memory: {name: (patterns, nbits, n_rbsp, kwargs)} for the named hint
+    frames of LARGE_EMIT_FRAMES (B = 1, the session's frame, under
+    LARGE_HINT_REGIONS) and "dense_ipcm_720p", the 720p dense frame of the
+    DENSE_DONORS I_PCM-bearing donors (B = 32)."""
+    from .models import hints, splice
+    from .syntax.slice_headers import p_slice_header_symbols
+
+    out = {}
+    z = torch.zeros((1, MAX_WAYPOINTS), dtype=torch.int64, device=device)
+    for name, (w, h, bits) in LARGE_EMIT_FRAMES.items():
+        if name not in names:
+            continue
+        cfg = ComposerConfig(w, h, rbsp_bits_per_mb=bits)
+        ref, mvx, mvy = hints.hint_fields(cfg, splice.FrameHints(
+            motion_regions=tuple(splice.MotionRegion(*s)
+                                 for s in LARGE_HINT_REGIONS)), device)
+        hp, hn = p_slice_header_symbols(
+            cfg, torch.tensor([2], device=device),
+            torch.tensor([4], device=device), False, -1, 0, z, z.bool())
+        pat, nb, n_rbsp = scroll.p_frame_symbols(
+            cfg, hp, hn, ref[None], mvx[None], mvy[None], 2, enable_pskip=True)
+        out[name] = (pat, nb, n_rbsp, {})
+    if "dense_ipcm_720p" in names:
+        cfg = ComposerConfig(GOLDEN_WIDTH, GOLDEN_HEIGHT)
+        dn, bits, align = prepare_dense_donors("ipcm", engine=engine,
+                                               device=device)
+        pat, nb, n_rbsp = dense_symbols(cfg, "ipcm", dn, bits, device)
+        out["dense_ipcm_720p"] = (pat, nb, n_rbsp, {"align": align})
+    return out
+
+
+def multichunk_emit_inputs(device) -> dict:
+    """K1's inputs on the frames that one block still holds but stages in
+    several chunks of PACK_MAX_ITEMS a thread: {name: (patterns, nbits,
+    n_rbsp, kwargs)} for the 1920x1088 hint frame of LARGE_HINT_REGIONS
+    (32,680 symbols, 3 chunks) and the 3840x2160 scroll frame's fast path
+    (97,240 symbols, 8 chunks), B = 1."""
+    from .models import hints, splice
+    from .syntax.slice_headers import p_slice_header_symbols
+
+    z = torch.zeros((1, MAX_WAYPOINTS), dtype=torch.int64, device=device)
+    cfg = ComposerConfig(1920, 1088)
+    ref, mvx, mvy = hints.hint_fields(cfg, splice.FrameHints(
+        motion_regions=tuple(splice.MotionRegion(*s)
+                             for s in LARGE_HINT_REGIONS)), device)
+    hp, hn = p_slice_header_symbols(
+        cfg, torch.tensor([2], device=device),
+        torch.tensor([4], device=device), False, -1, 0, z, z.bool())
+    pat, nb, n_rbsp = scroll.p_frame_symbols(
+        cfg, hp, hn, ref[None], mvx[None], mvy[None], 2, enable_pskip=True)
+    out = {"hint_1920x1088": (pat, nb, n_rbsp, {})}
+    cfg = ComposerConfig(3840, 2160)
+    pat, nb, n_rbsp, _ = scroll.unified_frame_symbols(
+        cfg, torch.tensor([2], device=device),
+        torch.tensor([48], device=device), z, z, z.bool(),
+        torch.zeros(1, dtype=torch.int64, device=device),
+        torch.tensor([False], device=device), enable_pskip=True)
+    out["scroll_3840x2160"] = (pat, nb, n_rbsp, {})
+    return out
+
+
+def large_pack_inputs(device) -> dict:
+    """K2's inputs on the exact retry of the frames of LARGE_PACK_FRAMES:
+    {name: (patterns, nbits, n_words)}, one scroll frame's unified
+    symbols (B = 1) into the exact path's buffer."""
+    out = {}
+    z = torch.zeros((1, MAX_WAYPOINTS), dtype=torch.int64, device=device)
+    for name, (w, h) in LARGE_PACK_FRAMES.items():
+        cfg = ComposerConfig(w, h)
+        pat, nb, _n_rbsp, _ = scroll.unified_frame_symbols(
+            cfg, torch.tensor([2], device=device),
+            torch.tensor([48], device=device), z, z, z.bool(),
+            torch.zeros(1, dtype=torch.int64, device=device),
+            torch.tensor([False], device=device), enable_pskip=True)
+        n_rbsp = (cfg.total_mbs * cfg.rbsp_bits_per_mb // 8 + 96 + 3) // 4 * 4
+        out[name] = (pat, nb, (n_rbsp + 3) // 4)
+    return out
 
 
 def hint_step_inputs(batch: int = HINT_STEP_BATCH) -> dict:

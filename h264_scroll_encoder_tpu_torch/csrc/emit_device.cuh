@@ -21,6 +21,7 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -200,13 +201,23 @@ __device__ __forceinline__ void put_word(uint32_t* words, int n_words, int k, ui
   }
 }
 
+// Where place_run puts its words: a block's own words in its shared memory
+// (one block a session).  The cluster plan's sink is ClusterWords.
+struct SharedWords {
+  uint32_t* words;
+  int n_words;
+  __device__ __forceinline__ void put(int k, uint32_t v, int lo, int hi) const {
+    put_word(words, n_words, k, v, lo, hi);
+  }
+};
+
 // Packs one thread's run of k staged symbols, MSB first, into the words;
 // the run's bits are [pos, end).  Mirrors ops/bitpack.pack_words symbol for
 // symbol: the low min(w, 32) bits of each pattern, an alignment sentinel
 // as (-pos) mod 8 bits of its pattern under `align` and as none without.
-template <typename W>
+template <typename W, typename Sink>
 __device__ void place_run(const uint32_t* sp, const W* sn, int k, bool align, int pos, int end,
-                          uint32_t* words, int n_words) {
+                          Sink sink) {
   const int lo = pos;
   int wi = pos >> 5;
   uint64_t win = 0;  // words wi and wi + 1
@@ -216,7 +227,7 @@ __device__ void place_run(const uint32_t* sp, const W* sn, int k, bool align, in
     const int width = min(next - pos, 32);
     if (width > 0) {
       while ((pos >> 5) > wi) {
-        put_word(words, n_words, wi, (uint32_t)(win >> 32), lo, end);
+        sink.put(wi, (uint32_t)(win >> 32), lo, end);
         win <<= 32;
         ++wi;
       }
@@ -226,8 +237,14 @@ __device__ void place_run(const uint32_t* sp, const W* sn, int k, bool align, in
     }
     pos = next;
   }
-  put_word(words, n_words, wi, (uint32_t)(win >> 32), lo, end);
-  put_word(words, n_words, wi + 1, (uint32_t)win, lo, end);
+  sink.put(wi, (uint32_t)(win >> 32), lo, end);
+  sink.put(wi + 1, (uint32_t)win, lo, end);
+}
+
+template <typename W>
+__device__ __forceinline__ void place_run(const uint32_t* sp, const W* sn, int k, bool align,
+                                          int pos, int end, uint32_t* words, int n_words) {
+  place_run(sp, sn, k, align, pos, end, SharedWords{words, n_words});
 }
 
 // Bytes of the staging area (and, for K1, of the NAL that reuses it).
@@ -235,6 +252,34 @@ __host__ __device__ __forceinline__ int staging_bytes(int k, int n_nal) {
   const int stage = 8 * kPackThreads * k;
   const int nal = (n_nal + 15) & ~15;
   return stage > nal ? stage : nal;
+}
+
+// Stages a chunk of G::kThreads * k symbols (the low 32 bits of each
+// element; zeros past `left`) into shared memory by cp.async, coalesced,
+// and waits for it.
+template <typename G, typename Sym>
+__device__ __forceinline__ void stage_chunk(const Sym* __restrict__ pat,
+                                            const Sym* __restrict__ nb, int left, int k,
+                                            uint32_t* spat, int32_t* snb, G g) {
+  for (int j = 0; j < k; ++j) {
+    const int c = j * G::kThreads + g.rank();  // coalesced
+    if (c < left) {
+      cp_async4(&spat[c], &pat[c]);
+      cp_async4(&snb[c], &nb[c]);
+    } else {
+      spat[c] = 0;
+      snb[c] = 0;
+    }
+  }
+  cp_async_wait_all();
+  g.sync();
+}
+
+// The position map of one thread's run of k staged widths.
+__device__ __forceinline__ PosMap run_map(const int32_t* sn, int k, bool align, int& bad) {
+  PosMap m{0, 0, 0};
+  for (int j = 0; j < k; ++j) m = ComposeOp()(m, symbol_map(sn[j], align, bad));
+  return m;
 }
 
 // Packs one session's row of n symbols (int32 or int64 elements, of which
@@ -254,24 +299,12 @@ __device__ int pack_session(const Sym* __restrict__ pat, const Sym* __restrict__
   int carry = 0;
   for (int base = 0; base < n; base += chunk) {
     if (base > 0) g.sync();  // the previous chunk is placed
-    for (int j = 0; j < k; ++j) {
-      const int c = j * G::kThreads + g.rank();  // coalesced
-      if (base + c < n) {
-        cp_async4(&spat[c], &pat[base + c]);
-        cp_async4(&snb[c], &nb[base + c]);
-      } else {
-        spat[c] = 0;
-        snb[c] = 0;
-      }
-    }
-    cp_async_wait_all();
-    g.sync();
+    stage_chunk(pat + base, nb + base, n - base, k, spat, snb, g);
     if constexpr (Stage == kStageStage) {
       for (int j = 0; j < k; ++j) *probe ^= spat[r0 + j] ^ (uint32_t)snb[r0 + j];
       continue;
     }
-    PosMap m{0, 0, 0};
-    for (int j = 0; j < k; ++j) m = ComposeOp()(m, symbol_map(snb[r0 + j], align, bad));
+    const PosMap m = run_map(snb + r0, k, align, bad);
     PosMap excl, total;
     scan_once(m, PosMap{0, 0, 0}, ComposeOp(), tmp, excl, total, g);
     const int start = apply_map(excl, carry);
@@ -515,14 +548,15 @@ __device__ __forceinline__ void copy_out(const uint8_t* nal, int fill, int end, 
 
 // The bytes of an output row after the payload where the NAL was built in
 // place: [fill, n_nal) as 0x03 below `end`, zeros after; 16-byte stores
-// over the row's aligned middle.
-__device__ void fill_tail(uint8_t* out, int fill, int end, int n_nal) {
+// over the row's aligned middle.  Thread t of the nt that share the row
+// (a block, or a cluster's blocks) takes every nt-th store.
+__device__ void fill_tail(uint8_t* out, int fill, int end, int n_nal, int t, int nt) {
   const int mis = (int)(reinterpret_cast<uintptr_t>(out) & 15);
   const int lo = min(fill + ((16 - ((mis + fill) & 15)) & 15), n_nal);
   const int hi = max(lo, n_nal - ((mis + n_nal) & 15));
-  for (int k = fill + threadIdx.x; k < lo; k += kPackThreads) out[k] = k < end ? 3 : 0;
-  for (int k = hi + threadIdx.x; k < n_nal; k += kPackThreads) out[k] = k < end ? 3 : 0;
-  for (int c = threadIdx.x; c < (hi - lo) >> 4; c += kPackThreads) {
+  for (int k = fill + t; k < lo; k += nt) out[k] = k < end ? 3 : 0;
+  for (int k = hi + t; k < n_nal; k += nt) out[k] = k < end ? 3 : 0;
+  for (int c = t; c < (hi - lo) >> 4; c += nt) {
     const int k0 = lo + 16 * c;
     union {
       uint4 v;
@@ -646,7 +680,7 @@ __device__ __forceinline__ void ebsp_session(const uint8_t* __restrict__ rbsp, l
   const int fill = min(5 + valid + ins, n_nal);
   const int end = (int)min(5LL + len + count, (long long)n_nal);
   if (in_global) {
-    fill_tail(out_row, fill, end, n_nal);
+    fill_tail(out_row, fill, end, n_nal, t, kPackThreads);
   } else {
     copy_out(nal, fill, end, n_nal, nal_out, s);
   }
@@ -669,9 +703,8 @@ template <int Stage, typename Sym>
 __device__ __forceinline__ void emit_session(
     const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row, long long nb_row,
     const int64_t* __restrict__ idc, long long idc_row, int idc_value, int n, int k, int n_nal,
-    int n_rbsp, int cap, int align, int append_tb, uint32_t* __restrict__ words_gmem,
-    int nal_in_global, uint8_t* __restrict__ nal_out, int32_t* __restrict__ len_out,
-    int32_t* __restrict__ bits_out, uint8_t* __restrict__ ovf_out,
+    int n_rbsp, int cap, int align, int append_tb, uint8_t* __restrict__ nal_out,
+    int32_t* __restrict__ len_out, int32_t* __restrict__ bits_out, uint8_t* __restrict__ ovf_out,
     int32_t* __restrict__ probe_meta, int32_t* __restrict__ probe_words) {
   extern __shared__ uint4 pack_smem[];  // 16-byte aligned
   uint8_t* smem = reinterpret_cast<uint8_t*>(pack_smem);
@@ -686,13 +719,9 @@ __device__ __forceinline__ void emit_session(
   const int n_words = n_nal >> 2;  // the RBSP buffer holds n_nal bytes
   uint32_t* spat = reinterpret_cast<uint32_t*>(smem);
   int32_t* snb = reinterpret_cast<int32_t*>(smem + 4 * kPackThreads * k);
-  uint8_t* out_row = nal_out + (size_t)s * n_nal;
-  // The NAL reuses the staging area once the words are packed, or is built
-  // in place in the output row.
-  uint8_t* nal = nal_in_global ? out_row : smem;
-  uint32_t* words = words_gmem ? words_gmem + (size_t)s * n_words
-                               : reinterpret_cast<uint32_t*>(
-                                     smem + staging_bytes(k, nal_in_global ? 0 : n_nal));
+  // The NAL reuses the staging area once the words are packed.
+  uint8_t* nal = smem;
+  uint32_t* words = reinterpret_cast<uint32_t*>(smem + staging_bytes(k, n_nal));
 
   if constexpr (Stage >= kStagePack) {
     for (int i = threadIdx.x; i < n_words; i += kPackThreads) words[i] = 0;
@@ -766,17 +795,444 @@ __device__ __forceinline__ void emit_session(
     }
     return;
   }
-  if (nal_in_global) {
-    fill_tail(out_row, fill, fill, n_nal);
-  } else {
-    copy_out(nal, fill, fill, n_nal, nal_out, s);
-  }
+  copy_out(nal, fill, fill, n_nal, nal_out, s);
   if (threadIdx.x == 0) {
     const int ins_eff = ins_total + (sat ? cap + 1 : 0);
     len_out[s] = 5 + rbsp_len + ins_eff;
     bits_out[s] = total_bits;
     ovf_out[s] = (total_bits > n_rbsp * 8 || ins_eff > cap || bad) ? 1 : 0;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The cluster plan of K1 and K2/K4 (emit_kernels.cu): one session over the
+// C blocks of a thread-block cluster, C in {2, 4, 8, 16}, where one block's
+// shared memory cannot hold it.  Block r (its rank in the cluster) stages
+// the share [r * share, (r + 1) * share) of the session's symbols and
+// holds the slice [r * slice, (r + 1) * slice) of its RBSP words; the
+// blocks reach each other's shared memory (DSMEM) through
+// cluster_group::map_shared_rank.  ops/emit_fused.py keeps the same
+// formulas (cluster_share, cluster_slice, cluster_items_per_thread) and a
+// plain model of the split (emit_nal_split_plain).
+
+namespace cg = cooperative_groups;
+
+constexpr int kMaxCluster = 16;
+// The most symbols a thread of a cluster block owns per staged chunk of its
+// share (ops/emit_fused.CLUSTER_MAX_ITEMS): 132 KB of staging a block.
+// Odd, as every count a thread takes on the cluster plan, so that the
+// threads' runs (k words apart) fall into different shared-memory banks.
+constexpr int kClusterMaxItems = 33;
+
+__host__ __device__ __forceinline__ int cluster_share(int n, int c) { return (n + c - 1) / c; }
+
+__host__ __device__ __forceinline__ int cluster_slice(int n_words, int c) {
+  return ((n_words + c - 1) / c + 3) & ~3;
+}
+
+__host__ __device__ __forceinline__ int cluster_items(int n, int c) {
+  const int k = ((cluster_share(n, c) + kPackThreads - 1) / kPackThreads) | 1;
+  return k > kClusterMaxItems ? kClusterMaxItems : k;
+}
+
+// A cluster block's staging area, which holds its staged symbols and then
+// its piece of the NAL: the escaped bytes of a slice of `slice` words (at
+// most 1.5x plus one) and up to 15 bytes of alignment offset.
+__host__ __device__ __forceinline__ int cluster_stage_bytes(int k, int slice) {
+  const int stage = staging_bytes(k, 0);
+  const int piece = (6 * slice + 47) & ~15;
+  return stage > piece ? stage : piece;
+}
+
+// A cluster block's dynamic shared memory: its staging area, then its
+// slice of the words (16-byte aligned).
+__host__ __device__ __forceinline__ size_t cluster_smem(int k, int n_words, int c) {
+  const int slice = cluster_slice(n_words, c);
+  return (size_t)cluster_stage_bytes(k, slice) + 4 * (size_t)slice;
+}
+
+// Copies len bytes from src (shared memory) to dst (global memory), which
+// share their address mod 16: 16-byte stores over the aligned middle.
+__device__ void store_aligned(const uint8_t* src, uint8_t* dst, int len) {
+  const int head = min((int)((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15), max(len, 0));
+  const int n16 = max(len - head, 0) >> 4;
+  const int tail = head + (n16 << 4);
+  for (int i = threadIdx.x; i < head; i += kPackThreads) dst[i] = src[i];
+  for (int c = threadIdx.x; c < n16; c += kPackThreads) {
+    reinterpret_cast<uint4*>(dst + head)[c] = reinterpret_cast<const uint4*>(src + head)[c];
+  }
+  for (int i = tail + threadIdx.x; i < len; i += kPackThreads) dst[i] = src[i];
+}
+
+// What a block publishes to the other blocks of its cluster: each field is
+// written once, before the cluster barrier after which the others read it.
+struct ClusterSlot {
+  PosMap map;  // the position map of its share
+  int bad;     // a sentinel without `align` in its share
+  int last;    // the last nonzero RBSP byte of its slice, -1 if none
+  int ins;     // the insertions of its slice
+  int sat;     // a zero run in its slice that the window cannot resolve
+  int probe;   // P1: the XOR of its cut stage
+};
+
+// A block's shared state on the cluster plan: its slot, and warp 0's
+// scans of the cluster's slots for the whole block, field by field (the
+// exclusive scan before this block, and the total), each written once.
+struct ClusterBlock {
+  ClusterSlot slot;
+  ClusterSlot excl;
+  ClusterSlot total;
+};
+
+struct OrOp {
+  __device__ __forceinline__ int operator()(int x, int y) const { return x | y; }
+};
+
+__device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
+
+// The split cluster barrier: a block arrives once it reads no other block's
+// shared memory any more and waits before it exits, so that no block's
+// shared memory goes while another reads it.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// The exclusive scan in rank order, and the total, of one field of the
+// cluster's slots, published before a cluster barrier.  Warp 0 reads the
+// C <= 16 slots over DSMEM, one a lane, and scans them; the block reads
+// the result from `cb` after one block barrier.  (Every warp reading the
+// slots itself, 16x the DSMEM reads and all on the same words, left the
+// 5120x3200 hint frame ~20% slower on an H100: PERF.md.)
+template <typename T, typename Op>
+__device__ __forceinline__ void cluster_scan(ClusterBlock* cb, T ClusterSlot::*field, T ident,
+                                             Op op, T& excl, T& total) {
+  if (threadIdx.x < 32) {
+    cg::cluster_group cl = cg::this_cluster();
+    const int c = (int)cl.dim_blocks().x;
+    const int r = (int)cl.block_rank();
+    const int lane = threadIdx.x;
+    T x = lane < c ? cl.map_shared_rank(&cb->slot, lane)->*field : ident;
+#pragma unroll
+    for (int o = 1; o < kMaxCluster; o <<= 1) {
+      T u = shfl_up(x, o);
+      if (lane >= o) x = op(u, x);
+    }
+    const T prev = shfl_idx(x, r > 0 ? r - 1 : 0);
+    const T last = shfl_idx(x, c - 1);
+    if (lane == 0) {
+      cb->excl.*field = r > 0 ? prev : ident;
+      cb->total.*field = last;
+    }
+  }
+  __syncthreads();
+  excl = cb->excl.*field;
+  total = cb->total.*field;
+}
+
+// place_run's sink on the cluster plan: word k of the session lies in the
+// slice of block k / slice, at k % slice, in this block's shared memory or
+// (through DSMEM) another's.  A word wholly inside a run is stored, one
+// that runs share is ORed atomically, as in put_word.
+struct ClusterWords {
+  uint32_t* local;  // this block's slice
+  int slice;
+  int n_words;
+  __device__ __forceinline__ uint32_t* at(int k) const {
+    const int r = k / slice;
+    return cg::this_cluster().map_shared_rank(local, r) + (k - r * slice);
+  }
+  __device__ __forceinline__ void put(int k, uint32_t v, int lo, int hi) const {
+    if (v == 0 || k >= n_words) return;
+    if ((k << 5) >= lo && (k << 5) + 32 <= hi) {
+      *at(k) = v;
+    } else {
+      atomicOr(at(k), v);
+    }
+  }
+};
+
+// Byte i of the RBSP on the cluster plan, from this block's word slice,
+// which starts at byte `base`.
+struct SliceBytes {
+  const uint32_t* words;
+  int base;
+  __device__ __forceinline__ int operator()(int i) const {
+    return (int)((words[(i - base) >> 2] >> (24 - 8 * (i & 3))) & 0xffu);
+  }
+};
+
+// The cluster plan's pack: this block's share of the session (n_share
+// symbols from pat, nb) placed through `sink` into the words of the whole
+// cluster, which every block has zeroed in its slice.  Pass 1 composes the
+// share's position map chunk by chunk (one chunk wherever the plan picks
+// C < 16); the block publishes it, and an exclusive scan across the
+// cluster gives the share's start bit.  Pass 2 places each thread's run
+// from there: the one chunk is still staged, more chunks are staged again.
+// Returns the session's total bits, with `bad` the cluster's OR.  Cut for
+// P1 as pack_session: kStageStage XORs each thread's staged words into
+// *probe and returns 0 before any cluster barrier; kStageScan XORs each
+// thread's start bit into *probe instead of placing.
+template <int Stage, typename Sym>
+__device__ int cluster_pack(const Sym* __restrict__ pat, const Sym* __restrict__ nb, int n_share,
+                            int k, bool align, uint32_t* spat, int32_t* snb, ClusterWords sink,
+                            PosMap* tmp, ClusterBlock* cb, int& bad, uint32_t* probe) {
+  const BlockGroup g{};
+  const int chunk = kPackThreads * k;
+  const int r0 = threadIdx.x * k;
+  PosMap m{0, 0, 0}, excl{0, 0, 0}, share{0, 0, 0};
+  for (int base = 0; base < n_share; base += chunk) {
+    if (base > 0) __syncthreads();  // the previous chunk's widths are read
+    stage_chunk(pat + base, nb + base, n_share - base, k, spat, snb, g);
+    if constexpr (Stage == kStageStage) {
+      for (int j = 0; j < k; ++j) *probe ^= spat[r0 + j] ^ (uint32_t)snb[r0 + j];
+      continue;
+    }
+    m = run_map(snb + r0, k, align, bad);
+    PosMap total;
+    scan_once(m, PosMap{0, 0, 0}, ComposeOp(), tmp, excl, total);
+    share = ComposeOp()(share, total);
+  }
+  if constexpr (Stage == kStageStage) return 0;
+  bad = __syncthreads_or(bad);
+  if (threadIdx.x == 0) {
+    cb->slot.map = share;
+    cb->slot.bad = bad;
+  }
+  cluster_sync();  // every slice is zeroed and every share's map published
+  PosMap before, all;
+  cluster_scan(cb, &ClusterSlot::map, PosMap{0, 0, 0}, ComposeOp(), before, all);
+  int unused;
+  cluster_scan(cb, &ClusterSlot::bad, 0, OrOp(), unused, bad);
+  int carry = apply_map(before, 0);
+  for (int base = 0; base < n_share; base += chunk) {
+    if (n_share > chunk) {  // more than one chunk: stage this one again
+      __syncthreads();      // the previous chunk is placed
+      stage_chunk(pat + base, nb + base, n_share - base, k, spat, snb, g);
+      int ignored = 0;
+      m = run_map(snb + r0, k, align, ignored);
+      PosMap total;
+      scan_once(m, PosMap{0, 0, 0}, ComposeOp(), tmp, excl, total);
+      share = total;
+    }
+    const int start = apply_map(excl, carry);
+    if constexpr (Stage == kStageScan) {
+      *probe ^= (uint32_t)start;
+    } else {
+      place_run(spat + r0, snb + r0, k, align, start, apply_map(m, start), sink);
+    }
+    carry = apply_map(share, carry);
+  }
+  return apply_map(all, 0);
+}
+
+// K1's emulation-prevention stage on the cluster plan, over this block's
+// RBSP bytes [b_lo, b_hi) (those of its word slice, `per` a thread, read
+// through `at`).  The zero run into the block comes from an exclusive max
+// across the cluster of each block's last nonzero byte, the NAL position
+// of its first byte from an exclusive sum of each block's insertions.
+// The block's escaped bytes, NAL positions [d_lo, d_hi) below n_nal, go to
+// `piece` in shared memory at offset mis + (position - d_lo), mis being
+// the position's address mod 16 in the output row `out`, so that they
+// leave in 16-byte stores (store_aligned).  Returns the cluster's
+// insertions, with `sat` the cluster's flag.  The other blocks' slots are
+// read after the cluster barriers inside: the caller arrives after the
+// call and waits before it exits.  Ends on a barrier.
+template <typename ByteAt, typename Rule>
+__device__ int emulation_prevention_cluster(ByteAt at, Rule rule, int b_lo, int b_hi, int per,
+                                            const uint8_t* out, uint8_t* piece, int n_nal,
+                                            int* tmp_max, int* tmp_sum, ClusterBlock* cb,
+                                            int& sat, int& d_lo, int& d_hi, int& mis) {
+  const int b0 = min(b_lo + (int)threadIdx.x * per, b_hi);
+  const int b1 = min(b0 + per, b_hi);
+  int last = -1;
+  for (int i = b1 - 1; i >= b0; --i) {
+    if (at(i)) {
+      last = i;
+      break;
+    }
+  }
+  int before, block_last;
+  scan_once(last, -1, MaxOp(), tmp_max, before, block_last);
+  if (threadIdx.x == 0) cb->slot.last = block_last;
+  cluster_sync();
+  int into, unused;
+  cluster_scan(cb, &ClusterSlot::last, -1, MaxOp(), into, unused);
+  before = max(before, into);
+  int count = 0;
+  int run_sat = 0;
+  last = before;
+  for (int i = b0; i < b1; ++i) {
+    const int byte = at(i);
+    count += rule(i, last, byte, run_sat);
+    if (byte) last = i;
+  }
+  int ins_before, block_ins;
+  scan_once(count, 0, SumOp(), tmp_sum, ins_before, block_ins);
+  const int block_sat = __syncthreads_or(run_sat);
+  if (threadIdx.x == 0) {
+    cb->slot.ins = block_ins;
+    cb->slot.sat = block_sat;
+  }
+  cluster_sync();
+  int ins_into, ins_total;
+  cluster_scan(cb, &ClusterSlot::ins, 0, SumOp(), ins_into, ins_total);
+  cluster_scan(cb, &ClusterSlot::sat, 0, OrOp(), unused, sat);
+  d_lo = 5 + b_lo + ins_into;
+  d_hi = 5 + b_hi + ins_into + block_ins;
+  mis = (int)((reinterpret_cast<uintptr_t>(out) + d_lo) & 15);
+  uint8_t* nal = piece + mis;  // NAL position p at nal[p - d_lo]
+  last = before;
+  int dst = 5 + b0 + ins_into + ins_before;
+  for (int i = b0; i < b1; ++i, ++dst) {
+    const int byte = at(i);
+    int ignored = 0;
+    if (rule(i, last, byte, ignored)) {
+      if (dst < n_nal) nal[dst - d_lo] = 3;
+      ++dst;
+    }
+    if (dst < n_nal) nal[dst - d_lo] = (uint8_t)byte;
+    if (byte) last = i;
+  }
+  __syncthreads();
+  return ins_total;
+}
+
+// One session of K1 on the cluster plan (the C blocks of cluster
+// blockIdx.x / C), cut after `Stage` for P1 with emit_session's outputs.
+// The NAL is escaped straight into its output row: the prefix by block 0,
+// each block's payload at its offset, the zeros after the payload by every
+// block in turn; block 0 writes the session's results.
+template <int Stage, typename Sym>
+__device__ __forceinline__ void emit_cluster_session(
+    const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row, long long nb_row,
+    const int64_t* __restrict__ idc, long long idc_row, int idc_value, int n, int k, int n_nal,
+    int n_rbsp, int cap, int align, int append_tb, uint8_t* __restrict__ nal_out,
+    int32_t* __restrict__ len_out, int32_t* __restrict__ bits_out, uint8_t* __restrict__ ovf_out,
+    int32_t* __restrict__ probe_meta, int32_t* __restrict__ probe_words) {
+  extern __shared__ uint4 pack_smem[];  // 16-byte aligned
+  uint8_t* smem = reinterpret_cast<uint8_t*>(pack_smem);
+  __shared__ PosMap tmp_map[kPackWarps];
+  __shared__ int tmp_max[kPackWarps];
+  __shared__ int tmp_sum[kPackWarps];
+  __shared__ ClusterBlock cb;
+  cg::cluster_group cl = cg::this_cluster();
+  const int c = (int)cl.dim_blocks().x;
+  const int r = (int)cl.block_rank();
+  const int s = blockIdx.x / c;
+  const int t = threadIdx.x;
+  int32_t* meta = probe_meta + 4 * s;
+  if constexpr (Stage == kStageLaunch) {
+    if (r == 0 && t < 4) meta[t] = 0;
+    return;
+  }
+  const int n_words = n_nal >> 2;
+  const int slice = cluster_slice(n_words, c);
+  const int w_lo = min(r * slice, n_words);
+  const int w_hi = min(w_lo + slice, n_words);
+  const int share = cluster_share(n, c);
+  const int i_lo = min(r * share, n);
+  const int i_hi = min(i_lo + share, n);
+  uint32_t* spat = reinterpret_cast<uint32_t*>(smem);
+  int32_t* snb = reinterpret_cast<int32_t*>(smem + 4 * kPackThreads * k);
+  uint32_t* words = reinterpret_cast<uint32_t*>(smem + cluster_stage_bytes(k, slice));
+  const ClusterWords sink{words, slice, n_words};
+  uint8_t* out_row = nal_out + (size_t)s * n_nal;
+
+  if constexpr (Stage >= kStagePack) {
+    for (int i = t; i < slice; i += kPackThreads) words[i] = 0;
+  }
+  int bad = 0;
+  uint32_t probe = 0;
+  int total_bits = cluster_pack<Stage>(pat + s * pat_row + i_lo, nb + s * nb_row + i_lo,
+                                       i_hi - i_lo, k, align != 0, spat, snb, sink, tmp_map, &cb,
+                                       bad, &probe);
+  if constexpr (Stage == kStageStage || Stage == kStageScan) {
+    int x_excl, x_total;
+    scan_once((int)probe, 0, XorOp(), tmp_sum, x_excl, x_total);
+    if (t == 0) cb.slot.probe = x_total;
+    cluster_sync();
+    cluster_scan(&cb, &ClusterSlot::probe, 0, XorOp(), x_excl, x_total);
+    if (r == 0 && t == 0) {
+      meta[0] = Stage == kStageStage ? x_total : total_bits;
+      meta[1] = Stage == kStageStage ? 0 : x_total;
+      meta[2] = 0;
+      meta[3] = 0;
+    }
+    cluster_sync();  // no block leaves while another reads its slot
+    return;
+  }
+  if constexpr (Stage == kStagePack) {
+    cluster_sync();  // every run is placed
+    int32_t* out = probe_words + (size_t)s * n_words;
+    for (int i = w_lo + t; i < w_hi; i += kPackThreads) out[i] = (int32_t)words[i - w_lo];
+    if (r == 0 && t == 0) {
+      meta[0] = total_bits;
+      meta[1] = 0;
+      meta[2] = 0;
+      meta[3] = 0;
+    }
+    return;
+  }
+  if (append_tb) {  // rbsp_trailing_bits where the payload ends, ORed in
+    const int w = 1 + ((8 - ((total_bits + 1) & 7)) & 7);
+    if (r == 0 && t == 0) {
+      const uint64_t v = (uint64_t)(1u << (w - 1)) << (64 - (total_bits & 31) - w);
+      sink.put(total_bits >> 5, (uint32_t)(v >> 32), 0, 0);
+      sink.put((total_bits >> 5) + 1, (uint32_t)v, 0, 0);
+    }
+    total_bits += w;
+  }
+  cluster_sync();  // the words are complete
+  if (r == 0 && t == 0) {
+    const int64_t h = idc ? idc[s * idc_row] : idc_value;
+    write_prefix(out_row, n_nal, (uint8_t)(((h & 3) << 5) | 1));
+  }
+  const int rbsp_len = total_bits >> 3;
+  const int valid = min(rbsp_len, n_nal);
+  const int b_lo = min(4 * w_lo, valid);
+  const int b_hi = min(4 * w_hi, valid);
+  // Whole words a thread, an odd number of them (different banks).
+  const int per = 4 * (((((b_hi - b_lo + 3) >> 2) + kPackThreads - 1) / kPackThreads) | 1);
+  int sat, d_lo, d_hi, mis;
+  const int ins_total = emulation_prevention_cluster(
+      SliceBytes{words, 4 * w_lo}, WordWindow(), b_lo, b_hi, per, out_row, smem, n_nal, tmp_max,
+      tmp_sum, &cb, sat, d_lo, d_hi, mis);
+  const int fill = min(5 + valid + ins_total, n_nal);
+  const int end = min(d_hi, fill);  // this block's NAL bytes are [d_lo, end)
+  if constexpr (Stage == kStageEp) {
+    uint32_t x = 0;
+    for (int p = d_lo + t; p < end; p += kPackThreads) {
+      x ^= (uint32_t)smem[mis + p - d_lo] << (8 * (p & 3));
+    }
+    if (r == 0 && t < min(5, fill)) x ^= (uint32_t)out_row[t] << (8 * (t & 3));
+    int x_excl, x_total;
+    scan_once((int)x, 0, XorOp(), tmp_sum, x_excl, x_total);
+    if (t == 0) cb.slot.probe = x_total;
+    cluster_sync();
+    cluster_scan(&cb, &ClusterSlot::probe, 0, XorOp(), x_excl, x_total);
+    if (r == 0 && t == 0) {
+      meta[0] = ins_total;
+      meta[1] = sat ? 1 : 0;
+      meta[2] = x_total;
+      meta[3] = 0;
+    }
+    cluster_sync();  // no block leaves while another reads its slot
+    return;
+  }
+  cluster_arrive();
+  store_aligned(smem + mis, out_row + d_lo, end - d_lo);
+  fill_tail(out_row, fill, fill, n_nal, r * kPackThreads + t, c * kPackThreads);
+  if (r == 0 && t == 0) {
+    const int ins_eff = ins_total + (sat ? cap + 1 : 0);
+    len_out[s] = 5 + rbsp_len + ins_eff;
+    bits_out[s] = total_bits;
+    ovf_out[s] = (total_bits > n_rbsp * 8 || ins_eff > cap || bad) ? 1 : 0;
+  }
+  cluster_wait();
 }
 
 // Opts the kernel in to `bytes` of dynamic shared memory.  A refusal is
@@ -818,21 +1274,108 @@ int blocks_per_sm(const void* kernel, size_t smem) {
   return blocks;
 }
 
-// K1's plan bits (h264t_emit_plan): the RBSP words, and the NAL, in global
-// memory.
-constexpr int kWordsInGlobal = 1;
-constexpr int kNalInGlobal = 2;
+// K1's and K2/K4's dynamic shared memory with one block a session: the
+// staging area (K1: reused for the NAL) plus the RBSP words.
+size_t emit_smem(int k, int n_nal) { return (size_t)staging_bytes(k, n_nal) + (size_t)n_nal; }
 
-// K1's and K2's dynamic shared memory: the staging area (K1: reused for the
-// NAL unless that is built in place), plus the RBSP words unless they live
-// in global memory.
-size_t emit_smem(int k, int n_nal, int plan) {
-  return (size_t)staging_bytes(k, (plan & kNalInGlobal) ? 0 : n_nal) +
-         ((plan & kWordsInGlobal) ? 0 : (size_t)n_nal);
+size_t pack_smem_bytes(int k, int n_words) {
+  return (size_t)staging_bytes(k, 0) + 4 * (size_t)n_words;
 }
 
-size_t pack_smem_bytes(int k, int n_words, bool words_in_global) {
-  return (size_t)staging_bytes(k, 0) + (words_in_global ? 0 : 4 * (size_t)n_words);
+cudaLaunchConfig_t cluster_config(int batch, int c, size_t smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)batch * (unsigned)c);
+  cfg.blockDim = dim3(kPackThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
+
+// Lets `kernel` launch clusters of 16 blocks, past the portable 8.
+cudaError_t allow_cluster16(const void* kernel) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+// Clusters of c blocks of `kernel` (kPackThreads threads and `smem` bytes
+// of dynamic shared memory a block) that the current device holds at once;
+// 0 where a block cannot have that memory, -1 where the runtime cannot say.
+int active_clusters(const void* kernel, int c, size_t smem) {
+  if (set_smem(kernel, smem) != cudaSuccess) return 0;
+  if (c > 8 && allow_cluster16(kernel) != cudaSuccess) return -1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(1, c, smem, nullptr, &attr);
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return clusters;
+}
+
+// The plan of K1 or K2/K4 for sessions of n symbols and n_words words
+// (h264t_emit_plan, h264t_pack_plan): 1 where one block of `one` holds the
+// session in `one_smem` bytes; else the smallest C in {2, 4, 8, 16} for
+// which a block of `cluster` stages its share in one chunk beside its word
+// slice and the device holds such a cluster (C = 16 also where the share
+// takes several chunks); 0 where none fits, -1 where the runtime cannot say.
+int session_plan(const void* one, size_t one_smem, const void* cluster, int n, int n_words) {
+  const size_t limit = dynamic_smem_limit(one);
+  const size_t cluster_limit = dynamic_smem_limit(cluster);
+  if (limit == 0 || cluster_limit == 0) return -1;
+  if (one_smem <= limit) return 1;
+  for (int c = 2; c <= kMaxCluster; c *= 2) {
+    const int k = cluster_items(n, c);
+    const size_t smem = cluster_smem(k, n_words, c);
+    if ((cluster_share(n, c) > kPackThreads * k && c < kMaxCluster) || smem > cluster_limit) {
+      continue;
+    }
+    const int active = active_clusters(cluster, c, smem);
+    if (active < 0) return -1;
+    if (active > 0) return c;
+  }
+  return 0;
+}
+
+// Launches `kernel` over `batch` sessions on clusters of c blocks, in one
+// launch (cudaLaunchKernelEx with the cluster dimension); returns its error.
+// Clusters of 16 need the non-portable size: set at a launch outside a
+// CUDA graph capture (a graphed step's eager warm-up call) or by the plan
+// query, never during a capture, where a launch without it fails.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), int batch, int c, size_t smem,
+                            cudaStream_t stream, Args... args) {
+  cudaError_t err = set_smem((const void*)kernel, smem);
+  if (err == cudaSuccess && c > 8) {
+    cudaStreamCaptureStatus capture = cudaStreamCaptureStatusNone;
+    err = cudaStreamIsCapturing(stream, &capture);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+    } else if (capture == cudaStreamCaptureStatusNone) {
+      err = allow_cluster16((const void*)kernel);
+    }
+  }
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(batch, c, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  return cudaGetLastError();
+}
+
+// Whether c is a cluster size the launchers take (1: one block a session).
+bool valid_cluster(int c) { return c == 1 || c == 2 || c == 4 || c == 8 || c == 16; }
 
 }  // namespace

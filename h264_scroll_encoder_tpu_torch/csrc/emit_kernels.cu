@@ -95,27 +95,43 @@
 // (the length read, then the staged copy it sizes, four barriers, three
 // serial passes) sets the time, not the bytes.
 //
-// Large frames.  K1 keeps the staging area (reused for the NAL) and the
-// packed RBSP words in shared memory: max(8 * kPackThreads * k, n_nal) +
-// n_nal bytes, 232,448 at most on an H100.  Its plans, tried in turn:
-//   0  words and NAL in shared memory (every 720p path);
-//   1  words in a global scratch buffer (`words_gmem`, n_words per
-//      session) the wrapper allocates, NAL in shared memory: 3840x2160 at
-//      the generic 32 bits per MB (n_nal 129,728, 259,456 bytes by plan 0);
-//   3  words in the scratch and the NAL built in place in its output row,
-//      so the block holds the staging area and the scan temporaries only
-//      (98,304 bytes at most): n_nal past ~134,000 bytes, e.g. 3840x2160
-//      at 64 bits per MB (259,328) or 5120x3200 at 32 (256,128).
-// K2/K4 keep the words in a scratch past about 33,500 MBs (its exact
-// retry).  K3 stages the padded row and then the NAL (~2 * n_nal): past a
-// block's limit (n_nal over ~116 KB) it reads the row from global memory
-// and builds the NAL in place in its output row.  The code is the same in
-// every plan, through generic pointers, at global-memory latency for what
-// left shared memory; where the NAL is built in place the copy-out writes
-// only the bytes after the payload.  `h264t_emit_plan`,
-// `h264t_pack_words_in_global` and `h264t_ebsp_nal_in_global` answer the
-// wrappers from the shared-memory plan and the card's limit, so the
-// formulas live here only.
+// Large frames: the cluster plan.  K1 keeps the staging area (reused for
+// the NAL) and the packed RBSP words in shared memory: max(8 * kPackThreads
+// * k, n_nal) + n_nal bytes, 232,448 at most on an H100 (every 720p path
+// fits).  Past that (4K and 5K hint frames, 129,728-259,328 NAL bytes; the
+// 720p dense frame of I_PCM donors, 237,600) one block a session would hold
+// the session on one SM of 132 and keep its words in global memory, as the
+// earlier global-memory plans did: 0.16 ms for the 5120x3200 hint frame,
+// 233x its bound (PERF.md).  Instead the session runs on a cluster of C
+// blocks (emit_cluster_session and cluster_pack in emit_device.cuh), C the
+// smallest of 2, 4, 8 and 16 for which each block stages its share of
+// ceil(n / C) symbols in one chunk of at most 33 a thread (132 KB; an odd
+// count, so that the threads' runs fall into different banks) beside its
+// slice of ceil(n_words / C) words:
+//   - Pack.  Each block composes its share's position map; the blocks
+//     publish them in shared memory, and after one cluster barrier every
+//     warp scans the C maps over DSMEM for its block's start bit.  Each
+//     thread places its run wherever its bits fall, into its own block's
+//     slice or another's through DSMEM, storing whole words and ORing
+//     shared ones atomically, as within one block.  Bits fall very
+//     unevenly (a 5120x3200 hint frame has 6,182 bits in 256,040 symbols),
+//     so a block's symbols and its slice are not the same range.
+//   - Emulation prevention (K1).  Each block runs the rule over its own
+//     slice's bytes; the last nonzero byte before the block and the
+//     insertions before it are exclusive scans across the cluster (two
+//     more cluster barriers).  Each block escapes its bytes into its
+//     piece of the NAL in the dead staging area, offset to the output
+//     row's alignment, and stores the piece at its offset in the row in
+//     16-byte stores; the zeros after the payload are shared out over all
+//     the cluster's threads.
+// The cluster is one launch (cudaLaunchKernelEx), so launch counters and
+// graphed steps see one launch per call; K2/K4 take the same plan past one
+// block's words (past about 33,500 MBs for the exact retry).
+// `h264t_emit_plan` and `h264t_pack_plan` answer the wrappers with C, so
+// the formulas live here (and in ops/emit_fused.py's plain model).  K3
+// stages the padded row and then the NAL (~2 * n_nal): past a block's
+// limit (n_nal over ~116 KB) it reads the row from global memory and
+// builds the NAL in place in its output row (`h264t_ebsp_nal_in_global`).
 //
 // The device code the kernels share (staging, scans, pack, emulation
 // prevention, copy-out, K1's and K3's sessions) lives in emit_device.cuh,
@@ -134,28 +150,40 @@ __global__ void __launch_bounds__(kPackThreads, 2)
     emit_fused_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row,
                       long long nb_row, const int64_t* __restrict__ idc, long long idc_row,
                       int idc_value, int n, int k, int n_nal, int n_rbsp, int cap, int align,
-                      int append_tb, uint32_t* __restrict__ words_gmem, int nal_in_global,
-                      uint8_t* __restrict__ nal_out, int32_t* __restrict__ len_out,
+                      int append_tb, uint8_t* __restrict__ nal_out, int32_t* __restrict__ len_out,
                       int32_t* __restrict__ bits_out, uint8_t* __restrict__ ovf_out) {
   emit_session<kStageFull>(pat, nb, pat_row, nb_row, idc, idc_row, idc_value, n, k, n_nal, n_rbsp,
-                           cap, align, append_tb, words_gmem, nal_in_global, nal_out, len_out,
-                           bits_out, ovf_out, nullptr, nullptr);
+                           cap, align, append_tb, nal_out, len_out, bits_out, ovf_out, nullptr,
+                           nullptr);
+}
+
+// K1 on the cluster plan: one session per cluster (emit_cluster_session).
+template <typename Sym>
+__global__ void __launch_bounds__(kPackThreads, 1)
+    emit_fused_cluster_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb,
+                              long long pat_row, long long nb_row,
+                              const int64_t* __restrict__ idc, long long idc_row, int idc_value,
+                              int n, int k, int n_nal, int n_rbsp, int cap, int align,
+                              int append_tb, uint8_t* __restrict__ nal_out,
+                              int32_t* __restrict__ len_out, int32_t* __restrict__ bits_out,
+                              uint8_t* __restrict__ ovf_out) {
+  emit_cluster_session<kStageFull>(pat, nb, pat_row, nb_row, idc, idc_row, idc_value, n, k, n_nal,
+                                   n_rbsp, cap, align, append_tb, nal_out, len_out, bits_out,
+                                   ovf_out, nullptr, nullptr);
 }
 
 template <typename Sym>
 __global__ void __launch_bounds__(kPackThreads, 2)
     pack_place_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row,
                       long long nb_row, int n, int k, int n_words,
-                      uint32_t* __restrict__ words_gmem, int64_t* __restrict__ words_out,
-                      int64_t* __restrict__ total_out) {
+                      int64_t* __restrict__ words_out, int64_t* __restrict__ total_out) {
   extern __shared__ uint4 pack_smem[];  // 16-byte aligned
   uint8_t* smem = reinterpret_cast<uint8_t*>(pack_smem);
   __shared__ PosMap tmp_map[kPackWarps];
   const int s = blockIdx.x;
   uint32_t* spat = reinterpret_cast<uint32_t*>(smem);
   int32_t* snb = reinterpret_cast<int32_t*>(smem + 4 * kPackThreads * k);
-  uint32_t* words = words_gmem ? words_gmem + (size_t)s * n_words
-                               : reinterpret_cast<uint32_t*>(smem + staging_bytes(k, 0));
+  uint32_t* words = reinterpret_cast<uint32_t*>(smem + staging_bytes(k, 0));
   for (int i = threadIdx.x; i < n_words; i += kPackThreads) words[i] = 0;
   int bad = 0;
   const int total_bits = pack_session(pat + s * pat_row, nb + s * nb_row, n, k, false, spat,
@@ -164,6 +192,42 @@ __global__ void __launch_bounds__(kPackThreads, 2)
   int64_t* out = words_out + (size_t)s * n_words;
   for (int i = threadIdx.x; i < n_words; i += kPackThreads) out[i] = (int64_t)words[i];
   if (threadIdx.x == 0) total_out[s] = total_bits;
+}
+
+// K2/K4 on the cluster plan: one session per cluster (cluster_pack in
+// emit_device.cuh); each block writes its slice of the words once the
+// cluster has placed them all.
+template <typename Sym>
+__global__ void __launch_bounds__(kPackThreads, 1)
+    pack_place_cluster_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb,
+                              long long pat_row, long long nb_row, int n, int k, int n_words,
+                              int64_t* __restrict__ words_out, int64_t* __restrict__ total_out) {
+  extern __shared__ uint4 pack_smem[];  // 16-byte aligned
+  uint8_t* smem = reinterpret_cast<uint8_t*>(pack_smem);
+  __shared__ PosMap tmp_map[kPackWarps];
+  __shared__ ClusterBlock cb;
+  cg::cluster_group cl = cg::this_cluster();
+  const int c = (int)cl.dim_blocks().x;
+  const int r = (int)cl.block_rank();
+  const int s = blockIdx.x / c;
+  const int slice = cluster_slice(n_words, c);
+  const int w_lo = min(r * slice, n_words);
+  const int w_hi = min(w_lo + slice, n_words);
+  const int share = cluster_share(n, c);
+  const int i_lo = min(r * share, n);
+  const int i_hi = min(i_lo + share, n);
+  uint32_t* spat = reinterpret_cast<uint32_t*>(smem);
+  int32_t* snb = reinterpret_cast<int32_t*>(smem + 4 * kPackThreads * k);
+  uint32_t* words = reinterpret_cast<uint32_t*>(smem + cluster_stage_bytes(k, slice));
+  for (int i = threadIdx.x; i < slice; i += kPackThreads) words[i] = 0;
+  int bad = 0;
+  const int total_bits = cluster_pack<kStageFull>(
+      pat + s * pat_row + i_lo, nb + s * nb_row + i_lo, i_hi - i_lo, k, false, spat, snb,
+      ClusterWords{words, slice, n_words}, tmp_map, &cb, bad, nullptr);
+  cluster_sync();  // every run is placed; no block reads another's memory after this
+  int64_t* out = words_out + (size_t)s * n_words;
+  for (int i = w_lo + threadIdx.x; i < w_hi; i += kPackThreads) out[i] = (int64_t)words[i - w_lo];
+  if (r == 0 && threadIdx.x == 0) total_out[s] = total_bits;
 }
 
 // K3: one session per block (ebsp_session in emit_device.cuh, its default
@@ -177,44 +241,71 @@ __global__ void __launch_bounds__(kPackThreads, 2)
                nal_out, total_out);
 }
 
-const void* emit_kernel_of(int sym_bytes) {
+const void* emit_kernel_of(int sym_bytes, int cluster) {
+  if (cluster > 1) {
+    return sym_bytes == 8 ? (const void*)emit_fused_cluster_kernel<int64_t>
+                          : (const void*)emit_fused_cluster_kernel<int32_t>;
+  }
   return sym_bytes == 8 ? (const void*)emit_fused_kernel<int64_t>
                         : (const void*)emit_fused_kernel<int32_t>;
 }
 
-const void* pack_kernel_of(int sym_bytes) {
+const void* pack_kernel_of(int sym_bytes, int cluster) {
+  if (cluster > 1) {
+    return sym_bytes == 8 ? (const void*)pack_place_cluster_kernel<int64_t>
+                          : (const void*)pack_place_cluster_kernel<int32_t>;
+  }
   return sym_bytes == 8 ? (const void*)pack_place_kernel<int64_t>
                         : (const void*)pack_place_kernel<int32_t>;
+}
+
+// K1's and K2/K4's dynamic shared memory a block on `cluster` blocks a
+// session (1: one block).
+size_t emit_smem_of(int k, int n_nal, int cluster) {
+  return cluster > 1 ? cluster_smem(k, n_nal >> 2, cluster) : emit_smem(k, n_nal);
+}
+
+size_t pack_smem_of(int k, int n_words, int cluster) {
+  return cluster > 1 ? cluster_smem(k, n_words, cluster) : pack_smem_bytes(k, n_words);
 }
 
 template <typename Sym>
 cudaError_t launch_emit(const void* pat, const void* nb, long long pat_row, long long nb_row,
                         const int64_t* idc, long long idc_row, int idc_value, int batch, int n,
                         int k, int n_nal, int n_rbsp, int cap, int align, int append_tb,
-                        uint32_t* words_gmem, int nal_in_global, uint8_t* nal_out,
-                        int32_t* len_out, int32_t* bits_out, uint8_t* ovf_out,
-                        cudaStream_t stream) {
-  const int plan = (words_gmem ? kWordsInGlobal : 0) | (nal_in_global ? kNalInGlobal : 0);
-  const size_t smem = emit_smem(k, n_nal, plan);
+                        int cluster, uint8_t* nal_out, int32_t* len_out, int32_t* bits_out,
+                        uint8_t* ovf_out, cudaStream_t stream) {
+  const Sym* p = static_cast<const Sym*>(pat);
+  const Sym* q = static_cast<const Sym*>(nb);
+  const size_t smem = emit_smem_of(k, n_nal, cluster);
+  if (cluster > 1) {
+    return launch_clusters(emit_fused_cluster_kernel<Sym>, batch, cluster, smem, stream, p, q,
+                           pat_row, nb_row, idc, idc_row, idc_value, n, k, n_nal, n_rbsp, cap,
+                           align, append_tb, nal_out, len_out, bits_out, ovf_out);
+  }
   cudaError_t err = set_smem((const void*)emit_fused_kernel<Sym>, smem);
   if (err != cudaSuccess) return err;
   emit_fused_kernel<Sym><<<batch, kPackThreads, smem, stream>>>(
-      static_cast<const Sym*>(pat), static_cast<const Sym*>(nb), pat_row, nb_row, idc, idc_row,
-      idc_value, n, k, n_nal, n_rbsp, cap, align, append_tb, words_gmem, nal_in_global != 0,
+      p, q, pat_row, nb_row, idc, idc_row, idc_value, n, k, n_nal, n_rbsp, cap, align, append_tb,
       nal_out, len_out, bits_out, ovf_out);
   return cudaGetLastError();
 }
 
 template <typename Sym>
 cudaError_t launch_pack(const void* pat, const void* nb, long long pat_row, long long nb_row,
-                        int batch, int n, int k, int n_words, uint32_t* words_gmem,
-                        int64_t* words_out, int64_t* total_out, cudaStream_t stream) {
-  const size_t smem = pack_smem_bytes(k, n_words, words_gmem != nullptr);
+                        int batch, int n, int k, int n_words, int cluster, int64_t* words_out,
+                        int64_t* total_out, cudaStream_t stream) {
+  const Sym* p = static_cast<const Sym*>(pat);
+  const Sym* q = static_cast<const Sym*>(nb);
+  const size_t smem = pack_smem_of(k, n_words, cluster);
+  if (cluster > 1) {
+    return launch_clusters(pack_place_cluster_kernel<Sym>, batch, cluster, smem, stream, p, q,
+                           pat_row, nb_row, n, k, n_words, words_out, total_out);
+  }
   cudaError_t err = set_smem((const void*)pack_place_kernel<Sym>, smem);
   if (err != cudaSuccess) return err;
-  pack_place_kernel<Sym><<<batch, kPackThreads, smem, stream>>>(
-      static_cast<const Sym*>(pat), static_cast<const Sym*>(nb), pat_row, nb_row, n, k, n_words,
-      words_gmem, words_out, total_out);
+  pack_place_kernel<Sym><<<batch, kPackThreads, smem, stream>>>(p, q, pat_row, nb_row, n, k,
+                                                                n_words, words_out, total_out);
   return cudaGetLastError();
 }
 
@@ -223,71 +314,71 @@ cudaError_t launch_pack(const void* pat, const void* nb, long long pat_row, long
 // K1.  pat, nb: [batch, n] rows of int32 (sym_bytes 4) or int64 (8)
 // elements with unit column stride and the given row strides, staged k per
 // thread (k >= 1); nal_ref_idc is idc[s * idc_row] (int64) or, where idc
-// is null, idc_value.  words_gmem: null, or u32[batch, n_nal / 4] scratch,
-// and nal_in_global 0 or 1, as h264t_emit_plan says.  Outputs: nal_out
-// u8[batch, n_nal], len_out, bits_out i32[batch], ovf_out bool[batch].  A
-// block that needs more shared memory than the card allows fails with the
-// attribute call's error.
+// is null, idc_value.  cluster: the blocks a session, 1 (one block) or
+// the cluster plan's C in {2, 4, 8, 16}, as h264t_emit_plan says (k then
+// as h264t_cluster_items).  Outputs: nal_out u8[batch, n_nal], len_out,
+// bits_out i32[batch], ovf_out bool[batch].  A block that needs more
+// shared memory than the card allows, or a cluster the card cannot hold,
+// fails with the runtime's error.
 extern "C" int h264t_emit_fused(const void* pat, const void* nb, int sym_bytes,
                                 long long pat_row, long long nb_row, const int64_t* idc,
                                 long long idc_row, int idc_value, int batch, int n, int k,
                                 int n_nal, int n_rbsp, int cap, int align, int append_tb,
-                                uint32_t* words_gmem, int nal_in_global, uint8_t* nal_out,
-                                int32_t* len_out, int32_t* bits_out, uint8_t* ovf_out,
-                                void* stream) {
-  if (n_nal < 16 || n_nal % 4 != 0 || k < 1) return (int)cudaErrorInvalidValue;
+                                int cluster, uint8_t* nal_out, int32_t* len_out,
+                                int32_t* bits_out, uint8_t* ovf_out, void* stream) {
+  if (n_nal < 16 || n_nal % 4 != 0 || k < 1 || !valid_cluster(cluster))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (sym_bytes == 8)
     return (int)launch_emit<int64_t>(pat, nb, pat_row, nb_row, idc, idc_row, idc_value, batch, n,
-                                     k, n_nal, n_rbsp, cap, align, append_tb, words_gmem,
-                                     nal_in_global, nal_out, len_out, bits_out, ovf_out, st);
+                                     k, n_nal, n_rbsp, cap, align, append_tb, cluster, nal_out,
+                                     len_out, bits_out, ovf_out, st);
   if (sym_bytes == 4)
     return (int)launch_emit<int32_t>(pat, nb, pat_row, nb_row, idc, idc_row, idc_value, batch, n,
-                                     k, n_nal, n_rbsp, cap, align, append_tb, words_gmem,
-                                     nal_in_global, nal_out, len_out, bits_out, ovf_out, st);
+                                     k, n_nal, n_rbsp, cap, align, append_tb, cluster, nal_out,
+                                     len_out, bits_out, ovf_out, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// K1's plan at (sym_bytes, k, n_nal) on the current device: the first of 0
-// (words and NAL in shared memory), 1 (words in global memory) and 3 (words
-// and NAL in global memory) whose shared memory fits a block, as bits
-// kWordsInGlobal | kNalInGlobal; 3 where none fits (the launch then fails),
-// -1 if the runtime cannot say.  Launches nothing.
-extern "C" int h264t_emit_plan(int sym_bytes, int k, int n_nal) {
+// K1's plan for sessions of n symbols (k a thread with one block) into
+// n_nal NAL bytes on the current device: the blocks a session, 1 or the
+// cluster plan's C (session_plan in emit_device.cuh); 0 where nothing
+// fits, -1 if the runtime cannot say.  Launches nothing.
+extern "C" int h264t_emit_plan(int sym_bytes, int n, int k, int n_nal) {
   if (sym_bytes != 4 && sym_bytes != 8) return -1;
-  const size_t limit = dynamic_smem_limit(emit_kernel_of(sym_bytes));
-  if (limit == 0) return -1;
-  const int plans[] = {0, kWordsInGlobal, kWordsInGlobal | kNalInGlobal};
-  for (int plan : plans) {
-    if (emit_smem(k, n_nal, plan) <= limit) return plan;
-  }
-  return kWordsInGlobal | kNalInGlobal;
+  return session_plan(emit_kernel_of(sym_bytes, 1), emit_smem(k, n_nal),
+                      emit_kernel_of(sym_bytes, kMaxCluster), n, n_nal >> 2);
 }
 
-// K2.  pat, nb and k as for K1; words_gmem null, or u32[batch, n_words]
-// scratch where h264t_pack_words_in_global says so; outputs words_out
-// i64[batch, n_words] (uint32 values) and total_out i64[batch].
+// K2.  pat, nb, k and cluster as for K1 (h264t_pack_plan gives the
+// cluster); outputs words_out i64[batch, n_words] (uint32 values) and
+// total_out i64[batch].
 extern "C" int h264t_pack_place(const void* pat, const void* nb, int sym_bytes, long long pat_row,
                                 long long nb_row, int batch, int n, int k, int n_words,
-                                uint32_t* words_gmem, int64_t* words_out, int64_t* total_out,
+                                int cluster, int64_t* words_out, int64_t* total_out,
                                 void* stream) {
-  if (k < 1) return (int)cudaErrorInvalidValue;
+  if (k < 1 || !valid_cluster(cluster)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (sym_bytes == 8)
-    return (int)launch_pack<int64_t>(pat, nb, pat_row, nb_row, batch, n, k, n_words, words_gmem,
+    return (int)launch_pack<int64_t>(pat, nb, pat_row, nb_row, batch, n, k, n_words, cluster,
                                      words_out, total_out, st);
   if (sym_bytes == 4)
-    return (int)launch_pack<int32_t>(pat, nb, pat_row, nb_row, batch, n, k, n_words, words_gmem,
+    return (int)launch_pack<int32_t>(pat, nb, pat_row, nb_row, batch, n, k, n_words, cluster,
                                      words_out, total_out, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// As h264t_emit_words_in_global, for K2/K4 at (sym_bytes, k, n_words).
-extern "C" int h264t_pack_words_in_global(int sym_bytes, int k, int n_words) {
+// As h264t_emit_plan, for K2/K4 at (sym_bytes, n, k, n_words).
+extern "C" int h264t_pack_plan(int sym_bytes, int n, int k, int n_words) {
   if (sym_bytes != 4 && sym_bytes != 8) return -1;
-  const size_t limit = dynamic_smem_limit(pack_kernel_of(sym_bytes));
-  return limit == 0 ? -1 : pack_smem_bytes(k, n_words, false) > limit ? 1 : 0;
+  return session_plan(pack_kernel_of(sym_bytes, 1), pack_smem_bytes(k, n_words),
+                      pack_kernel_of(sym_bytes, kMaxCluster), n, n_words);
 }
+
+// Symbols a thread of a cluster block owns per staged chunk, for sessions
+// of n symbols on clusters of c blocks (ops/emit_fused.
+// cluster_items_per_thread is held to this on the card).
+extern "C" int h264t_cluster_items(int n, int c) { return cluster_items(n, c); }
 
 // K3.  rbsp: [batch, m] bytes with unit column stride and row stride
 // rbsp_row; rbsp_len: int64, session s's at s * len_row (0 broadcasts one);
@@ -322,21 +413,21 @@ extern "C" int h264t_ebsp_items_per_thread(int valid) { return ebsp_items_per_th
 
 extern "C" int h264t_pack_words(const void* pat, const void* nb, int sym_bytes, long long pat_row,
                                 long long nb_row, int batch, int n, int k, int n_words,
-                                uint32_t* words_gmem, int64_t* words_out, int64_t* total_out,
+                                int cluster, int64_t* words_out, int64_t* total_out,
                                 void* stream) {
-  return h264t_pack_place(pat, nb, sym_bytes, pat_row, nb_row, batch, n, k, n_words, words_gmem,
+  return h264t_pack_place(pat, nb, sym_bytes, pat_row, nb_row, batch, n, k, n_words, cluster,
                           words_out, total_out, stream);
 }
 
-// Resident blocks per SM of K1 at (sym_bytes, k, n_nal) on plan `plan`
-// (h264t_emit_plan's bits), and of K2/K4 at (sym_bytes, k, n_words), on
-// the current device; -1 if the runtime cannot say.  Launches nothing.
-extern "C" int h264t_emit_blocks_per_sm(int sym_bytes, int k, int n_nal, int plan) {
-  if (sym_bytes != 4 && sym_bytes != 8) return -1;
-  return blocks_per_sm(emit_kernel_of(sym_bytes), emit_smem(k, n_nal, plan));
+// Resident blocks per SM of K1 at (sym_bytes, k, n_nal) on `cluster`
+// blocks a session, and of K2/K4 at (sym_bytes, k, n_words), on the
+// current device; -1 if the runtime cannot say.  Launches nothing.
+extern "C" int h264t_emit_blocks_per_sm(int sym_bytes, int k, int n_nal, int cluster) {
+  if ((sym_bytes != 4 && sym_bytes != 8) || !valid_cluster(cluster)) return -1;
+  return blocks_per_sm(emit_kernel_of(sym_bytes, cluster), emit_smem_of(k, n_nal, cluster));
 }
 
-extern "C" int h264t_pack_blocks_per_sm(int sym_bytes, int k, int n_words, int words_in_global) {
-  if (sym_bytes != 4 && sym_bytes != 8) return -1;
-  return blocks_per_sm(pack_kernel_of(sym_bytes), pack_smem_bytes(k, n_words, words_in_global));
+extern "C" int h264t_pack_blocks_per_sm(int sym_bytes, int k, int n_words, int cluster) {
+  if ((sym_bytes != 4 && sym_bytes != 8) || !valid_cluster(cluster)) return -1;
+  return blocks_per_sm(pack_kernel_of(sym_bytes, cluster), pack_smem_of(k, n_words, cluster));
 }

@@ -72,65 +72,72 @@
 
 namespace {
 
-// P1: K1's session cut after Stage.
+// P1: K1's session cut after Stage, one block a session or (the cluster
+// kernel) on K1's cluster plan.
 template <int Stage, typename Sym>
 __global__ void __launch_bounds__(kPackThreads, 2)
     emit_stage_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row,
                       long long nb_row, const int64_t* __restrict__ idc, long long idc_row,
                       int idc_value, int n, int k, int n_nal, int n_rbsp, int cap, int align,
-                      int append_tb, uint32_t* __restrict__ words_gmem, int nal_in_global,
-                      uint8_t* __restrict__ nal_out, int32_t* __restrict__ len_out,
+                      int append_tb, uint8_t* __restrict__ nal_out, int32_t* __restrict__ len_out,
                       int32_t* __restrict__ bits_out, uint8_t* __restrict__ ovf_out,
                       int32_t* __restrict__ probe_meta, int32_t* __restrict__ probe_words) {
   emit_session<Stage>(pat, nb, pat_row, nb_row, idc, idc_row, idc_value, n, k, n_nal, n_rbsp, cap,
-                      align, append_tb, words_gmem, nal_in_global, nal_out, len_out, bits_out,
-                      ovf_out, probe_meta, probe_words);
-}
-
-template <typename Sym>
-const void* stage_kernel_of(int stage) {
-  switch (stage) {
-    case kStageLaunch: return (const void*)emit_stage_kernel<kStageLaunch, Sym>;
-    case kStageStage: return (const void*)emit_stage_kernel<kStageStage, Sym>;
-    case kStageScan: return (const void*)emit_stage_kernel<kStageScan, Sym>;
-    case kStagePack: return (const void*)emit_stage_kernel<kStagePack, Sym>;
-    case kStageEp: return (const void*)emit_stage_kernel<kStageEp, Sym>;
-    case kStageFull: return (const void*)emit_stage_kernel<kStageFull, Sym>;
-    default: return nullptr;
-  }
-}
-
-const void* stage_kernel_of(int stage, int sym_bytes) {
-  return sym_bytes == 8 ? stage_kernel_of<int64_t>(stage)
-                        : sym_bytes == 4 ? stage_kernel_of<int32_t>(stage) : nullptr;
+                      align, append_tb, nal_out, len_out, bits_out, ovf_out, probe_meta,
+                      probe_words);
 }
 
 template <int Stage, typename Sym>
-void launch_stage(const void* pat, const void* nb, long long pat_row, long long nb_row,
-                  const int64_t* idc, long long idc_row, int idc_value, int batch, int n, int k,
-                  int n_nal, int n_rbsp, int cap, int align, int append_tb, uint32_t* words_gmem,
-                  int nal_in_global, uint8_t* nal_out, int32_t* len_out, int32_t* bits_out,
-                  uint8_t* ovf_out, int32_t* probe_meta, int32_t* probe_words, size_t smem,
-                  cudaStream_t stream) {
+__global__ void __launch_bounds__(kPackThreads, 1)
+    emit_stage_cluster_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb,
+                              long long pat_row, long long nb_row,
+                              const int64_t* __restrict__ idc, long long idc_row, int idc_value,
+                              int n, int k, int n_nal, int n_rbsp, int cap, int align,
+                              int append_tb, uint8_t* __restrict__ nal_out,
+                              int32_t* __restrict__ len_out, int32_t* __restrict__ bits_out,
+                              uint8_t* __restrict__ ovf_out, int32_t* __restrict__ probe_meta,
+                              int32_t* __restrict__ probe_words) {
+  emit_cluster_session<Stage>(pat, nb, pat_row, nb_row, idc, idc_row, idc_value, n, k, n_nal,
+                              n_rbsp, cap, align, append_tb, nal_out, len_out, bits_out, ovf_out,
+                              probe_meta, probe_words);
+}
+
+template <int Stage, typename Sym>
+cudaError_t launch_stage(int cluster, const void* pat, const void* nb, long long pat_row,
+                         long long nb_row, const int64_t* idc, long long idc_row, int idc_value,
+                         int batch, int n, int k, int n_nal, int n_rbsp, int cap, int align,
+                         int append_tb, uint8_t* nal_out, int32_t* len_out, int32_t* bits_out,
+                         uint8_t* ovf_out, int32_t* probe_meta, int32_t* probe_words,
+                         cudaStream_t stream) {
+  const Sym* p = static_cast<const Sym*>(pat);
+  const Sym* q = static_cast<const Sym*>(nb);
+  if (cluster > 1) {
+    return launch_clusters(emit_stage_cluster_kernel<Stage, Sym>, batch, cluster,
+                           cluster_smem(k, n_nal >> 2, cluster), stream, p, q, pat_row, nb_row,
+                           idc, idc_row, idc_value, n, k, n_nal, n_rbsp, cap, align, append_tb,
+                           nal_out, len_out, bits_out, ovf_out, probe_meta, probe_words);
+  }
+  const size_t smem = emit_smem(k, n_nal);
+  const cudaError_t err = set_smem((const void*)emit_stage_kernel<Stage, Sym>, smem);
+  if (err != cudaSuccess) return err;
   emit_stage_kernel<Stage, Sym><<<batch, kPackThreads, smem, stream>>>(
-      static_cast<const Sym*>(pat), static_cast<const Sym*>(nb), pat_row, nb_row, idc, idc_row,
-      idc_value, n, k, n_nal, n_rbsp, cap, align, append_tb, words_gmem, nal_in_global, nal_out,
-      len_out, bits_out, ovf_out, probe_meta, probe_words);
+      p, q, pat_row, nb_row, idc, idc_row, idc_value, n, k, n_nal, n_rbsp, cap, align, append_tb,
+      nal_out, len_out, bits_out, ovf_out, probe_meta, probe_words);
+  return cudaGetLastError();
 }
 
 template <typename Sym>
-void launch_stage_of(int stage, const void* pat, const void* nb, long long pat_row,
-                     long long nb_row, const int64_t* idc, long long idc_row, int idc_value,
-                     int batch, int n, int k, int n_nal, int n_rbsp, int cap, int align,
-                     int append_tb, uint32_t* words_gmem, int nal_in_global, uint8_t* nal_out,
-                     int32_t* len_out, int32_t* bits_out, uint8_t* ovf_out, int32_t* probe_meta,
-                     int32_t* probe_words, size_t smem, cudaStream_t stream) {
-#define H264T_STAGE_CASE(S)                                                                    \
-  case S:                                                                                      \
-    launch_stage<S, Sym>(pat, nb, pat_row, nb_row, idc, idc_row, idc_value, batch, n, k, n_nal, \
-                         n_rbsp, cap, align, append_tb, words_gmem, nal_in_global, nal_out,     \
-                         len_out, bits_out, ovf_out, probe_meta, probe_words, smem, stream);    \
-    break;
+cudaError_t launch_stage_of(int stage, int cluster, const void* pat, const void* nb,
+                            long long pat_row, long long nb_row, const int64_t* idc,
+                            long long idc_row, int idc_value, int batch, int n, int k, int n_nal,
+                            int n_rbsp, int cap, int align, int append_tb, uint8_t* nal_out,
+                            int32_t* len_out, int32_t* bits_out, uint8_t* ovf_out,
+                            int32_t* probe_meta, int32_t* probe_words, cudaStream_t stream) {
+#define H264T_STAGE_CASE(S)                                                                       \
+  case S:                                                                                         \
+    return launch_stage<S, Sym>(cluster, pat, nb, pat_row, nb_row, idc, idc_row, idc_value,       \
+                                batch, n, k, n_nal, n_rbsp, cap, align, append_tb, nal_out,       \
+                                len_out, bits_out, ovf_out, probe_meta, probe_words, stream);
   switch (stage) {
     H264T_STAGE_CASE(kStageLaunch)
     H264T_STAGE_CASE(kStageStage)
@@ -138,6 +145,8 @@ void launch_stage_of(int stage, const void* pat, const void* nb, long long pat_r
     H264T_STAGE_CASE(kStagePack)
     H264T_STAGE_CASE(kStageEp)
     H264T_STAGE_CASE(kStageFull)
+    default:
+      return cudaErrorInvalidValue;
   }
 #undef H264T_STAGE_CASE
 }
@@ -310,40 +319,35 @@ const void* ebsp_variant_of(int variant) {
 
 }  // namespace
 
-// P1.  K1's arguments (h264t_emit_fused, with the plan K1's wrapper
-// takes), the stage (0 launch, 1 stage, 2 scan, 3 pack, 4 ep, 5 full),
-// and the cut stages' outputs: probe_meta i32[batch, 4] and, for `pack`,
+// P1.  K1's arguments (h264t_emit_fused, with the cluster K1's wrapper
+// takes), the stage (0 launch, 1 stage, 2 scan, 3 pack, 4 ep, 5 full), and
+// the cut stages' outputs: probe_meta i32[batch, 4] and, for `pack`,
 // probe_words i32[batch, n_nal / 4] (the uint32 words).  `full` writes
-// K1's outputs; `ep` on the NAL-in-global plan builds its NAL in nal_out.
+// K1's outputs; `ep` on the cluster plan builds its NAL in nal_out.
 extern "C" int h264t_emit_stage(int stage, const void* pat, const void* nb, int sym_bytes,
                                 long long pat_row, long long nb_row, const int64_t* idc,
                                 long long idc_row, int idc_value, int batch, int n, int k,
                                 int n_nal, int n_rbsp, int cap, int align, int append_tb,
-                                uint32_t* words_gmem, int nal_in_global, uint8_t* nal_out,
-                                int32_t* len_out, int32_t* bits_out, uint8_t* ovf_out,
-                                int32_t* probe_meta, int32_t* probe_words, void* stream) {
-  const void* kernel = stage_kernel_of(stage, sym_bytes);
-  if (kernel == nullptr || n_nal < 16 || n_nal % 4 != 0 || k < 1) return (int)cudaErrorInvalidValue;
-  const int plan = (words_gmem ? kWordsInGlobal : 0) | (nal_in_global ? kNalInGlobal : 0);
-  const size_t smem = emit_smem(k, n_nal, plan);
-  const cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
+                                int cluster, uint8_t* nal_out, int32_t* len_out,
+                                int32_t* bits_out, uint8_t* ovf_out, int32_t* probe_meta,
+                                int32_t* probe_words, void* stream) {
+  if (stage < kStageLaunch || stage > kStageFull || (sym_bytes != 4 && sym_bytes != 8) ||
+      n_nal < 16 || n_nal % 4 != 0 || k < 1 || !valid_cluster(cluster))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (sym_bytes == 8) {
-    launch_stage_of<int64_t>(stage, pat, nb, pat_row, nb_row, idc, idc_row, idc_value, batch, n,
-                             k, n_nal, n_rbsp, cap, align, append_tb, words_gmem,
-                             nal_in_global != 0, nal_out, len_out, bits_out, ovf_out, probe_meta,
-                             probe_words, smem, st);
-  } else {
-    launch_stage_of<int32_t>(stage, pat, nb, pat_row, nb_row, idc, idc_row, idc_value, batch, n,
-                             k, n_nal, n_rbsp, cap, align, append_tb, words_gmem,
-                             nal_in_global != 0, nal_out, len_out, bits_out, ovf_out, probe_meta,
-                             probe_words, smem, st);
+    return (int)launch_stage_of<int64_t>(stage, cluster, pat, nb, pat_row, nb_row, idc, idc_row,
+                                         idc_value, batch, n, k, n_nal, n_rbsp, cap, align,
+                                         append_tb, nal_out, len_out, bits_out, ovf_out,
+                                         probe_meta, probe_words, st);
   }
-  return (int)cudaGetLastError();
+  return (int)launch_stage_of<int32_t>(stage, cluster, pat, nb, pat_row, nb_row, idc, idc_row,
+                                       idc_value, batch, n, k, n_nal, n_rbsp, cap, align,
+                                       append_tb, nal_out, len_out, bits_out, ovf_out, probe_meta,
+                                       probe_words, st);
 }
 
-// P2.  K2's arguments without the global-words plan: n_words <= 2,048
+// P2.  K2's arguments without the cluster: n_words <= 2,048
 // (else cudaErrorInvalidValue, launching nothing); outputs words_out
 // i64[batch, n_words] (uint32 values) and total_out i64[batch].
 extern "C" int h264t_pack_place_u16(const void* pat, const void* nb, int sym_bytes,
@@ -372,7 +376,7 @@ extern "C" int h264t_pack_place_u16(const void* pat, const void* nb, int sym_byt
 // The largest words P2 keeps (its wrapper refuses more).
 extern "C" int h264t_pack_u16_max_words() { return kU16MaxWords; }
 
-// P3.  K2's arguments without the global-words plan, the tile T (1, 2, 4,
+// P3.  K2's arguments without the cluster, the tile T (1, 2, 4,
 // 8 or 16; batch % T == 0) and k as h264t_pack_tiled_items gives it.
 extern "C" int h264t_pack_place_tiled(int tile, const void* pat, const void* nb, int sym_bytes,
                                       long long pat_row, long long nb_row, int batch, int n,

@@ -16,7 +16,10 @@ pack stage on its own): `h264t_pack_place` for K2 and `h264t_pack_words`,
 the same block behind its own entry point and launch counter, for K4.
 The kernel reads int64 (or int32) symbols as they are and writes the
 int64 words and totals the plain version returns.  The TPU merge tree is
-not carried over.
+not carried over.  Past one block's shared memory (the exact retry of
+frames past about 33,500 MBs) a session runs on a thread-block cluster,
+as K1's (ops/emit_fused); `pack_words_split_plain` is the pack computed
+from the cluster's shares.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import torch
 
 from .. import _kernels
 from .bitpack import pack_words
-from .emit_fused import check_symbols, items_per_thread, row_stride
+from .emit_fused import (check_symbols, items_per_thread, launch_geometry,
+                         pack_split, row_stride)
 
 
 def pack_words_place_plain(patterns, nbits, num_words: int):
@@ -34,10 +38,21 @@ def pack_words_place_plain(patterns, nbits, num_words: int):
     return pack_words(patterns, nbits, num_words)
 
 
-def pack_words_place_batch(patterns, nbits, num_words: int):
+def pack_words_split_plain(patterns, nbits, num_words: int, parts: int = 1):
+    """K2's contract computed as the cluster plan computes it, from
+    `parts` contiguous shares (ops/emit_fused.pack_split); equals
+    pack_words_place_plain for widths in [0, 32]."""
+    words, total, _bad = pack_split(patterns, nbits, num_words, parts)
+    return words, total
+
+
+def pack_words_place_batch(patterns, nbits, num_words: int, *,
+                           cluster: int | None = None):
     """K2 over a [B, n] batch: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors (a build or launch failure raises)."""
-    return _batch(patterns, nbits, num_words, _kernels.PACK_PLACE)
+    kernel for CUDA tensors (a build or launch failure raises).  `cluster`
+    (tests only) forces the blocks a session, as in
+    ops/emit_fused.emit_nal_fused_batch."""
+    return _batch(patterns, nbits, num_words, _kernels.PACK_PLACE, cluster)
 
 
 def pack_words_batch(patterns, nbits, num_words: int):
@@ -48,34 +63,33 @@ def pack_words_batch(patterns, nbits, num_words: int):
     return _batch(patterns, nbits, num_words, _kernels.PACK_WORDS)
 
 
-def _batch(patterns, nbits, num_words: int, kernel):
+def _batch(patterns, nbits, num_words: int, kernel, cluster=None):
     check_symbols(patterns, nbits)
     if patterns.device.type == "cpu":
         return pack_words_place_plain(patterns, nbits, num_words)
-    return launch_kernel(patterns, nbits, num_words, kernel)
+    return launch_kernel(patterns, nbits, num_words, kernel, cluster)
 
 
-def launch_kernel(pat, nb, num_words: int, kernel=_kernels.PACK_PLACE):
+def launch_kernel(pat, nb, num_words: int, kernel=_kernels.PACK_PLACE,
+                  cluster: int | None = None):
     """Launch K2 (or K4, the same block: kernel=_kernels.PACK_WORDS) on
     int64 or int32 CUDA tensors pat[B, n] (uint32 bit patterns in the low
     32 bits) and nb[B, n], read as they are: (words int64[B, num_words]
-    holding uint32 values, total_bits int64[B])."""
+    holding uint32 values, total_bits int64[B]).  One block a session, or
+    the cluster plan where the library's plan (or `cluster`) says so."""
     dev = pat.device
     B, n = pat.shape
     words = torch.empty((B, num_words), dtype=torch.int64, device=dev)
     total = torch.empty((B,), dtype=torch.int64, device=dev)
     if B:
         with torch.cuda.device(dev):
-            k = items_per_thread(n)
-            # Large frames: the words packed in global scratch (see the .cu).
-            scratch = (torch.empty((B, num_words), dtype=torch.int32,
-                                   device=dev)
-                       if _kernels.pack_words_in_global(pat.element_size(), k,
-                                                        num_words) else None)
+            c, k = launch_geometry(
+                lambda: _kernels.pack_plan(pat.element_size(), n,
+                                           items_per_thread(n), num_words),
+                n, cluster)
             kernel.launch(
                 pat.data_ptr(), nb.data_ptr(), pat.element_size(),
-                row_stride(pat), row_stride(nb), B, n, k, num_words,
-                None if scratch is None else scratch.data_ptr(),
+                row_stride(pat), row_stride(nb), B, n, k, num_words, c,
                 words.data_ptr(), total.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     return words, total

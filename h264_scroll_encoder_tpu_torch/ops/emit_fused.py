@@ -23,6 +23,14 @@ kernel `h264t_emit_fused` (csrc/emit_kernels.cu) for CUDA tensors, on
 the int64 (or int32) symbols as they are: no conversion pass first.
 Bytes of flagged frames are unspecified beyond being deterministic; the
 kernel and the plain version agree on every output of every frame.
+
+Where one block's shared memory cannot hold a session (4K and 5K hint
+frames, the dense frame of I_PCM donors), K1 and K2/K4 spread it over a
+thread-block cluster of C blocks (the cluster plan, `_kernels.emit_plan`
+and `_kernels.pack_plan`).  `emit_nal_split_plain` and
+ops/bitpack_flat.pack_words_split_plain compute the same outputs from C
+contiguous shares by the cluster plan's rules; the tests hold them equal
+to the unsplit plain versions.
 """
 
 from __future__ import annotations
@@ -32,14 +40,41 @@ import numbers
 import torch
 
 from .. import _kernels
-from .bitpack import pack_words, trailing_bits_symbol, words_to_bytes
-from .ebsp import rbsp_to_ebsp_bounded
+from .bitpack import U32, pack_words, trailing_bits_symbol, words_to_bytes
+from .ebsp import EBSP_WINDOW_WORDS, rbsp_to_ebsp_bounded
 
 # The most symbols a thread of K1 or K2/K4 owns per staged chunk: it caps
 # the staging area at 8 B * 24 * _kernels.PACK_THREADS = 96 KB a block.
 PACK_MAX_ITEMS = 24
 # Symbol dtypes the kernels read in place.
 SYMBOL_DTYPES = (torch.int64, torch.int32)
+
+# The cluster plan (csrc/emit_device.cuh, the same formulas): a session
+# over C blocks, C in CLUSTER_SIZES.  Block r stages the symbols
+# [r * share, (r + 1) * share) and holds the RBSP words [r * slice,
+# (r + 1) * slice) in its shared memory; a thread owns an odd number of
+# symbols of a staged chunk (its run's words then fall into other banks
+# than its neighbours'), at most CLUSTER_MAX_ITEMS (132 KB of staging).
+CLUSTER_SIZES = (2, 4, 8, 16)
+CLUSTER_MAX_ITEMS = 33
+
+
+def cluster_share(n: int, parts: int) -> int:
+    """Symbols of each block's share: ceil(n / parts)."""
+    return -(-n // parts)
+
+
+def cluster_slice(n_words: int, parts: int) -> int:
+    """Words of each block's slice: ceil(n_words / parts), rounded up to a
+    multiple of 4 (16 bytes)."""
+    return (-(-n_words // parts) + 3) // 4 * 4
+
+
+def cluster_items_per_thread(n: int, parts: int) -> int:
+    """Symbols each thread of a cluster block owns per staged chunk of its
+    share (h264t_cluster_items)."""
+    return min(-(-cluster_share(n, parts) // _kernels.PACK_THREADS) | 1,
+               CLUSTER_MAX_ITEMS)
 
 
 def nal_bytes(n_rbsp: int, cap: int) -> int:
@@ -116,6 +151,135 @@ def emit_nal_fused_plain(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
             overflow)
 
 
+def _shares(x, parts: int, fill: int = 0):
+    """[B, n] -> [B, parts, cluster_share(n, parts)]: the blocks' contiguous
+    shares, the last ones padded with `fill`."""
+    B, n = x.shape
+    share = cluster_share(n, parts)
+    pad = x.new_full((B, parts * share - n), fill)
+    return torch.cat([x, pad], dim=1).reshape(B, parts, share)
+
+
+def _apply_map(has, a, b, pos):
+    """A share's position map (emit_device.cuh PosMap) applied to pos."""
+    return torch.where(has, (pos + a + 7) // 8 * 8 + b, pos + a)
+
+
+def pack_split(patterns, nbits, num_words: int, parts: int, *,
+               align: bool = False):
+    """The cluster plan's pack from `parts` contiguous shares: each share's
+    position map (its widths composed, an alignment sentinel rounding the
+    position up to a byte), an exclusive scan of the maps across the
+    shares for each share's start bit, then each share's symbols placed
+    from its start wherever their bits fall, a word that two shares reach
+    ORed from both.  Without `align` a sentinel packs as zero bits and
+    flags the session.  Returns (words int64[B, num_words], total_bits
+    int64[B], bad bool[B])."""
+    pat = patterns.to(torch.int64)
+    nb = nbits.to(torch.int64)
+    B = nb.shape[0]
+    bad = (nb < 0).any(dim=1) & (not align)
+    sentinel = (nb < 0) & align
+    widths = nb.clamp(min=0)
+    # A share's map: ceil8(pos + a) + b after a sentinel, pos + a without.
+    # a sums the widths before the first sentinel; b the widths after the
+    # last, plus each whole segment between two sentinels rounded up to 8.
+    w_sh, s_sh = _shares(widths, parts), _shares(sentinel, parts, False)
+    seg = torch.cumsum(s_sh.to(torch.int64), dim=2)
+    sums = torch.zeros(w_sh.shape[:2] + (w_sh.shape[2] + 1,),
+                       dtype=torch.int64, device=nb.device)
+    sums.scatter_add_(2, seg, w_sh)
+    m = seg[:, :, -1:] if seg.shape[2] else torch.zeros_like(sums[:, :, :1])
+    j = torch.arange(sums.shape[2], device=nb.device)
+    b = torch.where((j >= 1) & (j < m), (sums + 7) // 8 * 8,
+                    torch.where((j >= 1) & (j == m), sums, 0)).sum(dim=2)
+    has, a = m[:, :, 0] > 0, sums[:, :, 0]
+    starts = []
+    carry = torch.zeros(B, dtype=torch.int64, device=nb.device)
+    for r in range(parts):
+        starts.append(carry)
+        carry = _apply_map(has[:, r], a[:, r], b[:, r], carry)
+    words = torch.zeros((B, num_words), dtype=torch.int64, device=nb.device)
+    p_sh = _shares(pat, parts)
+    nb_sh = _shares(torch.where(sentinel, -1, widths), parts)
+    for r, start in enumerate(starts):
+        # The share's widths with its sentinels resolved from its start:
+        # a leading symbol of width `start` carries the byte phase in.
+        w = _resolve_align(torch.cat([start[:, None], nb_sh[:, r]], dim=1))
+        got, _ = pack_words(p_sh[:, r], w[:, 1:], num_words,
+                            start_bit=start[:, None])
+        words |= got
+    return words & U32, carry, bad
+
+
+def _ep_split(rbsp, rbsp_len, n_nal: int, parts: int):
+    """K1's bounded emulation prevention over `parts` byte slices (each
+    block's RBSP words): each slice's last nonzero byte and an exclusive
+    max across the slices carry the zero run in; each slice's insertions
+    and an exclusive sum across the slices give its bytes' NAL positions.
+    Returns (payload u8[B, n_nal - 5], insertions int64[B], saturated
+    bool[B])."""
+    B = rbsp.shape[0]
+    dev = rbsp.device
+    width = 4 * cluster_slice(n_nal // 4, parts)
+    byte = torch.zeros((B, parts * width), dtype=torch.int64, device=dev)
+    byte[:, :n_nal] = rbsp[:, :n_nal].to(torch.int64)
+    i = torch.arange(parts * width, device=dev)
+    valid = i[None, :] < torch.clamp(rbsp_len, max=n_nal)[:, None]
+    nz = torch.where(valid & (byte != 0), i, -1).reshape(B, parts, width)
+    incl = torch.cummax(nz, dim=2).values
+    last_in = torch.cat([torch.full_like(incl[:, :, :1], -1), incl[:, :, :-1]],
+                        dim=2)
+    ends = incl[:, :, -1]
+    before = torch.cat([torch.full_like(ends[:, :1], -1),
+                        torch.cummax(ends, dim=1).values[:, :-1]], dim=1)
+    last = torch.maximum(last_in, before[:, :, None]).reshape(B, -1)
+    t = i[None, :] - 1 - last
+    unresolved = (((i >> 2) > EBSP_WINDOW_WORDS)[None, :]
+                  & (t >= 4 * EBSP_WINDOW_WORDS + (i & 3)[None, :]))
+    ins = valid & (byte <= 3) & (t >= 2) & (t % 2 == 0) & ~unresolved
+    per = ins.reshape(B, parts, width).to(torch.int64)
+    counts = per.sum(dim=2)
+    ins_before = torch.cumsum(counts, dim=1) - counts
+    dst = (i[None, :] + (ins_before[:, :, None]
+                         + torch.cumsum(per, dim=2)).reshape(B, -1))
+    size = n_nal - 5
+    out = torch.zeros((B, size + 1), dtype=torch.uint8, device=dev)
+    out.scatter_(1, torch.where(valid & (dst < size), dst, size),
+                 byte.to(torch.uint8))
+    out.scatter_(1, torch.where(ins & (dst - 1 < size), dst - 1, size),
+                 torch.full_like(byte, 3, dtype=torch.uint8))
+    return out[:, :size], counts.sum(dim=1), (valid & unresolved).any(dim=1)
+
+
+def emit_nal_split_plain(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
+                         *, align: bool = False, append_tb: bool = False,
+                         parts: int = 1):
+    """K1's contract computed as the cluster plan computes it, from `parts`
+    contiguous shares of the symbols and `parts` slices of the RBSP words
+    (pack_split, _ep_split): the trailing bits where the total ends, the
+    saturation flag and insertions reduced over the slices.  Arguments and
+    returns as emit_nal_fused_plain, whose outputs it equals."""
+    B = nbits.shape[0]
+    n_nal = nal_bytes(n_rbsp, cap)
+    words, total_bits, bad = pack_split(patterns, nbits, n_nal // 4, parts,
+                                        align=align)
+    if append_tb:
+        tb_pat, tb_n = trailing_bits_symbol(total_bits)
+        tb, _ = pack_words(tb_pat[:, None], tb_n[:, None], n_nal // 4,
+                           start_bit=total_bits[:, None])
+        words |= tb
+        total_bits = total_bits + tb_n
+    rbsp_len = total_bits >> 3
+    payload, ins, sat = _ep_split(words_to_bytes(words), rbsp_len, n_nal,
+                                  parts)
+    ins_eff = ins + sat.to(torch.int64) * (cap + 1)
+    nal = torch.cat([nal_prefix(nal_ref_idc, B, nbits.device), payload], dim=1)
+    overflow = (total_bits > n_rbsp * 8) | (ins_eff > cap) | bad
+    return (nal, (5 + rbsp_len + ins_eff).to(torch.int32),
+            total_bits.to(torch.int32), overflow)
+
+
 def check_symbols(patterns, nbits):
     """Raise unless patterns and nbits are [B, n] tensors of one dtype,
     int64 (as the symbol stage makes them) or int32, on one CPU or CUDA
@@ -148,12 +312,29 @@ def row_stride(x) -> int:
     return x.stride(0)
 
 
+def launch_geometry(plan, n: int, cluster: int | None) -> tuple[int, int]:
+    """(C, items per thread) of a K1 or K2/K4 launch over n symbols: the
+    library's plan (plan()) unless a test forces `cluster`; C = 1 is one
+    block a session, C > 1 the cluster plan.  Raises where no plan fits."""
+    if cluster is not None and cluster not in (1,) + CLUSTER_SIZES:
+        raise ValueError(f"cluster must be 1 or one of {CLUSTER_SIZES}, "
+                         f"not {cluster}")
+    c = plan() if cluster is None else cluster
+    if c == 0:
+        raise RuntimeError(f"no launch plan fits {n} symbols a session in "
+                           f"a cluster of up to {CLUSTER_SIZES[-1]} blocks")
+    return c, items_per_thread(n) if c == 1 else cluster_items_per_thread(n, c)
+
+
 def emit_nal_fused_batch(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
-                         *, align: bool = False, append_tb: bool = False):
+                         *, align: bool = False, append_tb: bool = False,
+                         cluster: int | None = None):
     """K1 over a [B, n] batch: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (a build or launch failure raises).  Same
     arguments and returns as emit_nal_fused_plain; patterns and nbits are
-    int64 or int32, and the kernel reads them as they are."""
+    int64 or int32, and the kernel reads them as they are.  `cluster`
+    (tests only) forces the blocks a session, 1 or one of CLUSTER_SIZES,
+    instead of the library's plan."""
     check_symbols(patterns, nbits)
     if patterns.device.type == "cpu":
         return emit_nal_fused_plain(patterns, nbits, nal_ref_idc, n_rbsp, cap,
@@ -174,20 +355,16 @@ def emit_nal_fused_batch(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
     overflow = torch.empty((B,), dtype=torch.bool, device=dev)
     if B:
         with torch.cuda.device(dev):
-            k = items_per_thread(n)
-            # Large frames: the RBSP words in global scratch, and past that
-            # the NAL built in place in `nal` (the kernel's plan; see the .cu).
-            plan = _kernels.emit_plan(patterns.element_size(), k, n_nal)
-            scratch = (torch.empty((B, n_nal // 4), dtype=torch.int32,
-                                   device=dev)
-                       if plan.words_in_global else None)
+            # Large frames: a cluster of C blocks a session (see the .cu).
+            c, k = launch_geometry(
+                lambda: _kernels.emit_plan(patterns.element_size(), n,
+                                           items_per_thread(n), n_nal),
+                n, cluster)
             _kernels.EMIT_FUSED.launch(
                 patterns.data_ptr(), nbits.data_ptr(), patterns.element_size(),
                 row_stride(patterns), row_stride(nbits),
                 None if idc is None else idc.data_ptr(), idc_row, idc_value,
-                B, n, k, n_nal, n_rbsp, cap, int(align), int(append_tb),
-                None if scratch is None else scratch.data_ptr(),
-                int(plan.nal_in_global),
+                B, n, k, n_nal, n_rbsp, cap, int(align), int(append_tb), c,
                 nal.data_ptr(), meta[0].data_ptr(), meta[1].data_ptr(),
                 overflow.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return nal, meta[0], meta[1], overflow

@@ -54,8 +54,9 @@ from . import ebsp, ebsp_flat
 from .bitpack import pack_words, trailing_bits_symbol, words_to_bytes
 from .bitpack_flat import pack_words_place_plain
 from .emit_fused import (PACK_MAX_ITEMS, _resolve_align, check_symbols,
-                         emit_nal_fused_plain, items_per_thread, nal_bytes,
-                         nal_prefix, row_stride)
+                         cluster_items_per_thread, cluster_share,
+                         emit_nal_fused_plain, items_per_thread,
+                         launch_geometry, nal_bytes, nal_prefix, row_stride)
 
 EMIT_STAGES = _kernels.EMIT_STAGES
 # P2 keeps at most this many words: 65,536 bits, the reach of a 16-bit
@@ -87,10 +88,30 @@ def _resolved_widths(nbits, align: bool):
     return _resolve_align(nbits) if align else nbits.clamp(min=0)
 
 
+def _run_firsts(n: int, cluster: int, dev):
+    """The first symbol of every thread's run in every staged chunk of K1
+    on `cluster` blocks a session (1: one block), clamped to the end of
+    its block's share: thread t of the chunk at `base` of the share from
+    `lo` starts at symbol lo + base + t * k."""
+    k = items_per_thread(n) if cluster == 1 else cluster_items_per_thread(
+        n, cluster)
+    share = n if cluster == 1 else cluster_share(n, cluster)
+    t = torch.arange(_kernels.PACK_THREADS, device=dev) * k
+    firsts = []
+    for lo in range(0, n, max(share, 1)):
+        hi = min(lo + share, n)
+        firsts += [torch.clamp(lo + base + t, max=hi)
+                   for base in range(0, hi - lo, _kernels.PACK_THREADS * k)]
+    return firsts
+
+
 def emit_stage_plain(stage: str, patterns, nbits, nal_ref_idc, n_rbsp: int,
-                     cap: int, *, align: bool = False, append_tb: bool = False):
+                     cap: int, *, align: bool = False, append_tb: bool = False,
+                     cluster: int = 1):
     """Plain PyTorch version of P1 at `stage` (see the module docstring);
-    arguments as ops/emit_fused.emit_nal_fused_plain."""
+    arguments as ops/emit_fused.emit_nal_fused_plain.  `cluster` is the
+    blocks a session of the kernel it models: only the `scan` stage's
+    XOR of the threads' start bits depends on it."""
     if stage not in EMIT_STAGES:
         raise ValueError(f"unknown stage {stage!r}; one of {EMIT_STAGES}")
     if stage == "full":
@@ -108,13 +129,10 @@ def emit_stage_plain(stage: str, patterns, nbits, nal_ref_idc, n_rbsp: int,
     incl = torch.cumsum(widths, dim=1)
     total = incl[:, -1] if n else widths.new_zeros(B)
     if stage == "scan":
-        # Thread t of the chunk at `base` starts at the bit offset of
-        # symbol base + t * k (the total where that lies past n).
-        k = items_per_thread(n)
+        # Each thread starts at the bit offset of its run's first symbol
+        # (its share's end where that lies past it).
         offsets = torch.cat([torch.zeros_like(widths[:, :1]), incl], dim=1)
-        firsts = [torch.clamp(base + torch.arange(_kernels.PACK_THREADS,
-                                                  device=dev) * k, max=n)
-                  for base in range(0, n, _kernels.PACK_THREADS * k)]
+        firsts = _run_firsts(n, cluster, dev)
         if firsts:
             starts = offsets[:, torch.cat(firsts)]
             meta[:, 1] = xor_reduce(starts & 0xFFFFFFFF)
@@ -156,17 +174,19 @@ def emit_stage_plain(stage: str, patterns, nbits, nal_ref_idc, n_rbsp: int,
 
 
 def emit_stage_batch(stage: str, patterns, nbits, nal_ref_idc, n_rbsp: int,
-                     cap: int, *, align: bool = False, append_tb: bool = False):
+                     cap: int, *, align: bool = False, append_tb: bool = False,
+                     cluster: int | None = None):
     """P1 at `stage` over a [B, n] batch: the plain version for CPU
-    tensors, the CUDA kernel (K1's block, plan and shared memory) for CUDA
-    tensors.  Arguments as emit_nal_fused_batch; returns as
-    emit_stage_plain."""
+    tensors, the CUDA kernel (K1's block, or cluster, plan and shared
+    memory) for CUDA tensors.  Arguments as emit_nal_fused_batch; returns
+    as emit_stage_plain."""
     if stage not in EMIT_STAGES:
         raise ValueError(f"unknown stage {stage!r}; one of {EMIT_STAGES}")
     check_symbols(patterns, nbits)
     if patterns.device.type == "cpu":
         return emit_stage_plain(stage, patterns, nbits, nal_ref_idc, n_rbsp,
-                                cap, align=align, append_tb=append_tb)
+                                cap, align=align, append_tb=append_tb,
+                                cluster=cluster or 1)
     dev = patterns.device
     B, n = patterns.shape
     n_nal = nal_bytes(n_rbsp, cap)
@@ -183,25 +203,24 @@ def emit_stage_batch(stage: str, patterns, nbits, nal_ref_idc, n_rbsp: int,
     words = (torch.empty((B, n_nal // 4), dtype=torch.int32, device=dev)
              if stage == "pack" else None)
     with torch.cuda.device(dev):
-        k = items_per_thread(n)
-        plan = _kernels.emit_plan(patterns.element_size(), k, n_nal)
+        c, k = launch_geometry(
+            lambda: _kernels.emit_plan(patterns.element_size(), n,
+                                       items_per_thread(n), n_nal),
+            n, cluster)
         nal = (torch.empty((B, n_nal), dtype=torch.uint8, device=dev)
-               if full or (stage == "ep" and plan.nal_in_global) else None)
+               if full or (stage == "ep" and c > 1) else None)
         res = (torch.empty((2, B), dtype=torch.int32, device=dev)
                if full else None)
         ovf = torch.empty((B,), dtype=torch.bool, device=dev) if full else None
         if B:
-            scratch = (torch.empty((B, n_nal // 4), dtype=torch.int32,
-                                   device=dev)
-                       if plan.words_in_global else None)
             ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
             _kernels.EMIT_STAGE[stage].launch(
                 EMIT_STAGES.index(stage),
                 patterns.data_ptr(), nbits.data_ptr(), patterns.element_size(),
                 row_stride(patterns), row_stride(nbits),
                 ptr(idc), idc_row, idc_value,
-                B, n, k, n_nal, n_rbsp, cap, int(align), int(append_tb),
-                ptr(scratch), int(plan.nal_in_global), ptr(nal),
+                B, n, k, n_nal, n_rbsp, cap, int(align), int(append_tb), c,
+                ptr(nal),
                 ptr(res if res is None else res[0]),
                 ptr(res if res is None else res[1]), ptr(ovf),
                 meta.data_ptr(), ptr(words),

@@ -162,7 +162,7 @@ def scroll_symbols(cfg, B: int, dev, policy: str = "floor"):
 
 def dense_ipcm_symbols(cfg, B: int, dev, args):
     """K1's input on the dense step of I_PCM-bearing donors at their
-    default budget (K1's global plan: words and NAL in global memory):
+    default budget (K1's cluster plan: four blocks a session):
     (patterns, nbits, n_rbsp)."""
     dn, bits, _align = cases.prepare_dense_donors(
         "ipcm", engine=args.engine, device=dev,

@@ -23,9 +23,10 @@ stage's own outputs, which differ from stage to stage.
 Shapes: the JAX probe's own input (8,483 symbols, widths 0-8, seed 1, at
 the representative splice budget), then the 720p shapes chip_smoke.py
 builds: compact splice at B and 4B, scroll and partitioned frames at B,
-and the dense frame of I_PCM-bearing donors at B / 8 on K1's global plan
-(B = 256 by default).  On the card each row also has K1's resident blocks
-per SM at that shape.
+and K1's cluster plan: the dense frame of I_PCM-bearing donors at B / 8
+(B = 256 by default; 4 blocks a session) and the 5120x3200 hint frame at
+B = 1 (16).  On the card each row also has K1's blocks a session, its
+symbols per thread and its resident blocks per SM at that shape.
 
     python -m h264_scroll_encoder_tpu_torch.scripts.emit_stage_probe \
         [--batch B] [--steps S] [--reps R] [--shapes a,b] [--device cpu]
@@ -35,14 +36,14 @@ from __future__ import annotations
 
 import sys
 
-from .. import _kernels
+from .. import _kernels, cases
 from ..config import ComposerConfig
 from ..ops import emit_fused, probes
 from ..utils import timing
 from . import _probe_common as common
 
 SHAPES = ("probe", "splice", "splice_4b", "scroll", "partitioned",
-          "dense_ipcm")
+          "dense_ipcm", "hint_5120")
 
 
 def shape_inputs(names, args, dev) -> dict:
@@ -70,20 +71,28 @@ def shape_inputs(names, args, dev) -> dict:
     if "dense_ipcm" in names:
         b = max(B // 8, 1)
         pat, nb, n_rbsp = common.dense_ipcm_symbols(cfg, b, dev, args)
-        out[f"dense I_PCM B={b} (global plan)"] = (pat, nb, 0, n_rbsp, {
+        out[f"dense I_PCM B={b} (cluster plan)"] = (pat, nb, 0, n_rbsp, {
             "align": True, "append_tb": True})
+    if "hint_5120" in names:
+        pat, nb, n_rbsp, _kw = cases.large_emit_inputs(
+            dev, names=("hint_5120x3200",))["hint_5120x3200"]
+        out["hint 5120x3200 B=1 (cluster plan)"] = (pat, nb, 0, n_rbsp, {
+            "append_tb": True})
     return out
 
 
-def k1_blocks_per_sm(pat, n_rbsp) -> int:
-    """K1's resident blocks per SM at these symbols, on its plan."""
-    k = emit_fused.items_per_thread(pat.shape[1])
+def k1_launch(pat, n_rbsp) -> dict:
+    """K1's blocks a session, symbols per thread and resident blocks per
+    SM at these symbols, on its plan."""
+    n = pat.shape[1]
     n_nal = emit_fused.nal_bytes(n_rbsp, common.CAP)
-    plan = _kernels.emit_plan(pat.element_size(), k, n_nal)
-    return _kernels.blocks_per_sm("h264t_emit_blocks_per_sm",
-                                  pat.element_size(), k, n_nal,
-                                  int(plan.words_in_global)
-                                  | 2 * int(plan.nal_in_global))
+    c, k = emit_fused.launch_geometry(
+        lambda: _kernels.emit_plan(pat.element_size(), n,
+                                   emit_fused.items_per_thread(n), n_nal),
+        n, None)
+    return {"k1_cluster": c, "k1_items_per_thread": k,
+            "k1_blocks_per_sm": _kernels.blocks_per_sm(
+                "h264t_emit_blocks_per_sm", pat.element_size(), k, n_nal, c)}
 
 
 def main(argv=None) -> int:
@@ -116,7 +125,7 @@ def main(argv=None) -> int:
                     lambda stage=stage: probes.emit_stage_batch(
                         stage, pat, nb, idc, n_rbsp, common.CAP, **kw))
                 for stage in probes.EMIT_STAGES}
-            row["k1_blocks_per_sm"] = k1_blocks_per_sm(pat, n_rbsp)
+            row.update(k1_launch(pat, n_rbsp))
         order = probes.EMIT_STAGES
         row["share_ms"] = shares = {"launch": split["launch"]}
         shares.update({b: split[b] - split[a] for a, b in zip(order, order[1:])})

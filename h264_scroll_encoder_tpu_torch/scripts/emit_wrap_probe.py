@@ -10,8 +10,7 @@ call (utils/timing.host_ms: calls issued back to back):
 
   check        check_symbols and the two row-stride reads
   plan         items_per_thread and _kernels.emit_plan (a cached query)
-  alloc        the four outputs (NAL, lengths and bits, overflow), and
-               the words scratch on the global plans
+  alloc        the four outputs (NAL, lengths and bits, overflow)
   context      torch.cuda.device(dev) and the current stream's handle
   ctypes       the bare h264t_emit_fused call with its arguments, on
                outputs allocated once: the floor, K1 alone (`full3d`)
@@ -79,17 +78,14 @@ def main(argv=None) -> int:
     device_ms = {}
     if dev.type == "cuda":
         k = emit_fused.items_per_thread(n)
-        plan = _kernels.emit_plan(pat.element_size(), k, n_nal)
+        cluster = _kernels.emit_plan(pat.element_size(), n, k, n_nal)
         nal, meta, ovf = alloc()
-        scratch = (torch.empty((B, n_nal // 4), dtype=torch.int32, device=dev)
-                   if plan.words_in_global else None)
         stream = torch.cuda.current_stream(dev).cuda_stream
         args_k1 = (pat.data_ptr(), nb.data_ptr(), pat.element_size(),
                    emit_fused.row_stride(pat), emit_fused.row_stride(nb), None,
-                   0, 0, B, n, k, n_nal, n_rbsp, cap, 0, 1,
-                   None if scratch is None else scratch.data_ptr(),
-                   int(plan.nal_in_global), nal.data_ptr(), meta[0].data_ptr(),
-                   meta[1].data_ptr(), ovf.data_ptr(), stream)
+                   0, 0, B, n, k, n_nal, n_rbsp, cap, 0, 1, cluster,
+                   nal.data_ptr(), meta[0].data_ptr(), meta[1].data_ptr(),
+                   ovf.data_ptr(), stream)
         _kernels.EMIT_FUSED.launch(*args_k1)  # binds the entry point
         bare = _kernels.EMIT_FUSED._fn
 
@@ -104,7 +100,7 @@ def main(argv=None) -> int:
 
         pieces.update({
             "plan": lambda: _kernels.emit_plan(
-                pat.element_size(), emit_fused.items_per_thread(n), n_nal),
+                pat.element_size(), n, emit_fused.items_per_thread(n), n_nal),
             "context": context, "ctypes": ctypes_call,
             "bookkeeping": lambda: _kernels.EMIT_FUSED.launch(*args_k1)})
         device_ms = {"ctypes": timing.device_ms(ctypes_call),

@@ -103,7 +103,7 @@ def main(argv=None) -> int:
                 lambda: bitpack_flat.pack_words_place_batch(pat, nb, NUM_WORDS))
             k = emit_fused.items_per_thread(pat.shape[1])
             row["k2_blocks_per_sm"] = _kernels.blocks_per_sm(
-                "h264t_pack_blocks_per_sm", pat.element_size(), k, NUM_WORDS, 0)
+                "h264t_pack_blocks_per_sm", pat.element_size(), k, NUM_WORDS, 1)
         rows[f"probe n=8483 B={B}"] = row
         print(f"B={B}: chained K2 {row['k2_ms']:.5f} ms; " + "; ".join(
             f"T={t} {v['ms']:.5f} ms ({v['ms'] / row['k2_ms'] - 1:+.1%})"

@@ -119,9 +119,11 @@ def main(argv=None) -> int:
             row["p2_device_ms"] = timing.device_ms(
                 lambda: probes.pack_place_u16_batch(pat, nb, nw))
             sym, k = pat.element_size(), row["k"]
+            c, k2 = emit_fused.launch_geometry(
+                lambda: _kernels.pack_plan(sym, pat.shape[1], k, nw),
+                pat.shape[1], None)
             row["k2_blocks_per_sm"] = _kernels.blocks_per_sm(
-                "h264t_pack_blocks_per_sm", sym, k, nw,
-                int(_kernels.pack_words_in_global(sym, k, nw)))
+                "h264t_pack_blocks_per_sm", sym, k2, nw, c)
             row["p2_blocks_per_sm"] = _kernels.blocks_per_sm(
                 "h264t_pack_u16_blocks_per_sm", sym, k, nw)
         rows[label] = row

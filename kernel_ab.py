@@ -14,6 +14,13 @@ splice shapes (32 seeded representative donors tiled over B sessions):
   K3  ops.ebsp_flat.rbsp_to_nal_batch           B = 256, K2's frames
   K4  ops.bitpack_flat.pack_words_batch         B = 256, as K2
 
+and, with --large, K1 and K2 on the shapes past one block's shared memory
+(cases.large_emit_inputs and large_pack_inputs of this tree: the 3840x2160
+and 5120x3200 hint frames at B = 1, the 720p dense frame of I_PCM donors
+at B = 32 and 256, the exact retry at 4096x2160 and 5120x3200), whichever
+plan each tree takes there, and K1 on the frames one block stages in
+several chunks (cases.multichunk_emit_inputs, B = 1).
+
 For each, the two trees' outputs are held equal; then each is measured in
 turns (parent, tree, tree, parent; the median of each pair): with
 utils/timing the wrapper's device time per call of calls queued back to
@@ -72,6 +79,8 @@ def profiled_ms(fn, kernel: str, calls: int = 20):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--large", action="store_true",
+                    help="also K1 and K2 on the shapes past one block")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
@@ -123,6 +132,20 @@ def main() -> int:
                "ops.ebsp_flat", k3_args, {}),
               ("K4 B=256", "pack_place_kernel", "pack_words_batch",
                "ops.bitpack_flat", (e_pat, e_nb, n_words), {})]
+    if args.large:
+        # The profiler matches "emit_fused" and "pack_place": the one-block
+        # kernels and the cluster ones alike.
+        for name, (pat, nb, rbsp, kw) in {**cases.large_emit_inputs(dev),
+                                          **cases.multichunk_emit_inputs(dev)}.items():
+            for b in ((32, 256) if pat.shape[0] > 1 else (1,)):
+                rows = torch.arange(b, device=dev) % pat.shape[0]
+                cells.append((f"K1 {name} B={b}", "emit_fused",
+                              "emit_nal_fused_batch", "ops.emit_fused",
+                              (pat[rows], nb[rows], 0, rbsp, cap),
+                              dict(append_tb=True, **kw)))
+        for name, a in cases.large_pack_inputs(dev).items():
+            cells.append((f"K2 {name} B=1", "pack_place",
+                          "pack_words_place_batch", "ops.bitpack_flat", a, {}))
 
     def measure(fn, kernel):
         own, work = profiled_ms(fn, kernel)

@@ -152,7 +152,7 @@ def test_ebsp_kernel_over_shared_memory_raises(dev):
     with pytest.raises(RuntimeError, match="h264t_emit_fused"):
         _kernels.EMIT_FUSED.launch(
             p.data_ptr(), p.data_ptr(), 8, 64, 64, None, 0, 0, 2, 64, 64,
-            4096, 4000, cases.CAP, 0, 1, None, 1, out.data_ptr(),
+            4096, 4000, cases.CAP, 0, 1, 1, out.data_ptr(),
             meta[0].data_ptr(), meta[1].data_ptr(), meta[2].data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     assert _kernels.EMIT_FUSED.launches == before
@@ -324,25 +324,18 @@ def _hint_symbols(cfg, dev, specs):
                                   mvy[None], 2, enable_pskip=True)
 
 
-_LARGE_PLANS = {"hint_1080p": (False, False), "scroll_4k": (False, False),
-                "hint_4k": (True, False), "hint_4k_64": (True, True),
-                "hint_5120x3200": (True, True)}
+# The blocks a session (1, or the cluster plan's C) of K1 at each large
+# frame and of K2 at each exact retry, on an H100.
+_LARGE_PLANS = {"hint_1080p": 1, "scroll_4k": 1, "hint_4k": 8,
+                "hint_4k_64": 8, "hint_5120x3200": 16, "exact_4k": 1,
+                "exact_4096x2160": 8, "exact_5120x3200": 16}
 
 
-@pytest.mark.parametrize("frame", ["hint_1080p", "scroll_4k", "hint_4k",
-                                   "hint_4k_64", "hint_5120x3200",
-                                   "exact_4k", "exact_4096x2160"])
-def test_kernels_on_large_frames(dev, frame):
-    """K1 and K2 on the large buffers against their plain versions: the
-    1080p hint frame (n_rbsp 32,736 B) and the 4K scroll fast path
-    (64,896 B) keep words and NAL in shared memory, the 4K generic budget
-    (129,696 B: 259,456 B of shared memory by the in-block plan) takes
-    K1's global words; at 64 bits per MB (NAL buffer 259,328 B) and at
-    5120x3200 (256,128 B) the NAL is built in global memory too; K2 on the
-    4K exact retry (129,696 B, in shared memory with 4,256 B to spare) and
-    at 4096x2160 (138,336 B, global)."""
+def _large_symbols(dev, frame):
+    """(patterns, nbits, n_rbsp) of a large frame of _LARGE_PLANS."""
     w, h = {"hint_1080p": (1920, 1088), "exact_4096x2160": (4096, 2160),
-            "hint_5120x3200": (5120, 3200)}.get(frame, (3840, 2160))
+            "hint_5120x3200": (5120, 3200),
+            "exact_5120x3200": (5120, 3200)}.get(frame, (3840, 2160))
     cfg = ComposerConfig(w, h, rbsp_bits_per_mb=64 if frame == "hint_4k_64"
                          else 32)
     if frame.startswith("hint"):
@@ -355,39 +348,128 @@ def test_kernels_on_large_frames(dev, frame):
             enable_pskip=True)
         if frame.startswith("exact"):
             n_rbsp = (cfg.total_mbs * cfg.rbsp_bits_per_mb // 8 + 96 + 3) // 4 * 4
-    k = emit_fused.items_per_thread(pat.shape[1])
+    return pat, nb, n_rbsp
+
+
+@pytest.mark.parametrize("frame", list(_LARGE_PLANS))
+def test_kernels_on_large_frames(dev, frame):
+    """K1 and K2 on the large buffers against their plain versions, in one
+    launch each: the 1080p hint frame (n_rbsp 32,736 B) and the 4K scroll
+    fast path (64,896 B) keep one block a session; the 4K hint frames at
+    32 and 64 bits per MB (NAL buffers 129,728 and 259,328 B: 129,640
+    symbols) run on clusters of 8 blocks and the 5120x3200 one (256,128 B,
+    256,040 symbols) on 16; K2 keeps one block on the 4K exact retry
+    (129,696 B, with 4,256 B of shared memory to spare) and takes 8 at
+    4096x2160 (138,336 B) and 16 at 5120x3200 (256,096 B)."""
+    pat, nb, n_rbsp = _large_symbols(dev, frame)
+    n = pat.shape[1]
+    k = emit_fused.items_per_thread(n)
     with torch.cuda.device(dev):
         if frame.startswith("exact"):
             n_words = (n_rbsp + 3) // 4
-            assert (_kernels.pack_words_in_global(8, k, n_words)
-                    == (frame == "exact_4096x2160"))
+            assert _kernels.pack_plan(8, n, k, n_words) == _LARGE_PLANS[frame]
             args = (pat, nb, n_words)
+            before = _kernels.PACK_PLACE.launches
             _same(bitpack_flat.pack_words_place_batch(*args),
                   bitpack_flat.pack_words_place_plain(*args))
+            assert _kernels.PACK_PLACE.launches == before + 1
             return
         n_nal = emit_fused.nal_bytes(n_rbsp, cases.CAP)
-        assert tuple(_kernels.emit_plan(8, k, n_nal)) == _LARGE_PLANS[frame]
+        assert _kernels.emit_plan(8, n, k, n_nal) == _LARGE_PLANS[frame]
     assert not bool(_k1_same(pat, nb, 0, n_rbsp)[3].any())
+
+
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_kernels_on_a_cluster_of_several_chunks(dev, cluster):
+    """The cluster plan's chunk loop: the 4K hint frame (129,640 symbols)
+    forced onto 2 and 4 blocks, whose shares (64,820 and 32,410 symbols)
+    each take several chunks of 16,896, K1 and K2 against their plain
+    versions."""
+    pat, nb, n_rbsp = _large_symbols(dev, "hint_4k")
+    assert emit_fused.cluster_share(pat.shape[1], cluster) > (
+        _kernels.PACK_THREADS * emit_fused.CLUSTER_MAX_ITEMS)
+    args = (pat, nb, 0, n_rbsp, cases.CAP)
+    _same(emit_fused.emit_nal_fused_batch(*args, append_tb=True,
+                                          cluster=cluster),
+          emit_fused.emit_nal_fused_plain(*args, append_tb=True))
+    n_words = (n_rbsp + 3) // 4
+    _same(bitpack_flat.pack_words_place_batch(pat, nb, n_words,
+                                              cluster=cluster),
+          bitpack_flat.pack_words_place_plain(pat, nb, n_words))
 
 
 def test_splice_path_keeps_words_in_shared_memory(dev):
     """The 720p splice, scroll and partitioned paths are unchanged by the
-    large-frame plans: their words and NAL stay in shared memory, and K3's
-    720p buffers too."""
+    large-frame plans: one block a session holds their words and NAL in
+    its shared memory, and K3's 720p buffers too."""
     with torch.cuda.device(dev):
         for sym_bytes, k, n_nal in ((8, 19, 8224), (8, 15, 7328),
                                     (8, 24, 14528), (4, 24, 14528)):
-            assert tuple(_kernels.emit_plan(sym_bytes, k, n_nal)) == (False, False)
-        assert not _kernels.pack_words_in_global(8, 19, 2048)
+            assert _kernels.emit_plan(sym_bytes, _kernels.PACK_THREADS * k,
+                                      k, n_nal) == 1
+        assert _kernels.pack_plan(8, _kernels.PACK_THREADS * 19, 19, 2048) == 1
         for n_nal in cases.EBSP_BOUNDARY_N_NALS:
             assert not _kernels.ebsp_nal_in_global(n_nal)
+
+
+def test_cluster_items_is_the_kernels(dev):
+    """ops/emit_fused.cluster_items_per_thread, which the wrappers pass
+    and the plain models use, is the library's (h264t_cluster_items)."""
+    with torch.cuda.device(dev):
+        for n in (0, 1, 511, 512, 9219, 64_798, 129_640, 256_040, 600_000):
+            for c in emit_fused.CLUSTER_SIZES:
+                assert (_kernels.cluster_items(n, c)
+                        == emit_fused.cluster_items_per_thread(n, c)), (n, c)
+
+
+def _forced_cases(dev):
+    """{name: (patterns, nbits, nal_ref_idc, n_rbsp, K1 kwargs)} for the
+    forced-cluster tests: the 720p compact splice and scroll shapes (B = 8)
+    and the pack boundary cases."""
+    cfg = ComposerConfig(1280, 720)
+    pays = [cases.splice_donor_payload(k) for k in range(8)]
+    dn, bits, align = cases.prepare_splice_donors(pays, engine="python",
+                                                  device=dev)
+    n_rbsp = cases.splice_budget(cfg, int(bits.max()), static_bg=False)
+    pat, nb = cases.splice_symbols(cfg, dn, 8, n_rbsp, dev)
+    out = {"splice": (pat, nb, 0, n_rbsp, dict(align=bool(align.any()),
+                                               append_tb=True))}
+    offs = torch.as_tensor(cases.SESSION_POLICY_OFFSETS[:8], device=dev)
+    s_pat, s_nb, s_rbsp, idc = scroll.unified_frame_symbols(
+        cfg, torch.full((8,), 7, device=dev), offs, *_registry_zeros(8, dev),
+        torch.zeros(8, dtype=torch.bool, device=dev))
+    out["scroll"] = (s_pat, s_nb, idc, s_rbsp, dict(append_tb=True))
+    for n in cases.PACK_BOUNDARY_LENGTHS:
+        b_pat, b_nb, b_rbsp = cases.pack_boundary_cases(n)
+        out[f"boundary {n}"] = (_cu(b_pat, dev), _cu(b_nb, dev), 1, b_rbsp,
+                                dict(align=True, append_tb=True))
+    return out
+
+
+@pytest.mark.parametrize("cluster", emit_fused.CLUSTER_SIZES)
+def test_kernels_on_a_forced_cluster(dev, cluster):
+    """K1 and K2 forced onto clusters of 2-16 blocks (the wrappers'
+    test-only `cluster`) at the 720p splice and scroll shapes and the pack
+    boundary cases: each one launch, equal to the plain versions."""
+    for name, (pat, nb, idc, n_rbsp, kw) in _forced_cases(dev).items():
+        before = _kernels.EMIT_FUSED.launches
+        got = emit_fused.emit_nal_fused_batch(pat, nb, idc, n_rbsp, cases.CAP,
+                                              cluster=cluster, **kw)
+        assert _kernels.EMIT_FUSED.launches == before + 1, name
+        _same(got, emit_fused.emit_nal_fused_plain(pat, nb, idc, n_rbsp,
+                                                   cases.CAP, **kw))
+        n_words = n_rbsp // 4
+        p2, n2 = pat, nb.clamp(min=0)
+        _same(bitpack_flat.pack_words_place_batch(p2, n2, n_words,
+                                                  cluster=cluster),
+              bitpack_flat.pack_words_place_plain(p2, n2, n_words))
 
 
 @pytest.mark.parametrize("config", ["representative", "ipcm", "ipcm_exact"])
 def test_dense_step_matches_cpu(dev, config):
     """The 720p dense splice step at B = 4 on the card (K1; K2 for the
     `ebsp_exact` retry) against the same step on CPU tensors; the I_PCM
-    donors at the default budget take K1's global NAL (n_nal 237,600)."""
+    donors at the default budget take K1's cluster plan (n_nal 237,600)."""
     cfg = ComposerConfig(1280, 720)
     name = config.split("_")[0]
     outs = []
@@ -414,7 +496,7 @@ def test_dense_step_matches_cpu(dev, config):
 def test_emit_kernel_on_dense_ipcm_symbols(dev, config):
     """K1 against its plain version on the 720p dense frame of
     I_PCM-bearing donors at the chunk class's default budget (NAL buffer
-    237,600 B: words and NAL in global memory)."""
+    237,600 B, 64,798 symbols: clusters of 4 blocks)."""
     cfg = ComposerConfig(1280, 720)
     dn, bits, align = cases.prepare_dense_donors(config, engine="python",
                                                  device=dev, n=4)
@@ -423,7 +505,7 @@ def test_emit_kernel_on_dense_ipcm_symbols(dev, config):
     n_nal = emit_fused.nal_bytes(n_rbsp, cases.CAP)
     assert n_nal == 237_600
     with torch.cuda.device(dev):
-        assert tuple(_kernels.emit_plan(8, k, n_nal)) == (True, True)
+        assert _kernels.emit_plan(8, pat.shape[1], k, n_nal) == 4
     args = (pat, nb, 0, n_rbsp, cases.CAP)
     kw = dict(align=align, append_tb=True)
     got = emit_fused.emit_nal_fused_batch(*args, **kw)
@@ -434,6 +516,25 @@ def test_emit_kernel_on_dense_ipcm_symbols(dev, config):
 def test_dense_golden_on_card(dev):
     want = json.loads(cases.DENSE_GOLDEN_PATH.read_text())
     assert cases.port_dense_golden(dev) == want
+
+
+def test_dense_ipcm_step_at_b256_on_card(dev):
+    """The dense step of the 32 I_PCM-bearing donors tiled to B = 256: one
+    K1 launch on clusters of 4 blocks (1,024 blocks), every session equal
+    to its donor's golden digest (golden/splice_dense_720p.json)."""
+    cfg, B = ComposerConfig(1280, 720), 256
+    dn, bits, align = cases.prepare_dense_donors("ipcm", engine="native",
+                                                 device=dev)
+    step = cases.dense_step(cfg, "ipcm", bits, align)
+    before = _kernels.EMIT_FUSED.launches
+    nal, nal_len, _bits, ovf = step.eager(
+        *cases.splice_session_inputs(cfg, B, dev), cases.tile_donors(dn, B))
+    torch.cuda.synchronize()
+    assert _kernels.EMIT_FUSED.launches == before + 1
+    want = json.loads(cases.DENSE_GOLDEN_PATH.read_text())["ipcm"]
+    got = cases.digest_step(nal.cpu().numpy(), nal_len.cpu().numpy(),
+                            np.zeros(B, bool), ovf.cpu().numpy())
+    assert got == [want[b % len(want)] for b in range(B)]
 
 
 def test_large_frames_golden_on_card(dev):
@@ -544,7 +645,7 @@ def test_dryrun_multigpu_on_card(dev):
 
 def _probe_shapes(dev):
     """P1's inputs: {name: (patterns, nbits, nal_ref_idc, n_rbsp, kwargs)}
-    at the 720p splice (B = 256) and scroll shapes and on K1's global
+    at the 720p splice (B = 256) and scroll shapes and on K1's cluster
     plan (the dense frame of I_PCM donors, B = 4)."""
     from h264_scroll_encoder_tpu_torch.scripts import _probe_common as common
 
@@ -568,17 +669,23 @@ def _probe_shapes(dev):
 
 def test_emit_stage_kernel_at_every_stage(dev):
     """P1 at each stage equals its plain version on the 720p splice and
-    scroll symbols and on K1's global plan; `full` equals K1."""
+    scroll symbols and on K1's cluster plan (the dense I_PCM frame, 4
+    blocks a session); `full` equals K1."""
     from h264_scroll_encoder_tpu_torch.ops import probes
 
     for name, (pat, nb, idc, n_rbsp, kw) in _probe_shapes(dev).items():
+        with torch.cuda.device(dev):
+            c = _kernels.emit_plan(8, pat.shape[1],
+                                   emit_fused.items_per_thread(pat.shape[1]),
+                                   emit_fused.nal_bytes(n_rbsp, cases.CAP))
+        assert c == (4 if name == "dense_ipcm" else 1)
         for int32 in (False, True):
             p, n = ((cases.int32_bits(pat), cases.int32_bits(nb)) if int32
                     else (pat, nb))
             for stage in probes.EMIT_STAGES:
                 args = (stage, p, n, idc, n_rbsp, cases.CAP)
                 got = probes.emit_stage_batch(*args, **kw)
-                _same(got, probes.emit_stage_plain(*args, **kw))
+                _same(got, probes.emit_stage_plain(*args, cluster=c, **kw))
             _same(probes.emit_stage_batch("full", p, n, idc, n_rbsp, cases.CAP,
                                           **kw),
                   emit_fused.emit_nal_fused_batch(p, n, idc, n_rbsp, cases.CAP,
@@ -838,6 +945,22 @@ def test_graphed_dense_step_on_card(dev):
     outs, captures = cases.graph_replays(step, args_at)
     assert captures == 1 and not bool(outs[3].any())
     _replays_run_k1(lambda: step(*args_at(1, None)))
+
+
+def test_graphed_dense_ipcm_step_replays_the_cluster_launch(dev):
+    """The dense step of I_PCM-bearing donors at B = 64 (K1 on clusters of
+    4 blocks): replays equal eager, one capture, and each replay runs the
+    cluster kernel once."""
+    cfg, B = ComposerConfig(1280, 720), 64
+    dn, bits, align = cases.prepare_dense_donors("ipcm", engine="native",
+                                                 device=dev)
+    step = cases.dense_step(cfg, "ipcm", bits, align)
+    step.reset()
+    args_at = _splice_call(cfg, dn, B, dev)
+    outs, captures = cases.graph_replays(step, args_at)
+    assert captures == 1 and not bool(outs[3].any())
+    _replays_run_k1(lambda: step(*args_at(1, None)),
+                    kernel="emit_fused_cluster_kernel")
 
 
 def test_graphed_hint_step_on_card(dev):

@@ -54,6 +54,26 @@ def _needs_avref():
         pytest.skip(f"avref unavailable: {avref.missing()}")
 
 
+def _jax_avref_loads():
+    """Loads the JAX package's avref library afresh, before the JAX demo
+    runs.  Its loader (h264_scroll_encoder_tpu/avref.load_library) is
+    cached and builds native/libh264tpu_avref.so in place, so a pytest
+    worker that loaded it while another worker wrote the file (every
+    worker asks at collection, through tests/test_avref.py) keeps None,
+    and the JAX demo then returns without writing its stream.  The system
+    libraries are present here (_needs_avref), so the library must load."""
+    from h264_scroll_encoder_tpu import avref as javref
+
+    javref.load_library.cache_clear()
+    assert javref.load_library() is not None, (
+        "the JAX package's avref library did not load (make -C native avref)")
+
+
+def _jax_stream(path: Path) -> bytes:
+    assert path.exists(), f"the JAX demo wrote no {path.name}"
+    return path.read_bytes()
+
+
 def test_serving_demo_streams_equal_jax(tmp_path):
     out = _run_port("serving_demo", "--device", "cpu", "--width", 64,
                     "--out-dir", tmp_path)
@@ -142,11 +162,12 @@ def test_video_in_corner_batched_equals_jax(tmp_path, monkeypatch):
                     "--batch", 2, "--width", 320, "--height", 240, "--rx", 12,
                     "--ry", 9, "--device", "cpu")
     assert "byte-identical to the host path, 0 decoder errors" in out
+    _jax_avref_loads()
     demo = _jax_example("video_in_corner_demo", monkeypatch)
     demo.main_batched(str(tmp_path / "jax.h264"), batch=2, width=320,
                       height=240, rx=12, ry=9)
     assert (tmp_path / "port.h264").read_bytes() == \
-        (tmp_path / "jax.h264").read_bytes()
+        _jax_stream(tmp_path / "jax.h264")
 
 
 def test_video_in_corner_host_path_equals_jax(tmp_path, monkeypatch):
@@ -154,11 +175,12 @@ def test_video_in_corner_host_path_equals_jax(tmp_path, monkeypatch):
     out = _run_port("video_in_corner_demo", tmp_path / "port.h264",
                     "--device", "cpu")
     assert "0 decoder errors" in out
+    _jax_avref_loads()
     demo = _jax_example("video_in_corner_demo", monkeypatch)
     demo.main(str(tmp_path / "jax.h264"))
     for suffix in (".h264", ".mp4"):
         assert (tmp_path / f"port{suffix}").read_bytes() == \
-            (tmp_path / f"jax{suffix}").read_bytes(), suffix
+            _jax_stream(tmp_path / f"jax{suffix}"), suffix
 
 
 def test_video_in_corner_without_avref_exits_nonzero(monkeypatch, capsys):

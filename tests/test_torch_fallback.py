@@ -39,6 +39,19 @@ def _needs_avref():
         pytest.skip(f"avref unavailable: {avref.missing()}")
 
 
+def _jax_avref_loads():
+    """Loads the JAX package's avref library afresh, before a test that
+    reaches it.  Its loader (h264_scroll_encoder_tpu/avref.load_library)
+    is cached and builds native/libh264tpu_avref.so in place, so a pytest
+    worker that loaded it while another worker wrote the file (every
+    worker asks at collection, through tests/test_avref.py) keeps None.
+    The system libraries are present here (the autouse fixture), so the
+    library must load."""
+    javref.load_library.cache_clear()
+    assert javref.load_library() is not None, (
+        "the JAX package's avref library did not load (make -C native avref)")
+
+
 def _target_frame(seed=7):
     """The frame the UI wanted to show when hints broke: deterministic
     textured content at the session's dimensions."""
@@ -86,6 +99,7 @@ def test_fallback_midstream_matches_jax_and_is_pixel_correct():
     port = _port_session()
     took = _schedule(port, FrameHints, MotionRegion)
     assert took == [False, True, False, False]
+    _jax_avref_loads()
     jax_s = JaxSession(JaxConfig(W, H))
     jax_s.write_parameter_sets()
     jax_s.write_test_atlases(striped=True)
@@ -136,6 +150,7 @@ def test_fallback_resets_waypoints():
     sess.write_hint_frame(FrameHints(motion_regions=()))
     _, nerrors = avref.decode_pictures(sess.getvalue())
     assert nerrors == 0
+    _jax_avref_loads()
     jax_s = JaxSession(JaxConfig(128, 1008))
     jax_s.write_parameter_sets()
     jax_s.write_test_atlases(striped=True)
@@ -158,6 +173,7 @@ def test_avref_matches_jax():
     """The port's shim and the JAX package's: the same x264 bytes and the
     same decoded planes and error counts."""
     frames = [_target_frame(1), _target_frame(2)]
+    _jax_avref_loads()
     data = avref.encode_x264(frames, qp=24, keyint=1, refs=1)
     assert data == javref.encode_x264(frames, qp=24, keyint=1, refs=1)
     got, ne = avref.decode_pictures(data)

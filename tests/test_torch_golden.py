@@ -257,8 +257,8 @@ def test_large_golden_file_is_jax_output(name):
 
 @pytest.mark.parametrize("name", sorted(cases.LARGE_FRAMES))
 def test_port_matches_large_golden(name):
-    """The port's session composes the large hint frames (on the card: the
-    NAL built in global memory) as the JAX package does, here through the
+    """The port's session composes the large hint frames (on the card: K1
+    on a thread-block cluster) as the JAX package does, here through the
     plain versions."""
     committed = json.loads(cases.LARGE_GOLDEN_PATH.read_text())
     got = cases.large_golden(cases.port_package(), (name,), device="cpu")
