@@ -24,7 +24,7 @@ import torch
 from ._kernels import PACK_THREADS, resolve_device
 from .config import ComposerConfig, MAX_EBSP_INSERTIONS, MAX_WAYPOINTS
 from .models import scroll
-from .ops import emit_fused
+from .ops import bitpack, emit_fused
 from .parallel import batch
 
 GOLDEN_PATH = Path(__file__).resolve().parent / "golden" / "scroll_720p.json"
@@ -170,12 +170,25 @@ def ebsp_cases(seed: int = 11):
             headers.astype(np.int32))
 
 
+def jax_width(port, want):
+    """(port, want) as numpy arrays to hold equal, after checking that the
+    port's tensor has the width of the JAX value (ops/expgolomb's rule): a
+    uint32 JAX value against the port's int32 bits viewed as uint32,
+    int32, int16, uint8 and bool against the same dtype.  Raises
+    AssertionError where the widths differ."""
+    want = np.asarray(want)
+    got = port.cpu().numpy() if isinstance(port, torch.Tensor) else np.asarray(port)
+    expect = np.int32 if want.dtype == np.uint32 else want.dtype
+    assert got.dtype == expect, f"port {got.dtype} where JAX has {want.dtype}"
+    return (got.view(np.uint32) if want.dtype == np.uint32 else got), want
+
+
 def int32_bits(x):
     """int64 symbols (uint32 patterns, signed widths) -> int32 with the same
-    low 32 bits: the kernels' int32 input route.  numpy or torch."""
+    low 32 bits: the kernels' int32 input route.  numpy, or torch through
+    ops/bitpack.as_u32_bits."""
     if isinstance(x, torch.Tensor):
-        x = x.to(torch.int64) & 0xFFFFFFFF
-        return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+        return bitpack.as_u32_bits(x)
     return ((np.asarray(x).astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
             .view(np.int32))
 
@@ -529,11 +542,11 @@ def splice_session_inputs(cfg: ComposerConfig, batch_size: int, device):
     `batch_size` sessions: (hp, hn, bg_ref, bg_mvx, bg_mvy, bg_coded)."""
     from .syntax.slice_headers import p_slice_header_symbols
 
-    frame_num = torch.full((batch_size,), SPLICE_FRAME_NUM, dtype=torch.int64,
+    frame_num = torch.full((batch_size,), SPLICE_FRAME_NUM, dtype=torch.int32,
                            device=device)
     hp, hn = p_slice_header_symbols(
         cfg, frame_num, 2 * SPLICE_FRAME_NUM, False, -1, 0,
-        torch.zeros((batch_size, MAX_WAYPOINTS), dtype=torch.int64,
+        torch.zeros((batch_size, MAX_WAYPOINTS), dtype=torch.int32,
                     device=device),
         torch.zeros((batch_size, MAX_WAYPOINTS), dtype=torch.bool,
                     device=device))
@@ -578,8 +591,8 @@ def prepare_splice_donors(payloads, *, engine: str, device):
 
 def splice_symbols(cfg: ComposerConfig, dn: dict, batch_size: int,
                    n_rbsp: int, device):
-    """K1's input on the compact splice step: (patterns int64[B, n], nbits
-    int64[B, n]) of `batch_size` sessions carrying the prepared donors of
+    """K1's input on the compact splice step: (patterns int32[B, n], nbits
+    int32[B, n]) of `batch_size` sessions carrying the prepared donors of
     `dn` in turn."""
     from .models import splice_device
 
@@ -709,7 +722,7 @@ def dense_step(cfg: ComposerConfig, config: str, donor_bits: int,
 def dense_symbols(cfg: ComposerConfig, config: str, dn: dict,
                   donor_bits: int, device):
     """K1's input on the dense step of `config`, one session per donor of
-    `dn`: (patterns int64[B, n], nbits int64[B, n], n_rbsp)."""
+    `dn`: (patterns int32[B, n], nbits int32[B, n], n_rbsp)."""
     from .models import splice_device
 
     B = next(iter(dn.values())).shape[0]
@@ -987,7 +1000,7 @@ def large_emit_inputs(device, *, engine: str = "native",
     from .syntax.slice_headers import p_slice_header_symbols
 
     out = {}
-    z = torch.zeros((1, MAX_WAYPOINTS), dtype=torch.int64, device=device)
+    z = torch.zeros((1, MAX_WAYPOINTS), dtype=torch.int32, device=device)
     for name, (w, h, bits) in LARGE_EMIT_FRAMES.items():
         if name not in names:
             continue
@@ -996,8 +1009,9 @@ def large_emit_inputs(device, *, engine: str = "native",
             motion_regions=tuple(splice.MotionRegion(*s)
                                  for s in LARGE_HINT_REGIONS)), device)
         hp, hn = p_slice_header_symbols(
-            cfg, torch.tensor([2], device=device),
-            torch.tensor([4], device=device), False, -1, 0, z, z.bool())
+            cfg, torch.tensor([2], dtype=torch.int32, device=device),
+            torch.tensor([4], dtype=torch.int32, device=device), False, -1, 0,
+            z, z.bool())
         pat, nb, n_rbsp = scroll.p_frame_symbols(
             cfg, hp, hn, ref[None], mvx[None], mvy[None], 2, enable_pskip=True)
         out[name] = (pat, nb, n_rbsp, {})
@@ -1019,22 +1033,23 @@ def multichunk_emit_inputs(device) -> dict:
     from .models import hints, splice
     from .syntax.slice_headers import p_slice_header_symbols
 
-    z = torch.zeros((1, MAX_WAYPOINTS), dtype=torch.int64, device=device)
+    z = torch.zeros((1, MAX_WAYPOINTS), dtype=torch.int32, device=device)
     cfg = ComposerConfig(1920, 1088)
     ref, mvx, mvy = hints.hint_fields(cfg, splice.FrameHints(
         motion_regions=tuple(splice.MotionRegion(*s)
                              for s in LARGE_HINT_REGIONS)), device)
     hp, hn = p_slice_header_symbols(
-        cfg, torch.tensor([2], device=device),
-        torch.tensor([4], device=device), False, -1, 0, z, z.bool())
+        cfg, torch.tensor([2], dtype=torch.int32, device=device),
+        torch.tensor([4], dtype=torch.int32, device=device), False, -1, 0,
+        z, z.bool())
     pat, nb, n_rbsp = scroll.p_frame_symbols(
         cfg, hp, hn, ref[None], mvx[None], mvy[None], 2, enable_pskip=True)
     out = {"hint_1920x1088": (pat, nb, n_rbsp, {})}
     cfg = ComposerConfig(3840, 2160)
     pat, nb, n_rbsp, _ = scroll.unified_frame_symbols(
-        cfg, torch.tensor([2], device=device),
-        torch.tensor([48], device=device), z, z, z.bool(),
-        torch.zeros(1, dtype=torch.int64, device=device),
+        cfg, torch.tensor([2], dtype=torch.int32, device=device),
+        torch.tensor([48], dtype=torch.int32, device=device), z, z, z.bool(),
+        torch.zeros(1, dtype=torch.int32, device=device),
         torch.tensor([False], device=device), enable_pskip=True)
     out["scroll_3840x2160"] = (pat, nb, n_rbsp, {})
     return out
@@ -1045,13 +1060,14 @@ def large_pack_inputs(device) -> dict:
     {name: (patterns, nbits, n_words)}, one scroll frame's unified
     symbols (B = 1) into the exact path's buffer."""
     out = {}
-    z = torch.zeros((1, MAX_WAYPOINTS), dtype=torch.int64, device=device)
+    z = torch.zeros((1, MAX_WAYPOINTS), dtype=torch.int32, device=device)
     for name, (w, h) in LARGE_PACK_FRAMES.items():
         cfg = ComposerConfig(w, h)
         pat, nb, _n_rbsp, _ = scroll.unified_frame_symbols(
-            cfg, torch.tensor([2], device=device),
-            torch.tensor([48], device=device), z, z, z.bool(),
-            torch.zeros(1, dtype=torch.int64, device=device),
+            cfg, torch.tensor([2], dtype=torch.int32, device=device),
+            torch.tensor([48], dtype=torch.int32, device=device), z, z,
+            z.bool(),
+            torch.zeros(1, dtype=torch.int32, device=device),
             torch.tensor([False], device=device), enable_pskip=True)
         n_rbsp = (cfg.total_mbs * cfg.rbsp_bits_per_mb // 8 + 96 + 3) // 4 * 4
         out[name] = (pat, nb, (n_rbsp + 3) // 4)

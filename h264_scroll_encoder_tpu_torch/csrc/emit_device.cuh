@@ -702,7 +702,7 @@ __device__ __forceinline__ void ebsp_session(const uint8_t* __restrict__ rbsp, l
 template <int Stage, typename Sym>
 __device__ __forceinline__ void emit_session(
     const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row, long long nb_row,
-    const int64_t* __restrict__ idc, long long idc_row, int idc_value, int n, int k, int n_nal,
+    const int32_t* __restrict__ idc, long long idc_row, int idc_value, int n, int k, int n_nal,
     int n_rbsp, int cap, int align, int append_tb, uint8_t* __restrict__ nal_out,
     int32_t* __restrict__ len_out, int32_t* __restrict__ bits_out, uint8_t* __restrict__ ovf_out,
     int32_t* __restrict__ probe_meta, int32_t* __restrict__ probe_words) {
@@ -766,7 +766,7 @@ __device__ __forceinline__ void emit_session(
   bad = __syncthreads_or(bad);  // the words are packed; the staging area is free
 
   if (threadIdx.x == 0) {
-    const int64_t h = idc ? idc[s * idc_row] : idc_value;
+    const int h = idc ? idc[s * idc_row] : idc_value;
     write_prefix(nal, n_nal, (uint8_t)(((h & 3) << 5) | 1));
   }
   // Whole words of the stream per thread.
@@ -1109,7 +1109,7 @@ __device__ int emulation_prevention_cluster(ByteAt at, Rule rule, int b_lo, int 
 template <int Stage, typename Sym>
 __device__ __forceinline__ void emit_cluster_session(
     const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row, long long nb_row,
-    const int64_t* __restrict__ idc, long long idc_row, int idc_value, int n, int k, int n_nal,
+    const int32_t* __restrict__ idc, long long idc_row, int idc_value, int n, int k, int n_nal,
     int n_rbsp, int cap, int align, int append_tb, uint8_t* __restrict__ nal_out,
     int32_t* __restrict__ len_out, int32_t* __restrict__ bits_out, uint8_t* __restrict__ ovf_out,
     int32_t* __restrict__ probe_meta, int32_t* __restrict__ probe_words) {
@@ -1188,7 +1188,7 @@ __device__ __forceinline__ void emit_cluster_session(
   }
   cluster_sync();  // the words are complete
   if (r == 0 && t == 0) {
-    const int64_t h = idc ? idc[s * idc_row] : idc_value;
+    const int h = idc ? idc[s * idc_row] : idc_value;
     write_prefix(out_row, n_nal, (uint8_t)(((h & 3) << 5) | 1));
   }
   const int rbsp_len = total_bits >> 3;

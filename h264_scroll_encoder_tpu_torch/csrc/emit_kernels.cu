@@ -17,9 +17,10 @@
 //     launch counter.
 //
 // What bounds K1 and K2/K4 on an H100.  At 720p a session reads 9,219
-// (pattern, nbits) symbols — 147 KB as the symbol stage hands them (int64),
-// 74 KB as int32 — and writes an 8 KB NAL (K1) or 16 KB of int64 words
-// (K2/K4); everything in between stays in shared memory.  With one block
+// (pattern, nbits) symbols — 74 KB as the symbol stage hands them (int32,
+// the JAX package's widths), 147 KB as int64 — and writes an 8 KB NAL (K1)
+// or 8 KB of 32-bit words (K2/K4); everything in between stays in shared
+// memory.  With one block
 // per session and B = 256 the grid is one wave on 132 SMs, so a session's
 // time is a chain of latencies: global-load round trips and block-wide
 // barriers.  The first design walked the session in tiles of 1,024 (load ->
@@ -34,7 +35,7 @@
 //     (ops/emit_fused.items_per_thread: ceil(n / 512), at most 24, so 12,288
 //     per chunk; one chunk at 720p), are copied into shared memory
 //     by 4-byte cp.async copies issued all at once: the low word of each
-//     int64 or int32 element, so the kernel reads the symbol stage's int64
+//     int32 or int64 element, so the kernel reads the symbol stage's int32
 //     tensors in place and nothing converts them first.  One wait, one
 //     barrier.
 //   - Pack.  Each thread owns a contiguous run of k = ceil(n / 512) symbols
@@ -148,7 +149,7 @@ namespace {
 template <typename Sym>
 __global__ void __launch_bounds__(kPackThreads, 2)
     emit_fused_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row,
-                      long long nb_row, const int64_t* __restrict__ idc, long long idc_row,
+                      long long nb_row, const int32_t* __restrict__ idc, long long idc_row,
                       int idc_value, int n, int k, int n_nal, int n_rbsp, int cap, int align,
                       int append_tb, uint8_t* __restrict__ nal_out, int32_t* __restrict__ len_out,
                       int32_t* __restrict__ bits_out, uint8_t* __restrict__ ovf_out) {
@@ -162,7 +163,7 @@ template <typename Sym>
 __global__ void __launch_bounds__(kPackThreads, 1)
     emit_fused_cluster_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb,
                               long long pat_row, long long nb_row,
-                              const int64_t* __restrict__ idc, long long idc_row, int idc_value,
+                              const int32_t* __restrict__ idc, long long idc_row, int idc_value,
                               int n, int k, int n_nal, int n_rbsp, int cap, int align,
                               int append_tb, uint8_t* __restrict__ nal_out,
                               int32_t* __restrict__ len_out, int32_t* __restrict__ bits_out,
@@ -176,7 +177,7 @@ template <typename Sym>
 __global__ void __launch_bounds__(kPackThreads, 2)
     pack_place_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row,
                       long long nb_row, int n, int k, int n_words,
-                      int64_t* __restrict__ words_out, int64_t* __restrict__ total_out) {
+                      uint32_t* __restrict__ words_out, int32_t* __restrict__ total_out) {
   extern __shared__ uint4 pack_smem[];  // 16-byte aligned
   uint8_t* smem = reinterpret_cast<uint8_t*>(pack_smem);
   __shared__ PosMap tmp_map[kPackWarps];
@@ -189,8 +190,8 @@ __global__ void __launch_bounds__(kPackThreads, 2)
   const int total_bits = pack_session(pat + s * pat_row, nb + s * nb_row, n, k, false, spat,
                                       snb, words, n_words, tmp_map, bad);
   __syncthreads();
-  int64_t* out = words_out + (size_t)s * n_words;
-  for (int i = threadIdx.x; i < n_words; i += kPackThreads) out[i] = (int64_t)words[i];
+  uint32_t* out = words_out + (size_t)s * n_words;
+  for (int i = threadIdx.x; i < n_words; i += kPackThreads) out[i] = words[i];
   if (threadIdx.x == 0) total_out[s] = total_bits;
 }
 
@@ -201,7 +202,7 @@ template <typename Sym>
 __global__ void __launch_bounds__(kPackThreads, 1)
     pack_place_cluster_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb,
                               long long pat_row, long long nb_row, int n, int k, int n_words,
-                              int64_t* __restrict__ words_out, int64_t* __restrict__ total_out) {
+                              uint32_t* __restrict__ words_out, int32_t* __restrict__ total_out) {
   extern __shared__ uint4 pack_smem[];  // 16-byte aligned
   uint8_t* smem = reinterpret_cast<uint8_t*>(pack_smem);
   __shared__ PosMap tmp_map[kPackWarps];
@@ -225,8 +226,8 @@ __global__ void __launch_bounds__(kPackThreads, 1)
       pat + s * pat_row + i_lo, nb + s * nb_row + i_lo, i_hi - i_lo, k, false, spat, snb,
       ClusterWords{words, slice, n_words}, tmp_map, &cb, bad, nullptr);
   cluster_sync();  // every run is placed; no block reads another's memory after this
-  int64_t* out = words_out + (size_t)s * n_words;
-  for (int i = w_lo + threadIdx.x; i < w_hi; i += kPackThreads) out[i] = (int64_t)words[i - w_lo];
+  uint32_t* out = words_out + (size_t)s * n_words;
+  for (int i = w_lo + threadIdx.x; i < w_hi; i += kPackThreads) out[i] = words[i - w_lo];
   if (r == 0 && threadIdx.x == 0) total_out[s] = total_bits;
 }
 
@@ -271,7 +272,7 @@ size_t pack_smem_of(int k, int n_words, int cluster) {
 
 template <typename Sym>
 cudaError_t launch_emit(const void* pat, const void* nb, long long pat_row, long long nb_row,
-                        const int64_t* idc, long long idc_row, int idc_value, int batch, int n,
+                        const int32_t* idc, long long idc_row, int idc_value, int batch, int n,
                         int k, int n_nal, int n_rbsp, int cap, int align, int append_tb,
                         int cluster, uint8_t* nal_out, int32_t* len_out, int32_t* bits_out,
                         uint8_t* ovf_out, cudaStream_t stream) {
@@ -293,8 +294,8 @@ cudaError_t launch_emit(const void* pat, const void* nb, long long pat_row, long
 
 template <typename Sym>
 cudaError_t launch_pack(const void* pat, const void* nb, long long pat_row, long long nb_row,
-                        int batch, int n, int k, int n_words, int cluster, int64_t* words_out,
-                        int64_t* total_out, cudaStream_t stream) {
+                        int batch, int n, int k, int n_words, int cluster, uint32_t* words_out,
+                        int32_t* total_out, cudaStream_t stream) {
   const Sym* p = static_cast<const Sym*>(pat);
   const Sym* q = static_cast<const Sym*>(nb);
   const size_t smem = pack_smem_of(k, n_words, cluster);
@@ -313,7 +314,7 @@ cudaError_t launch_pack(const void* pat, const void* nb, long long pat_row, long
 
 // K1.  pat, nb: [batch, n] rows of int32 (sym_bytes 4) or int64 (8)
 // elements with unit column stride and the given row strides, staged k per
-// thread (k >= 1); nal_ref_idc is idc[s * idc_row] (int64) or, where idc
+// thread (k >= 1); nal_ref_idc is idc[s * idc_row] (int32) or, where idc
 // is null, idc_value.  cluster: the blocks a session, 1 (one block) or
 // the cluster plan's C in {2, 4, 8, 16}, as h264t_emit_plan says (k then
 // as h264t_cluster_items).  Outputs: nal_out u8[batch, n_nal], len_out,
@@ -321,7 +322,7 @@ cudaError_t launch_pack(const void* pat, const void* nb, long long pat_row, long
 // shared memory than the card allows, or a cluster the card cannot hold,
 // fails with the runtime's error.
 extern "C" int h264t_emit_fused(const void* pat, const void* nb, int sym_bytes,
-                                long long pat_row, long long nb_row, const int64_t* idc,
+                                long long pat_row, long long nb_row, const int32_t* idc,
                                 long long idc_row, int idc_value, int batch, int n, int k,
                                 int n_nal, int n_rbsp, int cap, int align, int append_tb,
                                 int cluster, uint8_t* nal_out, int32_t* len_out,
@@ -351,11 +352,11 @@ extern "C" int h264t_emit_plan(int sym_bytes, int n, int k, int n_nal) {
 }
 
 // K2.  pat, nb, k and cluster as for K1 (h264t_pack_plan gives the
-// cluster); outputs words_out i64[batch, n_words] (uint32 values) and
-// total_out i64[batch].
+// cluster); outputs words_out u32[batch, n_words] (the JAX package's uint32
+// words; an int32 tensor holds their bits) and total_out i32[batch].
 extern "C" int h264t_pack_place(const void* pat, const void* nb, int sym_bytes, long long pat_row,
                                 long long nb_row, int batch, int n, int k, int n_words,
-                                int cluster, int64_t* words_out, int64_t* total_out,
+                                int cluster, uint32_t* words_out, int32_t* total_out,
                                 void* stream) {
   if (k < 1 || !valid_cluster(cluster)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -413,7 +414,7 @@ extern "C" int h264t_ebsp_items_per_thread(int valid) { return ebsp_items_per_th
 
 extern "C" int h264t_pack_words(const void* pat, const void* nb, int sym_bytes, long long pat_row,
                                 long long nb_row, int batch, int n, int k, int n_words,
-                                int cluster, int64_t* words_out, int64_t* total_out,
+                                int cluster, uint32_t* words_out, int32_t* total_out,
                                 void* stream) {
   return h264t_pack_place(pat, nb, sym_bytes, pat_row, nb_row, batch, n, k, n_words, cluster,
                           words_out, total_out, stream);

@@ -77,7 +77,7 @@ namespace {
 template <int Stage, typename Sym>
 __global__ void __launch_bounds__(kPackThreads, 2)
     emit_stage_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row,
-                      long long nb_row, const int64_t* __restrict__ idc, long long idc_row,
+                      long long nb_row, const int32_t* __restrict__ idc, long long idc_row,
                       int idc_value, int n, int k, int n_nal, int n_rbsp, int cap, int align,
                       int append_tb, uint8_t* __restrict__ nal_out, int32_t* __restrict__ len_out,
                       int32_t* __restrict__ bits_out, uint8_t* __restrict__ ovf_out,
@@ -91,7 +91,7 @@ template <int Stage, typename Sym>
 __global__ void __launch_bounds__(kPackThreads, 1)
     emit_stage_cluster_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb,
                               long long pat_row, long long nb_row,
-                              const int64_t* __restrict__ idc, long long idc_row, int idc_value,
+                              const int32_t* __restrict__ idc, long long idc_row, int idc_value,
                               int n, int k, int n_nal, int n_rbsp, int cap, int align,
                               int append_tb, uint8_t* __restrict__ nal_out,
                               int32_t* __restrict__ len_out, int32_t* __restrict__ bits_out,
@@ -104,7 +104,7 @@ __global__ void __launch_bounds__(kPackThreads, 1)
 
 template <int Stage, typename Sym>
 cudaError_t launch_stage(int cluster, const void* pat, const void* nb, long long pat_row,
-                         long long nb_row, const int64_t* idc, long long idc_row, int idc_value,
+                         long long nb_row, const int32_t* idc, long long idc_row, int idc_value,
                          int batch, int n, int k, int n_nal, int n_rbsp, int cap, int align,
                          int append_tb, uint8_t* nal_out, int32_t* len_out, int32_t* bits_out,
                          uint8_t* ovf_out, int32_t* probe_meta, int32_t* probe_words,
@@ -128,7 +128,7 @@ cudaError_t launch_stage(int cluster, const void* pat, const void* nb, long long
 
 template <typename Sym>
 cudaError_t launch_stage_of(int stage, int cluster, const void* pat, const void* nb,
-                            long long pat_row, long long nb_row, const int64_t* idc,
+                            long long pat_row, long long nb_row, const int32_t* idc,
                             long long idc_row, int idc_value, int batch, int n, int k, int n_nal,
                             int n_rbsp, int cap, int align, int append_tb, uint8_t* nal_out,
                             int32_t* len_out, int32_t* bits_out, uint8_t* ovf_out,
@@ -166,8 +166,8 @@ size_t u16_smem_bytes(int k, int n_words) {
 template <typename Sym>
 __global__ void __launch_bounds__(kPackThreads, 3)
     pack_u16_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row,
-                    long long nb_row, int n, int k, int n_words, int64_t* __restrict__ words_out,
-                    int64_t* __restrict__ total_out) {
+                    long long nb_row, int n, int k, int n_words, uint32_t* __restrict__ words_out,
+                    int32_t* __restrict__ total_out) {
   extern __shared__ uint4 pack_smem[];  // 16-byte aligned
   uint8_t* smem = reinterpret_cast<uint8_t*>(pack_smem);
   __shared__ int tmp_sum[kPackWarps];
@@ -208,9 +208,9 @@ __global__ void __launch_bounds__(kPackThreads, 3)
     carry += (uint32_t)total;
   }
   __syncthreads();
-  int64_t* out = words_out + (size_t)s * n_words;
-  for (int i = threadIdx.x; i < n_words; i += kPackThreads) out[i] = (int64_t)words[i];
-  if (threadIdx.x == 0) total_out[s] = (int64_t)carry;
+  uint32_t* out = words_out + (size_t)s * n_words;
+  for (int i = threadIdx.x; i < n_words; i += kPackThreads) out[i] = words[i];
+  if (threadIdx.x == 0) total_out[s] = (int32_t)carry;
 }
 
 template <typename Sym>
@@ -232,7 +232,7 @@ template <int T, typename Sym>
 __global__ void __launch_bounds__(kPackThreads, 2)
     pack_tiled_kernel(const Sym* __restrict__ pat, const Sym* __restrict__ nb, long long pat_row,
                       long long nb_row, int n, int k, int n_words,
-                      int64_t* __restrict__ words_out, int64_t* __restrict__ total_out) {
+                      uint32_t* __restrict__ words_out, int32_t* __restrict__ total_out) {
   constexpr int G = kPackThreads / T;
   extern __shared__ uint4 pack_smem[];  // 16-byte aligned
   __shared__ PosMap tmp_map[T][G / 32];
@@ -249,8 +249,8 @@ __global__ void __launch_bounds__(kPackThreads, 2)
       pack_session<kStageFull>(pat + s * pat_row, nb + s * nb_row, n, k, false, spat, snb, words,
                                n_words, tmp_map[grp], bad, nullptr, g);
   g.sync();
-  int64_t* out = words_out + (size_t)s * n_words;
-  for (int i = g.rank(); i < n_words; i += G) out[i] = (int64_t)words[i];
+  uint32_t* out = words_out + (size_t)s * n_words;
+  for (int i = g.rank(); i < n_words; i += G) out[i] = words[i];
   if (g.rank() == 0) total_out[s] = total_bits;
 }
 
@@ -277,7 +277,7 @@ size_t tiled_smem_bytes(int tile, int k, int n_words) {
 
 template <int T, typename Sym>
 void launch_tiled(const void* pat, const void* nb, long long pat_row, long long nb_row, int batch,
-                  int n, int k, int n_words, int64_t* words_out, int64_t* total_out, size_t smem,
+                  int n, int k, int n_words, uint32_t* words_out, int32_t* total_out, size_t smem,
                   cudaStream_t stream) {
   pack_tiled_kernel<T, Sym><<<batch / T, kPackThreads, smem, stream>>>(
       static_cast<const Sym*>(pat), static_cast<const Sym*>(nb), pat_row, nb_row, n, k, n_words,
@@ -286,8 +286,8 @@ void launch_tiled(const void* pat, const void* nb, long long pat_row, long long 
 
 template <typename Sym>
 void launch_tiled_of(int tile, const void* pat, const void* nb, long long pat_row,
-                     long long nb_row, int batch, int n, int k, int n_words, int64_t* words_out,
-                     int64_t* total_out, size_t smem, cudaStream_t stream) {
+                     long long nb_row, int batch, int n, int k, int n_words, uint32_t* words_out,
+                     int32_t* total_out, size_t smem, cudaStream_t stream) {
   switch (tile) {
     case 1: launch_tiled<1, Sym>(pat, nb, pat_row, nb_row, batch, n, k, n_words, words_out, total_out, smem, stream); break;
     case 2: launch_tiled<2, Sym>(pat, nb, pat_row, nb_row, batch, n, k, n_words, words_out, total_out, smem, stream); break;
@@ -325,7 +325,7 @@ const void* ebsp_variant_of(int variant) {
 // probe_words i32[batch, n_nal / 4] (the uint32 words).  `full` writes
 // K1's outputs; `ep` on the cluster plan builds its NAL in nal_out.
 extern "C" int h264t_emit_stage(int stage, const void* pat, const void* nb, int sym_bytes,
-                                long long pat_row, long long nb_row, const int64_t* idc,
+                                long long pat_row, long long nb_row, const int32_t* idc,
                                 long long idc_row, int idc_value, int batch, int n, int k,
                                 int n_nal, int n_rbsp, int cap, int align, int append_tb,
                                 int cluster, uint8_t* nal_out, int32_t* len_out,
@@ -349,10 +349,10 @@ extern "C" int h264t_emit_stage(int stage, const void* pat, const void* nb, int 
 
 // P2.  K2's arguments without the cluster: n_words <= 2,048
 // (else cudaErrorInvalidValue, launching nothing); outputs words_out
-// i64[batch, n_words] (uint32 values) and total_out i64[batch].
+// u32[batch, n_words] and total_out i32[batch], as K2's.
 extern "C" int h264t_pack_place_u16(const void* pat, const void* nb, int sym_bytes,
                                     long long pat_row, long long nb_row, int batch, int n, int k,
-                                    int n_words, int64_t* words_out, int64_t* total_out,
+                                    int n_words, uint32_t* words_out, int32_t* total_out,
                                     void* stream) {
   const void* kernel = u16_kernel_of(sym_bytes);
   if (kernel == nullptr || k < 1 || n_words < 0 || n_words > kU16MaxWords)
@@ -380,7 +380,7 @@ extern "C" int h264t_pack_u16_max_words() { return kU16MaxWords; }
 // 8 or 16; batch % T == 0) and k as h264t_pack_tiled_items gives it.
 extern "C" int h264t_pack_place_tiled(int tile, const void* pat, const void* nb, int sym_bytes,
                                       long long pat_row, long long nb_row, int batch, int n,
-                                      int k, int n_words, int64_t* words_out, int64_t* total_out,
+                                      int k, int n_words, uint32_t* words_out, int32_t* total_out,
                                       void* stream) {
   const void* kernel = tiled_kernel_of(tile, sym_bytes);
   if (kernel == nullptr || k < 1 || n_words < 0 || batch % tile != 0)

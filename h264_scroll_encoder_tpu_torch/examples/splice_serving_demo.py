@@ -67,9 +67,9 @@ def run(device="cuda", *, batch_size: int = 8, out_dir=None,
 
     H, W = cfg.mb_height, cfg.mb_width
     zero = torch.zeros((B, H, W), dtype=torch.int32, device=device)
-    zl = torch.zeros((B, MAX_WAYPOINTS), dtype=torch.int64, device=device)
+    zl = torch.zeros((B, MAX_WAYPOINTS), dtype=torch.int32, device=device)
     hp, hn = p_slice_header_symbols(
-        cfg, torch.full((B,), 3, dtype=torch.int64, device=device), 6,
+        cfg, torch.full((B,), 3, dtype=torch.int32, device=device), 6,
         False, -1, 0, zl, zl.bool())
 
     step = batch.make_batched_splice_step_rows(

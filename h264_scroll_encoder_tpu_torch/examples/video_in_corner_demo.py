@@ -231,7 +231,7 @@ def main_batched(out_path="video_in_corner_720p.h264", batch: int = 4, *,
     # The per-slice qp_delta is in the header; x264 at a fixed qp keeps it
     # constant across the clip.
     hdr0 = None
-    zl = torch.zeros((batch, MAX_WAYPOINTS), dtype=torch.int64, device=device)
+    zl = torch.zeros((batch, MAX_WAYPOINTS), dtype=torch.int32, device=device)
 
     def run_step(step, payload, start_bit, donor_num_refs, num_refs, s_row,
                  scroll_px, ref_shift, frame_num, abs_diff, qp_delta,
@@ -239,7 +239,7 @@ def main_batched(out_path="video_in_corner_720p.h264", batch: int = 4, *,
         dn, _meta = splice_device.prepare_donor_rows_serving(
             [payload] * batch, [start_bit] * batch, dH, dW, donor_num_refs,
             num_refs, s_row=s_row, retarget_mvs=retarget, device=device)
-        fn = torch.full((batch,), frame_num % 16, dtype=torch.int64,
+        fn = torch.full((batch,), frame_num % 16, dtype=torch.int32,
                         device=device)
         hp, hn = p_slice_header_symbols(
             cfg, fn, fn * 2, True, -1, 0, zl, zl.bool(),

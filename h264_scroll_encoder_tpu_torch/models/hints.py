@@ -67,8 +67,8 @@ def hint_frame(cfg: ComposerConfig, frame_num, ref, mv_x, mv_y,
     when every mv_x is zero; byte-identical to the generic layout there).
     Returns (nal u8[B, n_nal], nal_len i32[B], rbsp_bits i32[B],
     overflow bool[B]) on the device of the inputs."""
-    fn = torch.as_tensor(frame_num).to(torch.int64) % (1 << cfg.log2_max_frame_num)
-    num_waypoints = scroll_model._i64(num_waypoints, fn)
+    fn = torch.as_tensor(frame_num).to(torch.int32) % (1 << cfg.log2_max_frame_num)
+    num_waypoints = scroll_model._i32(num_waypoints, fn)
     hp, hn = p_slice_header_symbols(
         cfg, fn, fn * 2, is_reference=False, long_term_idx=-1,
         num_waypoints=num_waypoints, wp_long_term_idx=wp_ltidx,

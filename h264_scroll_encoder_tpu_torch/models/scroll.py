@@ -46,9 +46,11 @@ def max_nal_bytes(cfg: ComposerConfig) -> int:
     return (n + 3) // 4 * 4
 
 
-def _i64(x, like):
-    """Per-session value as an int64 tensor on `like`'s device."""
-    return torch.as_tensor(x, device=like.device).to(torch.int64)
+def _i32(x, like):
+    """Per-session value as an int32 tensor (the JAX package's width) on
+    `like`'s device."""
+    return torch.as_tensor(x, device=like.device).to(torch.int32)
+
 
 
 # ---------------------------------------------------------------------------
@@ -59,7 +61,8 @@ def _best_waypoint_a(offset_px, wp_offsets, wp_valid, num_waypoints):
     """Highest waypoint offset <= offset with delta <= MV_LIMIT_PX, only
     engaged when offset > MV_LIMIT_PX.  Returns (index or -1, offset or 0)
     per session."""
-    idx = torch.arange(MAX_WAYPOINTS, device=wp_offsets.device)
+    idx = torch.arange(MAX_WAYPOINTS, dtype=torch.int32,
+                       device=wp_offsets.device)
     off = offset_px[:, None]
     cand = (wp_valid & (idx < num_waypoints[:, None])
             & (wp_offsets <= off) & (off - wp_offsets <= MV_LIMIT_PX)
@@ -70,13 +73,15 @@ def _best_waypoint_a(offset_px, wp_offsets, wp_valid, num_waypoints):
     best = torch.argmax(keyed, dim=1)       # first index of the max
     found = keyed.max(dim=1).values >= 0
     best_off = torch.gather(wp_offsets, 1, best[:, None])[:, 0]
-    return torch.where(found, best, -1), torch.where(found, best_off, 0)
+    return (torch.where(found, best.to(torch.int32), -1),
+            torch.where(found, best_off, 0))
 
 
 def _best_waypoint_b(offset_px, height, wp_offsets, wp_valid, num_waypoints):
     """First (lowest-index) waypoint with offset > current and delta within
     -MV_LIMIT_PX, engaged when B's direct MV would break the limit."""
-    idx = torch.arange(MAX_WAYPOINTS, device=wp_offsets.device)
+    idx = torch.arange(MAX_WAYPOINTS, dtype=torch.int32,
+                       device=wp_offsets.device)
     off = offset_px[:, None]
     cand = (wp_valid & (idx < num_waypoints[:, None])
             & (wp_offsets > off) & (off - wp_offsets >= -MV_LIMIT_PX))
@@ -85,17 +90,18 @@ def _best_waypoint_b(offset_px, height, wp_offsets, wp_valid, num_waypoints):
     best = torch.where(cand, idx, MAX_WAYPOINTS).min(dim=1).values
     found = best < MAX_WAYPOINTS
     safe = torch.where(found, best, 0)
-    best_off = torch.gather(wp_offsets, 1, safe[:, None])[:, 0]
+    best_off = torch.gather(wp_offsets, 1, safe[:, None].to(torch.int64))[:, 0]
     return torch.where(found, safe, -1), torch.where(found, best_off, 0)
 
 
 def region_params(cfg: ComposerConfig, offset_px, wp_offsets, wp_valid,
                   num_waypoints, is_waypoint_frame):
-    """(a_ref, a_mv_px, b_ref, b_mv_px)[B] after waypoint redirection."""
-    offset_px = _i64(offset_px, wp_offsets)
-    wp_offsets = wp_offsets.to(torch.int64)
+    """(a_ref, a_mv_px, b_ref, b_mv_px) int32[B] after waypoint
+    redirection."""
+    offset_px = _i32(offset_px, wp_offsets)
+    wp_offsets = wp_offsets.to(torch.int32)
     wp_valid = wp_valid.to(torch.bool)
-    num_waypoints = _i64(num_waypoints, wp_offsets)
+    num_waypoints = _i32(num_waypoints, wp_offsets)
     wp_a, wp_a_off = _best_waypoint_a(offset_px, wp_offsets, wp_valid,
                                       num_waypoints)
     wp_b, wp_b_off = _best_waypoint_b(offset_px, cfg.height, wp_offsets,
@@ -119,7 +125,7 @@ def mb_fields_traced(cfg: ComposerConfig, offset_px, wp_offsets, wp_valid,
     boundary_policy 'floor' reproduces the reference's MB-row seam
     (required for byte parity); 'nearest' rounds the seam to the closest
     MB row."""
-    offset_px = _i64(offset_px, wp_offsets)
+    offset_px = _i32(offset_px, wp_offsets)
     h, w = cfg.mb_height, cfg.mb_width
     if boundary_policy == "floor":
         a_region_end = (cfg.height - offset_px) // 16
@@ -134,7 +140,8 @@ def mb_fields_traced(cfg: ComposerConfig, offset_px, wp_offsets, wp_valid,
         cfg, offset_px, wp_offsets, wp_valid, num_waypoints,
         torch.as_tensor(is_waypoint_frame, device=wp_offsets.device))
 
-    row = torch.arange(h, device=wp_offsets.device)[None, :, None]
+    row = torch.arange(h, dtype=torch.int32,
+                       device=wp_offsets.device)[None, :, None]
     in_a = (row < a_region_end[:, None, None]).expand(-1, h, w)
     ref = torch.where(in_a, a_ref[:, None, None], b_ref[:, None, None])
     mv_y = torch.where(in_a, a_mv[:, None, None], b_mv[:, None, None]) * 4
@@ -192,8 +199,8 @@ def _pred_stencil_roles(refA, mvxA, mvyA, refB, mvxB, mvyB,
     (bottom-right 4x4)."""
     h, w = refA.shape[-2:]
     dev = refA.device
-    col = torch.arange(w, device=dev)[None, :]
-    row = torch.arange(h, device=dev)[:, None]
+    col = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    row = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
 
     ref_a, mvx_a, mvy_a = (_shift(g, 0, 1) for g in (refA, mvxA, mvyA))
     ref_b, mvx_b, mvy_b = (_shift(g, 1, 0) for g in (refB, mvxB, mvyB))
@@ -212,10 +219,10 @@ def _pred_stencil_roles(refA, mvxA, mvyA, refB, mvxB, mvyB,
     match_a = avail_a & (ref_a == cur_ref)
     match_b = avail_b & (ref_b == cur_ref)
     match_c = avail_c & (ref_c == cur_ref)
-    n_avail = (avail_a.to(torch.int64) + avail_b.to(torch.int64)
-               + avail_c.to(torch.int64))
-    n_match = (match_a.to(torch.int64) + match_b.to(torch.int64)
-               + match_c.to(torch.int64))
+    n_avail = (avail_a.to(torch.int32) + avail_b.to(torch.int32)
+               + avail_c.to(torch.int32))
+    n_match = (match_a.to(torch.int32) + match_b.to(torch.int32)
+               + match_c.to(torch.int32))
     only_a = avail_a & ~avail_b & ~avail_c
 
     def pick(vx_a, vx_b, vx_c):
@@ -250,8 +257,8 @@ def pskip_mv_grid(ref, mv_x, mv_y):
     median prediction for ref 0."""
     h, w = ref.shape[-2:]
     dev = ref.device
-    col = torch.arange(w, device=dev)[None, :]
-    row = torch.arange(h, device=dev)[:, None]
+    col = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    row = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
 
     ref_a, ref_b, _, _ = _neighbors(ref)
     mvx_a, mvx_b, _, _ = _neighbors(mv_x)
@@ -303,7 +310,8 @@ def p_frame_symbols(cfg: ComposerConfig, header_patterns, header_nbits,
     own slot (ue(skip_run) no longer fits a merged 32-bit slot).
     rbsp_bits_per_mb overrides the working-buffer budget (0 = cfg's).
 
-    Returns (patterns int64[B, n], nbits int64[B, n], n_rbsp).
+    Returns (patterns int32[B, n] holding uint32 bits, nbits int32[B, n],
+    n_rbsp).
     """
     B, h, w = ref.shape
     n_mbs = h * w
@@ -311,9 +319,9 @@ def p_frame_symbols(cfg: ComposerConfig, header_patterns, header_nbits,
     if n_mbs > 65535:
         raise ValueError(f"emit_p_frame: {n_mbs} MBs > 65535 — ue(skip_run) "
                          "would exceed 32 bits; split the frame into bands")
-    ref = ref.to(torch.int64)
-    mv_x = mv_x.to(torch.int64)
-    mv_y = mv_y.to(torch.int64)
+    ref = ref.to(torch.int32)
+    mv_x = mv_x.to(torch.int32)
+    mv_y = mv_y.to(torch.int32)
 
     pred_x, pred_y = mv_pred_grid(ref, mv_x, mv_y)
     mvd_x = (mv_x - pred_x).reshape(B, n_mbs)
@@ -330,7 +338,7 @@ def p_frame_symbols(cfg: ComposerConfig, header_patterns, header_nbits,
     skip_run, last_coded_incl = _skip_runs(coded)
 
     zeros = torch.zeros_like(ref_f)
-    num_refs = _i64(num_refs, ref)
+    num_refs = _i32(num_refs, ref)
     if num_refs.dim() == 1:
         num_refs = num_refs[:, None]
     sr_pat, sr_n = expgolomb.ue(skip_run)
@@ -371,7 +379,8 @@ def _skip_runs(coded):
     MB or -1) over coded bool[B, n]: the run before a coded MB is its
     distance to the previous coded MB."""
     B, n_mbs = coded.shape
-    idx = torch.arange(n_mbs, device=coded.device).expand(B, n_mbs)
+    idx = torch.arange(n_mbs, dtype=torch.int32,
+                       device=coded.device).expand(B, n_mbs)
     last_coded_incl = torch.cummax(torch.where(coded, idx, -1), dim=1).values
     last_coded_before = torch.cat(
         [torch.full_like(last_coded_incl[:, :1], -1),
@@ -387,9 +396,9 @@ def _slice_symbols(header_patterns, header_nbits, mb_patterns, mb_nbits,
     tail_skips = n_mbs - 1 - last_coded_incl[:, -1]
     ts_pat, ts_n = expgolomb.ue(tail_skips)
     ts_n = torch.where(tail_skips > 0, ts_n, 0)
-    patterns = torch.cat([header_patterns.to(torch.int64),
+    patterns = torch.cat([bitpack.as_u32_bits(header_patterns),
                           mb_patterns.reshape(B, -1), ts_pat[:, None]], dim=1)
-    nbits = torch.cat([header_nbits.to(torch.int64),
+    nbits = torch.cat([header_nbits.to(torch.int32),
                        mb_nbits.reshape(B, -1), ts_n[:, None]], dim=1)
     return patterns, nbits
 
@@ -422,8 +431,8 @@ def finish_slice(patterns, nbits, n_rbsp: int, nal_ref_idc,
             max_insertions=MAX_EBSP_INSERTIONS, has_align=has_align,
             append_trailing=True)
 
-    patterns = patterns.to(torch.int64)
-    nbits = nbits.to(torch.int64)
+    patterns = bitpack.as_u32_bits(patterns)
+    nbits = nbits.to(torch.int32)
     B = nbits.shape[0]
     if has_align:
         nbits = emit_fused._resolve_align(nbits)
@@ -431,7 +440,8 @@ def finish_slice(patterns, nbits, n_rbsp: int, nal_ref_idc,
     else:
         bad = (nbits < 0).any(dim=1)
         nbits = nbits.clamp(min=0)
-    tb_pat, tb_n = bitpack.trailing_bits_symbol(nbits.sum(dim=1))
+    tb_pat, tb_n = bitpack.trailing_bits_symbol(
+        nbits.sum(dim=1, dtype=torch.int32))
     patterns = torch.cat([patterns, tb_pat[:, None]], dim=1)
     nbits = torch.cat([nbits, tb_n[:, None]], dim=1)
 
@@ -447,8 +457,7 @@ def finish_slice(patterns, nbits, n_rbsp: int, nal_ref_idc,
     out = torch.zeros((B, n_nal), dtype=torch.uint8, device=nbits.device)
     out[:, 5:n_nal - 3] = ebsp_bytes
     out[:, :5] = emit_fused.nal_prefix(nal_ref_idc, B, nbits.device)
-    return (out, (5 + ebsp_len).to(torch.int32), total_bits.to(torch.int32),
-            overflow)
+    return out, 5 + ebsp_len, total_bits, overflow
 
 
 def emit_partitioned_scroll_frame(cfg: ComposerConfig, header_patterns,
@@ -484,7 +493,7 @@ def partitioned_frame_symbols(cfg: ComposerConfig, header_patterns,
                               b_ref, b_mv_px, num_refs, *,
                               enable_pskip: bool):
     """emit_partitioned_scroll_frame before its back end: (patterns
-    int64[B, n], nbits int64[B, n], n_rbsp)."""
+    int32[B, n] holding uint32 bits, nbits int32[B, n], n_rbsp)."""
     h, w = cfg.mb_height, cfg.mb_width
     n_mbs = h * w
     # Same 32-bit merged-slot constraint as the narrow layout: the seam and
@@ -497,12 +506,12 @@ def partitioned_frame_symbols(cfg: ComposerConfig, header_patterns,
     dev = header_patterns.device
 
     def per_session(x):                     # [B, 1, 1] for the grids
-        return _i64(x, header_patterns).reshape(-1).expand(B)[:, None, None]
+        return _i32(x, header_patterns).reshape(-1).expand(B)[:, None, None]
 
     a_ref, b_ref = per_session(a_ref), per_session(b_ref)
     a_mvq, b_mvq = per_session(a_mv_px) * 4, per_session(b_mv_px) * 4
-    rows = torch.arange(h, device=dev)[None, :, None]
-    cols = torch.arange(w, device=dev)[None, None, :]
+    rows = torch.arange(h, dtype=torch.int32, device=dev)[None, :, None]
+    cols = torch.arange(w, dtype=torch.int32, device=dev)[None, None, :]
     cov = torch.clamp(cfg.height - per_session(offset_px) - 16 * rows, 0, 16)
     c_r = ((cov + 4) // 8) * 8             # rounded A-coverage: 0 | 8 | 16
     seam = (c_r == 8).expand(B, h, w)
@@ -510,7 +519,7 @@ def partitioned_frame_symbols(cfg: ComposerConfig, header_patterns,
 
     ref_full = torch.where(in_full_a, a_ref, b_ref)
     mv_full = torch.where(in_full_a, a_mvq, b_mvq)
-    zeros = torch.zeros((B, h, w), dtype=torch.int64, device=dev)
+    zeros = torch.zeros((B, h, w), dtype=torch.int32, device=dev)
 
     # Role grids: a seam MB's top-right 4x4 (as-left role) is region A;
     # its bottom-left/bottom-right (as-above/above-left roles) region B,
@@ -532,7 +541,7 @@ def partitioned_frame_symbols(cfg: ComposerConfig, header_patterns,
     coded = (~can_skip).reshape(B, n_mbs)
     skip_run, last_coded_incl = _skip_runs(coded)
 
-    num_refs = _i64(num_refs, header_patterns).reshape(-1, 1)
+    num_refs = _i32(num_refs, header_patterns).reshape(-1, 1)
     z = zeros.reshape(B, n_mbs)
     merge = bitpack.merge_symbol_pairs
     sr = expgolomb.ue(skip_run)
@@ -571,7 +580,7 @@ def partitioned_frame_symbols(cfg: ComposerConfig, header_patterns,
 
 def _header(cfg, frame_num, is_reference, long_term_idx, num_waypoints,
             wp_ltidx, wp_valid):
-    fn = torch.as_tensor(frame_num).to(torch.int64) % (1 << cfg.log2_max_frame_num)
+    fn = torch.as_tensor(frame_num).to(torch.int32) % (1 << cfg.log2_max_frame_num)
     return p_slice_header_symbols(
         cfg, fn, fn * 2, is_reference=is_reference,
         long_term_idx=long_term_idx, num_waypoints=num_waypoints,
@@ -598,15 +607,15 @@ def unified_frame_symbols(cfg: ComposerConfig, frame_num, offset_px,
                           wp_offsets, wp_ltidx, wp_valid, num_waypoints,
                           is_waypoint, *, enable_pskip: bool = False,
                           boundary_policy: str = "floor"):
-    """unified_frame up to its back end: (patterns int64[B, n],
-    nbits int64[B, n], n_rbsp, nal_ref_idc int64[B]), the inputs
-    finish_slice takes."""
+    """unified_frame up to its back end: (patterns int32[B, n] holding
+    uint32 bits, nbits int32[B, n], n_rbsp, nal_ref_idc int32[B]), the
+    inputs finish_slice takes."""
     is_waypoint = torch.as_tensor(is_waypoint, device=wp_offsets.device)
-    num_waypoints = _i64(num_waypoints, wp_offsets)
+    num_waypoints = _i32(num_waypoints, wp_offsets)
     long_term_idx = torch.where(is_waypoint, 2 + num_waypoints, -1)
     hp, hn = _header(cfg, frame_num, is_waypoint, long_term_idx,
                      num_waypoints, wp_ltidx, wp_valid)
-    nal_ref_idc = torch.where(is_waypoint, 2, 0)
+    nal_ref_idc = is_waypoint.to(torch.int32) * 2
     if boundary_policy == "partitioned":
         patterns, nbits, n_rbsp = partitioned_frame_symbols(
             cfg, hp, hn, offset_px,
@@ -627,10 +636,11 @@ def unified_frame_symbols(cfg: ComposerConfig, frame_num, offset_px,
 def needs_waypoint(offset_px, wp_offsets, wp_valid, num_waypoints):
     """h264_needs_waypoint: offset is a nonzero multiple of MV_LIMIT_PX not
     yet registered.  bool[B]."""
-    offset_px = _i64(offset_px, wp_offsets)
-    idx = torch.arange(MAX_WAYPOINTS, device=wp_offsets.device)
+    offset_px = _i32(offset_px, wp_offsets)
+    idx = torch.arange(MAX_WAYPOINTS, dtype=torch.int32,
+                       device=wp_offsets.device)
     exists = (wp_valid.to(torch.bool)
-              & (idx < _i64(num_waypoints, wp_offsets)[:, None])
+              & (idx < _i32(num_waypoints, wp_offsets)[:, None])
               & (wp_offsets == offset_px[:, None])).any(dim=1)
     return (offset_px != 0) & (offset_px % MV_LIMIT_PX == 0) & ~exists
 
@@ -638,7 +648,7 @@ def needs_waypoint(offset_px, wp_offsets, wp_valid, num_waypoints):
 def _scroll_or_waypoint(cfg, frame_num, offset_px, wp_offsets, wp_ltidx,
                         wp_valid, num_waypoints, *, waypoint: bool,
                         enable_pskip, boundary_policy, ebsp_exact):
-    num_waypoints = _i64(num_waypoints, wp_offsets)
+    num_waypoints = _i32(num_waypoints, wp_offsets)
     hp, hn = _header(cfg, frame_num, waypoint,
                      2 + num_waypoints if waypoint else -1,
                      num_waypoints, wp_ltidx, wp_valid)
@@ -715,8 +725,9 @@ def sliced_frame_symbols(cfg: ComposerConfig, frame_num, offset_px,
                          *, rows_per_slice: int, enable_pskip: bool = False,
                          boundary_policy: str = "floor",
                          ebsp_exact: bool = False):
-    """scroll_frame_sliced before its back end: (patterns int64[B*K, n],
-    nbits int64[B*K, n], n_rbsp), band k of session b in row b*K + k.
+    """scroll_frame_sliced before its back end: (patterns int32[B*K, n]
+    holding uint32 bits, nbits int32[B*K, n], n_rbsp), band k of session
+    b in row b*K + k.
 
     H.264 does not predict across slice boundaries, and the stencils shift
     within each grid, so the [B, h, w] fields reshaped to [B*K, rows, w]
@@ -724,7 +735,7 @@ def sliced_frame_symbols(cfg: ComposerConfig, frame_num, offset_px,
     if cfg.mb_height % rows_per_slice:
         raise ValueError("mb_height must divide by rows_per_slice")
     K = cfg.mb_height // rows_per_slice
-    num_waypoints = _i64(num_waypoints, wp_offsets)
+    num_waypoints = _i32(num_waypoints, wp_offsets)
     ref, mv_y = mb_fields(cfg, offset_px, wp_offsets, wp_valid,
                           num_waypoints, is_waypoint_frame=False,
                           boundary_policy=boundary_policy)
@@ -737,9 +748,9 @@ def sliced_frame_symbols(cfg: ComposerConfig, frame_num, offset_px,
     def each_band(a):
         return torch.as_tensor(a, device=dev).repeat_interleave(K, dim=0)
 
-    fn = (torch.as_tensor(frame_num, device=dev).to(torch.int64)
+    fn = (torch.as_tensor(frame_num, device=dev).to(torch.int32)
           % (1 << cfg.log2_max_frame_num))
-    first_mb = (torch.arange(K, device=dev).repeat(B)
+    first_mb = (torch.arange(K, dtype=torch.int32, device=dev).repeat(B)
                 * (rows_per_slice * cfg.mb_width))
     hp, hn = p_slice_header_symbols(
         cfg, each_band(fn), each_band(fn * 2), is_reference=False,

@@ -38,7 +38,6 @@ from .. import _kernels
 from ..config import ComposerConfig
 from ..ops import bitpack, expgolomb
 from ..ops import cavlc_tables as T
-from ..ops.bitpack import U32
 from . import mb_transcode as mbt
 from . import scroll as scroll_model
 
@@ -546,16 +545,19 @@ def rows_wire(dr: DonorRows) -> dict:
 
 def donor_arrays_from_numpy(dn: dict, device="cuda") -> dict:
     """A donor wire dict of numpy arrays (this module's, or the JAX
-    package's `dn` after np.asarray) -> torch tensors on `device`.
-    uint32 arrays become int64 holding the same values; other dtypes keep
-    theirs.  Leading dimensions are kept as they are."""
+    package's `dn` after np.asarray) -> torch tensors on `device`, in the
+    JAX package's widths: a uint32 array becomes an int32 view of the
+    same bits (no copy on the host); other dtypes keep theirs.  Leading
+    dimensions are kept as they are."""
     dev = _kernels.resolve_device(device)
     out = {}
     for k, v in dn.items():
-        a = np.asarray(v)
+        a = np.ascontiguousarray(v)
         if a.dtype == np.uint32:
-            a = a.astype(np.int64)
-        out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            a = a.view(np.int32)
+        if not a.flags.writeable:  # e.g. a JAX array's buffer
+            a = a.copy()
+        out[k] = torch.from_numpy(a).to(dev)
     return out
 
 
@@ -569,8 +571,9 @@ DENSE_FIELDS = ("patterns", "nbits", "coded") + ROLE_FIELDS
 
 def dense_device_arrays(dd: DonorDense, device="cuda") -> dict:
     """DonorDense -> the dense wire as tensors on `device` (no batch dim):
-    chunks u32 -> int64 [M, S], nbits int32 [M, S], coded bool [M] and the
-    int32 edge roles [M] (the JAX package's dense_device_arrays keys)."""
+    chunks u32 as int32 bits [M, S], nbits int32 [M, S], coded bool [M]
+    and the int32 edge roles [M] (the JAX package's dense_device_arrays
+    keys and widths)."""
     return donor_arrays_from_numpy({k: getattr(dd, k) for k in DENSE_FIELDS},
                                    device)
 
@@ -1091,17 +1094,17 @@ def edge_roles_to_full(dn: dict, R: int, C: int) -> dict:
     """Full-rect [B, R*C] role tensors from the edge vectors (zeros at
     interior positions, whose predictions are never read)."""
     lead = dn["edge_a_ref"].shape[:-1]
-    zero = torch.zeros(lead + (R, C), dtype=torch.int64,
+    zero = torch.zeros(lead + (R, C), dtype=torch.int32,
                        device=dn["edge_a_ref"].device)
 
     def grid(right=None, left=None, bottom=None):
-        g = zero.clone()
+        g = zero.clone()     # the assignments cast the wire's int16 values
         if right is not None:
-            g[..., :, C - 1] = right.to(torch.int64)
+            g[..., :, C - 1] = right
         if left is not None:
-            g[..., :, 0] = left.to(torch.int64)
+            g[..., :, 0] = left
         if bottom is not None:
-            g[..., R - 1, :] = bottom.to(torch.int64)
+            g[..., R - 1, :] = bottom
         return g.reshape(lead + (R * C,))
 
     out = {}
@@ -1115,32 +1118,31 @@ def edge_roles_to_full(dn: dict, R: int, C: int) -> dict:
 
 
 def _unblob(blob, R: int, C: int, s_flat: int, s_exc: int) -> dict:
-    """Device inverse of pack_rows_blob over blob[B, stride] (int64
-    tensor of uint32 values): int64 fields, bool coded."""
+    """Device inverse of pack_rows_blob over blob[B, stride] (uint32
+    words, as int32 bits): the JAX package's widths, u32 fields as int32
+    bits, i32 and i8 fields int32, i16 fields int16, coded bool."""
     layout, stride = flat_wire_layout(R, C, s_flat, s_exc)
     if blob.shape[-1] != stride:
         raise ValueError(f"blob stride {blob.shape[-1]} != layout {stride}")
-    blob = blob.to(torch.int64) & U32
+    blob = bitpack.as_u32_bits(blob)
     lead = blob.shape[:-1]
     dev = blob.device
     out = {}
     for name, kind, count, off in layout:
         w = blob[..., off: off - (-count // _PER_WORD[kind])]
-        if kind == "u32":
+        if kind in ("u32", "i32"):
             out[name] = w
             continue
-        if kind == "i32":
-            out[name] = torch.where(w >= 1 << 31, w - (1 << 32), w)
-            continue
         bits = 32 // _PER_WORD[kind]
-        shifts = torch.arange(0, 32, bits, device=dev)
+        shifts = torch.arange(0, 32, bits, dtype=torch.int32, device=dev)
         v = ((w[..., None] >> shifts) & ((1 << bits) - 1))
         v = v.reshape(lead + (-1,))[..., :count]
         if kind == "u1":
             v = v.to(torch.bool)
-        elif kind in ("i16", "i8"):
-            sign = 1 << (bits - 1)
-            v = (v ^ sign) - sign
+        elif kind == "i16":
+            v = v.to(torch.int16)       # the narrowing cast restores the sign
+        elif kind == "i8":
+            v = (v ^ 0x80) - 0x80
         out[name] = v
     return out
 
@@ -1150,35 +1152,37 @@ def _rows_from_flat(dn: dict, R: int, s_row: int):
     s_row] patterns, nbits), exact.  On a GPU this is a gather of each
     row's chunks from its start in the flat stream; nbits are 32 inside a
     row, the row's tail width on its last chunk, and the sparse
-    exceptions scattered on top."""
-    flat_p = dn["flat_patterns"].to(torch.int64)
+    exceptions scattered on top.  Returns int32 tensors (patterns as
+    uint32 bits), the JAX package's widths."""
+    flat_p = bitpack.as_u32_bits(dn["flat_patterns"])
     B, S = flat_p.shape
     dev = flat_p.device
-    row_len = dn["row_len"].to(torch.int64)
-    row_tail = dn["row_tail"].to(torch.int64)
-    row_start = torch.cumsum(row_len, dim=1) - row_len
+    row_len = dn["row_len"].to(torch.int32)
+    row_tail = dn["row_tail"].to(torch.int32)
+    row_start = torch.cumsum(row_len, dim=1, dtype=torch.int32) - row_len
 
-    j = torch.arange(s_row, device=dev)
+    j = torch.arange(s_row, dtype=torch.int32, device=dev)
     in_row = j[None, None, :] < row_len[:, :, None]
     src = (row_start[:, :, None] + j).clamp(max=max(S - 1, 0))
-    pat = torch.gather(flat_p, 1, src.reshape(B, -1)).reshape(B, R, s_row)
-    pat = torch.where(in_row, pat, 0)
+    pat = torch.gather(flat_p, 1, src.reshape(B, -1).to(torch.int64))
+    pat = torch.where(in_row, pat.reshape(B, R, s_row), 0)
 
-    nbits = torch.where(in_row, 32, 0)
+    nbits = in_row.to(torch.int32) * 32
     nbits = torch.where(in_row & (j == row_len[:, :, None] - 1),
                         row_tail[:, :, None], nbits)
     # Each flat exception index -> (row, col): row = #starts <= i beyond
     # the first, col = i - row_start[row]; -1 pads drop.
-    exc_idx = dn["exc_idx"].to(torch.int64)
-    e_row = (exc_idx[:, :, None] >= row_start[:, None, 1:]).sum(dim=2)
-    e_col = exc_idx - torch.gather(row_start, 1, e_row)
+    exc_idx = dn["exc_idx"].to(torch.int32)
+    e_row = (exc_idx[:, :, None] >= row_start[:, None, 1:]).sum(
+        dim=2, dtype=torch.int32)
+    e_col = exc_idx - torch.gather(row_start, 1, e_row.to(torch.int64))
     P = R * s_row
     e_flat = e_row * s_row + e_col
     e_flat = torch.where((exc_idx >= 0) & (e_flat >= 0) & (e_flat < P),
                          e_flat, P)
     nb = torch.cat([nbits.reshape(B, P),
-                    torch.zeros((B, 1), dtype=torch.int64, device=dev)], 1)
-    nb.scatter_(1, e_flat, dn["exc_val"].to(torch.int64))
+                    torch.zeros((B, 1), dtype=torch.int32, device=dev)], 1)
+    nb.scatter_(1, e_flat.to(torch.int64), dn["exc_val"].to(torch.int32))
     return pat, nb[:, :P].reshape(B, R, s_row)
 
 
@@ -1192,11 +1196,12 @@ def _dense_prologue(cfg, r0, c0, R, C, num_refs,
                     bg_ref, bg_mv_x, bg_mv_y, bg_coded, dn):
     """Composite-grid stage: role scatter, exact MV prediction, composite
     skip runs and the background symbol slots, over [B, H, W] grids.
-    Donor fields may arrive in compact wire dtypes; all math is int64."""
+    Donor fields may arrive in compact wire dtypes; the math is int32, as
+    the JAX package's (its symbol patterns as uint32 bits)."""
     H, W = cfg.mb_height, cfg.mb_width
     B = bg_ref.shape[0]
     dev = bg_ref.device
-    bg_ref, bg_mv_x, bg_mv_y = (g.to(torch.int64)
+    bg_ref, bg_mv_x, bg_mv_y = (g.to(torch.int32)
                                 for g in (bg_ref, bg_mv_x, bg_mv_y))
     bg_coded = bg_coded.to(torch.bool)
     donor_coded = dn["coded"].to(torch.bool).reshape(B, R, C)
@@ -1204,7 +1209,7 @@ def _dense_prologue(cfg, r0, c0, R, C, num_refs,
 
     def scatter(bg, vals):
         g = bg.clone()
-        g[:, r0:r0 + R, c0:c0 + C] = vals.to(torch.int64).reshape(B, R, C)
+        g[:, r0:r0 + R, c0:c0 + C] = vals.to(torch.int32).reshape(B, R, C)
         return g
 
     refA, mvxA, mvyA = (scatter(g, dn[k]) for g, k in (
@@ -1231,13 +1236,13 @@ def _dense_prologue(cfg, r0, c0, R, C, num_refs,
         raise ValueError(f"splice: {n_mbs} MBs > 65535 — ue(skip_run) "
                          "would exceed 32 bits; use slice bands")
     coded_f = coded.reshape(B, n_mbs)
-    idx = torch.arange(n_mbs, device=dev).expand(B, n_mbs)
+    idx = torch.arange(n_mbs, dtype=torch.int32, device=dev).expand(B, n_mbs)
     last_incl = torch.cummax(torch.where(coded_f, idx, -1), dim=1).values
     last_before = torch.cat([torch.full_like(last_incl[:, :1], -1),
                              last_incl[:, :-1]], dim=1)
     sr_pat, sr_n = expgolomb.ue(idx - last_before - 1)
 
-    zeros = torch.zeros((B, n_mbs), dtype=torch.int64, device=dev)
+    zeros = torch.zeros((B, n_mbs), dtype=torch.int32, device=dev)
     mbt_pat, mbt_n = expgolomb.ue(zeros)
     ref_pat, ref_n = expgolomb.te(bg_ref.reshape(B, n_mbs), num_refs)
     mvx_pat, mvx_n = expgolomb.se(mvd_x.reshape(B, n_mbs))
@@ -1290,9 +1295,9 @@ def _compact_bg_rows(pat, nb, budget: int):
     if width <= bud or rows == 0:
         return pat, nb, torch.zeros(B, dtype=torch.bool, device=pat.device)
     live = nb != 0
-    dest = torch.cumsum(live.to(torch.int64), dim=2) - 1
+    dest = torch.cumsum(live, dim=2, dtype=torch.int32) - 1
     over = (dest[:, :, -1] + 1 > bud).any(dim=1)
-    dest = torch.where(live & (dest < bud), dest, bud)
+    dest = torch.where(live & (dest < bud), dest, bud).to(torch.int64)
     out_p = pat.new_zeros((B, rows, bud + 1))
     out_n = nb.new_zeros((B, rows, bud + 1))
     out_p.scatter_(2, dest, torch.where(live, pat, 0))
@@ -1301,8 +1306,9 @@ def _compact_bg_rows(pat, nb, budget: int):
 
 
 def _donor_rows(dn, R, C, s_row, s_flat, s_exc):
-    """Decode the donor wire (padded rows, flat or blob) into int64 row
-    chunks [B, R, s_row] plus the other fields."""
+    """Decode the donor wire (padded rows, flat or blob) into int32 row
+    chunks [B, R, s_row] (patterns as uint32 bits) plus the other
+    fields."""
     dn = dict(dn)
     if "blob" in dn:
         if None in (s_row, s_flat, s_exc):
@@ -1313,9 +1319,9 @@ def _donor_rows(dn, R, C, s_row, s_flat, s_exc):
         if s_row is None:
             raise ValueError("the flat donor wire needs a static s_row")
         dn["row_patterns"], dn["row_nbits"] = _rows_from_flat(dn, R, s_row)
-    dn["row_patterns"] = dn["row_patterns"].to(torch.int64) & U32
-    dn["row_nbits"] = dn["row_nbits"].to(torch.int64)
-    dn["first_c"] = dn["first_c"].to(torch.int64)
+    dn["row_patterns"] = bitpack.as_u32_bits(dn["row_patterns"])
+    dn["row_nbits"] = dn["row_nbits"].to(torch.int32)
+    dn["first_c"] = dn["first_c"].to(torch.int32)
     return dn
 
 
@@ -1333,7 +1339,8 @@ def rows_splice_symbols(cfg: ComposerConfig, rect_mb_x: int,
                         bg_static_skip: bool = False,
                         bg_budget: int | None = None):
     """Symbol layout of the rows splice for a batch of sessions: returns
-    (patterns int64[B, n], nbits int64[B, n], n_rbsp) for _finish_splice.
+    (patterns int32[B, n] holding uint32 bits, nbits int32[B, n], n_rbsp)
+    for _finish_splice.
 
     Per session: header symbols [B, nh]; background fields [B, H, W]
     (ref, mv qpel, coded); the donor wire `dn` with a leading [B] axis —
@@ -1356,21 +1363,21 @@ def rows_splice_symbols(cfg: ComposerConfig, rect_mb_x: int,
         raise ValueError("the donor rect does not fit the frame")
     M = R * C
     dn = _donor_rows(dn, R, C, s_row, s_flat, s_exc)
-    hp = header_patterns.to(torch.int64)
-    hn = header_nbits.to(torch.int64)
+    hp = bitpack.as_u32_bits(header_patterns)
+    hn = header_nbits.to(torch.int32)
     B = hp.shape[0]
     dev = hp.device
     n_mbs = H * W
     first_c = dn["first_c"]
     valid = first_c >= 0
-    row_flat0 = (r0 + torch.arange(R, device=dev)) * W + c0
+    row_flat0 = (r0 + torch.arange(R, dtype=torch.int32, device=dev)) * W + c0
 
     if bg_static_skip:
         # Static chrome: the caller guarantees an all-skip, zero-motion
         # background, so only the donor rows emit symbols and the skip
         # runs reduce to R-lane arithmetic over the donor coded mask.
         coded = dn["coded"].to(torch.bool).reshape(B, R, C)
-        cols = torch.arange(C, device=dev)
+        cols = torch.arange(C, dtype=torch.int32, device=dev)
         last_c = torch.where(coded, cols, -1).max(dim=2).values
         first_flat = row_flat0 + first_c.clamp(min=0)
         last_flat = torch.where(last_c >= 0, row_flat0 + last_c, -1)
@@ -1402,7 +1409,7 @@ def rows_splice_symbols(cfg: ComposerConfig, rect_mb_x: int,
 
     # Dynamic first-run slots: the composite skip run at each row's first
     # coded donor MB.
-    flat_idx = row_flat0 + first_c.clamp(min=0)
+    flat_idx = (row_flat0 + first_c.clamp(min=0)).to(torch.int64)
     dyn_p = torch.where(valid, torch.gather(pro["sr_pat"], 1, flat_idx),
                         0)[:, :, None]
     dyn_n = torch.where(valid, torch.gather(pro["sr_n"], 1, flat_idx),
@@ -1496,7 +1503,7 @@ def rows_splice_symbols(cfg: ComposerConfig, rect_mb_x: int,
         add(*seg(slice(r0 + R + 1, None), slice(None)))
         if overs:
             over = torch.stack(overs).any(dim=0)
-            ts_n = ts_n + torch.where(over, 1 << 22, 0)
+            ts_n = ts_n + over.to(torch.int32) * (1 << 22)
         patterns = torch.cat(segs_p + [ts_pat[:, None]], dim=1)
         nbits = torch.cat(segs_n + [ts_n[:, None]], dim=1)
 
@@ -1520,7 +1527,8 @@ def dense_splice_symbols(cfg: ComposerConfig, rect_mb_x: int,
                          bg_ref, bg_mv_x, bg_mv_y, bg_coded,
                          dn: dict, *, n_rbsp: int | None = None):
     """Symbol layout of the dense splice for a batch of sessions: returns
-    (patterns int64[B, n], nbits int64[B, n], n_rbsp) for _finish_splice.
+    (patterns int32[B, n] holding uint32 bits, nbits int32[B, n], n_rbsp)
+    for _finish_splice.
 
     Per session: header symbols [B, nh], background fields [B, H, W] and
     the dense donor arrays `dn` (dense_device_arrays, with a leading [B]
@@ -1537,8 +1545,8 @@ def dense_splice_symbols(cfg: ComposerConfig, rect_mb_x: int,
     if r0 + R > H or c0 + C > W:
         raise ValueError("the donor rect does not fit the frame")
     M = R * C
-    hp = header_patterns.to(torch.int64)
-    hn = header_nbits.to(torch.int64)
+    hp = bitpack.as_u32_bits(header_patterns)
+    hn = header_nbits.to(torch.int32)
     B = hp.shape[0]
     S = dn["patterns"].shape[-1]
 
@@ -1553,9 +1561,9 @@ def dense_splice_symbols(cfg: ComposerConfig, rect_mb_x: int,
 
     sr_p = torch.where(donor_coded[..., None], rect(pro["sr_pat"]), 0)
     sr_n = torch.where(donor_coded[..., None], rect(pro["sr_n"]), 0)
-    chunks_p = dn["patterns"].to(torch.int64).reshape(B, R, C, S) & U32
+    chunks_p = bitpack.as_u32_bits(dn["patterns"]).reshape(B, R, C, S)
     chunks_n = torch.where(donor_coded[..., None],
-                           dn["nbits"].to(torch.int64).reshape(B, R, C, S), 0)
+                           dn["nbits"].to(torch.int32).reshape(B, R, C, S), 0)
     donor_p = torch.cat([sr_p, chunks_p], dim=3)
     donor_n = torch.cat([sr_n, chunks_n], dim=3)
 

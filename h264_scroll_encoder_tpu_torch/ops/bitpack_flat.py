@@ -14,8 +14,9 @@ ops/bitpack.pack_words for widths in [0, 32] (bits past num_words drop).
 Both run one batched CUDA block per session (csrc/emit_kernels.cu, K1's
 pack stage on its own): `h264t_pack_place` for K2 and `h264t_pack_words`,
 the same block behind its own entry point and launch counter, for K4.
-The kernel reads int64 (or int32) symbols as they are and writes the
-int64 words and totals the plain version returns.  The TPU merge tree is
+The kernel reads int32 (or int64) symbols as they are and writes what
+the plain version returns and the JAX package's kernels write: 32-bit
+words (uint32 bits in an int32 tensor) and int32 totals.  The TPU merge tree is
 not carried over.  Past one block's shared memory (the exact retry of
 frames past about 33,500 MBs) a session runs on a thread-block cluster,
 as K1's (ops/emit_fused); `pack_words_split_plain` is the pack computed
@@ -33,8 +34,8 @@ from .emit_fused import (check_symbols, items_per_thread, launch_geometry,
 
 
 def pack_words_place_plain(patterns, nbits, num_words: int):
-    """Plain PyTorch version of K2 on any device: (words int64[B,
-    num_words] holding uint32 values, total_bits int64[B])."""
+    """Plain PyTorch version of K2 on any device: (words int32[B,
+    num_words] holding uint32 bits, total_bits int32[B])."""
     return pack_words(patterns, nbits, num_words)
 
 
@@ -58,8 +59,8 @@ def pack_words_place_batch(patterns, nbits, num_words: int, *,
 def pack_words_batch(patterns, nbits, num_words: int):
     """K4 over a [B, n] batch (the port of `pack_words_pallas`): the plain
     version (pack_words_place_plain) for CPU tensors, the CUDA kernel for
-    CUDA tensors.  Returns (words int64[B, num_words], total_bits
-    int64[B])."""
+    CUDA tensors.  Returns (words int32[B, num_words] holding uint32 bits,
+    total_bits int32[B])."""
     return _batch(patterns, nbits, num_words, _kernels.PACK_WORDS)
 
 
@@ -73,14 +74,14 @@ def _batch(patterns, nbits, num_words: int, kernel, cluster=None):
 def launch_kernel(pat, nb, num_words: int, kernel=_kernels.PACK_PLACE,
                   cluster: int | None = None):
     """Launch K2 (or K4, the same block: kernel=_kernels.PACK_WORDS) on
-    int64 or int32 CUDA tensors pat[B, n] (uint32 bit patterns in the low
-    32 bits) and nb[B, n], read as they are: (words int64[B, num_words]
-    holding uint32 values, total_bits int64[B]).  One block a session, or
+    int32 or int64 CUDA tensors pat[B, n] (uint32 bit patterns in the low
+    32 bits) and nb[B, n], read as they are: (words int32[B, num_words]
+    holding uint32 bits, total_bits int32[B]).  One block a session, or
     the cluster plan where the library's plan (or `cluster`) says so."""
     dev = pat.device
     B, n = pat.shape
-    words = torch.empty((B, num_words), dtype=torch.int64, device=dev)
-    total = torch.empty((B,), dtype=torch.int64, device=dev)
+    words = torch.empty((B, num_words), dtype=torch.int32, device=dev)
+    total = torch.empty((B,), dtype=torch.int32, device=dev)
     if B:
         with torch.cuda.device(dev):
             c, k = launch_geometry(

@@ -34,7 +34,7 @@ EBSP_WINDOW_WORDS = 16
 def _zero_run_before(b, valid):
     """t[B, n]: number of consecutive zero bytes immediately before byte i."""
     n = b.shape[1]
-    idx = torch.arange(n, device=b.device).expand(b.shape)
+    idx = torch.arange(n, dtype=torch.int32, device=b.device).expand(b.shape)
     nz = torch.where(valid & (b != 0), idx, -1)
     last_nz = torch.cummax(nz, dim=1).values
     last_nz_before = torch.cat([torch.full_like(last_nz[:, :1], -1),
@@ -45,8 +45,8 @@ def _zero_run_before(b, valid):
 def _insertion_flags(b, n):
     """(valid, t, ins) for bytes b[B, size] with n[B] valid bytes."""
     size = b.shape[1]
-    idx = torch.arange(size, device=b.device)
-    valid = idx[None, :] < n.to(torch.int64)[:, None]
+    idx = torch.arange(size, dtype=torch.int32, device=b.device)
+    valid = idx[None, :] < n.to(torch.int32)[:, None]
     t = _zero_run_before(b, valid)
     ins = valid & (b <= 3) & (t >= 2) & (t % 2 == 0)
     return valid, t, ins
@@ -56,12 +56,14 @@ def _expand(b, valid, ins, max_out: int):
     """Scatter each valid byte to i + (insertions up to i) and 0x03 into
     the hole before each inserting byte; positions >= max_out drop."""
     B = b.shape[0]
-    pos = torch.arange(b.shape[1], device=b.device) + torch.cumsum(
-        ins.to(torch.int64), dim=1)
+    pos = torch.arange(b.shape[1], dtype=torch.int32,
+                       device=b.device) + torch.cumsum(ins, dim=1,
+                                                       dtype=torch.int32)
     out = torch.zeros((B, max_out + 1), dtype=torch.uint8, device=b.device)
-    out.scatter_(1, torch.where(valid & (pos < max_out), pos, max_out), b)
-    out.scatter_(1, torch.where(ins & (pos - 1 < max_out), pos - 1, max_out),
-                 torch.full_like(b, 3))
+    at = torch.where(valid & (pos < max_out), pos, max_out)
+    out.scatter_(1, at.to(torch.int64), b)
+    at = torch.where(ins & (pos - 1 < max_out), pos - 1, max_out)
+    out.scatter_(1, at.to(torch.int64), torch.full_like(b, 3))
     return out[:, :max_out]
 
 
@@ -73,10 +75,10 @@ def rbsp_to_ebsp(rbsp, n, max_out: int):
       n: int[B] valid lengths.
       max_out: output capacity (worst case n + n//2).
 
-    Returns (ebsp uint8[B, max_out], out_len int64[B]).
+    Returns (ebsp uint8[B, max_out], out_len int32[B]).
     """
     valid, _, ins = _insertion_flags(rbsp, n)
-    out_len = n.to(torch.int64) + ins.sum(dim=1)
+    out_len = n.to(torch.int32) + ins.sum(dim=1, dtype=torch.int32)
     return _expand(rbsp, valid, ins, max_out), out_len
 
 
@@ -90,17 +92,17 @@ def rbsp_to_ebsp_bounded(rbsp, n, max_out: int, max_insertions: int):
     unresolved byte adds max_insertions + 1 to the count, so the frame
     flags overflow and the caller retries through the exact path.
 
-    Returns (ebsp uint8[B, max_out], out_len int64[B]) where out_len =
+    Returns (ebsp uint8[B, max_out], out_len int32[B]) where out_len =
     n + insertions (+ max_insertions + 1 when any byte is unresolved).
     """
     valid, t, ins = _insertion_flags(rbsp, n)
-    i = torch.arange(rbsp.shape[1], device=rbsp.device)
+    i = torch.arange(rbsp.shape[1], dtype=torch.int32, device=rbsp.device)
     unresolved = (((i >> 2) > EBSP_WINDOW_WORDS)[None, :]
                   & (t >= 4 * EBSP_WINDOW_WORDS + (i & 3)[None, :]))
     ins = ins & ~unresolved
     sat = (valid & unresolved).any(dim=1)
-    out_len = (n.to(torch.int64) + ins.sum(dim=1)
-               + sat.to(torch.int64) * (max_insertions + 1))
+    out_len = (n.to(torch.int32) + ins.sum(dim=1, dtype=torch.int32)
+               + sat.to(torch.int32) * (max_insertions + 1))
     return _expand(rbsp, valid, ins, max_out), out_len
 
 
@@ -114,23 +116,24 @@ def ebsp_to_rbsp(ebsp, n, max_out: int):
       n: int[B] valid lengths.
       max_out: output capacity; kept bytes past it drop.
 
-    Returns (rbsp uint8[B, max_out], out_len int64[B]): out_len counts every
+    Returns (rbsp uint8[B, max_out], out_len int32[B]): out_len counts every
     kept byte, also those past max_out.
     """
     b = ebsp.to(torch.uint8)
     B, size = b.shape
-    idx = torch.arange(size, device=b.device)
-    n = n.to(torch.int64)
+    idx = torch.arange(size, dtype=torch.int32, device=b.device)
+    n = n.to(torch.int32)
     valid = idx[None, :] < n[:, None]
     t = _zero_run_before(b, valid)
     nxt = torch.cat([b[:, 1:], torch.full_like(b[:, :1], 0xFF)], dim=1)
     has_next = idx[None, :] + 1 < n[:, None]
     remove = valid & (b == 3) & has_next & (nxt <= 3) & (t >= 2)
-    keep = (valid & ~remove).to(torch.int64)
-    pos = torch.cumsum(keep, dim=1) - keep
+    keep = (valid & ~remove).to(torch.int32)
+    pos = torch.cumsum(keep, dim=1, dtype=torch.int32) - keep
     out = torch.zeros((B, max_out + 1), dtype=torch.uint8, device=b.device)
-    out.scatter_(1, torch.where((keep > 0) & (pos < max_out), pos, max_out), b)
-    return out[:, :max_out], keep.sum(dim=1)
+    at = torch.where((keep > 0) & (pos < max_out), pos, max_out)
+    out.scatter_(1, at.to(torch.int64), b)
+    return out[:, :max_out], keep.sum(dim=1, dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,8 @@ Port of h264_scroll_encoder_tpu/ops/emit_fused.py.  Per session, from raw
 `emit_nal_fused_plain` is the plain PyTorch version of that contract.
 `emit_nal_fused_batch` runs it for CPU tensors and launches the CUDA
 kernel `h264t_emit_fused` (csrc/emit_kernels.cu) for CUDA tensors, on
-the int64 (or int32) symbols as they are: no conversion pass first.
+the int32 symbols the symbol stages make (uint32 bits, ops/expgolomb's
+rule), or int64 ones, as they are: no conversion pass first.
 Bytes of flagged frames are unspecified beyond being deterministic; the
 kernel and the plain version agree on every output of every frame.
 
@@ -40,14 +41,16 @@ import numbers
 import torch
 
 from .. import _kernels
-from .bitpack import U32, pack_words, trailing_bits_symbol, words_to_bytes
+from . import bitpack
+from .bitpack import pack_words, trailing_bits_symbol, words_to_bytes
 from .ebsp import EBSP_WINDOW_WORDS, rbsp_to_ebsp_bounded
 
 # The most symbols a thread of K1 or K2/K4 owns per staged chunk: it caps
 # the staging area at 8 B * 24 * _kernels.PACK_THREADS = 96 KB a block.
 PACK_MAX_ITEMS = 24
-# Symbol dtypes the kernels read in place.
-SYMBOL_DTYPES = (torch.int64, torch.int32)
+# Symbol dtypes the kernels read in place: int32 (the symbol stages'),
+# and int64 holding the same values.
+SYMBOL_DTYPES = (torch.int32, torch.int64)
 
 # The cluster plan (csrc/emit_device.cuh, the same formulas): a session
 # over C blocks, C in CLUSTER_SIZES.  Block r stages the symbols
@@ -87,14 +90,16 @@ def _resolve_align(nbits):
     """Replace each negative sentinel by (-pos) mod 8 at its running bit
     position: the phase before lane i is the sum of widths since the last
     sentinel before it, mod 8."""
+    nbits = nbits.to(torch.int32)
     is_align = nbits < 0
     widths = torch.where(is_align, 0, nbits)
-    incl = torch.cumsum(widths, dim=1)
-    idx = torch.arange(nbits.shape[1], device=nbits.device).expand(nbits.shape)
+    incl = torch.cumsum(widths, dim=1, dtype=torch.int32)
+    idx = torch.arange(nbits.shape[1], dtype=torch.int32,
+                       device=nbits.device).expand(nbits.shape)
     last = torch.cummax(torch.where(is_align, idx, -1), dim=1).values
     last_before = torch.cat([torch.full_like(last[:, :1], -1), last[:, :-1]], 1)
-    since = incl - widths - torch.where(
-        last_before >= 0, torch.gather(incl, 1, last_before.clamp(min=0)), 0)
+    at = torch.gather(incl, 1, last_before.clamp(min=0).to(torch.int64))
+    since = incl - widths - torch.where(last_before >= 0, at, 0)
     return torch.where(is_align, (8 - (since & 7)) & 7, nbits)
 
 
@@ -116,7 +121,8 @@ def emit_nal_fused_plain(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
     """Plain PyTorch version of K1 on any device.
 
     Args:
-      patterns: int[B, n] symbol patterns (uint32 values).
+      patterns: int[B, n] symbol patterns (uint32 bits as int32, or int64
+        holding uint32 values).
       nbits: int[B, n] widths in [0, 32]; negative = alignment sentinel.
       nal_ref_idc: int or int[B].
       n_rbsp: RBSP budget in bytes (frames above it flag overflow).
@@ -125,8 +131,8 @@ def emit_nal_fused_plain(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
     Returns (nal u8[B, n_nal], nal_len i32[B], total_bits i32[B],
     overflow bool[B]) with n_nal = nal_bytes(n_rbsp, cap).
     """
-    patterns = patterns.to(torch.int64)
-    nbits = nbits.to(torch.int64)
+    patterns = bitpack.as_u32_bits(patterns)
+    nbits = nbits.to(torch.int32)
     B = nbits.shape[0]
     n_nal = nal_bytes(n_rbsp, cap)
     if align:
@@ -136,7 +142,8 @@ def emit_nal_fused_plain(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
         bad = (nbits < 0).any(dim=1)
         nbits = nbits.clamp(min=0)
     if append_tb:
-        tb_pat, tb_n = trailing_bits_symbol(nbits.sum(dim=1))
+        tb_pat, tb_n = trailing_bits_symbol(nbits.sum(dim=1,
+                                                      dtype=torch.int32))
         patterns = torch.cat([patterns, tb_pat[:, None]], dim=1)
         nbits = torch.cat([nbits, tb_n[:, None]], dim=1)
 
@@ -147,8 +154,7 @@ def emit_nal_fused_plain(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
     nal = torch.cat([nal_prefix(nal_ref_idc, B, nbits.device), ebsp],
                     dim=1)
     overflow = (total_bits > n_rbsp * 8) | (ebsp_len - rbsp_len > cap) | bad
-    return (nal, (5 + ebsp_len).to(torch.int32), total_bits.to(torch.int32),
-            overflow)
+    return nal, 5 + ebsp_len, total_bits, overflow
 
 
 def _shares(x, parts: int, fill: int = 0):
@@ -173,10 +179,10 @@ def pack_split(patterns, nbits, num_words: int, parts: int, *,
     shares for each share's start bit, then each share's symbols placed
     from its start wherever their bits fall, a word that two shares reach
     ORed from both.  Without `align` a sentinel packs as zero bits and
-    flags the session.  Returns (words int64[B, num_words], total_bits
-    int64[B], bad bool[B])."""
-    pat = patterns.to(torch.int64)
-    nb = nbits.to(torch.int64)
+    flags the session.  Returns (words int32[B, num_words] holding uint32
+    bits, total_bits int32[B], bad bool[B])."""
+    pat = bitpack.as_u32_bits(patterns)
+    nb = nbits.to(torch.int32)
     B = nb.shape[0]
     bad = (nb < 0).any(dim=1) & (not align)
     sentinel = (nb < 0) & align
@@ -185,21 +191,22 @@ def pack_split(patterns, nbits, num_words: int, parts: int, *,
     # a sums the widths before the first sentinel; b the widths after the
     # last, plus each whole segment between two sentinels rounded up to 8.
     w_sh, s_sh = _shares(widths, parts), _shares(sentinel, parts, False)
-    seg = torch.cumsum(s_sh.to(torch.int64), dim=2)
+    seg = torch.cumsum(s_sh, dim=2, dtype=torch.int32)
     sums = torch.zeros(w_sh.shape[:2] + (w_sh.shape[2] + 1,),
-                       dtype=torch.int64, device=nb.device)
-    sums.scatter_add_(2, seg, w_sh)
+                       dtype=torch.int32, device=nb.device)
+    sums.scatter_add_(2, seg.to(torch.int64), w_sh)
     m = seg[:, :, -1:] if seg.shape[2] else torch.zeros_like(sums[:, :, :1])
-    j = torch.arange(sums.shape[2], device=nb.device)
+    j = torch.arange(sums.shape[2], dtype=torch.int32, device=nb.device)
     b = torch.where((j >= 1) & (j < m), (sums + 7) // 8 * 8,
-                    torch.where((j >= 1) & (j == m), sums, 0)).sum(dim=2)
+                    torch.where((j >= 1) & (j == m), sums, 0)
+                    ).sum(dim=2, dtype=torch.int32)
     has, a = m[:, :, 0] > 0, sums[:, :, 0]
     starts = []
-    carry = torch.zeros(B, dtype=torch.int64, device=nb.device)
+    carry = torch.zeros(B, dtype=torch.int32, device=nb.device)
     for r in range(parts):
         starts.append(carry)
         carry = _apply_map(has[:, r], a[:, r], b[:, r], carry)
-    words = torch.zeros((B, num_words), dtype=torch.int64, device=nb.device)
+    words = torch.zeros((B, num_words), dtype=torch.int32, device=nb.device)
     p_sh = _shares(pat, parts)
     nb_sh = _shares(torch.where(sentinel, -1, widths), parts)
     for r, start in enumerate(starts):
@@ -209,7 +216,7 @@ def pack_split(patterns, nbits, num_words: int, parts: int, *,
         got, _ = pack_words(p_sh[:, r], w[:, 1:], num_words,
                             start_bit=start[:, None])
         words |= got
-    return words & U32, carry, bad
+    return words, carry, bad
 
 
 def _ep_split(rbsp, rbsp_len, n_nal: int, parts: int):
@@ -282,14 +289,14 @@ def emit_nal_split_plain(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
 
 def check_symbols(patterns, nbits):
     """Raise unless patterns and nbits are [B, n] tensors of one dtype,
-    int64 (as the symbol stage makes them) or int32, on one CPU or CUDA
+    int32 (as the symbol stages make them) or int64, on one CPU or CUDA
     device.  Nothing is converted: any other dtype raises."""
     if patterns.dim() != 2 or patterns.shape != nbits.shape:
         raise ValueError(f"patterns {tuple(patterns.shape)} and nbits "
                          f"{tuple(nbits.shape)} must both be [B, n]")
     if patterns.dtype not in SYMBOL_DTYPES or nbits.dtype != patterns.dtype:
         raise TypeError(f"patterns ({patterns.dtype}) and nbits ({nbits.dtype}) "
-                        "must both be int64 or both int32")
+                        "must both be int32 or both int64")
     if patterns.device != nbits.device:
         raise ValueError("patterns and nbits must be on one device")
     if patterns.device.type not in ("cpu", "cuda"):
@@ -332,7 +339,7 @@ def emit_nal_fused_batch(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
     """K1 over a [B, n] batch: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (a build or launch failure raises).  Same
     arguments and returns as emit_nal_fused_plain; patterns and nbits are
-    int64 or int32, and the kernel reads them as they are.  `cluster`
+    int32 or int64, and the kernel reads them as they are.  `cluster`
     (tests only) forces the blocks a session, 1 or one of CLUSTER_SIZES,
     instead of the library's plan."""
     check_symbols(patterns, nbits)
@@ -346,8 +353,8 @@ def emit_nal_fused_batch(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
         idc, idc_row, idc_value = None, 0, int(nal_ref_idc)
     else:
         idc = torch.as_tensor(nal_ref_idc, device=dev)
-        if idc.dtype != torch.int64:
-            idc = idc.to(torch.int64)
+        if idc.dtype != torch.int32:
+            idc = idc.to(torch.int32)
         idc = idc.reshape(-1).expand(B)
         idc_row, idc_value = idc.stride(0), 0
     nal = torch.empty((B, n_nal), dtype=torch.uint8, device=dev)

@@ -51,7 +51,8 @@ import torch
 
 from .. import _kernels
 from . import ebsp, ebsp_flat
-from .bitpack import pack_words, trailing_bits_symbol, words_to_bytes
+from .bitpack import (as_u32_bits, pack_words, trailing_bits_symbol,
+                      words_to_bytes)
 from .bitpack_flat import pack_words_place_plain
 from .emit_fused import (PACK_MAX_ITEMS, _resolve_align, check_symbols,
                          cluster_items_per_thread, cluster_share,
@@ -73,12 +74,6 @@ def xor_reduce(x):
             x = torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
         x = x[:, 0::2] ^ x[:, 1::2]
     return x[:, 0] if x.shape[1] else x.new_zeros(x.shape[0])
-
-
-def _as_int32(x):
-    """int64 holding 32-bit patterns -> int32 with the same low 32 bits."""
-    x = x.to(torch.int64) & 0xFFFFFFFF
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
 def _resolved_widths(nbits, align: bool):
@@ -124,7 +119,7 @@ def emit_stage_plain(stage: str, patterns, nbits, nal_ref_idc, n_rbsp: int,
     if stage == "stage":
         meta[:, 0] = xor_reduce((patterns.to(torch.int64) ^ nbits.to(torch.int64))
                                 & 0xFFFFFFFF)
-        return (_as_int32(meta),)
+        return (as_u32_bits(meta),)
     widths = _resolved_widths(nbits, align)
     incl = torch.cumsum(widths, dim=1)
     total = incl[:, -1] if n else widths.new_zeros(B)
@@ -137,13 +132,13 @@ def emit_stage_plain(stage: str, patterns, nbits, nal_ref_idc, n_rbsp: int,
             starts = offsets[:, torch.cat(firsts)]
             meta[:, 1] = xor_reduce(starts & 0xFFFFFFFF)
         meta[:, 0] = total
-        return (_as_int32(meta),)
+        return (as_u32_bits(meta),)
     if stage == "launch":
-        return (_as_int32(meta),)
+        return (as_u32_bits(meta),)
     if stage == "pack":
         words, total = pack_words(patterns, widths, n_nal // 4)
         meta[:, 0] = total
-        return _as_int32(meta), _as_int32(words)
+        return as_u32_bits(meta), as_u32_bits(words)
     # ep: the bounded rule of ops/ebsp.rbsp_to_ebsp_bounded, with its
     # insertions and saturation kept apart.
     pat = patterns.to(torch.int64)
@@ -170,7 +165,7 @@ def emit_stage_plain(stage: str, patterns, nbits, nal_ref_idc, n_rbsp: int,
     meta[:, 0] = ins_total
     meta[:, 1] = (valid & unresolved).any(dim=1).to(torch.int64)
     meta[:, 2] = xor_reduce(le)
-    return (_as_int32(meta),)
+    return (as_u32_bits(meta),)
 
 
 def emit_stage_batch(stage: str, patterns, nbits, nal_ref_idc, n_rbsp: int,
@@ -194,8 +189,8 @@ def emit_stage_batch(stage: str, patterns, nbits, nal_ref_idc, n_rbsp: int,
         idc, idc_row, idc_value = None, 0, int(nal_ref_idc)
     else:
         idc = torch.as_tensor(nal_ref_idc, device=dev)
-        if idc.dtype != torch.int64:
-            idc = idc.to(torch.int64)
+        if idc.dtype != torch.int32:
+            idc = idc.to(torch.int32)
         idc = idc.reshape(-1).expand(B)
         idc_row, idc_value = idc.stride(0), 0
     full = stage == "full"
@@ -247,8 +242,8 @@ def pack_place_u16_plain(patterns, nbits, num_words: int):
 
 def pack_place_u16_batch(patterns, nbits, num_words: int):
     """P2 over a [B, n] batch: K2's contract for num_words <= 2,048, which
-    is checked before anything launches.  Returns (words int64[B,
-    num_words] holding uint32 values, total_bits int64[B])."""
+    is checked before anything launches.  Returns (words int32[B,
+    num_words] holding uint32 bits, total_bits int32[B]), as K2's."""
     _pack_args(patterns, nbits, num_words)
     if num_words > U16_MAX_WORDS:
         raise ValueError(f"P2 keeps at most {U16_MAX_WORDS} words (65,536 "
@@ -257,8 +252,8 @@ def pack_place_u16_batch(patterns, nbits, num_words: int):
         return pack_place_u16_plain(patterns, nbits, num_words)
     dev = patterns.device
     B, n = patterns.shape
-    words = torch.empty((B, num_words), dtype=torch.int64, device=dev)
-    total = torch.empty((B,), dtype=torch.int64, device=dev)
+    words = torch.empty((B, num_words), dtype=torch.int32, device=dev)
+    total = torch.empty((B,), dtype=torch.int32, device=dev)
     if B:
         with torch.cuda.device(dev):
             _kernels.PACK_PLACE_U16.launch(
@@ -296,16 +291,16 @@ def tiled_items(patterns, num_words: int, tile: int) -> int:
 def pack_place_tiled_batch(patterns, nbits, num_words: int, tile: int):
     """P3 over a [B, n] batch with `tile` sessions a block: K2's contract;
     B % tile != 0 raises ValueError before anything launches.  Returns
-    (words int64[B, num_words] holding uint32 values, total_bits
-    int64[B])."""
+    (words int32[B, num_words] holding uint32 bits, total_bits int32[B]),
+    as K2's."""
     _pack_args(patterns, nbits, num_words)
     _check_tile(patterns.shape[0], tile)
     if patterns.device.type == "cpu":
         return pack_place_tiled_plain(patterns, nbits, num_words, tile)
     dev = patterns.device
     B, n = patterns.shape
-    words = torch.empty((B, num_words), dtype=torch.int64, device=dev)
-    total = torch.empty((B,), dtype=torch.int64, device=dev)
+    words = torch.empty((B, num_words), dtype=torch.int32, device=dev)
+    total = torch.empty((B,), dtype=torch.int32, device=dev)
     if B:
         with torch.cuda.device(dev):
             _kernels.PACK_PLACE_TILED.launch(

@@ -116,9 +116,9 @@ def _session_step(cfg: ComposerConfig, enable_pskip: bool,
     illegal > 496 px MVs.
     """
     offset_px = torch.as_tensor(offset_px, device=state.frame_num.device)
-    offset_px = offset_px.to(torch.int64)
-    wp_offsets = state.wp_offsets.to(torch.int64)
-    wp_count = state.wp_count.to(torch.int64)
+    offset_px = offset_px.to(torch.int32)
+    wp_offsets = state.wp_offsets.to(torch.int32)
+    wp_count = state.wp_count.to(torch.int32)
     if emit_waypoints:
         needs = scroll.needs_waypoint(offset_px, wp_offsets, state.wp_valid,
                                       wp_count)
@@ -133,16 +133,15 @@ def _session_step(cfg: ComposerConfig, enable_pskip: bool,
     slot = torch.clamp(wp_count, max=MAX_WAYPOINTS - 1)
     exhausted = needs & (wp_count >= MAX_WAYPOINTS)
     can_reg = needs & ~exhausted
-    idx = torch.arange(MAX_WAYPOINTS, device=slot.device)
+    idx = torch.arange(MAX_WAYPOINTS, dtype=torch.int32, device=slot.device)
     hit = (idx[None, :] == slot[:, None]) & can_reg[:, None]
-    i32 = torch.int32
     state = SessionState(
         frame_num=state.frame_num + 1,
-        wp_offsets=torch.where(hit, offset_px[:, None], wp_offsets).to(i32),
+        wp_offsets=torch.where(hit, offset_px[:, None], wp_offsets),
         wp_ltidx=torch.where(hit, 2 + wp_count[:, None],
-                             state.wp_ltidx.to(torch.int64)).to(i32),
+                             state.wp_ltidx.to(torch.int32)),
         wp_valid=state.wp_valid | hit,
-        wp_count=(wp_count + can_reg.to(torch.int64)).to(i32),
+        wp_count=wp_count + can_reg.to(torch.int32),
     )
     return state, (nal, nal_len, needs, rbsp_bits, overflow | exhausted)
 
@@ -376,8 +375,9 @@ def make_batched_hint_step(cfg: ComposerConfig, *, enable_pskip: bool = True,
 
 
 def _checksum(nal):
-    """Sum of a step's NAL bytes per session, mod 2**32."""
-    return nal.to(torch.int64).sum(dim=-1) & 0xFFFFFFFF
+    """Sum of a step's NAL bytes per session, mod 2**32 (the uint32 sum,
+    as int32 bits)."""
+    return nal.sum(dim=-1, dtype=torch.int32)
 
 
 def run_frames(cfg: ComposerConfig, state: SessionState, offsets,
@@ -398,17 +398,17 @@ def run_frames(cfg: ComposerConfig, state: SessionState, offsets,
     step = make_batched_step(cfg, enable_pskip=enable_pskip,
                              emit_waypoints=emit_waypoints)
     dev = state.frame_num.device
-    offsets = torch.as_tensor(offsets, device=dev).to(torch.int64)
+    offsets = torch.as_tensor(offsets, device=dev).to(torch.int32)
     T, B = offsets.shape
-    ptr = torch.zeros(B, dtype=torch.int64, device=dev)
-    cols = torch.arange(B, device=dev)
+    ptr = torch.zeros(B, dtype=torch.int32, device=dev)
+    cols = torch.arange(B, dtype=torch.int32, device=dev)
     outs = []
     for t in range(T):
         offs = (offsets[ptr.clamp(0, T - 1), cols] if composer_semantics
                 else offsets[t])
         state, (nal, nal_len, emitted_wp, rbsp_bits, overflow) = step(
             state, offs)
-        ptr = ptr + (~emitted_wp).to(torch.int64)
+        ptr = ptr + (~emitted_wp).to(torch.int32)
         outs.append((nal_len, emitted_wp, rbsp_bits, _checksum(nal),
                      overflow))
     return state, tuple(torch.stack(x) for x in zip(*outs))
@@ -431,14 +431,15 @@ def compact_batch_nal(nal, nal_len, cap: int):
     offsets and gathers its byte, so bytes past a session's length are
     never read."""
     B, N = nal.shape
-    lens = nal_len.to(torch.int64)
-    incl = torch.cumsum(lens, dim=0)
+    lens = nal_len.to(torch.int32)
+    incl = torch.cumsum(lens, dim=0, dtype=torch.int32)
     total = incl[-1]
-    pos = torch.arange(cap, device=nal.device)
-    session = torch.searchsorted(incl, pos, right=True).clamp(max=B - 1)
+    pos = torch.arange(cap, dtype=torch.int32, device=nal.device)
+    session = torch.searchsorted(incl, pos, right=True,
+                                 out_int32=True).clamp(max=B - 1)
     col = (pos - (incl - lens)[session]).clamp(0, N - 1)
     packed = torch.where(pos < total, nal[session, col], 0).to(torch.uint8)
-    return packed, total.to(torch.int32), total > cap
+    return packed, total, total > cap
 
 
 def compact_sharded_nal(nal_blocks, len_blocks, cap: int, device=None):

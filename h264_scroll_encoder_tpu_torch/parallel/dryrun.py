@@ -89,9 +89,9 @@ def _wires(wire, payloads, devices) -> list:
 def _header(cfg, B: int, device, is_reference: bool = False,
             prev_ref_abs_diff: int = 0):
     """P slice header symbols of B sessions at frame_num 3, no waypoints."""
-    zl = torch.zeros((B, MAX_WAYPOINTS), dtype=torch.int64, device=device)
+    zl = torch.zeros((B, MAX_WAYPOINTS), dtype=torch.int32, device=device)
     return p_slice_header_symbols(
-        cfg, torch.full((B,), 3, dtype=torch.int64, device=device), 6,
+        cfg, torch.full((B,), 3, dtype=torch.int32, device=device), 6,
         is_reference, -1, 0, zl, zl.bool(),
         prev_ref_abs_diff=prev_ref_abs_diff)
 

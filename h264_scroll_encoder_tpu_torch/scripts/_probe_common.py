@@ -85,11 +85,11 @@ def launches(fn, calls: int = 10):
 def probe_symbols(batch: int, dev, n: int = PROBE_SYMBOLS,
                   seed: int = PROBE_SEED):
     """The JAX probes' symbols: widths drawn from 0-8 and patterns masked
-    to them (numpy, seeded), the same row for every session: int64
-    (patterns, nbits) [batch, n]."""
+    to them (numpy, seeded), the same row for every session: int32
+    (patterns, nbits) [batch, n], the symbol stages' widths."""
     rng = np.random.default_rng(seed)
-    nb = rng.integers(0, 9, size=n).astype(np.int64)
-    pat = rng.integers(0, 2 ** 31, size=n).astype(np.int64) & ((1 << nb) - 1)
+    nb = rng.integers(0, 9, size=n).astype(np.int32)
+    pat = rng.integers(0, 2 ** 31, size=n).astype(np.int32) & ((1 << nb) - 1)
     rows = lambda a: torch.as_tensor(np.broadcast_to(a, (batch, n)).copy(),  # noqa: E731
                                      device=dev)
     return rows(pat), rows(nb)

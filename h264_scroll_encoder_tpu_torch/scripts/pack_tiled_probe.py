@@ -37,13 +37,14 @@ NUM_WORDS = 2048
 
 def exact_case(n: int = common.PROBE_SYMBOLS):
     """The JAX probe's check (pack_tiled_probe.check_exact): 16 sessions,
-    seed 5: int64 numpy (patterns, nbits) [16, n]."""
+    seed 5: int32 numpy (patterns, nbits) [16, n], the symbol stages'
+    widths."""
     rng = np.random.default_rng(5)
     B = 16
-    nb = rng.integers(0, 9, size=(B, n)).astype(np.int64)
+    nb = rng.integers(0, 9, size=(B, n)).astype(np.int32)
     nb[0, rng.integers(0, n, 400)] = 0
     nb[1, rng.integers(0, n, 100)] = 32
-    pat = rng.integers(0, 2 ** 31, size=(B, n)).astype(np.int64) & (
+    pat = rng.integers(0, 2 ** 31, size=(B, n)).astype(np.int32) & (
         (1 << np.clip(nb, 0, 31)) - 1)
     return pat, nb
 

@@ -40,15 +40,15 @@ NUM_WORDS = 2048  # the 8,192-byte serving budget
 
 def exact_cases(n: int = common.PROBE_SYMBOLS):
     """The JAX probe's eight cases (pack_u16_probe.check_exact, seed 3),
-    then one whose total passes 65,536 bits: [(patterns, nbits)] int64
-    numpy rows [1, n]."""
+    then one whose total passes 65,536 bits: [(patterns, nbits)] int32
+    numpy rows [1, n], the symbol stages' widths."""
     rng = np.random.default_rng(3)
     out = []
     for trial in range(8):
-        nb = rng.integers(0, 9, size=n).astype(np.int64)
+        nb = rng.integers(0, 9, size=n).astype(np.int32)
         if trial == 7:
             nb[rng.integers(0, n, 50)] = 32
-        pat = rng.integers(0, 2 ** 31, size=n).astype(np.int64) & (
+        pat = rng.integers(0, 2 ** 31, size=n).astype(np.int32) & (
             (1 << np.clip(nb, 0, 31)) - 1)
         out.append((pat[None], nb[None]))
     out.append(hostile_case(n))
@@ -60,8 +60,9 @@ def hostile_case(n: int = common.PROBE_SYMBOLS, seed: int = 9):
     patterns): P2 must drop what lies past 2,048 words, alias nothing
     into them and return the 32-bit total."""
     rng = np.random.default_rng(seed)
-    nb = rng.integers(4, 17, size=n).astype(np.int64)
-    pat = rng.integers(0, 2 ** 32, size=n, dtype=np.uint64).astype(np.int64)
+    nb = rng.integers(4, 17, size=n).astype(np.int32)
+    pat = (rng.integers(0, 2 ** 32, size=n, dtype=np.uint64).astype(np.uint32)
+           .view(np.int32))
     assert nb.sum() > 65_536
     return pat[None], nb[None]
 
@@ -91,7 +92,8 @@ def inputs(args, dev) -> dict:
     donors = common.splice_donors(args, dev)
     for b in (args.batch, 4 * args.batch):
         s_pat, s_nb, n_rbsp, _align = common.splice_symbols(cfg, b, dev, donors)
-        tb_pat, tb_nb = bitpack.trailing_bits_symbol(s_nb.sum(dim=1))
+        tb_pat, tb_nb = bitpack.trailing_bits_symbol(
+            s_nb.sum(dim=1, dtype=torch.int32))
         out[f"splice exact B={b}"] = (torch.cat([s_pat, tb_pat[:, None]], 1),
                                       torch.cat([s_nb, tb_nb[:, None]], 1),
                                       (n_rbsp + 3) // 4)

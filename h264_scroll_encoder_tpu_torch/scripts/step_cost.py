@@ -1,17 +1,22 @@
-"""Memory-traffic census of the rows splice step.
+"""Memory-traffic census of the rows splice step and the scroll step.
 
 Port of scripts/step_cost.py, which reads XLA's cost_analysis ("bytes
 accessed") and a shape census of the compiled step.  PyTorch compiles
-nothing, so the counterpart counts the step as it runs op by op (its
+nothing, so the counterpart counts a step as it runs op by op (its
 `.eager`, not its CUDA graph, which the dispatcher does not see into):
-every aten op of one compact rows step (chip_smoke.py's phase 5 step at
-bench.py's geometry, B sessions) is seen through the dispatcher with the
-shapes and dtypes of its tensor arguments and results, and
+every aten op of one step is seen through the dispatcher with the shapes
+and dtypes of its tensor arguments and results.  The steps are the
+compact rows step (chip_smoke.py's phase 5 step at bench.py's geometry,
+B sessions) and the 720p scroll step (make_batched_step, step 0 of the
+benchmark schedule, B fresh sessions); for each
 
   - the bytes each op reads (its tensor arguments, each once, a
     broadcast view at most its storage) and writes (its tensor results),
     summed over the step, and the ops by bytes (views and allocations
     count as ops that move nothing);
+  - those bytes by dtype, and the ops that move the most int64 bytes
+    (the symbol stages compute in the JAX package's 32-bit widths, so
+    int64 is left to index arguments and local unsigned widenings);
   - the largest tensors the step makes;
   - the peak device memory of the step (torch.cuda.max_memory_allocated
     after reset_peak_memory_stats; on the card only);
@@ -30,6 +35,7 @@ written).  On the CPU its plain version's ops are in the census.
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 from collections import defaultdict
 
@@ -38,7 +44,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from .. import cases
+from ..config import ComposerConfig
 from ..ops import emit_fused
+from ..parallel import batch as batch_mod
 from . import _probe_common as common
 from .step_xprof import compact_step
 
@@ -54,13 +62,16 @@ def _bytes(t) -> int:
 
 
 class Census(TorchDispatchMode):
-    """Bytes read and written by each aten op, and the largest results."""
+    """Bytes read and written by each aten op, by dtype, and the largest
+    results."""
 
     def __init__(self):
         super().__init__()
         self.read = defaultdict(int)
         self.written = defaultdict(int)
         self.count = defaultdict(int)
+        self.by_dtype = defaultdict(int)
+        self.int64_by_op = defaultdict(int)
         self.largest = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -72,18 +83,43 @@ class Census(TorchDispatchMode):
         self.count[name] += 1
         if name in cases._NO_WORK_OPS:  # views and allocations move nothing
             return out
-        self.read[name] += sum(_bytes(t) for t in ins)
-        self.written[name] += sum(t.numel() * t.element_size() for t in outs)
+        moved = ([(t, _bytes(t)) for t in ins]
+                 + [(t, t.numel() * t.element_size()) for t in outs])
+        self.read[name] += sum(b for _, b in moved[:len(ins)])
+        self.written[name] += sum(b for _, b in moved[len(ins):])
+        for t, b in moved:
+            self.by_dtype[str(t.dtype).replace("torch.", "")] += b
+            if t.dtype == torch.int64:
+                self.int64_by_op[name] += b
         for t in outs:
             self.largest.append((t.numel() * t.element_size(), name,
                                  tuple(t.shape), str(t.dtype)))
         return out
 
+    @property
+    def total(self) -> int:
+        return sum(self.read.values()) + sum(self.written.values())
 
-def main(argv=None) -> int:
-    args = common.parser(__doc__.splitlines()[0], donors=True).parse_args(argv)
-    dev = common.device_of(args)
-    step, inputs = compact_step(args, dev)
+    def int64_share(self) -> float:
+        return self.by_dtype.get("int64", 0) / max(self.total, 1)
+
+    def top_int64(self, k: int = 5) -> list:
+        """The ops that move the most int64 bytes: [(op, bytes)]."""
+        return sorted(self.int64_by_op.items(), key=lambda kv: -kv[1])[:k]
+
+
+def scroll_step(args, dev):
+    """(fn running one 720p scroll step op by op, its argument tuple)."""
+    cfg = ComposerConfig(1280, 720)
+    step = batch_mod.make_batched_step(cfg)
+    state = batch_mod.SessionState.create(args.batch, device=dev)
+    offsets = torch.as_tensor(cases.bench_schedule(cfg.height, args.batch, 1)[0],
+                              device=dev)
+    return step.eager, (state, offsets)
+
+
+def _census(name, step, inputs, args, dev) -> dict:
+    """One step's census row (module docstring)."""
     step(*inputs)
     cuda = dev.type == "cuda"
     if cuda:
@@ -100,22 +136,36 @@ def main(argv=None) -> int:
     emit_fused.emit_nal_fused_batch = spy
     try:
         with census:
-            nal, nal_len, _bits, _ovf = step(*inputs)
+            out = step(*inputs)
     finally:
         emit_fused.emit_nal_fused_batch = real
+    nal, nal_len = out[1][:2] if name == "scroll" else out[:2]
     peak = (torch.cuda.max_memory_allocated(dev) - base) if cuda else None
     # K1 (ctypes, on the card): its symbols read once; NAL, lengths, bits
     # and flags written.
     sym = seen["symbols"]
-    aten = sum(census.read.values()) + sum(census.written.values())
+    aten = census.total
     k1 = (2 * sym.numel() * sym.element_size() + nal.numel()
           + 9 * nal_len.numel()) if cuda else 0
-    step_ms = common.chained(lambda h: step(h, *inputs[1:]), inputs[0], args)
+    if name == "scroll":
+        state, offs = inputs
+        step_ms = common.chained(
+            lambda w: step(dataclasses.replace(state, wp_offsets=w), offs)[1],
+            state.wp_offsets, args)
+    else:
+        step_ms = common.chained(lambda h: step(h, *inputs[1:]), inputs[0],
+                                 args)
     total = aten + k1
-    by_op = sorted(census.count, key=lambda k: -(census.read[k] + census.written[k]))
-    rows = {
+    by_op = sorted(census.count,
+                   key=lambda k: -(census.read[k] + census.written[k]))
+    row = {
         "aten_ops": sum(census.count.values()),
         "aten_bytes": aten, "k1_bytes": k1,
+        "by_dtype": dict(sorted(census.by_dtype.items(),
+                                key=lambda kv: -kv[1])),
+        "int64_share": census.int64_share(),
+        "int64_ops": [{"op": k, "bytes": b} for k, b in census.top_int64()],
+        "symbols_dtype": str(sym.dtype),
         "bound_ms": total / HBM_BYTES_PER_MS, "step_ms": step_ms,
         "bound_share": total / HBM_BYTES_PER_MS / step_ms,
         "peak_bytes": peak,
@@ -125,15 +175,29 @@ def main(argv=None) -> int:
                     for b, op, s, d in sorted(census.largest,
                                               reverse=True)[:TOP]],
     }
-    print(f"B={args.batch}: {rows['aten_ops']} aten ops move {aten} B "
-          f"(+ K1's {k1} B on the card); at 3.35 TB/s {rows['bound_ms']:.5f} ms "
-          f"against the step's {step_ms:.5f} ms ({rows['bound_share']:.1%}); "
+    print(f"{name} B={args.batch}: {row['aten_ops']} aten ops move {aten} B "
+          f"(+ K1's {k1} B on the card); at 3.35 TB/s {row['bound_ms']:.5f} ms "
+          f"against the step's {step_ms:.5f} ms ({row['bound_share']:.1%}); "
           f"peak {peak if peak is not None else 'not measured (cpu)'} B "
-          f"above the inputs; K1 reads {tuple(sym.shape)} symbols, NAL "
-          f"buffer {tuple(nal.shape)}", flush=True)
-    for op in rows["ops"]:
+          f"above the inputs; K1 reads {tuple(sym.shape)} {sym.dtype} "
+          f"symbols, NAL buffer {tuple(nal.shape)}", flush=True)
+    print("  by dtype: " + ", ".join(
+        f"{d} {b} B ({b / max(aten, 1):.1%})"
+        for d, b in row["by_dtype"].items()), flush=True)
+    print("  most int64 bytes: " + ", ".join(
+        f"{o['op']} {o['bytes']} B" for o in row["int64_ops"]), flush=True)
+    for op in row["ops"]:
         print(f"  {op['op']:24s} x{op['count']:<5d} read {op['read']:>11d} B "
               f"written {op['written']:>11d} B", flush=True)
+    return row
+
+
+def main(argv=None) -> int:
+    ap = common.parser(__doc__.splitlines()[0], donors=True)
+    args = ap.parse_args(argv)
+    dev = common.device_of(args)
+    rows = {name: _census(name, *make(args, dev), args, dev)
+            for name, make in (("rows", compact_step), ("scroll", scroll_step))}
     common.table("step_cost", dev, rows, batch=args.batch)
     return 0
 

@@ -76,8 +76,8 @@ def stages(cfg, B: int, dev, n_rbsp: int) -> dict:
         dn = donor(blob)
 
         def scat(vals):
-            g = zero.to(torch.int64).clone()
-            g[:, R0:R0 + R, C0:C0 + C] = vals.to(torch.int64).reshape(B, R, C)
+            g = zero.clone()
+            g[:, R0:R0 + R, C0:C0 + C] = vals.to(torch.int32).reshape(B, R, C)
             return g
 
         return scroll.mv_pred_grid_roles(
@@ -91,7 +91,8 @@ def stages(cfg, B: int, dev, n_rbsp: int) -> dict:
         coded = coded0.clone()
         coded[:, R0:R0 + R, C0:C0 + C] = dn["coded"].reshape(B, R, C)
         coded_f = coded.reshape(B, H * W)
-        idx = torch.arange(H * W, device=dev).expand(B, H * W)
+        idx = torch.arange(H * W, dtype=torch.int32,
+                           device=dev).expand(B, H * W)
         last = torch.cummax(torch.where(coded_f, idx, -1), dim=1).values
         before = torch.cat([torch.full_like(last[:, :1], -1), last[:, :-1]], 1)
         return expgolomb.ue(idx - before - 1)

@@ -19,7 +19,6 @@ import torch
 from ..config import ComposerConfig, MAX_WAYPOINTS, SLICE_TYPE_P
 from ..ops import expgolomb
 from ..ops.bitio import BitWriter
-from ..ops.bitpack import U32
 
 # Slot budget for the P slice header symbol stream (incl. the two
 # optional short-term-lead reordering slots).
@@ -31,8 +30,8 @@ def p_slice_header_symbols(cfg: ComposerConfig, frame_num, poc_lsb,
                            num_waypoints, wp_long_term_idx, wp_valid,
                            first_mb=0, slice_qp_delta: int = 0,
                            prev_ref_abs_diff=0):
-    """P slice headers as (patterns int64[B, P_HEADER_SLOTS],
-    nbits int64[B, P_HEADER_SLOTS]).
+    """P slice headers as (patterns int32[B, P_HEADER_SLOTS] holding the
+    JAX package's uint32 bits, nbits int32[B, P_HEADER_SLOTS]).
 
     Args (per session [B] tensors, or Python scalars shared by all):
       frame_num: int[B], already wrapped to max_frame_num; fixes B and the
@@ -53,7 +52,7 @@ def p_slice_header_symbols(cfg: ComposerConfig, frame_num, poc_lsb,
     B = frame_num.shape[0]
     dev = frame_num.device
 
-    def vec(x, dtype=torch.int64):
+    def vec(x, dtype=torch.int32):
         if isinstance(x, (bool, int)):
             # A value every session shares is filled on the device: a CUDA
             # graph captures the fill, where it refuses a host copy.
@@ -65,7 +64,8 @@ def p_slice_header_symbols(cfg: ComposerConfig, frame_num, poc_lsb,
     is_reference = vec(is_reference, torch.bool)
     long_term_idx = vec(long_term_idx)
     num_waypoints = vec(num_waypoints)
-    wp_long_term_idx = torch.as_tensor(wp_long_term_idx, device=dev).to(torch.int64)
+    wp_long_term_idx = torch.as_tensor(wp_long_term_idx,
+                                       device=dev).to(torch.int32)
     wp_valid = torch.as_tensor(wp_valid, device=dev).to(torch.bool)
     prev_ref_abs_diff = vec(prev_ref_abs_diff)
     st_lead = prev_ref_abs_diff > 0
@@ -74,7 +74,7 @@ def p_slice_header_symbols(cfg: ComposerConfig, frame_num, poc_lsb,
     bits = []
 
     def sym(pattern, nbits):
-        pats.append(vec(pattern) & U32)
+        pats.append(vec(pattern))
         bits.append(vec(nbits))
 
     def sym_ue(value, present=None):
@@ -96,7 +96,7 @@ def p_slice_header_symbols(cfg: ComposerConfig, frame_num, poc_lsb,
 
     sym(1, 1)                      # num_ref_idx_active_override_flag = 1
     # num_ref_idx_l0_active_minus1 = [st?] + 2 atlases + waypoints - 1.
-    sym_ue(num_waypoints + 1 + st_lead.to(torch.int64))
+    sym_ue(num_waypoints + 1 + st_lead.to(torch.int32))
 
     sym(1, 1)                      # ref_pic_list_modification_flag_l0 = 1
     sym_ue(0, st_lead)             # idc 0: short-term, pic_num down
@@ -114,7 +114,7 @@ def p_slice_header_symbols(cfg: ComposerConfig, frame_num, poc_lsb,
     # dec_ref_pic_marking (reference pictures only).
     mmco = is_reference & (long_term_idx >= 0)
     lt = torch.clamp(long_term_idx, min=0)
-    sym(mmco.to(torch.int64), is_reference.to(torch.int64))  # adaptive flag
+    sym(mmco.to(torch.int32), is_reference.to(torch.int32))  # adaptive flag
     sym_ue(4, mmco)                # MMCO 4
     sym_ue(lt + 1, mmco)           # max_long_term_frame_idx_plus1
     sym_ue(6, mmco)                # MMCO 6

@@ -6,8 +6,8 @@ DIR holds another commit of this repository, unpacked (for example
 `git archive <commit> | tar -x -C _parent`; `_parent/` is gitignored).
 Its `h264_scroll_encoder_tpu_torch` package is loaded beside this tree's
 under another name and builds its own kernels.  Both are driven through
-the public wrappers only, on the same int64 inputs at the 720p compact
-splice shapes (32 seeded representative donors tiled over B sessions):
+the public wrappers only, on the same int32 inputs (the symbol stages'
+widths) at the 720p compact splice shapes (32 seeded representative donors tiled over B sessions):
 
   K1  ops.emit_fused.emit_nal_fused_batch       B = 1, 256 and 1,024
   K2  ops.bitpack_flat.pack_words_place_batch   B = 256, the ebsp_exact input
@@ -114,18 +114,18 @@ def main() -> int:
     cells = []  # (label, kernel name, wrapper, module, args, kwargs)
     for B in (1, 256, 1024):
         sym = cases.splice_symbols(cfg, dn, B, n_rbsp, dev)
-        idc = torch.zeros((B,), dtype=torch.int64, device=dev)
         cells.append((f"K1 B={B}", "emit_fused_kernel", "emit_nal_fused_batch",
-                      "ops.emit_fused", (*sym, idc, n_rbsp, cap), k1_kw))
+                      "ops.emit_fused", (*sym, 0, n_rbsp, cap), k1_kw))
         if B == 256:
             pat, nb = sym
-    tb_pat, tb_nb = bitpack.trailing_bits_symbol(nb.sum(dim=1))
+    tb_pat, tb_nb = bitpack.trailing_bits_symbol(nb.sum(dim=1, dtype=torch.int32))
     e_pat = torch.cat([pat, tb_pat[:, None]], dim=1)
     e_nb = torch.cat([nb, tb_nb[:, None]], dim=1)
     n_words = (n_rbsp + 3) // 4
     words, total = bitpack.pack_words(e_pat, e_nb, n_words)
     rbsp = bitpack.words_to_bytes(words)[:, :n_rbsp].to(torch.uint8)
-    k3_args = (rbsp, total // 8, 0x01, n_nal, cap)  # as phase 6 hands them
+    # As phase 6 hands them: K3 takes int64 lengths.
+    k3_args = (rbsp, (total // 8).to(torch.int64), 0x01, n_nal, cap)
     cells += [("K2 B=256", "pack_place_kernel", "pack_words_place_batch",
                "ops.bitpack_flat", (e_pat, e_nb, n_words), {}),
               ("K3 B=256", "ebsp_nal_kernel", "rbsp_to_nal_batch",
@@ -162,7 +162,9 @@ def main() -> int:
         outs = {side: fn() for side, fn in fns.items()}
         torch.cuda.synchronize()
         for x, y in zip(outs["parent"], outs["tree"]):
-            if not torch.equal(x.to(torch.int64), y.to(torch.int64)):
+            # Words as uint32 values: a parent may return them as int64.
+            if not torch.equal(x.to(torch.int64) & 0xFFFFFFFF,
+                               y.to(torch.int64) & 0xFFFFFFFF):
                 raise AssertionError(f"{label}: the two trees' outputs differ")
         p1, t1, t2, p2 = (measure(fns[s], kernel)
                           for s in ("parent", "tree", "tree", "parent"))

@@ -238,21 +238,25 @@ def test_emit_kernel_chunk_zero_runs(dev, int32):
 
 
 def test_wrappers_launch_only_their_kernel(dev):
-    """On int64 symbols the K1 and K2/K4 wrappers, and on uint8 bytes with
-    int64 lengths and an int header the K3 wrapper, run no tensor op but
-    allocations and views before and after their one kernel launch."""
+    """On int32 symbols (the symbol stages' width) and on int64 ones the K1
+    and K2/K4 wrappers, with an int32 [B] nal_ref_idc for K1, and on uint8
+    bytes with int64 lengths and an int header the K3 wrapper, run no
+    tensor op but allocations and views before and after their one kernel
+    launch."""
     pat, nb, n_rbsp = cases.pack_boundary_cases(9728)
-    p, n = _cu(pat, dev), _cu(nb, dev)
+    idc = torch.zeros(len(pat), dtype=torch.int32, device=dev)
     rbsp, lens, _ = cases.ebsp_boundary_cases()
     rb = torch.as_tensor(rbsp, device=dev)
     rb_len = torch.as_tensor(lens.astype(np.int64), device=dev)
-    for fn in (lambda: emit_fused.emit_nal_fused_batch(p, n, 0, n_rbsp, cases.CAP,
-                                                       align=True, append_tb=True),
-               lambda: bitpack_flat.pack_words_place_batch(p, n, n_rbsp // 4),
-               lambda: bitpack_flat.pack_words_batch(p, n, n_rbsp // 4),
-               lambda: ebsp_flat.rbsp_to_nal_batch(rb, rb_len, 0x01, 8224,
-                                                   cases.CAP)):
-        assert cases.compute_ops(fn) == []
+    for int32 in (True, False):
+        p, n = _cu(pat, dev, int32), _cu(nb, dev, int32)
+        for fn in (lambda: emit_fused.emit_nal_fused_batch(
+                       p, n, idc, n_rbsp, cases.CAP, align=True, append_tb=True),
+                   lambda: bitpack_flat.pack_words_place_batch(p, n, n_rbsp // 4),
+                   lambda: bitpack_flat.pack_words_batch(p, n, n_rbsp // 4)):
+            assert cases.compute_ops(fn) == []
+    assert cases.compute_ops(lambda: ebsp_flat.rbsp_to_nal_batch(
+        rb, rb_len, 0x01, 8224, cases.CAP)) == []
 
 
 # ---------------------------------------------------------------------------
@@ -260,8 +264,8 @@ def test_wrappers_launch_only_their_kernel(dev):
 # ---------------------------------------------------------------------------
 
 def _registry_zeros(B, dev):
-    z = torch.zeros((B, MAX_WAYPOINTS), dtype=torch.int64, device=dev)
-    return z, z, z.bool(), torch.zeros(B, dtype=torch.int64, device=dev)
+    z = torch.zeros((B, MAX_WAYPOINTS), dtype=torch.int32, device=dev)
+    return z, z, z.bool(), torch.zeros(B, dtype=torch.int32, device=dev)
 
 
 def _k1_same(pat, nb, idc, n_rbsp):
@@ -675,13 +679,13 @@ def test_emit_stage_kernel_at_every_stage(dev):
 
     for name, (pat, nb, idc, n_rbsp, kw) in _probe_shapes(dev).items():
         with torch.cuda.device(dev):
-            c = _kernels.emit_plan(8, pat.shape[1],
+            c = _kernels.emit_plan(pat.element_size(), pat.shape[1],
                                    emit_fused.items_per_thread(pat.shape[1]),
                                    emit_fused.nal_bytes(n_rbsp, cases.CAP))
         assert c == (4 if name == "dense_ipcm" else 1)
         for int32 in (False, True):
             p, n = ((cases.int32_bits(pat), cases.int32_bits(nb)) if int32
-                    else (pat, nb))
+                    else (pat.to(torch.int64), nb.to(torch.int64)))
             for stage in probes.EMIT_STAGES:
                 args = (stage, p, n, idc, n_rbsp, cases.CAP)
                 got = probes.emit_stage_batch(*args, **kw)
@@ -723,7 +727,8 @@ def test_pack_tiled_kernel_at_every_tile(dev, tile):
                                                        pack_tiled_probe)
 
     pat, nb = _probe_common.probe_symbols(256, dev)
-    for p, n in ((pat, nb), (cases.int32_bits(pat), cases.int32_bits(nb)),
+    for p, n in ((pat.to(torch.int64), nb.to(torch.int64)),
+                 (cases.int32_bits(pat), cases.int32_bits(nb)),
                  tuple(_cu(a, dev) for a in pack_tiled_probe.exact_case())):
         _same(probes.pack_place_tiled_batch(p, n, 2048, tile),
               bitpack_flat.pack_words_place_plain(p, n, 2048))
@@ -885,8 +890,8 @@ def _splice_call(cfg, dn32, B, dev):
     """Call t of the rows or dense splice step: the header of frame 3 + t
     and the 32 donors rotated by t over B sessions."""
     def args_at(t, _outs):
-        fn = torch.full((B,), 3 + t, dtype=torch.int64, device=dev)
-        z = torch.zeros((B, MAX_WAYPOINTS), dtype=torch.int64, device=dev)
+        fn = torch.full((B,), 3 + t, dtype=torch.int32, device=dev)
+        z = torch.zeros((B, MAX_WAYPOINTS), dtype=torch.int32, device=dev)
         hp, hn = slice_headers.p_slice_header_symbols(
             cfg, fn, 2 * fn, False, -1, 0, z, z.bool())
         zero = torch.zeros((B, cfg.mb_height, cfg.mb_width),

@@ -215,8 +215,9 @@ def test_dense_equals_rows(kind):
 
 
 def test_dense_device_arrays_match_jax():
-    """dense_device_arrays: the JAX package's keys and values (uint32
-    chunks as int64), carried across by donor_arrays_from_numpy."""
+    """dense_device_arrays: the JAX package's keys, values and widths
+    (uint32 chunks as int32 bits), carried across by
+    donor_arrays_from_numpy."""
     cfg = ComposerConfig(*SMALL)
     dds, _ = _donors("ipcm", (41,), cfg, 2, 2, 3, 3)
     jdd = jsd.prepare_donor_dense_from_slice(
@@ -226,8 +227,8 @@ def test_dense_device_arrays_match_jax():
     want = jsd.dense_device_arrays(jdd)
     assert set(got) == set(want)
     for k, v in want.items():
-        np.testing.assert_array_equal(got[k].numpy(), np.asarray(v))
-    assert got["patterns"].dtype == torch.int64
+        np.testing.assert_array_equal(*cases.jax_width(got[k], v))
+    assert got["patterns"].dtype == torch.int32
     carried = sd.donor_arrays_from_numpy({k: np.asarray(v)
                                           for k, v in want.items()}, "cpu")
     for k in got:

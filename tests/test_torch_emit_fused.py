@@ -162,15 +162,15 @@ def test_sentinel_without_align_flags_overflow():
 
 
 def test_wrapper_input_checks():
-    """The wrapper takes [B, n] int64 or int32 symbols of one dtype on one
+    """The wrapper takes [B, n] int32 or int64 symbols of one dtype on one
     CPU or CUDA device and raises on anything else (no silent fallback, no
     quiet conversion)."""
-    z = torch.zeros((2, 8), dtype=torch.int64)
+    z = torch.zeros((2, 8), dtype=torch.int32)
     with pytest.raises(ValueError):
         emit_fused.emit_nal_fused_batch(z, z[:, :7], 0, 64, CAP)
     with pytest.raises(ValueError):
         emit_fused.emit_nal_fused_batch(z.to("meta"), z.to("meta"), 0, 64, CAP)
-    for pat, nb in ((z, z.to(torch.int32)), (z.to(torch.int16),) * 2,
+    for pat, nb in ((z, z.to(torch.int64)), (z.to(torch.int16),) * 2,
                     (z.to(torch.float32),) * 2, (z.to(torch.uint8),) * 2):
         with pytest.raises(TypeError):
             emit_fused.emit_nal_fused_batch(pat, nb, 0, 64, CAP)

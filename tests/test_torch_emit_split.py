@@ -47,7 +47,8 @@ STREAM_CAP = 64
 
 
 def _t(a):
-    return torch.as_tensor(np.asarray(a).astype(np.int64))
+    """Symbols in the symbol stages' widths: int32 (patterns as bits)."""
+    return torch.as_tensor(cases.int32_bits(a))
 
 
 def _jax_kernel(pat, nb, idc, *, n_rbsp, cap, align=False, append_tb=False):
@@ -241,8 +242,7 @@ def test_pack_split_on_pack_boundaries(n, parts):
     for b in range(min(2, len(pat))):
         jw, jt = jbitpack.pack_words(jnp.asarray(pat[b]), jnp.asarray(nb[b]),
                                      n_words)
-        np.testing.assert_array_equal(got[0][b].numpy(),
-                                      np.asarray(jw).astype(np.int64))
+        np.testing.assert_array_equal(*cases.jax_width(got[0][b], jw))
         assert int(got[1][b]) == int(jt)
 
 

@@ -59,8 +59,8 @@ def _inputs(seed, cfg, *, band: bool):
         pays, [0] * B, R, C, 1, 2, s_row=CLASS, blob_wire=True,
         s_flat=sd.flat_chunk_class(R * CLASS), s_exc=32, engine="python")
     hp, hn = p_slice_header_symbols(
-        cfg, torch.full((B,), frame_num, dtype=torch.int64), 2 * frame_num,
-        False, -1, 0, torch.zeros((B, MAX_WAYPOINTS), dtype=torch.int64),
+        cfg, torch.full((B,), frame_num, dtype=torch.int32), 2 * frame_num,
+        False, -1, 0, torch.zeros((B, MAX_WAYPOINTS), dtype=torch.int32),
         torch.zeros((B, MAX_WAYPOINTS), dtype=torch.bool))
     H, W = cfg.mb_height, cfg.mb_width
     ref = np.zeros((B, H, W), np.int32)

@@ -37,7 +37,8 @@ torch.set_num_threads(1)
 
 
 def _t(a):
-    return torch.as_tensor(np.asarray(a).astype(np.int64))
+    """Inputs in the JAX package's widths (int32)."""
+    return torch.as_tensor(np.asarray(a).astype(np.int32))
 
 
 def _j(a, dtype=np.int32):
@@ -189,11 +190,12 @@ def test_partitioned_unified_frame_and_symbols():
     _same(got, want)
 
     cfg = ComposerConfig(1280, 720)
-    z = torch.zeros((4, MAX_WAYPOINTS), dtype=torch.int64)
-    offs = torch.as_tensor(cases.SESSION_POLICY_OFFSETS[:4])
+    z = torch.zeros((4, MAX_WAYPOINTS), dtype=torch.int32)
+    offs = torch.as_tensor(cases.SESSION_POLICY_OFFSETS[:4], dtype=torch.int32)
     pat, nb, n_rbsp, _ = scroll.unified_frame_symbols(
-        cfg, torch.full((4,), 5), offs, z, z, z.bool(), torch.zeros(4),
-        torch.zeros(4, dtype=torch.bool), boundary_policy="partitioned")
+        cfg, torch.full((4,), 5, dtype=torch.int32), offs, z, z, z.bool(),
+        torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.bool),
+        boundary_policy="partitioned")
     assert pat.shape[1] > 12288 and n_rbsp == 14496
     seam_row = (cfg.height - offs) // 16          # rows 44, 42, 40, 38
     first_slot = slice_headers.P_HEADER_SLOTS + seam_row * cfg.mb_width * 4
@@ -202,10 +204,11 @@ def test_partitioned_unified_frame_and_symbols():
 
 def test_partitioned_rejects_wide_frames():
     cfg = ComposerConfig(1920, 1088)
-    z = torch.zeros((1, MAX_WAYPOINTS), dtype=torch.int64)
+    z = torch.zeros((1, MAX_WAYPOINTS), dtype=torch.int32)
     with pytest.raises(ValueError, match="4095"):
-        scroll.scroll_frame(cfg, torch.tensor([2]), torch.tensor([7]), z, z,
-                            z.bool(), torch.zeros(1),
+        scroll.scroll_frame(cfg, torch.tensor([2], dtype=torch.int32),
+                            torch.tensor([7], dtype=torch.int32), z, z,
+                            z.bool(), torch.zeros(1, dtype=torch.int32),
                             boundary_policy="partitioned")
 
 
@@ -242,10 +245,11 @@ def test_scroll_frame_sliced(rows, pskip, exact):
 def test_sliced_frame_is_one_back_end_call():
     """The K bands of B sessions are the rows of one symbol batch."""
     cfg = ComposerConfig(96, 576)
-    z = torch.zeros((3, MAX_WAYPOINTS), dtype=torch.int64)
+    z = torch.zeros((3, MAX_WAYPOINTS), dtype=torch.int32)
     pat, nb, n_rbsp = scroll.sliced_frame_symbols(
-        cfg, torch.arange(3), torch.tensor([0, 100, 300]), z, z, z.bool(),
-        torch.zeros(3), rows_per_slice=4)
+        cfg, torch.arange(3, dtype=torch.int32),
+        torch.tensor([0, 100, 300], dtype=torch.int32), z, z, z.bool(),
+        torch.zeros(3, dtype=torch.int32), rows_per_slice=4)
     assert pat.shape[0] == 3 * 9 and nb.shape == pat.shape
     assert n_rbsp == (4 * 6 * 16 // 8 + 96 + 3) // 4 * 4
     with pytest.raises(ValueError, match="divide"):

@@ -13,6 +13,7 @@ import torch
 from h264_scroll_encoder_tpu.ops import bitpack as jbitpack
 from h264_scroll_encoder_tpu.ops import ebsp as jebsp
 from h264_scroll_encoder_tpu.ops import expgolomb as jeg
+from h264_scroll_encoder_tpu_torch import cases
 from h264_scroll_encoder_tpu_torch.ops import bitpack, ebsp, expgolomb
 
 torch.set_num_threads(1)
@@ -24,12 +25,14 @@ I32_EDGES = np.asarray([0, 1, -1, 2, -2, 1000, -1000, 2 ** 30, -2 ** 30,
 
 
 def _t(a):
-    return torch.as_tensor(np.asarray(a).astype(np.int64))
+    """Inputs in the JAX package's widths: uint32 and int32 values as
+    int32 bits."""
+    return torch.as_tensor(cases.int32_bits(a))
 
 
 def _eq(port, want):
-    assert np.array_equal(port.numpy().astype(np.int64),
-                          np.asarray(want).astype(np.int64))
+    """Equal values in the JAX value's width (cases.jax_width)."""
+    np.testing.assert_array_equal(*cases.jax_width(port, want))
 
 
 def _u32_values(seed):

@@ -143,8 +143,7 @@ def test_u16_plain_matches_jax_on_the_probe_cases():
         jw, jt = jflat.pack_words_place_pallas(
             jnp.asarray(pat[0].astype(np.uint32)),
             jnp.asarray(nb[0].astype(np.int32)), 2048)
-        np.testing.assert_array_equal(words[0].numpy(),
-                                      np.asarray(jw).astype(np.int64))
+        np.testing.assert_array_equal(*cases.jax_width(words[0], jw))
         assert int(total[0]) == int(jt)
     pat, nb = cases_[8]
     assert nb.sum() > 65_536
@@ -152,8 +151,7 @@ def test_u16_plain_matches_jax_on_the_probe_cases():
                                                torch.as_tensor(nb), 2048)
     jw, jt = jbitpack.pack_words(jnp.asarray(pat[0].astype(np.uint32)),
                                  jnp.asarray(nb[0].astype(np.int32)), 2048)
-    np.testing.assert_array_equal(words[0].numpy(),
-                                  np.asarray(jw).astype(np.int64))
+    np.testing.assert_array_equal(*cases.jax_width(words[0], jw))
     assert int(total[0]) == int(jt) == int(nb.sum())
 
 
@@ -166,8 +164,8 @@ def test_tiled_plain_matches_jax_vmap(tile):
         jnp.asarray(pat.astype(np.uint32)), jnp.asarray(nb.astype(np.int32)))
     words, total = probes.pack_place_tiled_batch(torch.as_tensor(pat),
                                                  torch.as_tensor(nb), 2048, tile)
-    np.testing.assert_array_equal(words.numpy(), np.asarray(jw).astype(np.int64))
-    np.testing.assert_array_equal(total.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(*cases.jax_width(words, jw))
+    np.testing.assert_array_equal(*cases.jax_width(total, jt))
 
 
 def test_refusals():

@@ -24,7 +24,8 @@ CFG = (64, 1024)        # tall: crosses the 496 px waypoint limit
 
 
 def _t(a):
-    return torch.as_tensor(np.asarray(a).astype(np.int64))
+    """Inputs in the JAX package's widths (int32)."""
+    return torch.as_tensor(np.asarray(a).astype(np.int32))
 
 
 def _eq(port, want):

@@ -96,9 +96,9 @@ def _headers(cfg, jcfg, B, frame_num=3, **kw):
     """Port header tensors [B, nh] and the JAX header arrays [nh]; the
     same symbols."""
     hp, hn = p_slice_header_symbols(
-        cfg, torch.full((B,), frame_num, dtype=torch.int64), 2 * frame_num,
+        cfg, torch.full((B,), frame_num, dtype=torch.int32), 2 * frame_num,
         kw.get("is_reference", False), -1, 0,
-        torch.zeros((B, MAX_WAYPOINTS), dtype=torch.int64),
+        torch.zeros((B, MAX_WAYPOINTS), dtype=torch.int32),
         torch.zeros((B, MAX_WAYPOINTS), dtype=torch.bool),
         prev_ref_abs_diff=kw.get("prev_ref_abs_diff", 0))
     jhp, jhn = jheader(
@@ -274,7 +274,12 @@ def _family_payloads(seed, n, C, R):
 
 
 def _jax_batch(jcfg, c0, r0, R, C, jhdr, B, jdn, **kw):
-    step = jbatch.make_batched_splice_step_rows(jcfg, c0, r0, C, R, 2, **kw)
+    # A step of its own, outside the factory's cache: tests of the JAX
+    # package in the same process hold that cache's steps to one compiled
+    # program each (tests/test_splice_device.py), and this batch size
+    # would add a second.
+    step = jbatch.make_batched_splice_step_rows.__wrapped__(
+        jcfg, c0, r0, C, R, 2, **kw)
     H, W = jcfg.mb_height, jcfg.mb_width
     zero = jnp.zeros((B, H, W), jnp.int32)
     return step(*(jnp.broadcast_to(h, (B,) + h.shape) for h in jhdr),
@@ -364,7 +369,7 @@ def test_jax_donor_wire_carried_across():
     hdr, jhdr = _headers(cfg, jcfg, B)
     dn = sd.donor_arrays_from_numpy({k: np.asarray(v) for k, v in jdn.items()},
                                     "cpu")
-    assert dn["blob"].dtype == torch.int64
+    assert dn["blob"].dtype == torch.int32
     got = _port_step(cfg, c0, r0, R, C, hdr, _bg(cfg, B)[0], dn, **kw)
     _assert_batch(got, _jax_batch(jcfg, c0, r0, R, C, jhdr, B, jdn, **kw))
 
@@ -391,8 +396,8 @@ def test_flat_wire_roundtrip_matches_jax():
     got_pat, got_nb = sd._rows_from_flat(
         sd.donor_arrays_from_numpy(wire, "cpu"), R, s_row)
     np.testing.assert_array_equal(got_nb.numpy(), nb)
-    np.testing.assert_array_equal(got_pat.numpy() * (nb != 0),
-                                  pat.astype(np.int64) * (nb != 0))
+    np.testing.assert_array_equal(got_pat.numpy().view(np.uint32) * (nb != 0),
+                                  pat * (nb != 0))
     jpat, jnb = jax.vmap(lambda d: jsd._rows_from_flat(d, R, s_row))(
         {k: jnp.asarray(v) for k, v in wire.items()})
     np.testing.assert_array_equal(got_nb.numpy(), np.asarray(jnb))

@@ -222,10 +222,10 @@ def _port_serving(pool, state, ctx, t0, t1):
             donor_ref_map=tuple(ctx["ref_map"]), s_row=CLASS,
             retarget_mvs=True, blob_wire=True, s_flat=S_FLAT, s_exc=S_EXC,
             device="cpu")
-        fn = state.frame_num.to(torch.int64) % 16
+        fn = state.frame_num % 16
         hp, hn = p_slice_header_symbols(
-            cfg, fn, fn * 2, True, -1, state.wp_count.to(torch.int64),
-            state.wp_ltidx.to(torch.int64), state.wp_valid,
+            cfg, fn, fn * 2, True, -1, state.wp_count, state.wp_ltidx,
+            state.wp_valid,
             prev_ref_abs_diff=1)
         nal, nal_len, _, ovf = step(hp, hn, zero, zero, zero, zero.bool(), dn)
         assert not ovf.any()
