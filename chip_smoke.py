@@ -10,9 +10,10 @@ it launches, so K1 still counts once per step or frame:
 
   1. Require CUDA; print the torch, CUDA, nvcc and card versions.
   2. Build, started together: the kernels (K1 h264t_emit_fused, K2
-     h264t_pack_place, K3 h264t_ebsp_nal, K4 h264t_pack_words, and the
-     probes P1-P6) from h264_scroll_encoder_tpu_torch/csrc/*.cu with one
-     nvcc per source, then one link, the native CAVLC
+     h264t_pack_place, K3 h264t_ebsp_nal, K4 h264t_pack_words, K5
+     h264t_composite_grid, K6 h264t_scroll_grid, and the probes P1-P6)
+     from h264_scroll_encoder_tpu_torch/csrc/*.cu with one nvcc per
+     source, then one link, the native CAVLC
      engine from csrc/cavlc_decode.cpp with g++, and avref from
      csrc/avref.c with gcc where the system has libavcodec (else a line
      says what is missing).
@@ -43,7 +44,14 @@ it launches, so K1 still counts once per step or frame:
      large shape (the dense I_PCM frame at B = 32 and 256) beside its
      bound and its earlier (one-block, global-memory) time, and K1 on the
      1920x1088 hint and 3840x2160 scroll frames that one block stages in
-     several chunks.
+     several chunks.  The grid stage's kernels likewise: K5
+     (ops/grid.composite_grid_batch) on cases.COMPOSITE_GRID_CASES and on
+     the 720p rows (compact_x) and dense splice inputs at B = 256 and
+     1,024, K6 (ops/grid.scroll_grid_batch) on cases.SCROLL_GRID_CASES,
+     the 720p scroll and hint steps' fields at B = 256 and the
+     1920x1088, 3840x2160 and 5120x3200 hint frames, every output exactly
+     equal to the plain version's; their wrappers run no tensor op on
+     those inputs; each timed as K1 is, beside its bound.
   4. The scroll path — `parallel.batch.make_batched_step` at 1280x720 —
      over 16 frames of the benchmark's schedule at B = 256, then the
      golden batch-8 schedule and one `ebsp_exact` (K2) frame per session,
@@ -163,7 +171,9 @@ it launches, so K1 still counts once per step or frame:
      them), the card's name and power limit, and the result line.
 
 Launch counters are set to 0 just before each path (4, 5, 6, 7, 8, 9, 10,
-11) and read just after; every kernel must have launched on its path.
+11) and read just after; every kernel must have launched on its path:
+K5 on the splice, dense, serving, probes and graphs paths, K6 on the
+scroll, session, large, serving, probes and graphs paths.
 """
 
 from __future__ import annotations
@@ -307,7 +317,7 @@ def main() -> int:
     from h264_scroll_encoder_tpu_torch.config import ComposerConfig
     from h264_scroll_encoder_tpu_torch.models import scroll
     from h264_scroll_encoder_tpu_torch.ops import (bitpack, bitpack_flat,
-                                                   ebsp_flat, emit_fused)
+                                                   ebsp_flat, emit_fused, grid)
     from h264_scroll_encoder_tpu_torch.parallel import batch
     from h264_scroll_encoder_tpu_torch.utils import timing as timing_
 
@@ -334,7 +344,7 @@ def main() -> int:
             a = torch.as_tensor(np.asarray(a).astype(np.int64), device=dev)
         return cases.int32_bits(a) if int32 else a.to(dev, torch.int64)
 
-    errs = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    errs = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
 
     def hold(name, case, got, want):
         torch.cuda.synchronize()
@@ -598,6 +608,64 @@ def main() -> int:
          f"B); the symbol stages hand over int32; no wrapper runs a tensor op "
          f"on the entry path's inputs")
 
+    # K5 and K6, the grid stage: on their cases, then on the main paths'
+    # inputs (the 720p rows and dense splice steps at B = 256 and 1,024,
+    # the 720p scroll and hint steps at B = 256, the large hint frames at
+    # B = 1), every output equal to the plain version's on the same CUDA
+    # inputs.
+    def check_grid(name, case, args, kw):
+        fn, plain = ((grid.composite_grid_batch, grid.composite_grid_plain)
+                     if name == "K5" else
+                     (grid.scroll_grid_batch, grid.scroll_grid_plain))
+        got, want = fn(*args, **kw), plain(*args, **kw)
+        if [g is None for g in got] != [w is None for w in want]:
+            raise AssertionError(f"{name} {case}: outputs differ in kind")
+        hold(name, case, [g for g in got if g is not None],
+             [w for w in want if w is not None])
+        return got
+
+    for name in [c[0] for c in cases.COMPOSITE_GRID_CASES]:
+        rect, compact_x, nr_arg, _nr, bg, dn_c = cases.composite_grid_case(name)
+        check_grid("K5", name, (*rect, *cases.grid_args((nr_arg, *bg, dn_c),
+                                                         dev)),
+                   {"compact_x": compact_x})
+    for name in [c[0] for c in cases.SCROLL_GRID_CASES]:
+        pskip, compact_x, nr_arg, _nr, fields = cases.scroll_grid_case(name)
+        check_grid("K6", name, cases.grid_args((*fields, nr_arg), dev),
+                   {"enable_pskip": pskip, "compact_x": compact_x})
+    dense_dn, _dbits, _dalign = cases.prepare_dense_donors(
+        "representative", engine="native", device=dev)
+    k6_in = cases.scroll_grid_inputs(dev)
+    # {timed label: (kernel, args, kwargs)}; the first of each kernel is
+    # its kernels-line row, the others its "shapes".
+    grid_runs = {
+        "K5": ("K5", *cases.composite_grid_inputs(cfg, dn32, B, dev,
+                                                  rows=True)),
+        "K5 B=1024": ("K5", *cases.composite_grid_inputs(cfg, dn32, 1024, dev,
+                                                         rows=True)),
+        "K5 dense": ("K5", *cases.composite_grid_inputs(cfg, dense_dn, B, dev,
+                                                        rows=False)),
+        "K6": ("K6", *k6_in["scroll_720p"]),
+        "K6 hint": ("K6", *k6_in["hint_720p"]),
+        **{f"K6 hint {k[5:]} B=1 (one block)": ("K6", *v)
+           for k, v in k6_in.items() if not k.endswith("720p")},
+    }
+    grid_out = {label: check_grid(kern, label, args, kw)
+                for label, (kern, args, kw) in grid_runs.items()}
+    for label, (kern, args, kw) in grid_runs.items():
+        fn = (grid.composite_grid_batch if kern == "K5"
+              else grid.scroll_grid_batch)
+        ops = cases.compute_ops(lambda: fn(*args, **kw))
+        if ops:
+            raise AssertionError(f"{kern}'s wrapper ran tensor ops {ops} on "
+                                 f"the {label} inputs")
+    _log(f"phase 3: K5 equals its plain version on "
+         f"{len(cases.COMPOSITE_GRID_CASES)} cases (rects at every edge, "
+         f"compact_x, the wide layout, int8/int16/int32 roles) and K6 on "
+         f"{len(cases.SCROLL_GRID_CASES)} (P_Skip, compact_x, wide), both on "
+         f"{sorted(grid_runs)}, every output exactly; their wrappers run no "
+         f"tensor op on those inputs")
+
     # Timing at the 720p B = 256 splice shapes (K1 and K3 also at B = 1
     # and 1,024, K1 at the scroll shapes): the kernel's device time on the
     # main path's inputs (int32 symbols; calls queued back to back) and, as
@@ -673,6 +741,12 @@ def main() -> int:
                                                      exact_words),
                lambda: bitpack_flat.pack_words_place_plain(
                    exact_pat, exact_nb, exact_words)),
+        **{label: ((lambda a=args, k=kw: grid.composite_grid_batch(*a, **k),
+                    lambda a=args, k=kw: grid.composite_grid_plain(*a, **k))
+                   if kern == "K5" else
+                   (lambda a=args, k=kw: grid.scroll_grid_batch(*a, **k),
+                    lambda a=args, k=kw: grid.scroll_grid_plain(*a, **k)))
+           for label, (kern, args, kw) in grid_runs.items()},
     }
     timing = {}
     for name, (kernel, plain) in runs.items():
@@ -746,6 +820,13 @@ def main() -> int:
                                       ebsp_flat.padded_len(259_328)))
     bound["K3 n_nal=259328 B=4 (global)"] = (int(g_staged.sum()) + 8 * len(g_lens)
                                             + len(g_lens) * (259_328 + 4))
+    # K5 and K6: each input they read once (the arguments as passed) and
+    # each output written once (ops/grid's byte counts); their integer work
+    # (a few dozen operations an MB) takes far less at the card's rates.
+    for label, (kern, args, kw) in grid_runs.items():
+        bound[label] = (grid.composite_grid_bytes(*args[4:], grid_out[label])
+                        if kern == "K5" else
+                        grid.scroll_grid_bytes(*args, grid_out[label]))
     compare_bytes = {"K1 int64": B * n_s * 16 + B * (n_nal_s + 16),
                      "K2 int64": B * n_e * 16 + B * (exact_words + 1) * 4,
                      "K3 earlier formula": (B * s_n_rbsp + 2 * 4 * B
@@ -777,12 +858,15 @@ def main() -> int:
     if k1_steps != len(schedule):
         raise AssertionError(f"K1 launched {k1_steps} times in "
                              f"{len(schedule)} steps")
+    if _kernels.SCROLL_GRID.launches != len(schedule):
+        raise AssertionError(f"K6 launched {_kernels.SCROLL_GRID.launches} "
+                             f"times in {len(schedule)} steps")
     golden = json.loads(cases.GOLDEN_PATH.read_text())
     if cases.port_golden(dev) != golden:
         raise AssertionError("CUDA output differs from the scroll golden digests")
     torch.cuda.synchronize()
     scroll_launches = {k.symbol: k.launches for k in _kernels.KERNELS}
-    for k in (_kernels.EMIT_FUSED, _kernels.PACK_PLACE):
+    for k in (_kernels.EMIT_FUSED, _kernels.PACK_PLACE, _kernels.SCROLL_GRID):
         if scroll_launches[k.symbol] == 0:
             raise AssertionError(f"{k.symbol} never launched on the scroll path")
     step_ms, wall_ms = timer.medians()
@@ -837,7 +921,7 @@ def main() -> int:
 
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()
-    n_run = 0
+    n_run = n_compact = 0
     for B_s in (256, 1024):
         args = cases.splice_session_inputs(cfg, B_s, dev) + (tile(B_s),)
         for name in ("compact", "static"):
@@ -847,6 +931,7 @@ def main() -> int:
             for _ in range(n_steps):
                 out = timer(lambda: steps[name](*args))
             n_run += n_warm + n_steps
+            n_compact += (n_warm + n_steps) * (name == "compact")
             check_digests(name, out, B_s)
             step_ms, wall_ms = timer.medians()
             _log(f"phase 5: splice {name} B={B_s}: {step_ms:.4f} ms "
@@ -861,6 +946,12 @@ def main() -> int:
     if splice_launches["h264t_emit_fused"] != n_run:
         raise AssertionError(f"K1 launched {splice_launches['h264t_emit_fused']} "
                              f"times in {n_run} splice steps")
+    # K5 runs in the compact program and its ebsp_exact retry; the
+    # static-chrome program has no grid stage.
+    if splice_launches["h264t_composite_grid"] != n_compact + 1:
+        raise AssertionError(f"K5 launched "
+                             f"{splice_launches['h264t_composite_grid']} times "
+                             f"in {n_compact + 1} compact steps")
     for k in (_kernels.EMIT_FUSED, _kernels.PACK_PLACE):
         if splice_launches[k.symbol] == 0:
             raise AssertionError(f"{k.symbol} never launched on the splice path")
@@ -939,17 +1030,27 @@ def main() -> int:
     _log(f"phase 11: {time.perf_counter() - t_graphs:.2f} s in all")
 
     # -- 12. Results -----------------------------------------------------------
-    src = "h264_scroll_encoder_tpu_torch/csrc/emit_kernels.cu"
+    emit_src = "h264_scroll_encoder_tpu_torch/csrc/emit_kernels.cu"
+    grid_src = "h264_scroll_encoder_tpu_torch/csrc/grid_kernels.cu"
+    # K5 and K6 replace XLA code of the JAX package (no Pallas kernel).
     rows = [
         ("emit_fused (K1)", "K1", "h264t_emit_fused",
-         "h264_scroll_encoder_tpu/ops/emit_fused.py:214"),
+         "h264_scroll_encoder_tpu/ops/emit_fused.py:214", emit_src),
         ("pack_place (K2)", "K2", "h264t_pack_place",
-         "h264_scroll_encoder_tpu/ops/bitpack_flat.py:435"),
+         "h264_scroll_encoder_tpu/ops/bitpack_flat.py:435", emit_src),
         ("ebsp_nal (K3)", "K3", "h264t_ebsp_nal",
-         "h264_scroll_encoder_tpu/ops/ebsp_flat.py:158"),
+         "h264_scroll_encoder_tpu/ops/ebsp_flat.py:158", emit_src),
         ("pack_words (K4)", "K4", "h264t_pack_words",
-         "h264_scroll_encoder_tpu/ops/bitpack_flat.py:261"),
+         "h264_scroll_encoder_tpu/ops/bitpack_flat.py:261", emit_src),
+        ("composite_grid (K5)", "K5", "h264t_composite_grid",
+         "h264_scroll_encoder_tpu/models/splice_device.py:1321", grid_src),
+        ("scroll_grid (K6)", "K6", "h264t_scroll_grid",
+         "h264_scroll_encoder_tpu/models/scroll.py:328", grid_src),
     ]
+    # The paths each grid kernel serves; it must have launched on each.
+    grid_paths = {"K5": ("splice", "dense", "serving", "probes", "graphs"),
+                  "K6": ("scroll", "session", "large", "serving", "probes",
+                         "graphs")}
     paths = {"scroll": scroll_launches, "splice": splice_launches,
              "entry": entry_launches, "session": session_launches,
              "dense": dense_launches, "large": large_launches,
@@ -971,17 +1072,25 @@ def main() -> int:
                          **MULTICHUNK_K1_ROWS},
                   "K2": LARGE_K2_ROWS}
     kernels = []
-    for name, key, sym, rep in rows:
+    for name, key, sym, rep, src in rows:
         by_path = {p: c[sym] for p, c in paths.items() if c[sym]}
+        missing = [p for p in grid_paths.get(key, ()) if p not in by_path]
+        if missing:
+            raise AssertionError(f"{name} never launched on {missing}")
         large = {label: {"cluster": LARGE_CLUSTERS.get(shape, 1), **timing[label],
                          "bound_ms": bound_ms[label]}
                  for label, shape in large_rows.get(key, {}).items()}
+        # K5's and K6's other timed shapes (phase 3's grid_runs).
+        shapes = {label: {**timing[label], "bound_ms": bound_ms[label]}
+                  for label, (kern, _a, _k) in grid_runs.items()
+                  if kern == key and label != key}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, "max_abs_err": errs[key],
                         **timing[key], "bound_ms": bound_ms[key],
                         "bound_by": "bytes", "library_ms": None,
-                        **({"large": large} if large else {})})
+                        **({"large": large} if large else {}),
+                        **({"shapes": shapes} if shapes else {})})
     for row in probe_rows:
         by_path = {"probes": probe_launches[row.pop("counter")]}
         kernels.append({**row, "launches": by_path["probes"],
@@ -1039,16 +1148,20 @@ def _session_phase(dev, cfg, cases, batch, _kernels, Timer):
     if launches["h264t_emit_fused"] != device_frames:
         raise AssertionError(f"K1 launched {launches['h264t_emit_fused']} "
                              f"times for {device_frames} device P-frames")
+    if launches["h264t_scroll_grid"] == 0:
+        raise AssertionError("K6 never launched on the session path")
     verify_s = time.perf_counter() - t_phase - compose_s
 
     # One sliced frame is one K1 launch; a flagged frame retries through K2.
     _kernels.reset_launch_counts()
     s.write_scroll_frame_sliced(60, cases.SESSION_ROWS_PER_SLICE)
     torch.cuda.synchronize()
-    if _kernels.EMIT_FUSED.launches != 1:
+    if _kernels.EMIT_FUSED.launches != 1 or _kernels.SCROLL_GRID.launches != 1:
         raise AssertionError(f"a sliced frame launched K1 "
-                             f"{_kernels.EMIT_FUSED.launches} times")
-    launches["h264t_emit_fused"] += 1
+                             f"{_kernels.EMIT_FUSED.launches} and K6 "
+                             f"{_kernels.SCROLL_GRID.launches} times")
+    for k in _kernels.KERNELS:
+        launches[k.symbol] += k.launches
     honest = ComposerSession(cfg, device=dev)
     forced = ComposerSession(cfg, device=dev)
     fast = forced._scroll_fn
@@ -1115,9 +1228,10 @@ def _session_phase(dev, cfg, cases, batch, _kernels, Timer):
     _kernels.reset_launch_counts()
     out = cases.run_hint_step(step, inputs)
     torch.cuda.synchronize()
-    if _kernels.EMIT_FUSED.launches != 1:
-        raise AssertionError("the hint step did not launch K1 once")
-    launches["h264t_emit_fused"] += 1
+    if _kernels.EMIT_FUSED.launches != 1 or _kernels.SCROLL_GRID.launches != 1:
+        raise AssertionError("the hint step did not launch K1 and K6 once")
+    for k in _kernels.KERNELS:
+        launches[k.symbol] += k.launches
     nal, nal_len, _bits, ovf = out
     if cases.hint_step_digest(nal.cpu().numpy(), nal_len.cpu().numpy(),
                               ovf.cpu().numpy()) != golden["hint_step"]:
@@ -1215,7 +1329,8 @@ def _dense_phase(dev, cfg, cases, batch, _kernels, Timer, avref, streams7,
     torch.cuda.synchronize()
     dense_launches = {k.symbol: k.launches for k in _kernels.KERNELS}
     if (dense_launches["h264t_emit_fused"] != n_steps + 1
-            or dense_launches["h264t_pack_place"] != 1):
+            or dense_launches["h264t_pack_place"] != 1
+            or dense_launches["h264t_composite_grid"] != n_steps + 2):
         raise AssertionError(f"dense path launches {dense_launches} for "
                              f"{n_steps + 1} steps and one retry")
 
@@ -1263,7 +1378,8 @@ def _dense_phase(dev, cfg, cases, batch, _kernels, Timer, avref, streams7,
     torch.cuda.synchronize()
     compose_s = time.perf_counter() - t0
     large_launches = {k.symbol: k.launches for k in _kernels.KERNELS}
-    if large_launches["h264t_emit_fused"] != len(large):
+    if (large_launches["h264t_emit_fused"] != len(large)
+            or large_launches["h264t_scroll_grid"] != len(large)):
         raise AssertionError(f"large frames launched {large_launches}")
     for name, data in large.items():
         if cases.stream_digest(data) != golden_l[name]:
@@ -1543,10 +1659,13 @@ def _serving_phase(dev, cfg, cases, batch, _kernels, Timer, avref, streams7,
                                  "differ from the uninterrupted run's")
     torch.cuda.synchronize()
     loop = {k.symbol: k.launches for k in _kernels.KERNELS}
-    if loop["h264t_emit_fused"] != 2 * T:
+    if (loop["h264t_emit_fused"] != 2 * T
+            or loop["h264t_composite_grid"] != 2 * T):
         raise AssertionError(f"serving loop launches {loop} in {2 * T} steps")
     for k, n in loop.items():
         launches[k] += n
+    if launches["h264t_scroll_grid"] == 0:
+        raise AssertionError("K6 never launched in the sharded scroll steps")
     _log(f"phase 9: splice serving loop B={B} (23x23 MBs at MB (30, 10), fresh "
          f"donors each step), evicted after {EVICT} of {T} steps with "
          f"save_serving_state and restored with load_serving_state: every "
@@ -1913,12 +2032,14 @@ def _probes_phase(dev, cfg, cases, _kernels, timing_, *, splice, exact):
                         f"of the aten bytes ({r['int64_ops']})")
             _log(f"phase 10: census at B={table['batch']}: " + "; ".join(
                 f"{step} {r['aten_ops']} aten ops move {r['aten_bytes']} B "
-                f"(+ K1's {r['k1_bytes']} B on {r['symbols_dtype']} symbols): "
+                f"(+ K1's {r['k1_bytes']} B on {r['symbols_dtype']} symbols, "
+                f"K5/K6's {r['grid_bytes']} B): "
                 + ", ".join(f"{d} {b} B" for d, b in r["by_dtype"].items())
                 for step, r in table["rows"].items()))
     torch.cuda.synchronize()
     launches = _kernels.launch_counts()
-    for k in _kernels.PROBE_KERNELS:
+    for k in (*_kernels.PROBE_KERNELS, _kernels.COMPOSITE_GRID,
+              _kernels.SCROLL_GRID):
         if launches[k.name] == 0:
             raise AssertionError(f"{k.name} never launched on the probes path")
     _log(f"phase 10: {len(PROBE_SCRIPTS)} script runs on the card "
@@ -2133,6 +2254,9 @@ def _graphs_phase(dev, cfg, cases, batch, _kernels, timing_, Timer, schedule,
         calls[name] = args_at(1, outs)
     torch.cuda.synchronize()
     launches = {k.symbol: k.launches for k in _kernels.KERNELS}
+    for k in (_kernels.COMPOSITE_GRID, _kernels.SCROLL_GRID):
+        if launches[k.symbol] == 0:
+            raise AssertionError(f"{k.symbol} never launched in a graph")
     _log(f"phase 11: {len(paths)} graphed paths, 8 calls each with changing "
          f"inputs: every call equals its .eager byte for byte, its outputs "
          f"survive the next call, one capture per key; launches {launches}")

@@ -8,7 +8,7 @@ loaded at import time.
 
 Each kernel is a `Kernel` whose `launches` counter goes up by one per
 launch, so a run can show which kernels its main path went through:
-KERNELS are the production kernels K1-K4, PROBE_KERNELS the measurement
+KERNELS are the production kernels K1-K6, PROBE_KERNELS the measurement
 probes P1-P6 (ops/probes.py, ops/cavlc_lockstep.py; P1 one counter per
 stage, P5/P6 one per variant).
 """
@@ -161,7 +161,19 @@ EBSP_NAL = Kernel("h264t_ebsp_nal", [_P, _L, _I, _P, _L, _I, _I, _I, _I, _I,
 # K4: K2's block behind its own entry point and counter.
 PACK_WORDS = Kernel("h264t_pack_words", _PACK_ARGS)
 
-KERNELS = (EMIT_FUSED, PACK_PLACE, EBSP_NAL, PACK_WORDS)
+# K5 (ops/grid.composite_grid_batch): (fields, batch, H, W, r0, c0, R, C,
+#     nrefs_value, wide, compact_x, bg_p, bg_n, bg2_p, bg2_n, sr_p, sr_n,
+#     last, stream); fields a host array of 15 x 5 int64.
+COMPOSITE_GRID = Kernel("h264t_composite_grid",
+                        [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P, _P, _P])
+# K6 (ops/grid.scroll_grid_batch): (fields, batch, h, w, nrefs_value, wide,
+#     compact_x, enable_pskip, pat, nb, last, stream); fields 4 x 5 int64.
+SCROLL_GRID = Kernel("h264t_scroll_grid",
+                     [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P])
+
+KERNELS = (EMIT_FUSED, PACK_PLACE, EBSP_NAL, PACK_WORDS, COMPOSITE_GRID,
+           SCROLL_GRID)
 
 # P1: (stage, then K1's arguments, probe_meta, probe_words, stream); one
 # counter per stage, in csrc's order (0 launch ... 5 full).

@@ -16,6 +16,7 @@ them with the port on any device.
 from __future__ import annotations
 
 import hashlib
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +26,7 @@ from ._kernels import PACK_THREADS, resolve_device
 from .config import ComposerConfig, MAX_EBSP_INSERTIONS, MAX_WAYPOINTS
 from .models import scroll
 from .ops import bitpack, emit_fused
+from .ops import grid as grid_ops
 from .parallel import batch
 
 GOLDEN_PATH = Path(__file__).resolve().parent / "golden" / "scroll_720p.json"
@@ -1170,3 +1172,175 @@ def port_session_golden(device="cuda", workdir=None) -> dict:
         return session_golden(port_package(), step, workdir, device=device)
     with tempfile.TemporaryDirectory() as tmp:
         return session_golden(port_package(), step, tmp, device=device)
+
+
+# ---------------------------------------------------------------------------
+# K5's and K6's cases (ops/grid): tests/test_torch_grid.py holds the plain
+# versions to the JAX package on them, tests/test_torch_cuda.py and
+# chip_smoke.py phase 3 the kernels to the plain versions.
+# ---------------------------------------------------------------------------
+
+GRID_SMALL = (8, 10)        # H x W MBs
+GRID_WIDE = (65, 64)        # 4,160 MBs: the wide layout
+
+# K5: (name, (H, W), (r0, c0, R, C), compact_x, num_refs form, wire dtype);
+# rects at each frame edge, inside, over the whole frame and one MB.
+COMPOSITE_GRID_CASES = (
+    ("interior", GRID_SMALL, (3, 4, 3, 4), True, "int", np.int32),
+    ("top_left", GRID_SMALL, (0, 0, 3, 4), False, "per_session", np.int16),
+    ("top_right", GRID_SMALL, (0, 6, 2, 4), True, "column", np.int8),
+    ("bottom_left", GRID_SMALL, (5, 0, 3, 3), False, "int", np.int8),
+    ("bottom_right", GRID_SMALL, (6, 7, 2, 3), True, "per_session", np.int32),
+    ("full_width", GRID_SMALL, (2, 0, 2, 10), False, "column", np.int16),
+    ("full_frame", GRID_SMALL, (0, 0, 8, 10), True, "int", np.int16),
+    ("single_mb", GRID_SMALL, (4, 9, 1, 1), True, "per_session", np.int8),
+    ("wide", GRID_WIDE, (20, 30, 6, 7), False, "per_session", np.int16),
+    ("wide_edge", GRID_WIDE, (59, 57, 6, 7), False, "int", np.int32),
+)
+
+# K6: (name, (h, w), enable_pskip, compact_x, num_refs form, field dtype).
+SCROLL_GRID_CASES = (
+    ("generic", (6, 10), False, False, "int", np.int32),
+    ("pskip", (6, 10), True, False, "per_session", np.int32),
+    ("compact_pskip", (6, 10), True, True, "column", np.int32),
+    ("compact", (6, 10), False, True, "per_session", np.int16),
+    ("one_row", (1, 9), True, False, "int", np.int16),
+    ("one_column", (7, 1), True, True, "int", np.int32),
+    ("wide_pskip", GRID_WIDE, True, False, "per_session", np.int32),
+    ("wide_compact", GRID_WIDE, False, True, "int", np.int32),
+)
+
+
+def _grid_rng(name: str):
+    return np.random.default_rng(zlib.crc32(name.encode()))
+
+
+def _grid_num_refs(rng, B: int, form: str):
+    """(the port's num_refs argument: an int or numpy int32 [B] or [B, 1],
+    the per-session values [B])."""
+    if form == "int":
+        return 2, np.full(B, 2, np.int32)
+    per = rng.choice(np.asarray([1, 2, 3, 5], np.int32), B)
+    return (per if form == "per_session" else per[:, None]), per
+
+
+def composite_grid_case(name: str):
+    """COMPOSITE_GRID_CASES[name]'s inputs, numpy, from a seed of its
+    name: (rect (r0, c0, R, C), compact_x, num_refs argument, num_refs
+    [B], background (ref, mv_x, mv_y int32, coded bool) [B, H, W], the
+    donor wire {ROLE_FIELDS: [B, R * C] in the case's dtype, "coded": bool
+    [B, R * C]}); a third of the MBs still (ref 0, zero MV)."""
+    _, (H, W), rect, compact_x, nr_form, dtype = next(
+        c for c in COMPOSITE_GRID_CASES if c[0] == name)
+    rng = _grid_rng(name)
+    B = 2 if (H, W) == GRID_WIDE else 5
+    R, C = rect[2:]
+    lo, hi = (-128, 128) if dtype == np.int8 else (-300, 300)
+    ref = rng.integers(0, 4, (B, H, W)).astype(np.int32)
+    mvx = rng.integers(-64, 65, (B, H, W)).astype(np.int32)
+    mvy = rng.integers(-64, 65, (B, H, W)).astype(np.int32)
+    still = rng.random((B, H, W)) < 0.35
+    ref[still], mvx[still], mvy[still] = 0, 0, 0
+    coded = rng.random((B, H, W)) < 0.4
+    dn = {k: (rng.integers(0, 4, (B, R * C)) if k.endswith("ref")
+              else rng.integers(lo, hi, (B, R * C))).astype(dtype)
+          for k in grid_ops.ROLE_FIELDS}
+    dn["coded"] = rng.random((B, R * C)) < 0.6
+    nr_arg, nr = _grid_num_refs(rng, B, nr_form)
+    return rect, compact_x, nr_arg, nr, (ref, mvx, mvy, coded), dn
+
+
+def scroll_grid_case(name: str):
+    """SCROLL_GRID_CASES[name]'s inputs, numpy, from a seed of its name:
+    (enable_pskip, compact_x, num_refs argument, num_refs [B], (ref,
+    mv_x, mv_y) [B, h, w] in the case's dtype): region-like fields (runs
+    of one value along a row) with still MBs, zero mv_x under compact_x."""
+    _, (h, w), pskip, compact_x, nr_form, dtype = next(
+        c for c in SCROLL_GRID_CASES if c[0] == name)
+    rng = _grid_rng(name)
+    B = 2 if (h, w) == GRID_WIDE else 4
+    ref = rng.integers(0, 3, (B, h, w))
+    mvx = (np.zeros((B, h, w), np.int64) if compact_x
+           else rng.integers(-8, 9, (B, h, w)) * 4)
+    mvy = rng.integers(-8, 9, (B, h, w)) * 4
+    runs = rng.random((B, h, w)) < 0.6          # copy the left neighbour
+    for c in range(1, w):
+        for g in (ref, mvx, mvy):
+            g[:, :, c] = np.where(runs[:, :, c], g[:, :, c - 1], g[:, :, c])
+    still = rng.random((B, h, w)) < 0.3
+    ref[still], mvx[still], mvy[still] = 0, 0, 0
+    nr_arg, nr = _grid_num_refs(rng, B, nr_form)
+    return (pskip, compact_x, nr_arg, nr,
+            tuple(g.astype(dtype) for g in (ref, mvx, mvy)))
+
+
+def grid_args(x, device):
+    """A case's numpy inputs (arrays, dicts and tuples of them; ints pass)
+    as tensors on `device`."""
+    if isinstance(x, np.ndarray):
+        return torch.as_tensor(x, device=device)
+    if isinstance(x, dict):
+        return {k: grid_args(v, device) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(grid_args(v, device) for v in x)
+    return x
+
+
+def composite_grid_inputs(cfg: ComposerConfig, dn: dict, batch_size: int,
+                          device, *, rows: bool):
+    """K5's arguments on a splice step's main path at bench.py's geometry,
+    `batch_size` sessions carrying the donors of `dn` in turn: (args,
+    kwargs) of ops/grid.composite_grid_batch.  rows=True: the blob wire
+    decoded as rows_splice_symbols decodes it, compact_x (the compact
+    program); rows=False: the dense wire (the dense step)."""
+    from .models import splice_device
+
+    _hp, _hn, zero, _x, _y, coded0 = splice_session_inputs(cfg, batch_size,
+                                                           device)
+    if rows:
+        idx = torch.arange(batch_size, device=device) % dn["blob"].shape[0]
+        d = splice_device._donor_rows(
+            {"blob": dn["blob"][idx]}, SPLICE_R, SPLICE_C, SPLICE_S_ROW,
+            SPLICE_S_FLAT, SPLICE_S_EXC)
+        d.update(splice_device.edge_roles_to_full(d, SPLICE_R, SPLICE_C))
+    else:
+        d = tile_donors(dn, batch_size)
+    fields = {k: d[k] for k in grid_ops.ROLE_FIELDS + ("coded",)}
+    return ((SPLICE_R0, SPLICE_C0, SPLICE_R, SPLICE_C, SPLICE_NUM_REFS,
+             zero, zero, zero, coded0, fields), {"compact_x": rows})
+
+
+def scroll_grid_inputs(device) -> dict:
+    """K6's arguments on its main paths: {name: (args, kwargs) of
+    ops/grid.scroll_grid_batch} for the 720p scroll step at B = 256
+    (frame 0 of bench_schedule: compact_x, no P_Skip, per-session
+    num_refs), the 720p hint step at B = 256 (hint_step_inputs: compact_x,
+    P_Skip) and the large hint frames of LARGE_HINT_REGIONS at B = 1 and
+    1920x1088, 3840x2160 and 5120x3200 (P_Skip, 3 slots, the wide
+    layout)."""
+    from .models import hints, splice
+
+    cfg = ComposerConfig(GOLDEN_WIDTH, GOLDEN_HEIGHT)
+    B = HINT_STEP_BATCH
+    sched = torch.as_tensor(bench_schedule(cfg.height, B, 1), device=device)
+    state = batch.SessionState.create(B, device=device)
+    needs = scroll.needs_waypoint(sched[0], state.wp_offsets, state.wp_valid,
+                                  state.wp_count)
+    ref, mv_y = scroll.mb_fields_traced(cfg, sched[0], state.wp_offsets,
+                                        state.wp_valid, state.wp_count, needs)
+    out = {"scroll_720p": ((ref, torch.zeros_like(mv_y), mv_y,
+                            2 + state.wp_count),
+                           {"enable_pskip": False, "compact_x": True})}
+    h = {k: torch.as_tensor(v, device=device)
+         for k, v in hint_step_inputs(B).items()}
+    out["hint_720p"] = ((h["ref"], h["mv_x"], h["mv_y"], 2 + h["wp_count"]),
+                        {"enable_pskip": True, "compact_x": True})
+    for w, hh in ((1920, 1088), (3840, 2160), (5120, 3200)):
+        ref, mvx, mvy = hints.hint_fields(ComposerConfig(w, hh),
+                                          splice.FrameHints(motion_regions=tuple(
+                                              splice.MotionRegion(*s)
+                                              for s in LARGE_HINT_REGIONS)),
+                                          device)
+        out[f"hint_{w}x{hh}"] = ((ref[None], mvx[None], mvy[None], 2),
+                                 {"enable_pskip": True})
+    return out

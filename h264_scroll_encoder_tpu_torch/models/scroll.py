@@ -25,7 +25,11 @@ import torch
 
 from ..config import (ComposerConfig, MAX_EBSP_INSERTIONS, MAX_WAYPOINTS,
                       MV_LIMIT_PX)
-from ..ops import bitpack, bitpack_flat, ebsp, emit_fused, expgolomb
+from ..ops import bitpack, bitpack_flat, ebsp, emit_fused, expgolomb, grid
+# The stencils and the skip-run scan live beside K6 (ops/grid); these names
+# stay the module's, the JAX package's models/scroll names.
+from ..ops.grid import (_neighbors, _pred_stencil_roles, _skip_runs,  # noqa: F401
+                        mv_pred_grid, mv_pred_grid_roles, pskip_mv_grid)
 from ..syntax.slice_headers import p_slice_header_symbols
 
 # Tight working-buffer budget for the scroll/waypoint fast path: composed
@@ -160,122 +164,6 @@ def mb_fields(cfg: ComposerConfig, offset_px, wp_offsets, wp_valid,
 
 
 # ---------------------------------------------------------------------------
-# MV prediction stencils.
-# ---------------------------------------------------------------------------
-
-def _median3(a, b, c):
-    return torch.maximum(torch.minimum(a, b),
-                         torch.minimum(torch.maximum(a, b), c))
-
-
-def _shift(f, dy: int, dx: int):
-    """out[..., r, c] = f[..., r - dy, c - dx], zero where out of range."""
-    out = torch.zeros_like(f)
-    h, w = f.shape[-2:]
-    out[..., max(dy, 0):h + min(dy, 0), max(dx, 0):w + min(dx, 0)] = \
-        f[..., max(-dy, 0):h - max(dy, 0), max(-dx, 0):w - max(dx, 0)]
-    return out
-
-
-def _neighbors(field):
-    """(A=left, B=above, C=above-right, D=above-left) shifted grids."""
-    return (_shift(field, 0, 1), _shift(field, 1, 0), _shift(field, 1, -1),
-            _shift(field, 1, 1))
-
-
-def _pred_stencil(ref, mv_x, mv_y, cur_ref):
-    """H.264 8.4.1.3.1 median MV prediction stencil (the C reference's
-    get_mv_prediction decision tree); `cur_ref` is the reference index
-    each MB predicts for."""
-    return _pred_stencil_roles(ref, mv_x, mv_y, ref, mv_x, mv_y,
-                               ref, mv_x, mv_y, cur_ref)
-
-
-def _pred_stencil_roles(refA, mvxA, mvyA, refB, mvxB, mvyB,
-                        refD, mvxD, mvyD, cur_ref):
-    """Prediction stencil with role-specific neighbour values: *A grids
-    supply a cell's value as the left neighbour (its top-right 4x4), *B as
-    above or above-right (bottom-left 4x4), *D as above-left
-    (bottom-right 4x4)."""
-    h, w = refA.shape[-2:]
-    dev = refA.device
-    col = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
-    row = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
-
-    ref_a, mvx_a, mvy_a = (_shift(g, 0, 1) for g in (refA, mvxA, mvyA))
-    ref_b, mvx_b, mvy_b = (_shift(g, 1, 0) for g in (refB, mvxB, mvyB))
-    ref_cr, mvx_cr, mvy_cr = (_shift(g, 1, -1) for g in (refB, mvxB, mvyB))
-    ref_d, mvx_d, mvy_d = (_shift(g, 1, 1) for g in (refD, mvxD, mvyD))
-
-    avail_a = col > 0
-    avail_b = row > 0
-    use_cr = (row > 0) & (col + 1 < w)          # above-right exists
-    use_d = (row > 0) & (col > 0) & ~use_cr     # else above-left fallback
-    avail_c = use_cr | use_d
-    ref_c = torch.where(use_cr, ref_cr, ref_d)
-    mvx_c = torch.where(use_cr, mvx_cr, mvx_d)
-    mvy_c = torch.where(use_cr, mvy_cr, mvy_d)
-
-    match_a = avail_a & (ref_a == cur_ref)
-    match_b = avail_b & (ref_b == cur_ref)
-    match_c = avail_c & (ref_c == cur_ref)
-    n_avail = (avail_a.to(torch.int32) + avail_b.to(torch.int32)
-               + avail_c.to(torch.int32))
-    n_match = (match_a.to(torch.int32) + match_b.to(torch.int32)
-               + match_c.to(torch.int32))
-    only_a = avail_a & ~avail_b & ~avail_c
-
-    def pick(vx_a, vx_b, vx_c):
-        one_match = torch.where(match_a, vx_a,
-                                torch.where(match_b, vx_b, vx_c))
-        med = _median3(torch.where(avail_a, vx_a, 0),
-                       torch.where(avail_b, vx_b, 0),
-                       torch.where(avail_c, vx_c, 0))
-        return torch.where(
-            n_avail == 0, 0,
-            torch.where(only_a, vx_a,
-                        torch.where(n_match == 1, one_match, med)))
-
-    return pick(mvx_a, mvx_b, mvx_c), pick(mvy_a, mvy_b, mvy_c)
-
-
-def mv_pred_grid(ref, mv_x, mv_y):
-    """Encoder-side prediction: each MB predicts for its own ref."""
-    return _pred_stencil(ref, mv_x, mv_y, ref)
-
-
-def mv_pred_grid_roles(cur_ref, refA, mvxA, mvyA, refB, mvxB, mvyB,
-                       refD, mvxD, mvyD):
-    """Encoder-side prediction with role-specific neighbour grids."""
-    return _pred_stencil_roles(refA, mvxA, mvyA, refB, mvxB, mvyB,
-                               refD, mvxD, mvyD, cur_ref)
-
-
-def pskip_mv_grid(ref, mv_x, mv_y):
-    """Decoder-side P_Skip MV derivation (H.264 8.4.1.1): zero when the
-    left or above MB is unavailable or is ref 0 with a zero MV, else the
-    median prediction for ref 0."""
-    h, w = ref.shape[-2:]
-    dev = ref.device
-    col = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
-    row = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
-
-    ref_a, ref_b, _, _ = _neighbors(ref)
-    mvx_a, mvx_b, _, _ = _neighbors(mv_x)
-    mvy_a, mvy_b, _, _ = _neighbors(mv_y)
-
-    avail_a = col > 0
-    avail_b = row > 0
-    zero_a = avail_a & (ref_a == 0) & (mvx_a == 0) & (mvy_a == 0)
-    zero_b = avail_b & (ref_b == 0) & (mvx_b == 0) & (mvy_b == 0)
-    force_zero = (~avail_a) | (~avail_b) | zero_a | zero_b
-
-    pred_x, pred_y = _pred_stencil(ref, mv_x, mv_y, torch.zeros_like(ref))
-    return (torch.where(force_zero, 0, pred_x),
-            torch.where(force_zero, 0, pred_y))
-
-
-# ---------------------------------------------------------------------------
 # Frame emission.
 # ---------------------------------------------------------------------------
 
@@ -309,91 +197,33 @@ def p_frame_symbols(cfg: ComposerConfig, header_patterns, header_nbits,
     Frames over 4,095 MBs use the wide layout, where the skip run gets its
     own slot (ue(skip_run) no longer fits a merged 32-bit slot).
     rbsp_bits_per_mb overrides the working-buffer budget (0 = cfg's).
+    The MB grid (prediction, P_Skip, skip runs, slots) is K6,
+    ops/grid.scroll_grid_batch; the header and the tail skip run frame it.
 
     Returns (patterns int32[B, n] holding uint32 bits, nbits int32[B, n],
     n_rbsp).
     """
-    B, h, w = ref.shape
+    h, w = ref.shape[1:]
     n_mbs = h * w
-    wide = n_mbs > 4095
     if n_mbs > 65535:
         raise ValueError(f"emit_p_frame: {n_mbs} MBs > 65535 — ue(skip_run) "
                          "would exceed 32 bits; split the frame into bands")
-    ref = ref.to(torch.int32)
-    mv_x = mv_x.to(torch.int32)
-    mv_y = mv_y.to(torch.int32)
-
-    pred_x, pred_y = mv_pred_grid(ref, mv_x, mv_y)
-    mvd_x = (mv_x - pred_x).reshape(B, n_mbs)
-    mvd_y = (mv_y - pred_y).reshape(B, n_mbs)
-    ref_f = ref.reshape(B, n_mbs)
-
-    if enable_pskip:
-        skip_x, skip_y = pskip_mv_grid(ref, mv_x, mv_y)
-        can_skip = ((ref == 0) & (mv_x == skip_x)
-                    & (mv_y == skip_y)).reshape(B, n_mbs)
-    else:
-        can_skip = torch.zeros((B, n_mbs), dtype=torch.bool, device=ref.device)
-    coded = ~can_skip
-    skip_run, last_coded_incl = _skip_runs(coded)
-
-    zeros = torch.zeros_like(ref_f)
-    num_refs = _i32(num_refs, ref)
-    if num_refs.dim() == 1:
-        num_refs = num_refs[:, None]
-    sr_pat, sr_n = expgolomb.ue(skip_run)
-    mbt_pat, mbt_n = expgolomb.ue(zeros)
-    ref_pat, ref_n = expgolomb.te(ref_f, num_refs)
-    mvx_pat, mvx_n = expgolomb.se(mvd_x)
-    mvy_pat, mvy_n = expgolomb.se(mvd_y)
-    cbp_pat, cbp_n = expgolomb.ue(zeros)
-
-    merge = bitpack.merge_symbol_pairs
-    if wide:
-        a_pat, a_n = merge(mbt_pat, mbt_n, ref_pat, ref_n)
-    else:
-        a_pat, a_n = merge(sr_pat, sr_n, mbt_pat, mbt_n)
-        a_pat, a_n = merge(a_pat, a_n, ref_pat, ref_n)
-    c_pat, c_n = merge(mvy_pat, mvy_n, cbp_pat, cbp_n)
-
-    if compact_x:
-        a_pat, a_n = merge(a_pat, a_n, mvx_pat, mvx_n)
-        cols = [(a_pat, a_n), (c_pat, c_n)]
-    else:
-        cols = [(a_pat, a_n), (mvx_pat, mvx_n), (c_pat, c_n)]
-    if wide:
-        cols = [(sr_pat, sr_n)] + cols
-    mb_patterns = torch.stack([torch.where(coded, cp, 0) for cp, _ in cols],
-                              dim=2)
-    mb_nbits = torch.stack([torch.where(coded, cn, 0) for _, cn in cols],
-                           dim=2)
-
+    mb_patterns, mb_nbits, last_coded = grid.scroll_grid_batch(
+        ref, mv_x, mv_y, num_refs, enable_pskip=enable_pskip,
+        compact_x=compact_x)
     patterns, nbits = _slice_symbols(header_patterns, header_nbits,
-                                     mb_patterns, mb_nbits, last_coded_incl)
+                                     mb_patterns, mb_nbits, last_coded)
     return patterns, nbits, _n_rbsp(n_mbs, rbsp_bits_per_mb
                                     or cfg.rbsp_bits_per_mb)
 
 
-def _skip_runs(coded):
-    """(mb_skip_run before each MB, index of the last coded MB up to each
-    MB or -1) over coded bool[B, n]: the run before a coded MB is its
-    distance to the previous coded MB."""
-    B, n_mbs = coded.shape
-    idx = torch.arange(n_mbs, dtype=torch.int32,
-                       device=coded.device).expand(B, n_mbs)
-    last_coded_incl = torch.cummax(torch.where(coded, idx, -1), dim=1).values
-    last_coded_before = torch.cat(
-        [torch.full_like(last_coded_incl[:, :1], -1),
-         last_coded_incl[:, :-1]], dim=1)
-    return idx - last_coded_before - 1, last_coded_incl
-
-
 def _slice_symbols(header_patterns, header_nbits, mb_patterns, mb_nbits,
-                   last_coded_incl):
+                   last_coded):
     """Header, the MBs' slots [B, n_mbs, slots] and the trailing skip run
-    after the last coded MB (only if > 0) as one [B, n] symbol stream."""
+    after the last coded MB (`last_coded` [B], -1 for none; only if > 0)
+    as one [B, n] symbol stream."""
     B, n_mbs = mb_patterns.shape[:2]
-    tail_skips = n_mbs - 1 - last_coded_incl[:, -1]
+    tail_skips = n_mbs - 1 - last_coded
     ts_pat, ts_n = expgolomb.ue(tail_skips)
     ts_n = torch.where(tail_skips > 0, ts_n, 0)
     patterns = torch.cat([bitpack.as_u32_bits(header_patterns),
@@ -574,7 +404,8 @@ def partitioned_frame_symbols(cfg: ComposerConfig, header_patterns,
         [torch.where(coded, torch.where(seam_f, s[1], u[1]), 0)
          for u, s in slots], dim=2)
     patterns, nbits = _slice_symbols(header_patterns, header_nbits,
-                                     mb_patterns, mb_nbits, last_coded_incl)
+                                     mb_patterns, mb_nbits,
+                                     last_coded_incl[:, -1])
     return patterns, nbits, _n_rbsp(n_mbs, cfg.rbsp_bits_per_mb)
 
 

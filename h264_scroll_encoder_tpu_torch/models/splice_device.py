@@ -36,7 +36,7 @@ import torch
 
 from .. import _kernels
 from ..config import ComposerConfig
-from ..ops import bitpack, expgolomb
+from ..ops import bitpack, expgolomb, grid
 from ..ops import cavlc_tables as T
 from . import mb_transcode as mbt
 from . import scroll as scroll_model
@@ -56,8 +56,8 @@ CLASS_NC0, CLASS_NC2, CLASS_NC4, CLASS_FLC, CLASS_CHROMA = 0, 1, 2, 3, 4
 # the final bit position and is resolved on the device (_finish_splice).
 ALIGN_SENTINEL = -1
 
-ROLE_FIELDS = ("a_ref", "a_mvx", "a_mvy", "b_ref", "b_mvx", "b_mvy",
-               "d_ref", "d_mvx", "d_mvy")
+# The donor's nine composite MV roles (K5 reads them: ops/grid).
+ROLE_FIELDS = grid.ROLE_FIELDS
 
 
 # ===========================================================================
@@ -1186,100 +1186,24 @@ def _rows_from_flat(dn: dict, R: int, s_row: int):
     return pat, nb[:, :P].reshape(B, R, s_row)
 
 
-def _rect_mask(H, W, r0, c0, R, C, device):
-    m = torch.zeros((H, W), dtype=torch.bool, device=device)
-    m[r0:r0 + R, c0:c0 + C] = True
-    return m
-
-
 def _dense_prologue(cfg, r0, c0, R, C, num_refs,
-                    bg_ref, bg_mv_x, bg_mv_y, bg_coded, dn):
-    """Composite-grid stage: role scatter, exact MV prediction, composite
-    skip runs and the background symbol slots, over [B, H, W] grids.
+                    bg_ref, bg_mv_x, bg_mv_y, bg_coded, dn, *,
+                    compact_x: bool = False) -> grid.CompositeGrid:
+    """Composite-grid stage (the JAX package's _dense_prologue and _bg3):
+    role scatter, exact MV prediction, composite skip runs and the
+    background symbol slots, over [B, H, W] grids, as K5
+    (ops/grid.composite_grid_batch; its plain version for CPU tensors).
     Donor fields may arrive in compact wire dtypes; the math is int32, as
-    the JAX package's (its symbol patterns as uint32 bits)."""
-    H, W = cfg.mb_height, cfg.mb_width
-    B = bg_ref.shape[0]
-    dev = bg_ref.device
-    bg_ref, bg_mv_x, bg_mv_y = (g.to(torch.int32)
-                                for g in (bg_ref, bg_mv_x, bg_mv_y))
-    bg_coded = bg_coded.to(torch.bool)
-    donor_coded = dn["coded"].to(torch.bool).reshape(B, R, C)
-    in_rect = _rect_mask(H, W, r0, c0, R, C, dev)
-
-    def scatter(bg, vals):
-        g = bg.clone()
-        g[:, r0:r0 + R, c0:c0 + C] = vals.to(torch.int32).reshape(B, R, C)
-        return g
-
-    refA, mvxA, mvyA = (scatter(g, dn[k]) for g, k in (
-        (bg_ref, "a_ref"), (bg_mv_x, "a_mvx"), (bg_mv_y, "a_mvy")))
-    refB, mvxB, mvyB = (scatter(g, dn[k]) for g, k in (
-        (bg_ref, "b_ref"), (bg_mv_x, "b_mvx"), (bg_mv_y, "b_mvy")))
-    refD, mvxD, mvyD = (scatter(g, dn[k]) for g, k in (
-        (bg_ref, "d_ref"), (bg_mv_x, "d_mvx"), (bg_mv_y, "d_mvy")))
-
-    coded = bg_coded & ~in_rect
-    coded[:, r0:r0 + R, c0:c0 + C] = donor_coded
-
-    pred_x, pred_y = scroll_model.mv_pred_grid_roles(
-        refA, refA, mvxA, mvyA, refB, mvxB, mvyB, refD, mvxD, mvyD)
-    mvd_x = bg_mv_x - pred_x
-    mvd_y = bg_mv_y - pred_y
-
-    # Composite skip runs.  The merged A slot (skip_run||mb_type||ref)
-    # fits 32 bits only up to 4,095 MBs; larger frames use the wide
-    # layout with the skip run in its own slot.
-    n_mbs = H * W
-    wide = n_mbs > 4095
+    the JAX package's (its symbol patterns as uint32 bits).  Frames over
+    4,095 MBs use the wide background layout, whose skip run has its own
+    slot; compact_x adds the 2-slot background grids."""
+    n_mbs = cfg.mb_height * cfg.mb_width
     if n_mbs > 65535:
         raise ValueError(f"splice: {n_mbs} MBs > 65535 — ue(skip_run) "
                          "would exceed 32 bits; use slice bands")
-    coded_f = coded.reshape(B, n_mbs)
-    idx = torch.arange(n_mbs, dtype=torch.int32, device=dev).expand(B, n_mbs)
-    last_incl = torch.cummax(torch.where(coded_f, idx, -1), dim=1).values
-    last_before = torch.cat([torch.full_like(last_incl[:, :1], -1),
-                             last_incl[:, :-1]], dim=1)
-    sr_pat, sr_n = expgolomb.ue(idx - last_before - 1)
-
-    zeros = torch.zeros((B, n_mbs), dtype=torch.int32, device=dev)
-    mbt_pat, mbt_n = expgolomb.ue(zeros)
-    ref_pat, ref_n = expgolomb.te(bg_ref.reshape(B, n_mbs), num_refs)
-    mvx_pat, mvx_n = expgolomb.se(mvd_x.reshape(B, n_mbs))
-    mvy_pat, mvy_n = expgolomb.se(mvd_y.reshape(B, n_mbs))
-    cbp_pat, cbp_n = expgolomb.ue(zeros)
-    merge = bitpack.merge_symbol_pairs
-    if wide:
-        a_pat, a_n = merge(mbt_pat, mbt_n, ref_pat, ref_n)
-    else:
-        a_pat, a_n = merge(sr_pat, sr_n, mbt_pat, mbt_n)
-        a_pat, a_n = merge(a_pat, a_n, ref_pat, ref_n)
-    c_pat, c_n = merge(mvy_pat, mvy_n, cbp_pat, cbp_n)
-
-    return {
-        "a_pat": a_pat, "a_n": a_n,
-        "mvx_pat": mvx_pat, "mvx_n": mvx_n,
-        "c_pat": c_pat, "c_n": c_n,
-        "bg_active": coded_f & ~in_rect.reshape(1, n_mbs),
-        "sr_pat": sr_pat, "sr_n": sr_n,
-        "coded_f": coded_f, "last_incl": last_incl,
-        "donor_coded": donor_coded,
-        "wide": wide,
-    }
-
-
-def _bg3(pro, H, W):
-    """Generic background symbol grids [B, H, W, S_bg] (S_bg = 3, or 4 in
-    the wide layout, whose skip run has its own slot)."""
-    active = pro["bg_active"]
-    cols = [(pro["a_pat"], pro["a_n"]), (pro["mvx_pat"], pro["mvx_n"]),
-            (pro["c_pat"], pro["c_n"])]
-    if pro["wide"]:
-        cols = [(pro["sr_pat"], pro["sr_n"])] + cols
-    B = active.shape[0]
-    bg_p = torch.stack([torch.where(active, p, 0) for p, _ in cols], dim=2)
-    bg_n = torch.stack([torch.where(active, n, 0) for _, n in cols], dim=2)
-    return bg_p.reshape(B, H, W, len(cols)), bg_n.reshape(B, H, W, len(cols))
+    return grid.composite_grid_batch(r0, c0, R, C, num_refs, bg_ref, bg_mv_x,
+                                     bg_mv_y, bg_coded, dn,
+                                     compact_x=compact_x)
 
 
 def _compact_bg_rows(pat, nb, budget: int):
@@ -1404,17 +1328,18 @@ def rows_splice_symbols(cfg: ComposerConfig, rect_mb_x: int,
     if "edge_a_ref" in dn:
         dn.update(edge_roles_to_full(dn, R, C))
     pro = _dense_prologue(cfg, r0, c0, R, C, num_refs,
-                          bg_ref, bg_mv_x, bg_mv_y, bg_coded, dn)
-    bg_p, bg_n = _bg3(pro, H, W)
+                          bg_ref, bg_mv_x, bg_mv_y, bg_coded, dn,
+                          compact_x=compact_x)
+    bg_p, bg_n = pro.bg_p, pro.bg_n
 
     # Dynamic first-run slots: the composite skip run at each row's first
     # coded donor MB.
     flat_idx = (row_flat0 + first_c.clamp(min=0)).to(torch.int64)
-    dyn_p = torch.where(valid, torch.gather(pro["sr_pat"], 1, flat_idx),
+    dyn_p = torch.where(valid, torch.gather(pro.sr_pat, 1, flat_idx),
                         0)[:, :, None]
-    dyn_n = torch.where(valid, torch.gather(pro["sr_n"], 1, flat_idx),
+    dyn_n = torch.where(valid, torch.gather(pro.sr_n, 1, flat_idx),
                         0)[:, :, None]
-    ts_pat, ts_n = _tail_skips(n_mbs, pro["last_incl"][:, -1])
+    ts_pat, ts_n = _tail_skips(n_mbs, pro.last)
     rows_p, rows_n = dn["row_patterns"], dn["row_nbits"]
 
     def flat(x):
@@ -1433,22 +1358,11 @@ def rows_splice_symbols(cfg: ComposerConfig, rect_mb_x: int,
             [hn, flat(bg_n[:, :r0]), rect_rows(bg_n, dyn_n, rows_n),
              flat(bg_n[:, r0 + R:]), ts_n[:, None]], dim=1)
     else:
-        if pro["wide"]:
-            raise ValueError("compact_x needs <= 4095 MBs (the merged "
-                             "skip-run slot); use compact_x=False")
         # Compact background: 2 slots per MB (A||mvd_x, mvd_y||cbp),
         # except the "wide" ring whose prediction sees donor neighbours
         # (the column right of the rect, the column left of it below the
         # rect's top row, the row under it): it keeps the 3-slot form.
-        active = pro["bg_active"]
-        a2_pat, a2_n = bitpack.merge_symbol_pairs(
-            pro["a_pat"], pro["a_n"], pro["mvx_pat"], pro["mvx_n"])
-        bg2_p = torch.stack([torch.where(active, a2_pat, 0),
-                             torch.where(active, pro["c_pat"], 0)],
-                            dim=2).reshape(B, H, W, 2)
-        bg2_n = torch.stack([torch.where(active, a2_n, 0),
-                             torch.where(active, pro["c_n"], 0)],
-                            dim=2).reshape(B, H, W, 2)
+        bg2_p, bg2_n = pro.bg2_p, pro.bg2_n
         overs = []
 
         def seg(rows, cols):
@@ -1552,15 +1466,15 @@ def dense_splice_symbols(cfg: ComposerConfig, rect_mb_x: int,
 
     pro = _dense_prologue(cfg, r0, c0, R, C, num_refs,
                           bg_ref, bg_mv_x, bg_mv_y, bg_coded, dn)
-    bg_p, bg_n = _bg3(pro, H, W)
-    donor_coded = pro["donor_coded"]
+    bg_p, bg_n = pro.bg_p, pro.bg_n
+    donor_coded = dn["coded"].to(torch.bool).reshape(B, R, C)
 
     # Donor MB slots: [composite skip run | S dense chunks].
     def rect(x):
         return x.reshape(B, H, W)[:, r0:r0 + R, c0:c0 + C, None]
 
-    sr_p = torch.where(donor_coded[..., None], rect(pro["sr_pat"]), 0)
-    sr_n = torch.where(donor_coded[..., None], rect(pro["sr_n"]), 0)
+    sr_p = torch.where(donor_coded[..., None], rect(pro.sr_pat), 0)
+    sr_n = torch.where(donor_coded[..., None], rect(pro.sr_n), 0)
     chunks_p = bitpack.as_u32_bits(dn["patterns"]).reshape(B, R, C, S)
     chunks_n = torch.where(donor_coded[..., None],
                            dn["nbits"].to(torch.int32).reshape(B, R, C, S), 0)
@@ -1574,7 +1488,7 @@ def dense_splice_symbols(cfg: ComposerConfig, rect_mb_x: int,
                           bg[:, r0:r0 + R, c0 + C:].flatten(2)],
                          dim=2).flatten(1)
 
-    ts_pat, ts_n = _tail_skips(H * W, pro["last_incl"][:, -1])
+    ts_pat, ts_n = _tail_skips(H * W, pro.last)
     patterns = torch.cat([hp, bg_p[:, :r0].flatten(1), rows(bg_p, donor_p),
                           bg_p[:, r0 + R:].flatten(1), ts_pat[:, None]], dim=1)
     nbits = torch.cat([hn, bg_n[:, :r0].flatten(1), rows(bg_n, donor_n),

@@ -27,7 +27,9 @@ benchmark schedule, B fresh sessions); for each
 The hand-written kernels run through ctypes, which the dispatcher does
 not see: on the card K1's bytes are counted apart, from the arguments of
 its wrapper (the symbols read once as their dtype; NAL and results
-written).  On the CPU its plain version's ops are in the census.
+written), and so are K5's and K6's (the grid stage: ops/grid's
+composite_grid_bytes and scroll_grid_bytes).  On the CPU their plain
+versions' ops are in the census.
 
     python -m h264_scroll_encoder_tpu_torch.scripts.step_cost \
         [--batch B] [--device cpu]
@@ -45,7 +47,7 @@ from torch.utils._pytree import tree_flatten
 
 from .. import cases
 from ..config import ComposerConfig
-from ..ops import emit_fused
+from ..ops import emit_fused, grid
 from ..parallel import batch as batch_mod
 from . import _probe_common as common
 from .step_xprof import compact_step
@@ -126,19 +128,33 @@ def _census(name, step, inputs, args, dev) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-    census, seen = Census(), {}
+    census, seen = Census(), {"grid": 0}
     real = emit_fused.emit_nal_fused_batch
+    real_grid = (grid.composite_grid_batch, grid.scroll_grid_batch)
 
     def spy(patterns, nbits, *a, **kw):
         seen["symbols"] = patterns
         return real(patterns, nbits, *a, **kw)
 
+    def composite_spy(r0, c0, R, C, *a, **kw):
+        out = real_grid[0](r0, c0, R, C, *a, **kw)
+        seen["grid"] += grid.composite_grid_bytes(*a, out)
+        return out
+
+    def scroll_spy(*a, **kw):
+        out = real_grid[1](*a, **kw)
+        seen["grid"] += grid.scroll_grid_bytes(*a, out)
+        return out
+
     emit_fused.emit_nal_fused_batch = spy
+    grid.composite_grid_batch, grid.scroll_grid_batch = (composite_spy,
+                                                         scroll_spy)
     try:
         with census:
             out = step(*inputs)
     finally:
         emit_fused.emit_nal_fused_batch = real
+        grid.composite_grid_batch, grid.scroll_grid_batch = real_grid
     nal, nal_len = out[1][:2] if name == "scroll" else out[:2]
     peak = (torch.cuda.max_memory_allocated(dev) - base) if cuda else None
     # K1 (ctypes, on the card): its symbols read once; NAL, lengths, bits
@@ -147,6 +163,7 @@ def _census(name, step, inputs, args, dev) -> dict:
     aten = census.total
     k1 = (2 * sym.numel() * sym.element_size() + nal.numel()
           + 9 * nal_len.numel()) if cuda else 0
+    grid_bytes = seen["grid"] if cuda else 0
     if name == "scroll":
         state, offs = inputs
         step_ms = common.chained(
@@ -155,12 +172,12 @@ def _census(name, step, inputs, args, dev) -> dict:
     else:
         step_ms = common.chained(lambda h: step(h, *inputs[1:]), inputs[0],
                                  args)
-    total = aten + k1
+    total = aten + k1 + grid_bytes
     by_op = sorted(census.count,
                    key=lambda k: -(census.read[k] + census.written[k]))
     row = {
         "aten_ops": sum(census.count.values()),
-        "aten_bytes": aten, "k1_bytes": k1,
+        "aten_bytes": aten, "k1_bytes": k1, "grid_bytes": grid_bytes,
         "by_dtype": dict(sorted(census.by_dtype.items(),
                                 key=lambda kv: -kv[1])),
         "int64_share": census.int64_share(),
@@ -176,7 +193,8 @@ def _census(name, step, inputs, args, dev) -> dict:
                                               reverse=True)[:TOP]],
     }
     print(f"{name} B={args.batch}: {row['aten_ops']} aten ops move {aten} B "
-          f"(+ K1's {k1} B on the card); at 3.35 TB/s {row['bound_ms']:.5f} ms "
+          f"(+ K1's {k1} B and K5/K6's {grid_bytes} B on the card); at "
+          f"3.35 TB/s {row['bound_ms']:.5f} ms "
           f"against the step's {step_ms:.5f} ms ({row['bound_share']:.1%}); "
           f"peak {peak if peak is not None else 'not measured (cpu)'} B "
           f"above the inputs; K1 reads {tuple(sym.shape)} {sym.dtype} "

@@ -9,9 +9,15 @@ bench.py's geometry, chip_smoke.py's phase 5 input), each alone:
   stencil   scroll.mv_pred_grid_roles on the scattered donor roles
   skiprun   the composite skip-run scan and its ue() codes
   prologue  the donor rows and _dense_prologue (role scatter, MV
-            stencil, skip runs, background symbol slots)
-  bg3       prologue + _bg3 (the background symbol grids)
+            stencil, skip runs, background symbol slots: K5 on the card)
+  bg3       prologue, reading the background symbol grids (the JAX
+            package's _bg3, now among K5's outputs)
+  grid      K5 alone (ops/grid.composite_grid_batch) on the donor
+            fields the prologue reads, prepared once outside the chain
   layout    all of rows_splice_symbols, the shipped stage
+
+stencil and skiprun are plain torch chains of their own, so the table
+shows the plain pieces beside the kernel.
 
 Each runs op by op, as the step's `.eager` does (no CUDA graph), and for
 each: the time per step of a chain (utils/timing.chained_ms, CUDA
@@ -34,6 +40,7 @@ from .. import cases
 from ..config import ComposerConfig
 from ..models import scroll, splice_device
 from ..ops import expgolomb
+from ..ops import grid as gridops
 from ..utils import timing
 from . import _probe_common as common
 
@@ -58,13 +65,25 @@ def stages(cfg, B: int, dev, n_rbsp: int) -> dict:
 
     def prologue(blob):
         pro = splice_device._dense_prologue(cfg, R0, C0, R, C, 2, zero, zero,
-                                            zero, coded0, donor(blob))
-        return pro["a_pat"], pro["a_n"], pro["sr_pat"], pro["c_pat"]
+                                            zero, coded0, donor(blob),
+                                            compact_x=True)
+        return tuple(x for x in pro if x is not None)
 
     def bg3(blob):
         pro = splice_device._dense_prologue(cfg, R0, C0, R, C, 2, zero, zero,
                                             zero, coded0, donor(blob))
-        return splice_device._bg3(pro, H, W)
+        return pro.bg_p, pro.bg_n
+
+    # K5's inputs from the full batch, prepared once: the chain's
+    # perturbed blob does not reach them, and each step launches K5 alone.
+    fixed = {}
+
+    def grid_only(blob):
+        if not fixed:
+            fixed.update(donor(blob))
+        return tuple(x for x in gridops.composite_grid_batch(
+            R0, C0, R, C, 2, zero, zero, zero, coded0, fixed, compact_x=True)
+            if x is not None)
 
     def layout(blob):
         return splice_device.rows_splice_symbols(
@@ -98,7 +117,8 @@ def stages(cfg, B: int, dev, n_rbsp: int) -> dict:
         return expgolomb.ue(idx - before - 1)
 
     return {"unblob": unblob, "stencil": stencil, "skiprun": skiprun,
-            "prologue": prologue, "bg3": bg3, "layout": layout}
+            "prologue": prologue, "bg3": bg3, "grid": grid_only,
+            "layout": layout}
 
 
 def main(argv=None) -> int:

@@ -18,7 +18,8 @@ import torch
 from h264_scroll_encoder_tpu_torch import _kernels, cases
 from h264_scroll_encoder_tpu_torch.config import ComposerConfig, MAX_WAYPOINTS
 from h264_scroll_encoder_tpu_torch.models import scroll
-from h264_scroll_encoder_tpu_torch.ops import bitpack_flat, ebsp_flat, emit_fused
+from h264_scroll_encoder_tpu_torch.ops import (bitpack_flat, ebsp_flat, emit_fused,
+                                               grid)
 from h264_scroll_encoder_tpu_torch.parallel import batch
 from h264_scroll_encoder_tpu_torch.syntax import slice_headers
 
@@ -1123,3 +1124,134 @@ def test_capture_failure_raises_without_eager_fallback(dev):
             g(x)
     assert g.captures == 0 and not g.graphs
     assert torch.equal(x + 1, torch.full((4,), 2.0, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6 (ops/grid): the symbol stages' grid kernels.
+# ---------------------------------------------------------------------------
+
+def _grid_same(got, want):
+    """Kernel outputs on the card equal the plain version's (any device),
+    None where the plain version has none."""
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("name", [c[0] for c in cases.COMPOSITE_GRID_CASES])
+def test_composite_grid_kernel(dev, name):
+    rect, compact_x, nr_arg, _nr, bg, dn = cases.composite_grid_case(name)
+    want = grid.composite_grid_plain(
+        *rect, *cases.grid_args((nr_arg, *bg, dn), "cpu"), compact_x=compact_x)
+    before = _kernels.COMPOSITE_GRID.launches
+    got = grid.composite_grid_batch(
+        *rect, *cases.grid_args((nr_arg, *bg, dn), dev), compact_x=compact_x)
+    assert _kernels.COMPOSITE_GRID.launches == before + 1
+    _grid_same(got, want)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in cases.SCROLL_GRID_CASES])
+def test_scroll_grid_kernel(dev, name):
+    pskip, compact_x, nr_arg, _nr, fields = cases.scroll_grid_case(name)
+    kw = dict(enable_pskip=pskip, compact_x=compact_x)
+    want = grid.scroll_grid_plain(*cases.grid_args((*fields, nr_arg), "cpu"),
+                                  **kw)
+    before = _kernels.SCROLL_GRID.launches
+    got = grid.scroll_grid_batch(*cases.grid_args((*fields, nr_arg), dev),
+                                 **kw)
+    assert _kernels.SCROLL_GRID.launches == before + 1
+    _grid_same(got, want)
+
+
+def test_grid_kernels_read_inputs_in_place(dev):
+    """Strided, sliced and broadcast inputs, int64 and int16 grids, uint8
+    coded masks and a device num_refs read as they lie: equal to the
+    plain version, and the wrappers run no tensor op around the launch."""
+    rect, _c, _nr_arg, nr, bg, dn = cases.composite_grid_case("interior")
+    ref, mvx, mvy, coded = cases.grid_args(bg, dev)
+    wide = torch.zeros(ref.shape[:2] + (2 * ref.shape[2],),
+                       dtype=torch.int16, device=dev)
+    wide[:, :, ::2] = mvx.to(torch.int16)
+    args = (rect[0], rect[1], rect[2], rect[3],
+            torch.as_tensor(nr, device=dev)[:, None],
+            ref.to(torch.int64), wide[:, :, ::2], mvy, coded.to(torch.uint8),
+            {k: torch.as_tensor(np.stack([v, v], axis=-1), device=dev)[..., 0]
+             if k.endswith("mvy") else torch.as_tensor(v, device=dev)
+             for k, v in dn.items()})
+    for compact_x in (False, True):
+        _grid_same(grid.composite_grid_batch(*args, compact_x=compact_x),
+                   grid.composite_grid_plain(*args, compact_x=compact_x))
+        assert cases.compute_ops(lambda: grid.composite_grid_batch(
+            *args, compact_x=compact_x)) == []
+    pskip, compact_x, _nr_arg, nr, fields = cases.scroll_grid_case("pskip")
+    ref, mvx, mvy = cases.grid_args(fields, dev)
+    one = ref[:1].expand(4, -1, -1)                 # batch stride 0
+    for f, nr_dev in (((ref.to(torch.int16), mvx, mvy.to(torch.int64)),
+                       torch.as_tensor(nr, device=dev)),
+                      ((one, mvx, mvy), 3)):
+        kw = dict(enable_pskip=pskip, compact_x=compact_x)
+        _grid_same(grid.scroll_grid_batch(*f, nr_dev, **kw),
+                   grid.scroll_grid_plain(*f, nr_dev, **kw))
+        assert cases.compute_ops(
+            lambda: grid.scroll_grid_batch(*f, nr_dev, **kw)) == []
+
+
+@pytest.mark.parametrize("path", ["rows", "dense"])
+def test_composite_grid_kernel_on_the_splice_steps(dev, path):
+    """K5 on the 720p splice steps' own inputs at B = 64 (32 donors in
+    turn): the rows wire (compact_x) and the dense wire."""
+    cfg = ComposerConfig(1280, 720)
+    if path == "rows":
+        pays = [cases.splice_donor_payload(k) for k in range(32)]
+        dn, _bits, _align = cases.prepare_splice_donors(pays, engine="native",
+                                                        device=dev)
+    else:
+        dn, _bits, _align = cases.prepare_dense_donors(
+            "representative", engine="native", device=dev)
+    args, kw = cases.composite_grid_inputs(cfg, dn, 64, dev,
+                                           rows=path == "rows")
+    _grid_same(grid.composite_grid_batch(*args, **kw),
+               grid.composite_grid_plain(*args, **kw))
+
+
+def test_scroll_grid_kernel_on_its_paths(dev):
+    """K6 on the 720p scroll and hint steps' inputs at B = 256 and on the
+    1920x1088, 3840x2160 and 5120x3200 hint frames (the wide layout)."""
+    for name, (args, kw) in cases.scroll_grid_inputs(dev).items():
+        _grid_same(grid.scroll_grid_batch(*args, **kw),
+                   grid.scroll_grid_plain(*args, **kw))
+
+
+def test_symbol_stages_launch_the_grid_kernels(dev):
+    """On the card p_frame_symbols launches K6 once and _dense_prologue K5
+    once, and neither runs its plain version."""
+    from h264_scroll_encoder_tpu_torch.models import splice_device
+
+    cfg = ComposerConfig(1280, 720)
+    calls = []
+    real = (grid.scroll_grid_plain, grid.composite_grid_plain)
+    try:
+        grid.scroll_grid_plain = lambda *a, **k: calls.append("K6")
+        grid.composite_grid_plain = lambda *a, **k: calls.append("K5")
+        (args, kw), = [v for k, v in cases.scroll_grid_inputs(dev).items()
+                       if k == "hint_720p"]
+        hp, hn = slice_headers.p_slice_header_symbols(
+            cfg, torch.full((256,), 3, dtype=torch.int32, device=dev),
+            torch.full((256,), 6, dtype=torch.int32, device=dev),
+            False, -1, 0, *_registry_zeros(256, dev)[1:3])
+        before = _kernels.SCROLL_GRID.launches
+        scroll.p_frame_symbols(cfg, hp, hn, *args, **kw)
+        assert _kernels.SCROLL_GRID.launches == before + 1
+        dn, _b, _a = cases.prepare_dense_donors("representative",
+                                                engine="native", device=dev)
+        (r0, c0, R, C, nr, *bg, fields), _kw = cases.composite_grid_inputs(
+            cfg, dn, 8, dev, rows=False)
+        before = _kernels.COMPOSITE_GRID.launches
+        splice_device._dense_prologue(cfg, r0, c0, R, C, nr, *bg, fields)
+        assert _kernels.COMPOSITE_GRID.launches == before + 1
+    finally:
+        grid.scroll_grid_plain, grid.composite_grid_plain = real
+    assert calls == []

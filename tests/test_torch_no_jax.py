@@ -23,8 +23,8 @@ print(len(names))
 """
 
 # Modules of the later slices (utilities, the dry run, examples, scripts,
-# the measurement probes P1-P6): walk_packages must reach them, so their
-# __init__ files must exist.
+# the measurement probes P1-P6, the grid kernels' ops/grid): walk_packages
+# must reach them, so their __init__ files must exist.
 NEW_MODULES = (
     "utils.snapshot", "utils.trace", "utils.mp4mux", "parallel.dryrun",
     "examples.serving_demo", "examples.splice_serving_demo",
@@ -37,7 +37,7 @@ NEW_MODULES = (
     "scripts.ebsp_stage_probe", "scripts.ebsp_sizing_probe",
     "scripts.gpu_parity_probe", "ops.cavlc_lockstep",
     "scripts.cavlc_device_probe", "scripts.ebsp_cumsum_probe",
-    "scripts.ebsp_fused_probe")
+    "scripts.ebsp_fused_probe", "ops.grid")
 
 
 def test_port_imports_no_jax():
