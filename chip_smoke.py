@@ -46,12 +46,16 @@ it launches, so K1 still counts once per step or frame:
      1920x1088 hint and 3840x2160 scroll frames that one block stages in
      several chunks.  The grid stage's kernels likewise: K5
      (ops/grid.composite_grid_batch) on cases.COMPOSITE_GRID_CASES and on
-     the 720p rows (compact_x) and dense splice inputs at B = 256 and
-     1,024, K6 (ops/grid.scroll_grid_batch) on cases.SCROLL_GRID_CASES,
-     the 720p scroll and hint steps' fields at B = 256 and the
-     1920x1088, 3840x2160 and 5120x3200 hint frames, every output exactly
-     equal to the plain version's; their wrappers run no tensor op on
-     those inputs; each timed as K1 is, beside its bound.
+     the 720p rows (compact_x) inputs at B = 1, 256 and 1,024 and the
+     dense splice inputs at B = 256, K6 (ops/grid.scroll_grid_batch) on
+     cases.SCROLL_GRID_CASES, the 720p scroll and hint steps' fields at
+     B = 256, a session's 720p scroll frame at B = 1 and the 1920x1088,
+     3840x2160 and 5120x3200 hint frames, each on the band plan the
+     library gives (`_kernels.grid_plan`: the row bands a session, a
+     thread-block cluster where more than one), and on one small case
+     each (GRID_FORCED_CASES) at every band plan forced; every output
+     exactly equal to the plain version's; their wrappers run no tensor
+     op on those inputs; each timed as K1 is, beside its bound and plan.
   4. The scroll path — `parallel.batch.make_batched_step` at 1280x720 —
      over 16 frames of the benchmark's schedule at B = 256, then the
      golden batch-8 schedule and one `ebsp_exact` (K2) frame per session,
@@ -207,6 +211,8 @@ LARGE_K1_ROWS = {"K1 hint 3840x2160 B=1 (cluster 8)": "hint_3840x2160",
                  "K1 dense I_PCM 720p B=32 (cluster 4)": "dense_ipcm_720p"}
 LARGE_K2_ROWS = {"K2 exact 4096x2160 B=1 (cluster 8)": "exact_4096x2160",
                  "K2 exact 5120x3200 B=1 (cluster 16)": "exact_5120x3200"}
+# The small grid cases phase 3 also runs at every band plan forced.
+GRID_FORCED_CASES = {"K5": "sparse_rows", "K6": "still_band"}
 # K1 on the shapes one block holds in several staged chunks
 # (cases.multichunk_emit_inputs), timed beside them.
 MULTICHUNK_K1_ROWS = {"K1 hint 1920x1088 B=1 (one block, 3 chunks)": "hint_1920x1088",
@@ -613,11 +619,11 @@ def main() -> int:
     # the 720p scroll and hint steps at B = 256, the large hint frames at
     # B = 1), every output equal to the plain version's on the same CUDA
     # inputs.
-    def check_grid(name, case, args, kw):
+    def check_grid(name, case, args, kw, parts=None):
         fn, plain = ((grid.composite_grid_batch, grid.composite_grid_plain)
                      if name == "K5" else
                      (grid.scroll_grid_batch, grid.scroll_grid_plain))
-        got, want = fn(*args, **kw), plain(*args, **kw)
+        got, want = fn(*args, parts=parts, **kw), plain(*args, **kw)
         if [g is None for g in got] != [w is None for w in want]:
             raise AssertionError(f"{name} {case}: outputs differ in kind")
         hold(name, case, [g for g in got if g is not None],
@@ -633,6 +639,20 @@ def main() -> int:
         pskip, compact_x, nr_arg, _nr, fields = cases.scroll_grid_case(name)
         check_grid("K6", name, cases.grid_args((*fields, nr_arg), dev),
                    {"enable_pskip": pskip, "compact_x": compact_x})
+    # Every band plan forced on one small case each (a band with no coded
+    # MB between bands with some: the carry across the cluster).
+    rect, compact_x, nr_arg, _nr, bg, dn_c = cases.composite_grid_case(
+        GRID_FORCED_CASES["K5"])
+    for p in grid.allowed_parts(*bg[0].shape[1:]):
+        check_grid("K5", f"{GRID_FORCED_CASES['K5']} P={p}",
+                   (*rect, *cases.grid_args((nr_arg, *bg, dn_c), dev)),
+                   {"compact_x": compact_x}, parts=p)
+    pskip, compact_x, nr_arg, _nr, fields = cases.scroll_grid_case(
+        GRID_FORCED_CASES["K6"])
+    for p in grid.allowed_parts(*fields[0].shape[1:]):
+        check_grid("K6", f"{GRID_FORCED_CASES['K6']} P={p}",
+                   cases.grid_args((*fields, nr_arg), dev),
+                   {"enable_pskip": pskip, "compact_x": compact_x}, parts=p)
     dense_dn, _dbits, _dalign = cases.prepare_dense_donors(
         "representative", engine="native", device=dev)
     k6_in = cases.scroll_grid_inputs(dev)
@@ -643,13 +663,23 @@ def main() -> int:
                                                   rows=True)),
         "K5 B=1024": ("K5", *cases.composite_grid_inputs(cfg, dn32, 1024, dev,
                                                          rows=True)),
+        "K5 B=1": ("K5", *cases.composite_grid_inputs(cfg, dn32, 1, dev,
+                                                      rows=True)),
         "K5 dense": ("K5", *cases.composite_grid_inputs(cfg, dense_dn, B, dev,
                                                         rows=False)),
         "K6": ("K6", *k6_in["scroll_720p"]),
         "K6 hint": ("K6", *k6_in["hint_720p"]),
-        **{f"K6 hint {k[5:]} B=1 (one block)": ("K6", *v)
+        "K6 session B=1": ("K6", *k6_in["session_720p"]),
+        **{f"K6 hint {k[5:]} B=1 (bands)": ("K6", *v)
            for k, v in k6_in.items() if not k.endswith("720p")},
     }
+    # Each shape's band plan: the blocks a session (a cluster where > 1).
+    grid_parts = {}
+    for label, (kern, args, kw) in grid_runs.items():
+        g = args[5] if kern == "K5" else args[0]
+        grid_parts[label] = _kernels.grid_plan(
+            g.shape[1] * g.shape[2], g.shape[2], g.shape[0],
+            grid.GRID_COMPOSITE if kern == "K5" else grid.GRID_SCROLL)
     grid_out = {label: check_grid(kern, label, args, kw)
                 for label, (kern, args, kw) in grid_runs.items()}
     for label, (kern, args, kw) in grid_runs.items():
@@ -663,8 +693,10 @@ def main() -> int:
          f"{len(cases.COMPOSITE_GRID_CASES)} cases (rects at every edge, "
          f"compact_x, the wide layout, int8/int16/int32 roles) and K6 on "
          f"{len(cases.SCROLL_GRID_CASES)} (P_Skip, compact_x, wide), both on "
+         f"{GRID_FORCED_CASES} at every band plan forced and on "
          f"{sorted(grid_runs)}, every output exactly; their wrappers run no "
-         f"tensor op on those inputs")
+         f"tensor op on those inputs; band plans (blocks a session): "
+         f"{grid_parts}")
 
     # Timing at the 720p B = 256 splice shapes (K1 and K3 also at B = 1
     # and 1,024, K1 at the scroll shapes): the kernel's device time on the
@@ -750,7 +782,8 @@ def main() -> int:
     }
     timing = {}
     for name, (kernel, plain) in runs.items():
-        where = ("" if any(w in name for w in ("cluster", "global", "block"))
+        where = ("" if any(w in name for w in ("cluster", "global", "block",
+                                                 "bands"))
                  else " at 720p")
         p_a = timing_.call_ms(plain, 10)
         d_a = timing_.device_ms(kernel)
@@ -820,11 +853,13 @@ def main() -> int:
                                       ebsp_flat.padded_len(259_328)))
     bound["K3 n_nal=259328 B=4 (global)"] = (int(g_staged.sum()) + 8 * len(g_lens)
                                             + len(g_lens) * (259_328 + 4))
-    # K5 and K6: each input they read once (the arguments as passed) and
-    # each output written once (ops/grid's byte counts); their integer work
-    # (a few dozen operations an MB) takes far less at the card's rates.
+    # K5 and K6: each input they need at this run's data read once (a
+    # tensor passed twice counted once; K5's MVs and refs only around its
+    # live MBs, none on the all-skip background) and each output written
+    # once (ops/grid's byte counts); their integer work (a few dozen
+    # operations an MB) takes far less at the card's rates.
     for label, (kern, args, kw) in grid_runs.items():
-        bound[label] = (grid.composite_grid_bytes(*args[4:], grid_out[label])
+        bound[label] = (grid.composite_grid_bytes(*args, grid_out[label])
                         if kern == "K5" else
                         grid.scroll_grid_bytes(*args, grid_out[label]))
     compare_bytes = {"K1 int64": B * n_s * 16 + B * (n_nal_s + 16),
@@ -1080,8 +1115,10 @@ def main() -> int:
         large = {label: {"cluster": LARGE_CLUSTERS.get(shape, 1), **timing[label],
                          "bound_ms": bound_ms[label]}
                  for label, shape in large_rows.get(key, {}).items()}
-        # K5's and K6's other timed shapes (phase 3's grid_runs).
-        shapes = {label: {**timing[label], "bound_ms": bound_ms[label]}
+        # K5's and K6's other timed shapes (phase 3's grid_runs), each with
+        # its band plan.
+        shapes = {label: {**timing[label], "bound_ms": bound_ms[label],
+                          "parts": grid_parts[label]}
                   for label, (kern, _a, _k) in grid_runs.items()
                   if kern == key and label != key}
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -1089,6 +1126,8 @@ def main() -> int:
                         "launches_by_path": by_path, "max_abs_err": errs[key],
                         **timing[key], "bound_ms": bound_ms[key],
                         "bound_by": "bytes", "library_ms": None,
+                        **({"parts": grid_parts[key]} if key in grid_parts
+                           else {}),
                         **({"large": large} if large else {}),
                         **({"shapes": shapes} if shapes else {})})
     for row in probe_rows:

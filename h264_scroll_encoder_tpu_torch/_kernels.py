@@ -93,6 +93,18 @@ def build() -> Path:
     return out
 
 
+def ptxas_report(source: str) -> str:
+    """What `nvcc -Xptxas -v` says of csrc/<source> built as the library
+    builds it (registers, stack, spills and shared memory of each
+    kernel); compiles into a temporary file and keeps nothing."""
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                            "-o", os.path.join(tmp, "x.o"),
+                            str(_CSRC / source)],
+                           capture_output=True, text=True, check=True)
+    return r.stdout + r.stderr
+
+
 def _load():
     global _lib
     with _lock:
@@ -162,15 +174,16 @@ EBSP_NAL = Kernel("h264t_ebsp_nal", [_P, _L, _I, _P, _L, _I, _I, _I, _I, _I,
 PACK_WORDS = Kernel("h264t_pack_words", _PACK_ARGS)
 
 # K5 (ops/grid.composite_grid_batch): (fields, batch, H, W, r0, c0, R, C,
-#     nrefs_value, wide, compact_x, bg_p, bg_n, bg2_p, bg2_n, sr_p, sr_n,
-#     last, stream); fields a host array of 15 x 5 int64.
+#     nrefs_value, wide, compact_x, parts, bg_p, bg_n, bg2_p, bg2_n, sr_p,
+#     sr_n, last, stream); fields a host array of 15 x 5 int64.
 COMPOSITE_GRID = Kernel("h264t_composite_grid",
-                        [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P, _P, _P])
 # K6 (ops/grid.scroll_grid_batch): (fields, batch, h, w, nrefs_value, wide,
-#     compact_x, enable_pskip, pat, nb, last, stream); fields 4 x 5 int64.
+#     compact_x, enable_pskip, parts, pat, nb, last, stream); fields 4 x 5
+#     int64.
 SCROLL_GRID = Kernel("h264t_scroll_grid",
-                     [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P])
+                     [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P])
 
 KERNELS = (EMIT_FUSED, PACK_PLACE, EBSP_NAL, PACK_WORDS, COMPOSITE_GRID,
            SCROLL_GRID)
@@ -234,6 +247,34 @@ def cluster_items(n: int, c: int) -> int:
     """Symbols a thread of a cluster block owns per staged chunk, as the
     built kernels compute them (h264t_cluster_items; launches nothing)."""
     return _plan("h264t_cluster_items", torch.cuda.current_device(), n, c)
+
+
+def grid_plan(n_mbs: int, w: int, batch: int, kind: int) -> int:
+    """K5's (kind 0) or K6's (kind 1) band plan on the current device for
+    `batch` sessions of n_mbs MBs, w a row, as the built kernels decide
+    (h264t_grid_plan; launches nothing): the row bands a session, P in
+    ops/grid.PARTS (P > 1: a thread-block cluster of P blocks); 0 where no
+    band fits a block (_plan's cache keeps each device's answer per
+    shape: the library asks the runtime ~20 times for it)."""
+    return _plan("h264t_grid_plan", torch.cuda.current_device(), n_mbs, w,
+                 batch, kind)
+
+
+def grid_capacity(n_mbs: int, w: int, parts: int, kind: int) -> int:
+    """Blocks of the plan of `parts` bands the current device holds at once
+    (h264t_grid_capacity; 0 where a band does not fit a block): what
+    grid_plan weighs."""
+    return _plan("h264t_grid_capacity", torch.cuda.current_device(), n_mbs,
+                 w, parts, kind)
+
+
+def grid_arithmetic(name: str, *args: int) -> int:
+    """The band arithmetic of the built kernels, for ops/grid's twin:
+    `name` band_row (h, parts, r), items (n_mbs, w, parts) or smem (n_mbs,
+    w, parts, kind), h264t_grid_<name>."""
+    fn = getattr(_load(), f"h264t_grid_{name}")
+    fn.argtypes, fn.restype = [_I] * len(args), ctypes.c_int
+    return fn(*args)
 
 
 def ebsp_nal_in_global(n_nal: int) -> bool:

@@ -1196,6 +1196,7 @@ COMPOSITE_GRID_CASES = (
     ("single_mb", GRID_SMALL, (4, 9, 1, 1), True, "per_session", np.int8),
     ("wide", GRID_WIDE, (20, 30, 6, 7), False, "per_session", np.int16),
     ("wide_edge", GRID_WIDE, (59, 57, 6, 7), False, "int", np.int32),
+    ("sparse_rows", GRID_SMALL, (6, 2, 2, 5), True, "per_session", np.int16),
 )
 
 # K6: (name, (h, w), enable_pskip, compact_x, num_refs form, field dtype).
@@ -1208,7 +1209,14 @@ SCROLL_GRID_CASES = (
     ("one_column", (7, 1), True, True, "int", np.int32),
     ("wide_pskip", GRID_WIDE, True, False, "per_session", np.int32),
     ("wide_compact", GRID_WIDE, False, True, "int", np.int32),
+    ("still_band", (8, 10), True, False, "per_session", np.int32),
 )
+
+# Rows [lo, hi) of a case with no coded MB: K5's background is not coded
+# there (the rect lies elsewhere), K6's fields are still (ref 0, zero MV;
+# P_Skip).  A band plan of 4 on 8 rows then has bands with no coded MB
+# between bands that have some (ops/grid's band carry).
+GRID_UNCODED_ROWS = {"sparse_rows": (1, 5), "still_band": (2, 6)}
 
 
 def _grid_rng(name: str):
@@ -1229,7 +1237,8 @@ def composite_grid_case(name: str):
     name: (rect (r0, c0, R, C), compact_x, num_refs argument, num_refs
     [B], background (ref, mv_x, mv_y int32, coded bool) [B, H, W], the
     donor wire {ROLE_FIELDS: [B, R * C] in the case's dtype, "coded": bool
-    [B, R * C]}); a third of the MBs still (ref 0, zero MV)."""
+    [B, R * C]}); a third of the MBs still (ref 0, zero MV), the rows of
+    GRID_UNCODED_ROWS not coded."""
     _, (H, W), rect, compact_x, nr_form, dtype = next(
         c for c in COMPOSITE_GRID_CASES if c[0] == name)
     rng = _grid_rng(name)
@@ -1242,6 +1251,8 @@ def composite_grid_case(name: str):
     still = rng.random((B, H, W)) < 0.35
     ref[still], mvx[still], mvy[still] = 0, 0, 0
     coded = rng.random((B, H, W)) < 0.4
+    u0, u1 = GRID_UNCODED_ROWS.get(name, (0, 0))
+    coded[:, u0:u1] = False
     dn = {k: (rng.integers(0, 4, (B, R * C)) if k.endswith("ref")
               else rng.integers(lo, hi, (B, R * C))).astype(dtype)
           for k in grid_ops.ROLE_FIELDS}
@@ -1254,7 +1265,8 @@ def scroll_grid_case(name: str):
     """SCROLL_GRID_CASES[name]'s inputs, numpy, from a seed of its name:
     (enable_pskip, compact_x, num_refs argument, num_refs [B], (ref,
     mv_x, mv_y) [B, h, w] in the case's dtype): region-like fields (runs
-    of one value along a row) with still MBs, zero mv_x under compact_x."""
+    of one value along a row) with still MBs, the rows of
+    GRID_UNCODED_ROWS all still, zero mv_x under compact_x."""
     _, (h, w), pskip, compact_x, nr_form, dtype = next(
         c for c in SCROLL_GRID_CASES if c[0] == name)
     rng = _grid_rng(name)
@@ -1268,6 +1280,8 @@ def scroll_grid_case(name: str):
         for g in (ref, mvx, mvy):
             g[:, :, c] = np.where(runs[:, :, c], g[:, :, c - 1], g[:, :, c])
     still = rng.random((B, h, w)) < 0.3
+    u0, u1 = GRID_UNCODED_ROWS.get(name, (0, 0))
+    still[:, u0:u1] = True
     ref[still], mvx[still], mvy[still] = 0, 0, 0
     nr_arg, nr = _grid_num_refs(rng, B, nr_form)
     return (pskip, compact_x, nr_arg, nr,
@@ -1314,7 +1328,9 @@ def scroll_grid_inputs(device) -> dict:
     """K6's arguments on its main paths: {name: (args, kwargs) of
     ops/grid.scroll_grid_batch} for the 720p scroll step at B = 256
     (frame 0 of bench_schedule: compact_x, no P_Skip, per-session
-    num_refs), the 720p hint step at B = 256 (hint_step_inputs: compact_x,
+    num_refs), a session's 720p scroll frame (its first session, B = 1:
+    the batch-1 latency path), the 720p hint step at B = 256
+    (hint_step_inputs: compact_x,
     P_Skip) and the large hint frames of LARGE_HINT_REGIONS at B = 1 and
     1920x1088, 3840x2160 and 5120x3200 (P_Skip, 3 slots, the wide
     layout)."""
@@ -1331,6 +1347,9 @@ def scroll_grid_inputs(device) -> dict:
     out = {"scroll_720p": ((ref, torch.zeros_like(mv_y), mv_y,
                             2 + state.wp_count),
                            {"enable_pskip": False, "compact_x": True})}
+    # A ComposerSession's scroll frame: one session of the same step.
+    out["session_720p"] = (tuple(x[:1] for x in out["scroll_720p"][0]),
+                           out["scroll_720p"][1])
     h = {k: torch.as_tensor(v, device=device)
          for k, v in hint_step_inputs(B).items()}
     out["hint_720p"] = ((h["ref"], h["mv_x"], h["mv_y"], 2 + h["wp_count"]),

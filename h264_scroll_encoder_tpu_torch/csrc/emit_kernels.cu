@@ -280,9 +280,9 @@ cudaError_t launch_emit(const void* pat, const void* nb, long long pat_row, long
   const Sym* q = static_cast<const Sym*>(nb);
   const size_t smem = emit_smem_of(k, n_nal, cluster);
   if (cluster > 1) {
-    return launch_clusters(emit_fused_cluster_kernel<Sym>, batch, cluster, smem, stream, p, q,
-                           pat_row, nb_row, idc, idc_row, idc_value, n, k, n_nal, n_rbsp, cap,
-                           align, append_tb, nal_out, len_out, bits_out, ovf_out);
+    return launch_clusters(emit_fused_cluster_kernel<Sym>, batch, cluster, kPackThreads, smem,
+                           stream, p, q, pat_row, nb_row, idc, idc_row, idc_value, n, k, n_nal,
+                           n_rbsp, cap, align, append_tb, nal_out, len_out, bits_out, ovf_out);
   }
   cudaError_t err = set_smem((const void*)emit_fused_kernel<Sym>, smem);
   if (err != cudaSuccess) return err;
@@ -300,8 +300,8 @@ cudaError_t launch_pack(const void* pat, const void* nb, long long pat_row, long
   const Sym* q = static_cast<const Sym*>(nb);
   const size_t smem = pack_smem_of(k, n_words, cluster);
   if (cluster > 1) {
-    return launch_clusters(pack_place_cluster_kernel<Sym>, batch, cluster, smem, stream, p, q,
-                           pat_row, nb_row, n, k, n_words, words_out, total_out);
+    return launch_clusters(pack_place_cluster_kernel<Sym>, batch, cluster, kPackThreads, smem,
+                           stream, p, q, pat_row, nb_row, n, k, n_words, words_out, total_out);
   }
   cudaError_t err = set_smem((const void*)pack_place_kernel<Sym>, smem);
   if (err != cudaSuccess) return err;
@@ -425,10 +425,12 @@ extern "C" int h264t_pack_words(const void* pat, const void* nb, int sym_bytes, 
 // current device; -1 if the runtime cannot say.  Launches nothing.
 extern "C" int h264t_emit_blocks_per_sm(int sym_bytes, int k, int n_nal, int cluster) {
   if ((sym_bytes != 4 && sym_bytes != 8) || !valid_cluster(cluster)) return -1;
-  return blocks_per_sm(emit_kernel_of(sym_bytes, cluster), emit_smem_of(k, n_nal, cluster));
+  return blocks_per_sm(emit_kernel_of(sym_bytes, cluster), kPackThreads,
+                       emit_smem_of(k, n_nal, cluster));
 }
 
 extern "C" int h264t_pack_blocks_per_sm(int sym_bytes, int k, int n_words, int cluster) {
   if ((sym_bytes != 4 && sym_bytes != 8) || !valid_cluster(cluster)) return -1;
-  return blocks_per_sm(pack_kernel_of(sym_bytes, cluster), pack_smem_of(k, n_words, cluster));
+  return blocks_per_sm(pack_kernel_of(sym_bytes, cluster), kPackThreads,
+                       pack_smem_of(k, n_words, cluster));
 }

@@ -112,7 +112,7 @@ cudaError_t launch_stage(int cluster, const void* pat, const void* nb, long long
   const Sym* p = static_cast<const Sym*>(pat);
   const Sym* q = static_cast<const Sym*>(nb);
   if (cluster > 1) {
-    return launch_clusters(emit_stage_cluster_kernel<Stage, Sym>, batch, cluster,
+    return launch_clusters(emit_stage_cluster_kernel<Stage, Sym>, batch, cluster, kPackThreads,
                            cluster_smem(k, n_nal >> 2, cluster), stream, p, q, pat_row, nb_row,
                            idc, idc_row, idc_value, n, k, n_nal, n_rbsp, cap, align, append_tb,
                            nal_out, len_out, bits_out, ovf_out, probe_meta, probe_words);
@@ -420,12 +420,12 @@ extern "C" int h264t_pack_tiled_items(int sym_bytes, int tile, int n, int n_word
 // say; launches nothing): P2 at (sym_bytes, k, n_words); P3 at a tile.
 extern "C" int h264t_pack_u16_blocks_per_sm(int sym_bytes, int k, int n_words) {
   const void* kernel = u16_kernel_of(sym_bytes);
-  return kernel ? blocks_per_sm(kernel, u16_smem_bytes(k, n_words)) : -1;
+  return kernel ? blocks_per_sm(kernel, kPackThreads, u16_smem_bytes(k, n_words)) : -1;
 }
 
 extern "C" int h264t_pack_tiled_blocks_per_sm(int tile, int sym_bytes, int k, int n_words) {
   const void* kernel = tiled_kernel_of(tile, sym_bytes);
-  return kernel ? blocks_per_sm(kernel, tiled_smem_bytes(tile, k, n_words)) : -1;
+  return kernel ? blocks_per_sm(kernel, kPackThreads, tiled_smem_bytes(tile, k, n_words)) : -1;
 }
 
 // P5/P6.  K3's arguments (h264t_ebsp_nal) after the stage: 0 runs (K3's

@@ -16,10 +16,16 @@ Both kernels replace XLA code of the JAX package, not a Pallas kernel:
 Each `*_batch` runs its plain version (`*_plain`, the torch code the
 symbol stages ran before, and the tests' reference) for CPU tensors and
 launches its CUDA kernel (csrc/grid_kernels.cu, `h264t_composite_grid`
-and `h264t_scroll_grid`) for CUDA tensors; a build or launch failure
-raises.  The kernels read every input in its own dtype and strides (the
-donor roles' int8/int16/int32 wire dtypes, bool or uint8 coded masks):
-nothing is converted first.  Outputs are int32 tensors (patterns hold
+and `h264t_scroll_grid`) for CUDA tensors; a build, plan or launch
+failure raises.  A kernel runs a session in P row bands, one block a
+band, the P blocks of a session a thread-block cluster; the library's
+plan (`_kernels.grid_plan`) picks P from the batch and the card.  The
+band arithmetic has a twin here (`band_rows`, `grid_items_per_thread`,
+`grid_smem_bytes`, `plan_from_capacity`), and `*_split_plain` compute
+the contract from P bands with their maxima carried across, as the
+kernels do.  The kernels read every input in its own dtype and strides
+(the donor roles' int8/int16/int32 wire dtypes, bool or uint8 coded
+masks): nothing is converted first.  Outputs are int32 tensors (patterns hold
 uint32 bits, ops/expgolomb's rule), allocated by the wrapper.
 
 The H.264 8.4.1.3 MV-prediction stencils and the skip-run scan live here
@@ -47,6 +53,18 @@ ROLE_FIELDS = ("a_ref", "a_mvx", "a_mvy", "b_ref", "b_mvx", "b_mvy",
 # slot), up to 65,535 MBs (ue(skip_run) of 32 bits; the callers refuse
 # more, and so do the kernels).
 NARROW_MAX_MBS = 4095
+
+# The band plan (csrc/grid_device.cuh): the kernels as h264t_grid_plan names
+# them, the row bands a session may take (P > 1: a thread-block cluster of
+# P blocks; 16 is the non-portable size), the threads of a block and the
+# most MBs of a thread's run.
+GRID_COMPOSITE, GRID_SCROLL = 0, 1
+PARTS = (1, 2, 4, 8, 16)
+GRID_THREADS = 512
+GRID_MAX_RUN = 31
+# What a block costs the plan besides its band's MBs (kGridBlockMbs: the
+# fixed part of a block's time on an H100, in MBs; csrc/grid_device.cuh).
+GRID_BLOCK_MBS = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +197,24 @@ def _skip_runs(coded):
     return idx - last_coded_before - 1, last_coded_incl
 
 
+def _band_skip_runs(coded, bands):
+    """_skip_runs as the kernels compute it: over coded bool[B, n] in bands
+    of the raster (`bands`, [start, end) MB ranges in order), each band's
+    own max-scan, with the lower bands' last coded MB carried in."""
+    carry = torch.full((coded.shape[0], 1), -1, dtype=torch.int32,
+                       device=coded.device)
+    runs = []
+    for i0, i1 in bands:
+        idx = torch.arange(i0, i1, dtype=torch.int32,
+                           device=coded.device).expand(carry.shape[0], -1)
+        incl = torch.maximum(torch.cummax(
+            torch.where(coded[:, i0:i1], idx, -1), dim=1).values, carry)
+        before = torch.cat([carry, incl[:, :-1]], dim=1)
+        runs.append(idx - before - 1)
+        carry = incl[:, -1:]
+    return torch.cat(runs, dim=1), carry[:, 0]
+
+
 def _num_refs_column(num_refs, like):
     """num_refs (an int, a 0-dim, [B] or [B, 1] tensor) as te()'s
     argument against [B, n] values: an int stays an int, a tensor becomes
@@ -215,6 +251,101 @@ def _slots(cols, mask, shape):
 
 
 # ---------------------------------------------------------------------------
+# The band plan's arithmetic: the twin of csrc/grid_device.cuh's, held equal
+# to the built library's on the card (tests/test_torch_cuda.py).
+# ---------------------------------------------------------------------------
+
+def band_rows(h: int, parts: int) -> list[tuple[int, int]]:
+    """The MB rows [lo, hi) of each of `parts` bands over h rows (band_row
+    in the kernels): whole rows, at least one a band where parts <= h."""
+    return [(r * h // parts, (r + 1) * h // parts) for r in range(parts)]
+
+
+def band_max_rows(h: int, parts: int) -> int:
+    return -(-h // parts)
+
+
+def grid_items_per_thread(h: int, w: int, parts: int) -> int:
+    """MBs of a thread's run in the longest band, odd (grid_items)."""
+    return -(-band_max_rows(h, parts) * w // GRID_THREADS) | 1
+
+
+def grid_smem_bytes(kind: int, h: int, w: int, parts: int) -> int:
+    """A block's dynamic shared memory (grid_smem_words): the staged fields
+    (K5 the nine composite role grids, K6 ref, mv_x, mv_y) over the longest
+    band and its halo row, a word an MB of the band, and the chunk buffers
+    of the outputs (pattern and width; K5 4, 2 and 1 slots an MB, K6 up to
+    4), each rounded to 16 bytes."""
+    def round4(x):
+        return (x + 3) & ~3
+
+    def chunk(slots):
+        return GRID_THREADS * slots + 4
+
+    rows = band_max_rows(h, parts)
+    staged = round4((rows + 1) * w)
+    if kind == GRID_COMPOSITE:
+        words = 9 * staged + 2 * (chunk(4) + chunk(2) + chunk(1))
+    else:
+        words = 3 * staged + 2 * chunk(4)
+    return 4 * (words + round4(rows * w))
+
+
+def allowed_parts(h: int, w: int) -> tuple[int, ...]:
+    """The P a launch takes for an h x w frame (valid_parts): at least one
+    row a band and a thread's run within GRID_MAX_RUN MBs.  (Whether the
+    band fits a block is the card's to say: grid_smem_bytes.)"""
+    return tuple(p for p in PARTS
+                 if p <= h and grid_items_per_thread(h, w, p) <= GRID_MAX_RUN)
+
+
+def plan_from_capacity(batch: int, h: int, w: int, capacity: dict) -> int:
+    """The plan's rule (grid_plan) given {P: blocks of that plan the card
+    holds at once} for P up to h: blocks past the capacity wait for
+    another wave and a block costs its band's MBs plus GRID_BLOCK_MBS, so
+    P costs ceil(batch * P / capacity) * (band_max_rows(h, P) * w +
+    GRID_BLOCK_MBS); the P of least cost, the smallest of equals; 0 where
+    nothing fits."""
+    best = best_cost = 0
+    for p in sorted(capacity):
+        if capacity[p] <= 0:
+            continue
+        waves = -(-batch * p // capacity[p])
+        cost = waves * (band_max_rows(h, p) * w + GRID_BLOCK_MBS)
+        if best == 0 or cost < best_cost:
+            best, best_cost = p, cost
+    return best
+
+
+def _check_parts(what: str, h: int, w: int, parts: int) -> None:
+    if parts not in allowed_parts(h, w):
+        raise ValueError(f"{what}: {parts} bands do not split a {h}x{w}-MB "
+                         f"frame (allowed: {allowed_parts(h, w)})")
+
+
+def _no_parts_on_cpu(what: str, parts) -> None:
+    if parts is not None:
+        raise ValueError(f"{what}: parts= forces the kernel's bands on CUDA "
+                         f"tensors; on CPU tensors the plain version runs "
+                         f"(the bands' model is *_split_plain)")
+
+
+def _grid_parts(kind: int, what: str, B: int, h: int, w: int, parts):
+    """The bands a launch takes: `parts` where a test forces it, else the
+    library's plan; a shape no plan fits raises before any launch."""
+    if parts is not None:
+        _check_parts(what, h, w, parts)
+        return parts
+    planned = _kernels.grid_plan(h * w, w, B, kind)
+    if planned == 0:
+        raise RuntimeError(
+            f"{what}: no band plan fits a {h}x{w}-MB frame at B = {B} (a "
+            f"band of {band_max_rows(h, min(h, PARTS[-1])) * w} MBs or more "
+            f"passes one block's shared memory)")
+    return planned
+
+
+# ---------------------------------------------------------------------------
 # K6: the scroll MB grid.
 # ---------------------------------------------------------------------------
 
@@ -222,6 +353,36 @@ def scroll_slots(n_mbs: int, compact_x: bool) -> int:
     """Symbol slots a MB of p_frame_symbols: A, mvd_x, C (A||mvd_x and C
     with compact_x), plus the skip run's own slot in the wide layout."""
     return (2 if compact_x else 3) + (n_mbs > NARROW_MAX_MBS)
+
+
+def _scroll_mb_values(ref, mv_x, mv_y, enable_pskip: bool):
+    """(mvd_x, mvd_y, coded) [B, h, w] of int32 fields: the MV difference
+    against the prediction and whether the MB is coded (not P_Skip)."""
+    pred_x, pred_y = mv_pred_grid(ref, mv_x, mv_y)
+    if enable_pskip:
+        skip_x, skip_y = pskip_mv_grid(ref, mv_x, mv_y)
+        coded = ~((ref == 0) & (mv_x == skip_x) & (mv_y == skip_y))
+    else:
+        coded = torch.ones(ref.shape, dtype=torch.bool, device=ref.device)
+    return mv_x - pred_x, mv_y - pred_y, coded
+
+
+def _scroll_out(ref, mvd_x, mvd_y, coded, skip_run, last, num_refs,
+                compact_x: bool):
+    """K6's returns from the per-MB values ([B, h, w]), the skip runs
+    [B, n] and the last coded MBs [B]."""
+    B, h, w = ref.shape
+    n_mbs = h * w
+    a, mvx, c, sr = _mb_codes(ref.reshape(B, n_mbs), mvd_x.reshape(B, n_mbs),
+                              mvd_y.reshape(B, n_mbs),
+                              _num_refs_column(num_refs, ref), skip_run,
+                              n_mbs > NARROW_MAX_MBS)
+    cols = ([bitpack.merge_symbol_pairs(*a, *mvx), c] if compact_x
+            else [a, mvx, c])
+    if n_mbs > NARROW_MAX_MBS:
+        cols = [sr] + cols
+    mb_patterns, mb_nbits = _slots(cols, coded.reshape(B, n_mbs), (B, n_mbs))
+    return mb_patterns, mb_nbits, last
 
 
 def scroll_grid_plain(ref, mv_x, mv_y, num_refs, *, enable_pskip: bool,
@@ -233,63 +394,74 @@ def scroll_grid_plain(ref, mv_x, mv_y, num_refs, *, enable_pskip: bool,
     scroll_slots(h*w, compact_x); an MB that is P_Skip has zero-width
     slots.  num_refs: an int, or a [B] or [B, 1] tensor."""
     B, h, w = ref.shape
-    n_mbs = h * w
-    wide = n_mbs > NARROW_MAX_MBS
-    ref = ref.to(torch.int32)
-    mv_x = mv_x.to(torch.int32)
-    mv_y = mv_y.to(torch.int32)
+    ref, mv_x, mv_y = (g.to(torch.int32) for g in (ref, mv_x, mv_y))
+    mvd_x, mvd_y, coded = _scroll_mb_values(ref, mv_x, mv_y, enable_pskip)
+    skip_run, last_coded_incl = _skip_runs(coded.reshape(B, h * w))
+    return _scroll_out(ref, mvd_x, mvd_y, coded, skip_run,
+                       last_coded_incl[:, -1], num_refs, compact_x)
 
-    pred_x, pred_y = mv_pred_grid(ref, mv_x, mv_y)
-    mvd_x = (mv_x - pred_x).reshape(B, n_mbs)
-    mvd_y = (mv_y - pred_y).reshape(B, n_mbs)
-    ref_f = ref.reshape(B, n_mbs)
 
-    if enable_pskip:
-        skip_x, skip_y = pskip_mv_grid(ref, mv_x, mv_y)
-        can_skip = ((ref == 0) & (mv_x == skip_x)
-                    & (mv_y == skip_y)).reshape(B, n_mbs)
-    else:
-        can_skip = torch.zeros((B, n_mbs), dtype=torch.bool, device=ref.device)
-    coded = ~can_skip
-    skip_run, last_coded_incl = _skip_runs(coded)
+def _band_values(fn, h: int, parts: int, *grids):
+    """fn(*grids) computed band by band as a block stages it: each band's
+    rows with the row above it (the halo; none above row 0), fn's [B, rows,
+    w] results cut back to the band, then joined."""
+    pieces = []
+    for lo, hi in band_rows(h, parts):
+        ra = max(lo - 1, 0)
+        pieces.append([v[:, lo - ra:] for v in fn(ra, hi, *(g[:, ra:hi]
+                                                            for g in grids))])
+    return [torch.cat(vs, dim=1) for vs in zip(*pieces)]
 
-    a, mvx, c, sr = _mb_codes(ref_f, mvd_x, mvd_y,
-                              _num_refs_column(num_refs, ref), skip_run, wide)
-    if compact_x:
-        cols = [bitpack.merge_symbol_pairs(*a, *mvx), c]
-    else:
-        cols = [a, mvx, c]
-    if wide:
-        cols = [sr] + cols
-    mb_patterns, mb_nbits = _slots(cols, coded, (B, n_mbs))
-    return mb_patterns, mb_nbits, last_coded_incl[:, -1]
+
+def scroll_grid_split_plain(ref, mv_x, mv_y, num_refs, *, enable_pskip: bool,
+                            compact_x: bool = False, parts: int):
+    """scroll_grid_plain computed as K6 computes it in `parts` row bands
+    (band_rows): each band's stencil from its rows and halo, each band's
+    skip-run scan with the lower bands' last coded MB carried in.  Equal to
+    scroll_grid_plain for every P in allowed_parts(h, w)."""
+    B, h, w = ref.shape
+    _check_parts("K6", h, w, parts)
+    ref, mv_x, mv_y = (g.to(torch.int32) for g in (ref, mv_x, mv_y))
+    mvd_x, mvd_y, coded = _band_values(
+        lambda _ra, _hi, *g: _scroll_mb_values(*g, enable_pskip), h, parts,
+        ref, mv_x, mv_y)
+    skip_run, last = _band_skip_runs(
+        coded.reshape(B, h * w),
+        [(lo * w, hi * w) for lo, hi in band_rows(h, parts)])
+    return _scroll_out(ref, mvd_x, mvd_y, coded, skip_run, last, num_refs,
+                       compact_x)
 
 
 def scroll_grid_batch(ref, mv_x, mv_y, num_refs, *, enable_pskip: bool,
-                      compact_x: bool = False):
+                      compact_x: bool = False, parts: int | None = None):
     """K6 over a batch: scroll_grid_plain for CPU tensors, the CUDA kernel
     h264t_scroll_grid for CUDA tensors, with the same arguments and
     returns.  The kernel reads the fields and a num_refs tensor in their
-    own dtypes and strides."""
+    own dtypes and strides, each session in the bands the plan gives.
+    `parts` (tests only) forces the kernel's bands; CPU tensors refuse it
+    (scroll_grid_split_plain is the bands' model there)."""
     B, h, w = ref.shape
     _same_shape("scroll grid", (B, h, w), mv_x=mv_x, mv_y=mv_y)
     if _device_of(ref, mv_x, mv_y) == "cpu":
+        _no_parts_on_cpu("scroll_grid_batch", parts)
         return scroll_grid_plain(ref, mv_x, mv_y, num_refs,
                                  enable_pskip=enable_pskip,
                                  compact_x=compact_x)
     dev = ref.device
     n_mbs = h * w
     S = scroll_slots(n_mbs, compact_x)
-    mb_p = torch.empty((B, n_mbs, S), dtype=torch.int32, device=dev)
-    mb_n = torch.empty((B, n_mbs, S), dtype=torch.int32, device=dev)
-    last = torch.empty((B,), dtype=torch.int32, device=dev)
-    nr, nr_field, nr_value = _num_refs_field(num_refs, B, dev)
-    fields = _descriptors([_field(g) for g in (ref, mv_x, mv_y)] + [nr_field])
-    if B:
-        with torch.cuda.device(dev):
+    with torch.cuda.device(dev):
+        P = _grid_parts(GRID_SCROLL, "K6", B, h, w, parts) if B else 1
+        mb_p = torch.empty((B, n_mbs, S), dtype=torch.int32, device=dev)
+        mb_n = torch.empty((B, n_mbs, S), dtype=torch.int32, device=dev)
+        last = torch.empty((B,), dtype=torch.int32, device=dev)
+        nr, nr_field, nr_value = _num_refs_field(num_refs, B, dev)
+        fields = _descriptors([_field(g) for g in (ref, mv_x, mv_y)]
+                              + [nr_field])
+        if B:
             _kernels.SCROLL_GRID.launch(
                 fields, B, h, w, nr_value, int(n_mbs > NARROW_MAX_MBS),
-                int(compact_x), int(enable_pskip), mb_p.data_ptr(),
+                int(compact_x), int(enable_pskip), P, mb_p.data_ptr(),
                 mb_n.data_ptr(), last.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     del nr      # kept alive until the launch is queued
@@ -340,6 +512,60 @@ def _check_composite(H, W, r0, c0, R, C, compact_x):
                          "skip-run slot); use compact_x=False")
 
 
+def _composite_mb_values(r0, c0, R, C, bg_ref, bg_mv_x, bg_mv_y, bg_coded,
+                         roles, donor_coded):
+    """(mvd_x, mvd_y, coded) [B, H, W] of a composite: the int32
+    background's MV difference against the prediction over the composite
+    roles (the nine int32 [B, R, C] `roles` scattered into the rect, the
+    background outside; cur_ref is the A-role composite) and the composite
+    coded mask (the donor's bool [B, R, C] inside the rect).  R may be 0."""
+    def scatter(bg, vals):
+        g = bg.clone()
+        g[:, r0:r0 + R, c0:c0 + C] = vals
+        return g
+
+    bg = (bg_ref, bg_mv_x, bg_mv_y) * 3
+    refA, mvxA, mvyA, refB, mvxB, mvyB, refD, mvxD, mvyD = (
+        scatter(g, v) for g, v in zip(bg, roles))
+    coded = bg_coded & ~_rect_mask(*bg_ref.shape[1:], r0, c0, R, C,
+                                   bg_ref.device)
+    coded[:, r0:r0 + R, c0:c0 + C] = donor_coded
+    pred_x, pred_y = mv_pred_grid_roles(
+        refA, refA, mvxA, mvyA, refB, mvxB, mvyB, refD, mvxD, mvyD)
+    return bg_mv_x - pred_x, bg_mv_y - pred_y, coded
+
+
+def _composite_inputs(R, C, bg_ref, bg_mv_x, bg_mv_y, bg_coded, dn):
+    """The background as int32 grids and a bool mask, the donor's nine role
+    fields as int32 [B, R, C] and its coded mask as bool [B, R, C]."""
+    B = bg_ref.shape[0]
+    bg = tuple(g.to(torch.int32) for g in (bg_ref, bg_mv_x, bg_mv_y))
+    roles = [dn[k].to(torch.int32).reshape(B, R, C) for k in ROLE_FIELDS]
+    return (*bg, bg_coded.to(torch.bool), roles,
+            dn["coded"].to(torch.bool).reshape(B, R, C))
+
+
+def _composite_out(r0, c0, R, C, num_refs, bg_ref, mvd_x, mvd_y, coded,
+                   skip_run, last, compact_x) -> CompositeGrid:
+    """K5's returns from the per-MB values [B, H, W], the skip runs [B, n]
+    and the last coded MBs [B]."""
+    B, H, W = bg_ref.shape
+    n_mbs = H * W
+    a, mvx, c, sr = _mb_codes(
+        bg_ref.reshape(B, n_mbs), mvd_x.reshape(B, n_mbs),
+        mvd_y.reshape(B, n_mbs), _num_refs_column(num_refs, bg_ref),
+        skip_run, n_mbs > NARROW_MAX_MBS)
+    active = coded.reshape(B, n_mbs) & ~_rect_mask(
+        H, W, r0, c0, R, C, bg_ref.device).reshape(1, n_mbs)
+    bg_p, bg_n = _slots(([sr] if n_mbs > NARROW_MAX_MBS else []) + [a, mvx, c],
+                        active, (B, H, W))
+    bg2_p = bg2_n = None
+    if compact_x:
+        bg2_p, bg2_n = _slots([bitpack.merge_symbol_pairs(*a, *mvx), c],
+                              active, (B, H, W))
+    return CompositeGrid(bg_p, bg_n, bg2_p, bg2_n, sr[0], sr[1], last)
+
+
 def composite_grid_plain(r0: int, c0: int, R: int, C: int, num_refs,
                          bg_ref, bg_mv_x, bg_mv_y, bg_coded, dn: dict, *,
                          compact_x: bool = False) -> CompositeGrid:
@@ -353,66 +579,64 @@ def composite_grid_plain(r0: int, c0: int, R: int, C: int, num_refs,
     [B, 1] tensor."""
     B, H, W = bg_ref.shape
     _check_composite(H, W, r0, c0, R, C, compact_x)
-    dev = bg_ref.device
-    bg_ref, bg_mv_x, bg_mv_y = (g.to(torch.int32)
-                                for g in (bg_ref, bg_mv_x, bg_mv_y))
-    bg_coded = bg_coded.to(torch.bool)
-    donor_coded = dn["coded"].to(torch.bool).reshape(B, R, C)
-    in_rect = _rect_mask(H, W, r0, c0, R, C, dev)
+    ref, mv_x, mv_y, coded_bg, roles, donor_coded = _composite_inputs(
+        R, C, bg_ref, bg_mv_x, bg_mv_y, bg_coded, dn)
+    mvd_x, mvd_y, coded = _composite_mb_values(
+        r0, c0, R, C, ref, mv_x, mv_y, coded_bg, roles, donor_coded)
+    skip_run, last_incl = _skip_runs(coded.reshape(B, H * W))
+    return _composite_out(r0, c0, R, C, num_refs, ref, mvd_x, mvd_y, coded,
+                          skip_run, last_incl[:, -1], compact_x)
 
-    def scatter(bg, vals):
-        g = bg.clone()
-        g[:, r0:r0 + R, c0:c0 + C] = vals.to(torch.int32).reshape(B, R, C)
-        return g
 
-    refA, mvxA, mvyA = (scatter(g, dn[k]) for g, k in (
-        (bg_ref, "a_ref"), (bg_mv_x, "a_mvx"), (bg_mv_y, "a_mvy")))
-    refB, mvxB, mvyB = (scatter(g, dn[k]) for g, k in (
-        (bg_ref, "b_ref"), (bg_mv_x, "b_mvx"), (bg_mv_y, "b_mvy")))
-    refD, mvxD, mvyD = (scatter(g, dn[k]) for g, k in (
-        (bg_ref, "d_ref"), (bg_mv_x, "d_mvx"), (bg_mv_y, "d_mvy")))
+def composite_grid_split_plain(r0: int, c0: int, R: int, C: int, num_refs,
+                               bg_ref, bg_mv_x, bg_mv_y, bg_coded, dn: dict,
+                               *, compact_x: bool = False,
+                               parts: int) -> CompositeGrid:
+    """composite_grid_plain computed as K5 computes it in `parts` row bands
+    (band_rows): each band's composite roles and stencil from its rows and
+    halo (the rect's rows among them), each band's skip-run scan with the
+    lower bands' last coded MB carried in.  Equal to composite_grid_plain
+    for every P in allowed_parts(H, W)."""
+    B, H, W = bg_ref.shape
+    _check_composite(H, W, r0, c0, R, C, compact_x)
+    _check_parts("K5", H, W, parts)
+    ref, mv_x, mv_y, coded_bg, roles, donor_coded = _composite_inputs(
+        R, C, bg_ref, bg_mv_x, bg_mv_y, bg_coded, dn)
 
-    coded = bg_coded & ~in_rect
-    coded[:, r0:r0 + R, c0:c0 + C] = donor_coded
+    def band(ra, hi, *grids):
+        qa, qb = max(ra, r0), max(min(hi, r0 + R), max(ra, r0))
+        return _composite_mb_values(
+            qa - ra, c0, qb - qa, C, *grids,
+            [x[:, qa - r0:qb - r0] for x in roles],
+            donor_coded[:, qa - r0:qb - r0])
 
-    pred_x, pred_y = mv_pred_grid_roles(
-        refA, refA, mvxA, mvyA, refB, mvxB, mvyB, refD, mvxD, mvyD)
-    mvd_x = bg_mv_x - pred_x
-    mvd_y = bg_mv_y - pred_y
-
-    n_mbs = H * W
-    wide = n_mbs > NARROW_MAX_MBS
-    coded_f = coded.reshape(B, n_mbs)
-    skip_run, last_incl = _skip_runs(coded_f)
-    a, mvx, c, sr = _mb_codes(
-        bg_ref.reshape(B, n_mbs), mvd_x.reshape(B, n_mbs),
-        mvd_y.reshape(B, n_mbs), _num_refs_column(num_refs, bg_ref),
-        skip_run, wide)
-
-    active = coded_f & ~in_rect.reshape(1, n_mbs)
-    bg_p, bg_n = _slots(([sr] if wide else []) + [a, mvx, c], active,
-                        (B, H, W))
-    bg2_p = bg2_n = None
-    if compact_x:
-        bg2_p, bg2_n = _slots([bitpack.merge_symbol_pairs(*a, *mvx), c],
-                              active, (B, H, W))
-    return CompositeGrid(bg_p, bg_n, bg2_p, bg2_n, sr[0], sr[1],
-                         last_incl[:, -1])
+    mvd_x, mvd_y, coded = _band_values(band, H, parts, ref, mv_x, mv_y,
+                                       coded_bg)
+    skip_run, last = _band_skip_runs(
+        coded.reshape(B, H * W),
+        [(lo * W, hi * W) for lo, hi in band_rows(H, parts)])
+    return _composite_out(r0, c0, R, C, num_refs, ref, mvd_x, mvd_y, coded,
+                          skip_run, last, compact_x)
 
 
 def composite_grid_batch(r0: int, c0: int, R: int, C: int, num_refs,
                          bg_ref, bg_mv_x, bg_mv_y, bg_coded, dn: dict, *,
-                         compact_x: bool = False) -> CompositeGrid:
+                         compact_x: bool = False,
+                         parts: int | None = None) -> CompositeGrid:
     """K5 over a batch: composite_grid_plain for CPU tensors, the CUDA
     kernel h264t_composite_grid for CUDA tensors, with the same arguments
     and returns.  The kernel reads the background grids, the nine role
-    fields and both coded masks in their own dtypes and strides, and
-    never materialises the scattered role grids."""
+    fields and both coded masks in their own dtypes and strides, composes
+    the role grids of each band in shared memory and writes no scattered
+    grid.  `parts` (tests only) forces the kernel's bands a session; CPU
+    tensors refuse it (composite_grid_split_plain is the bands' model
+    there)."""
     B, H, W = bg_ref.shape
     _same_shape("composite grid", (B, H, W), bg_mv_x=bg_mv_x,
                 bg_mv_y=bg_mv_y, bg_coded=bg_coded)
     donor = [dn[k] for k in ROLE_FIELDS + ("coded",)]
     if _device_of(bg_ref, bg_mv_x, bg_mv_y, bg_coded, *donor) == "cpu":
+        _no_parts_on_cpu("composite_grid_batch", parts)
         return composite_grid_plain(r0, c0, R, C, num_refs, bg_ref, bg_mv_x,
                                     bg_mv_y, bg_coded, dn,
                                     compact_x=compact_x)
@@ -425,6 +649,8 @@ def composite_grid_batch(r0: int, c0: int, R: int, C: int, num_refs,
             raise ValueError(f"donor field {name} has {x.numel()} values, "
                              f"not B * R * C = {B * R * C}")
     S = 4 if wide else 3
+    with torch.cuda.device(dev):
+        P = _grid_parts(GRID_COMPOSITE, "K5", B, H, W, parts) if B else 1
 
     def out(*shape):
         return torch.empty(shape, dtype=torch.int32, device=dev)
@@ -443,7 +669,7 @@ def composite_grid_batch(r0: int, c0: int, R: int, C: int, num_refs,
         with torch.cuda.device(dev):
             _kernels.COMPOSITE_GRID.launch(
                 fields, B, H, W, r0, c0, R, C, nr_value, int(wide),
-                int(compact_x), bg_p.data_ptr(), bg_n.data_ptr(),
+                int(compact_x), P, bg_p.data_ptr(), bg_n.data_ptr(),
                 0 if bg2_p is None else bg2_p.data_ptr(),
                 0 if bg2_n is None else bg2_n.data_ptr(),
                 sr_p.data_ptr(), sr_n.data_ptr(), last.data_ptr(),
@@ -452,24 +678,80 @@ def composite_grid_batch(r0: int, c0: int, R: int, C: int, num_refs,
     return CompositeGrid(bg_p, bg_n, bg2_p, bg2_n, sr_p, sr_n, last)
 
 
-def _bytes(xs) -> int:
+def _read_bytes(reads) -> int:
+    """Bytes of the reads [(tensor, mask of the elements read or None for
+    all)], each element read once: reads of one tensor (one address,
+    dtype, shape and strides; the main paths pass one zero grid as the
+    background's ref, mv_x and mv_y) are counted once, their masks
+    joined."""
+    seen = {}
+    for x, mask in reads:
+        if not isinstance(x, torch.Tensor):
+            continue
+        key = (x.data_ptr(), x.dtype, tuple(x.shape), x.stride())
+        if mask is not None:
+            mask = mask.reshape(x.shape)
+        if key in seen:
+            mask = None if seen[key][1] is None or mask is None \
+                else seen[key][1] | mask
+        seen[key] = (x, mask)
+    return sum((x.numel() if m is None else int(m.sum())) * x.element_size()
+               for x, m in seen.values())
+
+
+def _written_bytes(xs) -> int:
     return sum(x.numel() * x.element_size() for x in xs
                if isinstance(x, torch.Tensor))
 
 
-def composite_grid_bytes(num_refs, bg_ref, bg_mv_x, bg_mv_y, bg_coded,
-                         dn: dict, out: CompositeGrid) -> int:
-    """Bytes a K5 call must move: each input it reads once (the four
-    background grids and the ten donor fields as passed, a num_refs
-    tensor) and each output written once."""
-    return _bytes((num_refs, bg_ref, bg_mv_x, bg_mv_y, bg_coded,
-                   *(dn[k] for k in ROLE_FIELDS + ("coded",)), *out))
+def _num_refs_read(num_refs, sessions):
+    """num_refs's read: te() runs only for a session's live MBs, so a
+    tensor is read at the sessions with one (`sessions`, bool [B])."""
+    if not isinstance(num_refs, torch.Tensor):
+        return []
+    return [(num_refs, sessions.reshape(num_refs.shape)
+             if num_refs.numel() == sessions.numel() else sessions.any())]
+
+
+def composite_grid_bytes(r0: int, c0: int, R: int, C: int, num_refs, bg_ref,
+                         bg_mv_x, bg_mv_y, bg_coded, dn: dict,
+                         out: CompositeGrid) -> int:
+    """Bytes a K5 call must move at this call's data: the coded masks (the
+    donor's, the background's outside the rect) read once, every output
+    written once, and the MVs and refs only where a live MB (coded,
+    outside the rect: its slots are not zero-width) needs them: its own
+    from the background, its neighbours' (8.4.1.3.1: left in the A role,
+    above and above-right in B, above-left in D where above-right is
+    outside the frame) from the background or, inside the rect, from the
+    donor's role fields.  On the splice steps' all-skip background no MB
+    is live and no MV or ref is read."""
+    B, H, W = bg_ref.shape
+    live = (out.bg_n != 0).any(dim=-1)
+    # Where an MB is the left (A), above or above-right (B) or above-left
+    # (D) neighbour of a live MB.
+    col = torch.arange(W, device=live.device)
+    need = {"a": _shift(live, 0, -1),
+            "b": _shift(live, -1, 0) | _shift(live, -1, 1),
+            "d": _shift(live, -1, -1) & (col == W - 2)}
+    rect = _rect_mask(H, W, r0, c0, R, C, live.device)
+    bg_need = live | ((need["a"] | need["b"] | need["d"]) & ~rect)
+    reads = [(bg_coded, ~rect.expand(B, H, W)), (dn["coded"], None),
+             *((g, bg_need) for g in (bg_ref, bg_mv_x, bg_mv_y)),
+             *((dn[k], need[k[0]][:, r0:r0 + R, c0:c0 + C])
+               for k in ROLE_FIELDS),
+             *_num_refs_read(num_refs, live.flatten(1).any(dim=1))]
+    return _read_bytes(reads) + _written_bytes(out)
 
 
 def scroll_grid_bytes(ref, mv_x, mv_y, num_refs, out) -> int:
-    """Bytes a K6 call must move: the three fields and a num_refs tensor
-    read once, its slots and last coded MBs written once."""
-    return _bytes((ref, mv_x, mv_y, num_refs, *out))
+    """Bytes a K6 call must move: the three fields read once (every MB's
+    prediction and P_Skip test reads its own and its neighbours'), a
+    num_refs tensor at the sessions with a coded MB, its slots and last
+    coded MBs written once."""
+    coded = (out[1] != 0).flatten(1).any(dim=1)
+    return (_read_bytes([(ref, None), (mv_x, None), (mv_y, None),
+                         *_num_refs_read(num_refs, coded)])
+            + _written_bytes(out))
 
 
 # ---------------------------------------------------------------------------

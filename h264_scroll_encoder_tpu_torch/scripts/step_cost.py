@@ -138,7 +138,7 @@ def _census(name, step, inputs, args, dev) -> dict:
 
     def composite_spy(r0, c0, R, C, *a, **kw):
         out = real_grid[0](r0, c0, R, C, *a, **kw)
-        seen["grid"] += grid.composite_grid_bytes(*a, out)
+        seen["grid"] += grid.composite_grid_bytes(r0, c0, R, C, *a, out)
         return out
 
     def scroll_spy(*a, **kw):

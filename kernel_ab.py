@@ -1,6 +1,6 @@
 """Same-process A/B timing of the kernel wrappers of two trees on one card.
 
-    python3 kernel_ab.py --parent DIR
+    python3 kernel_ab.py --parent DIR [--large | --grid]
 
 DIR holds another commit of this repository, unpacked (for example
 `git archive <commit> | tar -x -C _parent`; `_parent/` is gitignored).
@@ -19,7 +19,22 @@ and, with --large, K1 and K2 on the shapes past one block's shared memory
 and 5120x3200 hint frames at B = 1, the 720p dense frame of I_PCM donors
 at B = 32 and 256, the exact retry at 4096x2160 and 5120x3200), whichever
 plan each tree takes there, and K1 on the frames one block stages in
-several chunks (cases.multichunk_emit_inputs, B = 1).
+several chunks (cases.multichunk_emit_inputs, B = 1).  With --grid, the
+grid-stage kernels instead, on this tree's inputs of chip_smoke.py phase
+3, each tree on its own plan:
+
+  K5  ops.grid.composite_grid_batch   720p rows compact B = 1, 256 and
+                                      1,024; dense B = 256
+  K6  ops.grid.scroll_grid_batch      cases.scroll_grid_inputs: the 720p
+                                      scroll and hint steps (B = 256), a
+                                      session's scroll frame and the
+                                      1920x1088 to 5120x3200 hint frames
+                                      (B = 1)
+
+after printing what `nvcc -Xptxas -v` says of this tree's
+csrc/grid_kernels.cu (registers, stack, spills); then this tree's K5 and
+K6 at every band plan forced on each of those shapes, beside the plan's
+own choice (plan_sweep).
 
 For each, the two trees' outputs are held equal; then each is measured in
 turns (parent, tree, tree, parent; the median of each pair): with
@@ -45,7 +60,8 @@ from pathlib import Path
 import torch
 
 N_DONORS = 32
-MODULES = ("_kernels", "ops.emit_fused", "ops.bitpack_flat", "ops.ebsp_flat")
+MODULES = ("_kernels", "ops.emit_fused", "ops.bitpack_flat", "ops.ebsp_flat",
+           "ops.grid")
 
 
 def load_tree(root: Path, name: str) -> dict:
@@ -76,37 +92,12 @@ def profiled_ms(fn, kernel: str, calls: int = 20):
     return own / 1e3 / calls, work / 1e3 / calls
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", required=True, type=Path)
-    ap.add_argument("--large", action="store_true",
-                    help="also K1 and K2 on the shapes past one block")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("kernel_ab: CUDA is not available", file=sys.stderr)
-        return 1
-    from h264_scroll_encoder_tpu_torch import cases, native_bridge
-    from h264_scroll_encoder_tpu_torch.config import ComposerConfig
+def emit_cells(cases, cfg, dn, bits, has_align, dev, *, large: bool):
+    """K1-K4's cells at the 720p compact splice shapes (and, with
+    `large`, K1's and K2's past one block), and {n_rbsp, n_nal}."""
     from h264_scroll_encoder_tpu_torch.ops import bitpack, emit_fused
-    from h264_scroll_encoder_tpu_torch.utils import timing
 
-    trees = {"parent": load_tree(args.parent.resolve(), "_ab_parent"),
-             "tree": load_tree(Path(__file__).resolve().parent, "_ab_tree")}
-    builds = [threading.Thread(target=t["_kernels"].build) for t in trees.values()]
-    builds.append(threading.Thread(target=native_bridge.build))
-    for t in builds:
-        t.start()
-    for t in builds:
-        t.join()
-    for t in trees.values():
-        t["_kernels"].build()  # raises here if its build failed
-    native_bridge.load_library()
-
-    dev = torch.device("cuda", 0)
-    cfg, cap = ComposerConfig(1280, 720), cases.CAP
-    payloads = [cases.splice_donor_payload(k) for k in range(N_DONORS)]
-    dn, bits, has_align = cases.prepare_splice_donors(payloads, engine="native",
-                                                      device=dev)
+    cap = cases.CAP
     n_rbsp = cases.splice_budget(cfg, int(bits.max()), static_bg=False)
     n_nal = emit_fused.nal_bytes(n_rbsp, cap)
     k1_kw = dict(align=bool(has_align.any()), append_tb=True)
@@ -132,7 +123,7 @@ def main() -> int:
                "ops.ebsp_flat", k3_args, {}),
               ("K4 B=256", "pack_place_kernel", "pack_words_batch",
                "ops.bitpack_flat", (e_pat, e_nb, n_words), {})]
-    if args.large:
+    if large:
         # The profiler matches "emit_fused" and "pack_place": the one-block
         # kernels and the cluster ones alike.
         for name, (pat, nb, rbsp, kw) in {**cases.large_emit_inputs(dev),
@@ -146,6 +137,95 @@ def main() -> int:
         for name, a in cases.large_pack_inputs(dev).items():
             cells.append((f"K2 {name} B=1", "pack_place",
                           "pack_words_place_batch", "ops.bitpack_flat", a, {}))
+    return cells, {"n_rbsp": n_rbsp, "n_nal": n_nal}
+
+
+def grid_cells(cases, cfg, dn, dev):
+    """K5's and K6's cells: chip_smoke.py phase 3's shapes, each tree on its
+    own plan (the profiler matches "grid_kernel", both trees' name)."""
+    dense_dn, _bits, _align = cases.prepare_dense_donors(
+        "representative", engine="native", device=dev)
+    cells = []
+    for label, d, B, rows in (("K5 rows B=1", dn, 1, True),
+                              ("K5 rows B=256", dn, 256, True),
+                              ("K5 rows B=1024", dn, 1024, True),
+                              ("K5 dense B=256", dense_dn, 256, False)):
+        a, kw = cases.composite_grid_inputs(cfg, d, B, dev, rows=rows)
+        cells.append((label, "grid_kernel", "composite_grid_batch", "ops.grid",
+                      a, kw))
+    for name, (a, kw) in cases.scroll_grid_inputs(dev).items():
+        cells.append((f"K6 {name} B={a[0].shape[0]}", "grid_kernel",
+                       "scroll_grid_batch", "ops.grid", a, kw))
+    return cells
+
+
+def plan_sweep(tree, cells, timing) -> dict:
+    """This tree's K5 and K6 at every band plan forced (the wrappers'
+    `parts=`) that fits a block, on every grid cell: device ms per call
+    beside the plan's own choice, the fastest P and how much slower the
+    plan's P is than it (kGridBlockMbs is what the plan's cost weighs)."""
+    grid, kernels = tree["ops.grid"], tree["_kernels"]
+    out = {}
+    for label, _kernel, wrapper, _module, args, kw in cells:
+        fn = getattr(grid, wrapper)
+        kind = (grid.GRID_COMPOSITE if wrapper == "composite_grid_batch"
+                else grid.GRID_SCROLL)
+        g = args[5] if kind == grid.GRID_COMPOSITE else args[0]
+        B, h, w = g.shape
+        ms = {p: timing.device_ms(lambda p=p: fn(*args, parts=p, **kw))
+              for p in grid.allowed_parts(h, w)
+              if kernels.grid_capacity(h * w, w, p, kind) > 0}
+        plan = kernels.grid_plan(h * w, w, B, kind)
+        best = min(ms, key=ms.get)
+        row = {"plan": plan, "fastest": best,
+               "plan_over_fastest": ms[plan] / ms[best],
+               **{f"P={p}": t for p, t in ms.items()}}
+        out[label] = row
+        print(f"{label}: " + ", ".join(f"{k} {v}" for k, v in row.items()),
+              flush=True)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--large", action="store_true",
+                    help="also K1 and K2 on the shapes past one block")
+    ap.add_argument("--grid", action="store_true",
+                    help="K5 and K6 instead of K1-K4")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab: CUDA is not available", file=sys.stderr)
+        return 1
+    from h264_scroll_encoder_tpu_torch import cases, native_bridge
+    from h264_scroll_encoder_tpu_torch.config import ComposerConfig
+    from h264_scroll_encoder_tpu_torch.utils import timing
+
+    trees = {"parent": load_tree(args.parent.resolve(), "_ab_parent"),
+             "tree": load_tree(Path(__file__).resolve().parent, "_ab_tree")}
+    builds = [threading.Thread(target=t["_kernels"].build) for t in trees.values()]
+    builds.append(threading.Thread(target=native_bridge.build))
+    for t in builds:
+        t.start()
+    for t in builds:
+        t.join()
+    for t in trees.values():
+        t["_kernels"].build()  # raises here if its build failed
+    native_bridge.load_library()
+
+    dev = torch.device("cuda", 0)
+    cfg = ComposerConfig(1280, 720)
+    payloads = [cases.splice_donor_payload(k) for k in range(N_DONORS)]
+    dn, bits, has_align = cases.prepare_splice_donors(payloads, engine="native",
+                                                      device=dev)
+    if args.grid:
+        from h264_scroll_encoder_tpu_torch import _kernels
+
+        print(_kernels.ptxas_report("grid_kernels.cu"), flush=True)
+        cells, extra = grid_cells(cases, cfg, dn, dev), {}
+    else:
+        cells, extra = emit_cells(cases, cfg, dn, bits, has_align, dev,
+                                  large=args.large)
 
     def measure(fn, kernel):
         own, work = profiled_ms(fn, kernel)
@@ -155,13 +235,18 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    results = {"card": smi, "n_rbsp": n_rbsp, "n_nal": n_nal}
+    results = {"card": smi, **extra}
     for label, kernel, wrapper, module, a, kw in cells:
         fns = {side: (lambda f=getattr(t[module], wrapper): f(*a, **kw))
                for side, t in trees.items()}
         outs = {side: fn() for side, fn in fns.items()}
         torch.cuda.synchronize()
         for x, y in zip(outs["parent"], outs["tree"]):
+            if x is None or y is None:
+                if (x is None) != (y is None):
+                    raise AssertionError(
+                        f"{label}: the two trees' outputs differ")
+                continue
             # Words as uint32 values: a parent may return them as int64.
             if not torch.equal(x.to(torch.int64) & 0xFFFFFFFF,
                                y.to(torch.int64) & 0xFFFFFFFF):
@@ -174,6 +259,8 @@ def main() -> int:
         print(f"{label}: " + "; ".join(
             f"{k} {row['parent'][k]:.5f} -> {row['tree'][k]:.5f}"
             for k in row["parent"]), flush=True)
+    if args.grid:
+        results["plans"] = plan_sweep(trees["tree"], cells, timing)
     print(smi)
     print(json.dumps(results))
     return 0

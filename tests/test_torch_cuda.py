@@ -1166,6 +1166,84 @@ def test_scroll_grid_kernel(dev, name):
     _grid_same(got, want)
 
 
+@pytest.mark.parametrize("name,parts", [
+    (c[0], p) for c in cases.COMPOSITE_GRID_CASES
+    for p in grid.allowed_parts(*c[1])])
+def test_composite_grid_kernel_forced_parts(dev, name, parts):
+    """K5 with its session forced into each band plan the shape allows
+    (one block, or a cluster of P blocks with the scan carried across)."""
+    rect, compact_x, nr_arg, _nr, bg, dn = cases.composite_grid_case(name)
+    want = grid.composite_grid_plain(
+        *rect, *cases.grid_args((nr_arg, *bg, dn), "cpu"), compact_x=compact_x)
+    before = _kernels.COMPOSITE_GRID.launches
+    got = grid.composite_grid_batch(
+        *rect, *cases.grid_args((nr_arg, *bg, dn), dev), compact_x=compact_x,
+        parts=parts)
+    assert _kernels.COMPOSITE_GRID.launches == before + 1
+    _grid_same(got, want)
+
+
+@pytest.mark.parametrize("name,parts", [
+    (c[0], p) for c in cases.SCROLL_GRID_CASES
+    for p in grid.allowed_parts(*c[1])])
+def test_scroll_grid_kernel_forced_parts(dev, name, parts):
+    """K6 likewise, at each band plan the shape allows."""
+    pskip, compact_x, nr_arg, _nr, fields = cases.scroll_grid_case(name)
+    kw = dict(enable_pskip=pskip, compact_x=compact_x)
+    want = grid.scroll_grid_plain(*cases.grid_args((*fields, nr_arg), "cpu"),
+                                  **kw)
+    before = _kernels.SCROLL_GRID.launches
+    got = grid.scroll_grid_batch(*cases.grid_args((*fields, nr_arg), dev),
+                                 parts=parts, **kw)
+    assert _kernels.SCROLL_GRID.launches == before + 1
+    _grid_same(got, want)
+
+
+def test_grid_plan_is_the_twins(dev):
+    """The library's band plan equals ops/grid's rule over the library's
+    capacities (blocks the card holds at once), and its band arithmetic
+    (band edges, a thread's run, shared memory) equals ops/grid's; a
+    session at B = 1 spreads over 16 blocks at 720p and 5120x3200."""
+    shapes = ((45, 80), (68, 120), (135, 240), (200, 320), (8, 10), (65, 64),
+              (6, 10), (1, 9), (7, 1))
+    for kind in (grid.GRID_COMPOSITE, grid.GRID_SCROLL):
+        for h, w in shapes:
+            n = h * w
+            cap = {p: _kernels.grid_capacity(n, w, p, kind)
+                   for p in grid.PARTS if p <= h}
+            for B in (1, 4, 64, 256, 1024):
+                assert _kernels.grid_plan(n, w, B, kind) == \
+                    grid.plan_from_capacity(B, h, w, cap), (kind, h, w, B)
+            for p in grid.PARTS:
+                edges = [_kernels.grid_arithmetic("band_row", h, p, r)
+                         for r in range(p + 1)]
+                assert list(zip(edges, edges[1:])) == grid.band_rows(h, p)
+                assert _kernels.grid_arithmetic("items", n, w, p) == \
+                    grid.grid_items_per_thread(h, w, p)
+                assert _kernels.grid_arithmetic("smem", n, w, p, kind) == \
+                    grid.grid_smem_bytes(kind, h, w, p)
+                if p not in grid.allowed_parts(h, w):
+                    assert cap.get(p, 0) == 0
+        assert _kernels.grid_plan(3600, 80, 1, kind) == 16
+        assert _kernels.grid_plan(64000, 320, 1, kind) == 16
+
+
+def test_grid_refuses_a_shape_no_plan_fits(dev):
+    """A frame whose one row passes a block (1 x 20,000 MBs: a band can
+    only be that row) raises RuntimeError naming the shape, before any
+    launch."""
+    g = torch.zeros((1, 1, 20_000), dtype=torch.int32, device=dev)
+    dn = {k: torch.zeros(1, dtype=torch.int32, device=dev)
+          for k in grid.ROLE_FIELDS + ("coded",)}
+    before = (_kernels.SCROLL_GRID.launches, _kernels.COMPOSITE_GRID.launches)
+    with pytest.raises(RuntimeError, match="1x20000"):
+        grid.scroll_grid_batch(g, g, g, 2, enable_pskip=True)
+    with pytest.raises(RuntimeError, match="1x20000"):
+        grid.composite_grid_batch(0, 0, 1, 1, 2, g, g, g, g, dn)
+    assert (_kernels.SCROLL_GRID.launches,
+            _kernels.COMPOSITE_GRID.launches) == before
+
+
 def test_grid_kernels_read_inputs_in_place(dev):
     """Strided, sliced and broadcast inputs, int64 and int16 grids, uint8
     coded masks and a device num_refs read as they lie: equal to the
