@@ -2442,6 +2442,9 @@ def _graphs_phase(dev, cfg, cases, batch, _kernels, timing_, Timer, schedule,
              for step, _a, _k in paths.values()}
     _log(f"phase 11: pool bytes of the paths' live graphs: {pools}; "
          f"{torch.cuda.memory_reserved(dev)} B reserved on the card")
+    nodes = {step.name: [c["nodes"] for c in step.stats()]
+             for step, _a, _k in paths.values()}
+    _log(f"phase 11: nodes of the paths' live graphs: {nodes}")
     for step in {id(p[0]): p[0] for p in paths.values()}.values():
         step.reset()
     torch.cuda.synchronize()

@@ -318,6 +318,23 @@ def ebsp_items_per_thread(valid: int) -> int:
     return fn(valid)
 
 
+GRAPH_NODE_KINDS = ("kernel", "memcpy", "memset", "other")
+
+
+def graph_nodes(raw_graph: int) -> dict:
+    """{kind: nodes} of a captured, not yet instantiated CUDA graph (the
+    address `torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph()`
+    gives), kinds GRAPH_NODE_KINDS, a child graph's nodes counted as its
+    own (h264t_graph_nodes; launches nothing)."""
+    fn = _load().h264t_graph_nodes
+    fn.argtypes, fn.restype = [_P, _P], ctypes.c_int
+    kinds = (_L * len(GRAPH_NODE_KINDS))()
+    err = fn(raw_graph, kinds)
+    if err != 0:
+        raise RuntimeError(f"h264t_graph_nodes: cudaError_t {err}")
+    return dict(zip(GRAPH_NODE_KINDS, kinds))
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on; a CUDA device without a usable
     CUDA runtime raises instead of falling back to the CPU."""

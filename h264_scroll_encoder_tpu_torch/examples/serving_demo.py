@@ -6,8 +6,15 @@ Port of examples/serving_demo.py.  Shows the deployment pattern:
   2. each step composes one P-frame per session on the device (waypoint
      reference frames emitted automatically when a session's scroll
      crosses a 496 px boundary);
-  3. packed Annex-B bytes stream back per session for egress;
-  4. session state snapshot/restore for eviction (checkpoint/resume).
+  3. packed Annex-B bytes stream back per session for egress (the
+     batch's bytes packed into one buffer on the device, one copy back);
+  4. session state snapshot/restore for eviction (checkpoint/resume);
+  5. one more session composed frame by frame (ComposerSession, the
+     path of a UI with no batch to join), waypoint frames included.
+
+The loops run with the composer's tracer recording (utils/trace.TRACER,
+cleared first); its report (spans by layer: calls, mean host and self
+time, device time; the counters) is logged after them.
 
     python -m h264_scroll_encoder_tpu_torch.examples.serving_demo \
         [--device cuda|cpu] [--out-dir DIR]
@@ -35,7 +42,7 @@ def run(device="cuda", *, width: int = 1280, height: int = 720,
     from ..parallel import batch
     from ..session import ComposerSession
     from ..utils import snapshot
-    from ..utils.trace import StageTimer
+    from ..utils.trace import TRACER, StageTimer
     from ..verify import verify_stream
 
     cfg = ComposerConfig(width, height)
@@ -52,34 +59,49 @@ def run(device="cuda", *, width: int = 1280, height: int = 720,
     step = batch.make_batched_step(cfg)
     state = batch.SessionState.create(n_sessions, device=device)
     timer = StageTimer()
-    for t in range(n_frames):
-        # Each session scrolls at its own speed (UI-driven in production).
-        offsets = np.array([(t * (2 + b)) % cfg.height
-                            for b in range(n_sessions)], np.int32)
-        with timer.stage("compose"):
-            state, (nal, nal_len, _was_wp, _bits, ovf) = step(
-                state, torch.as_tensor(offsets))
-            # One copy back per step (the stage closes on this fetch).
-            nal_np, len_np, ovf_np = (x.cpu().numpy()
-                                      for x in (nal, nal_len, ovf))
-        if ovf_np.any():
-            raise AssertionError(f"step {t}: a frame overflowed")
-        for b in range(n_sessions):
-            # A waypoint step consumed the offset for the reference frame;
-            # production schedulers re-issue the offset (here the next tick
-            # simply continues).
-            host_sessions[b].writer.append_raw(
-                nal_np[b][: len_np[b]].tobytes())
-        timer.count("frames", n_sessions)
-        timer.count("bytes", int(len_np.sum()))
+    TRACER.clear()
+    with TRACER.recording():
+        for t in range(n_frames):
+            # Each session scrolls at its own speed (UI-driven in production).
+            offsets = np.array([(t * (2 + b)) % cfg.height
+                                for b in range(n_sessions)], np.int32)
+            with timer.stage("compose"):
+                state, (nal, nal_len, _was_wp, _bits, ovf) = step(
+                    state, torch.as_tensor(offsets))
+                # Egress: the sessions' bytes packed back to back (a cap
+                # of the whole batch never overflows), then copied back
+                # (the stage closes on these fetches).
+                packed, _total, _over = batch.compact_batch_nal(
+                    nal, nal_len, nal.numel())
+                len_np, ovf_np = (x.cpu().numpy() for x in (nal_len, ovf))
+                wire = packed[: int(len_np.sum())].cpu().numpy()
+            if ovf_np.any():
+                raise AssertionError(f"step {t}: a frame overflowed")
+            ends = np.cumsum(len_np)
+            for b in range(n_sessions):
+                # A waypoint step consumed the offset for the reference frame;
+                # production schedulers re-issue the offset (here the next tick
+                # simply continues).
+                host_sessions[b].writer.append_raw(
+                    wire[ends[b] - len_np[b]: ends[b]].tobytes())
+            timer.count("frames", n_sessions)
+            timer.count("bytes", int(len_np.sum()))
+        # One session alone, a frame a call, at 16 px a frame: offset 496
+        # (frame 31) takes a waypoint reference frame.
+        single = ComposerSession(cfg, device=device)
+        single.write_parameter_sets()
+        single.write_test_atlases(striped=True)
+        for t in range(n_frames):
+            single.write_scroll_or_waypoint_frame((t * 16) % cfg.height)
     compose = timer.stages["compose"]
     log(f"composed {timer.counters['frames']} frames across {n_sessions} "
         f"sessions in {compose.total_s * 1e3:.0f} ms "
-        f"({timer.counters['bytes']} B)")
+        f"({timer.counters['bytes']} B), and {n_frames} on one session")
+    log(f"trace {TRACER.report_json()}")
 
     # Verify every session's full stream with the structural oracle.
     streams = [s.getvalue() for s in host_sessions]
-    for b, data in enumerate(streams):
+    for b, data in enumerate(streams + [single.getvalue()]):
         rep = verify_stream(data)
         if not rep.ok:
             raise AssertionError(f"session {b}: {rep.errors[:2]}")

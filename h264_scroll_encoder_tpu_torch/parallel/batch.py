@@ -46,6 +46,7 @@ from ..config import ComposerConfig, MAX_WAYPOINTS
 from ..models import hints, scroll, splice_device
 from ..models.splice_device import donor_arrays_from_numpy  # noqa: F401
 from ..utils import graphs
+from ..utils.trace import TRACER
 
 _FIELDS = ("frame_num", "wp_offsets", "wp_ltidx", "wp_valid", "wp_count")
 
@@ -429,16 +430,25 @@ def compact_batch_nal(nal, nal_len, cap: int):
     An exclusive cumsum of the lengths gives each session's offset; each
     output byte finds its session by a binary search over the inclusive
     offsets and gathers its byte, so bytes past a session's length are
-    never read."""
-    B, N = nal.shape
-    lens = nal_len.to(torch.int32)
-    incl = torch.cumsum(lens, dim=0, dtype=torch.int32)
-    total = incl[-1]
-    pos = torch.arange(cap, dtype=torch.int32, device=nal.device)
-    session = torch.searchsorted(incl, pos, right=True,
-                                 out_int32=True).clamp(max=B - 1)
-    col = (pos - (incl - lens)[session]).clamp(0, N - 1)
-    packed = torch.where(pos < total, nal[session, col], 0).to(torch.uint8)
+    never read.
+
+    Under the composer's tracer it is the device-timed span
+    `batch.compact`; while the tracer records, `batch.compact_positions`
+    counts the caps (total stays on the device)."""
+    with TRACER.span("batch.compact") as span:
+        span.time_device(nal.device)
+        B, N = nal.shape
+        lens = nal_len.to(torch.int32)
+        incl = torch.cumsum(lens, dim=0, dtype=torch.int32)
+        total = incl[-1]
+        pos = torch.arange(cap, dtype=torch.int32, device=nal.device)
+        session = torch.searchsorted(incl, pos, right=True,
+                                     out_int32=True).clamp(max=B - 1)
+        col = (pos - (incl - lens)[session]).clamp(0, N - 1)
+        packed = torch.where(pos < total, nal[session, col],
+                             0).to(torch.uint8)
+    if TRACER.on:
+        TRACER.count("batch.compact_positions", cap)
     return packed, total, total > cap
 
 

@@ -21,6 +21,13 @@ first overflow.  A frame's per-call values (frame_num, offset, waypoint
 registry) reach the card in one copy of one packed int32 row, and the
 frame comes back to the host in one synchronising copy: the NAL buffer,
 its length and its overflow flag together.
+
+Under the composer's tracer (utils/trace) `write_scroll_frame` and
+`write_scroll_or_waypoint_frame` are the span `session.frame`, over the
+frame graph's `graphs.call` and the fetch to the host, `session.fetch`;
+while the tracer records, each frame emitted counts `session.frames`
+(`session.waypoint_frames` for a waypoint frame), its NAL bytes
+`session.bytes`, and an overflow retry `session.exact_retries`.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from .syntax import parse
 from .syntax.nal import AnnexBWriter, write_nal_unit
 from .syntax.params import generate_pps, generate_sps
 from .utils import graphs
+from .utils.trace import TRACER
 
 
 @dataclasses.dataclass
@@ -143,9 +151,10 @@ def _fetch(frame):
     lengths int[K], overflow bool[K]) for its K rows."""
     nal, nal_len, _bits, overflow = frame
     K = nal_len.numel()
-    host = torch.cat([nal.reshape(-1),
-                      nal_len.reshape(K).to(torch.int32).view(torch.uint8),
-                      overflow.reshape(K).to(torch.uint8)]).cpu().numpy()
+    with TRACER.span("session.fetch"):
+        host = torch.cat([nal.reshape(-1),
+                          nal_len.reshape(K).to(torch.int32).view(torch.uint8),
+                          overflow.reshape(K).to(torch.uint8)]).cpu().numpy()
     rows = host[: nal.numel()].reshape(K, -1)
     lens = host[nal.numel(): nal.numel() + 4 * K].view(np.int32)
     return rows, lens, host[nal.numel() + 4 * K:].astype(bool)
@@ -229,19 +238,21 @@ class ComposerSession:
     def write_scroll_frame(self, offset_px: int) -> None:
         """composer_write_scroll_frame (src/composer.c:255-264): emit a
         waypoint reference frame first if this offset needs one."""
-        if self.waypoints.needs_waypoint(offset_px):
-            self.write_waypoint_frame(offset_px)
-        self._emit(self._scroll_fn, offset_px)
-        self.frames_written += 1
+        with TRACER.span("session.frame"):
+            if self.waypoints.needs_waypoint(offset_px):
+                self.write_waypoint_frame(offset_px)
+            self._emit(self._scroll_fn, offset_px)
+            self.frames_written += 1
 
     def write_scroll_or_waypoint_frame(self, offset_px: int) -> None:
         """Experiment scheduling (scroll-encoder main.c:417-424): a step
         that needs a waypoint emits *only* the waypoint frame."""
-        if self.waypoints.needs_waypoint(offset_px):
-            self.write_waypoint_frame(offset_px)
-        else:
-            self._emit(self._scroll_fn, offset_px)
-        self.frames_written += 1
+        with TRACER.span("session.frame"):
+            if self.waypoints.needs_waypoint(offset_px):
+                self.write_waypoint_frame(offset_px)
+            else:
+                self._emit(self._scroll_fn, offset_px)
+            self.frames_written += 1
 
     def write_waypoint_frame(self, offset_px: int) -> None:
         """Emit one waypoint reference P-frame and register it."""
@@ -478,7 +489,8 @@ class ComposerSession:
     def _emit(self, fn, offset_px: int, *, waypoint: bool = False) -> None:
         row = self._frame_row(offset_px)
         nal, nal_len, overflow = _fetch(fn(row))
-        if overflow[0]:
+        retried = bool(overflow[0])
+        if retried:
             # The fast path statically bounds emulation-prevention work
             # (MAX_EBSP_INSERTIONS / the zero-run window) and uses a tight
             # RBSP budget; legal payloads past those bounds re-emit
@@ -496,6 +508,11 @@ class ComposerSession:
                 f"ComposerConfig.rbsp_bits_per_mb")
         self.writer.append_raw(nal[0][: int(nal_len[0])].tobytes())
         self.frame_num += 1
+        if TRACER.on:
+            TRACER.count("session.frames")
+            TRACER.count("session.waypoint_frames", int(waypoint))
+            TRACER.count("session.exact_retries", int(retried))
+            TRACER.count("session.bytes", int(nal_len[0]))
 
     # -- output --------------------------------------------------------------
 

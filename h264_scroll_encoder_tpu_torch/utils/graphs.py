@@ -29,9 +29,19 @@ launches that Python would dispatch one by one.
 
 Each graph keeps a private memory pool (its intermediates and static
 outputs) for as long as it lives; `Capture.pool_bytes` reports it and
-`Graphed.reset()` frees a step's graphs.  The kernels' launch counters
+`Graphed.reset()` frees a step's graphs.  `Capture.nodes` is the
+graph's node count (kernels, copies, fills), read once from the
+captured CUDA graph before it is instantiated.  The kernels' launch counters
 stay truthful: a launch recorded while a graph is captured counts on each
 replay instead (_kernels.Kernel).
+
+Under the composer's tracer (utils/trace) a call is the span
+`graphs.call` (device-timed from its input copies to its output clones)
+over `graphs.key`, `graphs.inputs`, `graphs.replay` and
+`graphs.outputs`; a capture is `graphs.capture`.  While the tracer
+records, a replay counts `graphs.replays`, `graphs.nodes` (its graph's
+nodes), `graphs.input_bytes` and `graphs.output_bytes` (bytes copied in
+and cloned out), and a capture `graphs.captures`.
 
 `step_factory` caches a step factory as the JAX package's lru_cache'd
 factories are: one step, and so one set of graphs, per configuration.
@@ -50,6 +60,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from .. import _kernels
+from .trace import TRACER
 
 
 class GraphCaptureError(RuntimeError):
@@ -99,7 +110,7 @@ def _place(x, dev: torch.device):
 @dataclasses.dataclass
 class Capture:
     """One key's graph: its static inputs and outputs, the kernel launches
-    each replay makes, and what the capture cost."""
+    each replay makes, its nodes, and what the capture cost."""
     graph: "torch.cuda.CUDAGraph"
     device: torch.device
     static_in: list            # the call's leaves, tensors as static buffers
@@ -107,17 +118,31 @@ class Capture:
     launches: dict             # {Kernel: launches per replay}
     capture_ms: float
     pool_bytes: int
+    nodes: int                 # the graph's nodes: kernels, copies, fills
+    out_bytes: int             # bytes a replay's output clones copy
 
     def run(self, leaves):
+        tr = TRACER
         with torch.cuda.device(self.device):
-            for buf, x in zip(self.static_in, leaves):
-                if isinstance(x, torch.Tensor) and x is not buf:
-                    buf.copy_(x)
-            self.graph.replay()
+            with tr.span("graphs.inputs"):
+                copied = []
+                for buf, x in zip(self.static_in, leaves):
+                    if isinstance(x, torch.Tensor) and x is not buf:
+                        buf.copy_(x)
+                        copied.append(buf)
+            with tr.span("graphs.replay"):
+                self.graph.replay()
             _kernels.count_replay(self.launches)
-            return pytree.tree_map(
-                lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
-                self.static_out)
+            with tr.span("graphs.outputs"):
+                out = pytree.tree_map(
+                    lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                    self.static_out)
+        if tr.on:
+            tr.count("graphs.replays")
+            tr.count("graphs.nodes", self.nodes)
+            tr.count("graphs.input_bytes", sum(b.nbytes for b in copied))
+            tr.count("graphs.output_bytes", self.out_bytes)
+        return out
 
 
 class Graphed:
@@ -137,24 +162,32 @@ class Graphed:
         self._lock = threading.Lock()
 
     def __call__(self, *args, **kwargs):
-        leaves, spec = pytree.tree_flatten((args, kwargs))
-        dev = self.device or _cuda_device(leaves)
-        if dev is None or dev.type != "cuda":
-            return self.eager(*args, **kwargs)
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        leaves = [_place(x, dev) for x in leaves]
-        key = _key(spec, leaves)
-        with self._lock:
-            cap = self.graphs.get(key)
-            if cap is not None:
-                return cap.run(leaves)
-            args, kwargs = pytree.tree_unflatten(leaves, spec)
-            with torch.cuda.device(dev):
-                out = self.eager(*args, **kwargs)
-            self.graphs[key] = self._capture(dev, leaves, spec)
-            self.captures += 1
-            return out
+        with TRACER.span("graphs.call") as call:
+            with TRACER.span("graphs.key"):
+                leaves, spec = pytree.tree_flatten((args, kwargs))
+                dev = self.device or _cuda_device(leaves)
+                if dev is not None and dev.type == "cuda":
+                    if dev.index is None:
+                        dev = torch.device("cuda",
+                                           torch.cuda.current_device())
+                    leaves = [_place(x, dev) for x in leaves]
+                    key = _key(spec, leaves)
+            if dev is None or dev.type != "cuda":
+                return self.eager(*args, **kwargs)
+            call.time_device(dev)
+            with self._lock:
+                cap = self.graphs.get(key)
+                if cap is not None:
+                    return cap.run(leaves)
+                args, kwargs = pytree.tree_unflatten(leaves, spec)
+                with torch.cuda.device(dev):
+                    out = self.eager(*args, **kwargs)
+                with TRACER.span("graphs.capture"):
+                    self.graphs[key] = self._capture(dev, leaves, spec)
+                self.captures += 1
+                if TRACER.on:
+                    TRACER.count("graphs.captures")
+                return out
 
     def key(self, *args, **kwargs):
         """The cache key of a call with these arguments, on the devices
@@ -170,7 +203,9 @@ class Graphed:
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(dev)
             before = _kernels.captured_counts()
-            graph = torch.cuda.CUDAGraph()
+            # keep_graph: the captured cudaGraph_t stays readable (its
+            # nodes are counted) until instantiate() builds the exec.
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             t0 = time.perf_counter()
             try:
                 with torch.cuda.graph(graph):
@@ -178,14 +213,19 @@ class Graphed:
             except Exception as e:
                 raise GraphCaptureError(
                     f"{self.name}: CUDA graph capture failed: {e}") from e
+            nodes = sum(_kernels.graph_nodes(graph.raw_cuda_graph()).values())
+            graph.instantiate()
             torch.cuda.synchronize(dev)
             capture_ms = (time.perf_counter() - t0) * 1e3
             after = _kernels.captured_counts()
             launches = {k: after[k] - before.get(k, 0) for k in after
                         if after[k] != before.get(k, 0)}
+            out_bytes = sum(t.nbytes for t in pytree.tree_leaves(static_out)
+                            if isinstance(t, torch.Tensor))
             return Capture(graph, dev, static_in, static_out, launches,
                            capture_ms,
-                           torch.cuda.memory_reserved(dev) - reserved)
+                           torch.cuda.memory_reserved(dev) - reserved,
+                           nodes, out_bytes)
 
     def reset(self) -> None:
         """Drop every capture (their memory pools go back to the caching
@@ -195,9 +235,10 @@ class Graphed:
             self.graphs.clear()
 
     def stats(self) -> list[dict]:
-        """Per live capture: capture ms, pool bytes and the kernel
-        launches of one replay."""
+        """Per live capture: capture ms, pool bytes, the graph's nodes and
+        the kernel launches of one replay."""
         return [{"capture_ms": c.capture_ms, "pool_bytes": c.pool_bytes,
+                 "nodes": c.nodes,
                  "launches": {k.name: n for k, n in c.launches.items()}}
                 for c in self.graphs.values()]
 
