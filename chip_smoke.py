@@ -11,7 +11,8 @@ it launches, so K1 still counts once per step or frame:
   1. Require CUDA; print the torch, CUDA, nvcc and card versions.
   2. Build, started together: the kernels (K1 h264t_emit_fused, K2
      h264t_pack_place, K3 h264t_ebsp_nal, K4 h264t_pack_words, K5
-     h264t_composite_grid, K6 h264t_scroll_grid, and the probes P1-P6)
+     h264t_composite_grid, K6 h264t_scroll_grid, K7
+     h264t_p_slice_header, and the probes P1-P6)
      from h264_scroll_encoder_tpu_torch/csrc/*.cu with one nvcc per
      source, then one link, the native CAVLC
      engine from csrc/cavlc_decode.cpp with g++, and avref from
@@ -56,6 +57,12 @@ it launches, so K1 still counts once per step or frame:
      each (GRID_FORCED_CASES) at every band plan forced; every output
      exactly equal to the plain version's; their wrappers run no tensor
      op on those inputs; each timed as K1 is, beside its bound and plan.
+     K7 (syntax/slice_headers.p_slice_header_symbols) on every
+     configuration of cases.HEADER_CONFIGS at B = 1, 256 and 1,024, on a
+     session's sliced rows (first_mb a tensor) and on int64, int16/uint8
+     and strided inputs: every slot equal to the plain version's, one
+     launch and no tensor op a call; timed at B = 1, 256, 1,024 and the
+     sliced rows.
   4. The scroll path — `parallel.batch.make_batched_step` at 1280x720 —
      over 16 frames of the benchmark's schedule at B = 256, then the
      golden batch-8 schedule and one `ebsp_exact` (K2) frame per session,
@@ -325,6 +332,7 @@ def main() -> int:
     from h264_scroll_encoder_tpu_torch.ops import (bitpack, bitpack_flat,
                                                    ebsp_flat, emit_fused, grid)
     from h264_scroll_encoder_tpu_torch.parallel import batch
+    from h264_scroll_encoder_tpu_torch.syntax import slice_headers
     from h264_scroll_encoder_tpu_torch.utils import timing as timing_
 
     dev = torch.device("cuda", 0)
@@ -350,7 +358,7 @@ def main() -> int:
             a = torch.as_tensor(np.asarray(a).astype(np.int64), device=dev)
         return cases.int32_bits(a) if int32 else a.to(dev, torch.int64)
 
-    errs = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+    errs = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
 
     def hold(name, case, got, want):
         torch.cuda.synchronize()
@@ -698,6 +706,46 @@ def main() -> int:
          f"tensor op on those inputs; band plans (blocks a session): "
          f"{grid_parts}")
 
+    # K7, the P slice header: the sweep's configurations at B = 1, 256 and
+    # 1,024 and on a session's sliced rows (first_mb a tensor), the scroll
+    # step's input forms, each equal to the plain version on the same CUDA
+    # inputs, one launch a call and no tensor op around it.
+    def header_run(k, case, variant="int32"):
+        cfg_k, qp = cases.header_config(k)
+        t = cases.header_tensors(case, dev, variant)
+        return ((lambda: slice_headers.p_slice_header_symbols(
+                     cfg_k, slice_qp_delta=qp, **t)),
+                (lambda: slice_headers.p_slice_header_symbols_plain(
+                    cfg_k, slice_qp_delta=qp, **t)), t)
+
+    header_runs = {
+        "K7": header_run(0, cases.header_case(B, 7)),
+        "K7 B=1": header_run(0, cases.header_case(1, 7)),
+        "K7 B=1024": header_run(0, cases.header_case(1024, 7)),
+        "K7 sliced rows B=1 (5 slices)": header_run(0, cases.header_case(5, 7)),
+    }
+    for k in range(len(cases.HEADER_CONFIGS)):
+        for b_h in (1, B, 1024):
+            header_runs.setdefault(f"K7 config {k} B={b_h}", header_run(
+                k, cases.header_case(b_h, 100 + k)))
+    for variant in ("int64", "narrow", "strided"):
+        header_runs[f"K7 {variant}"] = header_run(
+            3, cases.header_case(B, 9), variant)
+    header_out = {}
+    for label, (kern, plain, _t) in header_runs.items():
+        before = _kernels.P_SLICE_HEADER.launches
+        header_out[label] = hold("K7", label, kern(), plain())
+        if _kernels.P_SLICE_HEADER.launches != before + 1:
+            raise AssertionError(f"K7 {label}: not one launch")
+        ops = cases.compute_ops(kern)
+        if ops:
+            raise AssertionError(f"K7's wrapper ran tensor ops {ops} on the "
+                                 f"{label} inputs")
+    _log(f"phase 3: K7 equals its plain version on {len(header_runs)} "
+         f"header batches ({len(cases.HEADER_CONFIGS)} configurations at B = "
+         f"1, {B} and 1,024, sliced rows, int64, int16/uint8 and strided "
+         f"inputs), every slot exactly, one launch and no tensor op a call")
+
     # Timing at the 720p B = 256 splice shapes (K1 and K3 also at B = 1
     # and 1,024, K1 at the scroll shapes): the kernel's device time on the
     # main path's inputs (int32 symbols; calls queued back to back) and, as
@@ -779,6 +827,9 @@ def main() -> int:
                    (lambda a=args, k=kw: grid.scroll_grid_batch(*a, **k),
                     lambda a=args, k=kw: grid.scroll_grid_plain(*a, **k)))
            for label, (kern, args, kw) in grid_runs.items()},
+        **{label: header_runs[label][:2]
+           for label in ("K7", "K7 B=1", "K7 B=1024",
+                         "K7 sliced rows B=1 (5 slices)")},
     }
     timing = {}
     for name, (kernel, plain) in runs.items():
@@ -862,6 +913,13 @@ def main() -> int:
         bound[label] = (grid.composite_grid_bytes(*args, grid_out[label])
                         if kern == "K5" else
                         grid.scroll_grid_bytes(*args, grid_out[label]))
+    # K7: each input tensor read once, both [B, 39] int32 outputs written
+    # once; its work (a few integer operations a slot) is far less.
+    for label in ("K7", "K7 B=1", "K7 B=1024", "K7 sliced rows B=1 (5 slices)"):
+        _k, _p, t = header_runs[label]
+        bound[label] = (sum(x.numel() * x.element_size() for x in t.values())
+                        + sum(o.numel() * o.element_size()
+                              for o in header_out[label]))
     compare_bytes = {"K1 int64": B * n_s * 16 + B * (n_nal_s + 16),
                      "K2 int64": B * n_e * 16 + B * (exact_words + 1) * 4,
                      "K3 earlier formula": (B * s_n_rbsp + 2 * 4 * B
@@ -896,12 +954,16 @@ def main() -> int:
     if _kernels.SCROLL_GRID.launches != len(schedule):
         raise AssertionError(f"K6 launched {_kernels.SCROLL_GRID.launches} "
                              f"times in {len(schedule)} steps")
+    if _kernels.P_SLICE_HEADER.launches != len(schedule):
+        raise AssertionError(f"K7 launched {_kernels.P_SLICE_HEADER.launches} "
+                             f"times in {len(schedule)} steps")
     golden = json.loads(cases.GOLDEN_PATH.read_text())
     if cases.port_golden(dev) != golden:
         raise AssertionError("CUDA output differs from the scroll golden digests")
     torch.cuda.synchronize()
     scroll_launches = {k.symbol: k.launches for k in _kernels.KERNELS}
-    for k in (_kernels.EMIT_FUSED, _kernels.PACK_PLACE, _kernels.SCROLL_GRID):
+    for k in (_kernels.EMIT_FUSED, _kernels.PACK_PLACE, _kernels.SCROLL_GRID,
+              _kernels.P_SLICE_HEADER):
         if scroll_launches[k.symbol] == 0:
             raise AssertionError(f"{k.symbol} never launched on the scroll path")
     step_ms, wall_ms = timer.medians()
@@ -1081,11 +1143,15 @@ def main() -> int:
          "h264_scroll_encoder_tpu/models/splice_device.py:1321", grid_src),
         ("scroll_grid (K6)", "K6", "h264t_scroll_grid",
          "h264_scroll_encoder_tpu/models/scroll.py:328", grid_src),
+        ("p_slice_header (K7)", "K7", "h264t_p_slice_header",
+         "h264_scroll_encoder_tpu/syntax/slice_headers.py:28",
+         "h264_scroll_encoder_tpu_torch/csrc/header_kernels.cu"),
     ]
     # The paths each grid kernel serves; it must have launched on each.
     grid_paths = {"K5": ("splice", "dense", "serving", "probes", "graphs"),
                   "K6": ("scroll", "session", "large", "serving", "probes",
-                         "graphs")}
+                         "graphs"),
+                  "K7": ("scroll", "session", "graphs")}
     paths = {"scroll": scroll_launches, "splice": splice_launches,
              "entry": entry_launches, "session": session_launches,
              "dense": dense_launches, "large": large_launches,
@@ -1256,6 +1322,9 @@ def _session_phase(dev, cfg, cases, batch, _kernels, Timer):
         lambda: probe._scroll_fn.eager(probe._frame_row(500)))
     header_ops = cases.compute_ops(lambda: p_slice_header_symbols(
         cfg, frame_num, poc, False, -1, count, wp_lt, wp_valid))
+    if header_ops:
+        raise AssertionError(f"the slice header's symbols ran tensor ops "
+                             f"{header_ops} besides K7")
     _log(f"phase 7: one batch-1 scroll frame runs {len(frame_ops)} tensor "
          f"ops, {len(header_ops)} of them in its slice header's symbols")
 
@@ -2293,7 +2362,8 @@ def _graphs_phase(dev, cfg, cases, batch, _kernels, timing_, Timer, schedule,
         calls[name] = args_at(1, outs)
     torch.cuda.synchronize()
     launches = {k.symbol: k.launches for k in _kernels.KERNELS}
-    for k in (_kernels.COMPOSITE_GRID, _kernels.SCROLL_GRID):
+    for k in (_kernels.COMPOSITE_GRID, _kernels.SCROLL_GRID,
+              _kernels.P_SLICE_HEADER):
         if launches[k.symbol] == 0:
             raise AssertionError(f"{k.symbol} never launched in a graph")
     _log(f"phase 11: {len(paths)} graphed paths, 8 calls each with changing "

@@ -8,7 +8,7 @@ loaded at import time.
 
 Each kernel is a `Kernel` whose `launches` counter goes up by one per
 launch, so a run can show which kernels its main path went through:
-KERNELS are the production kernels K1-K6, PROBE_KERNELS the measurement
+KERNELS are the production kernels K1-K7, PROBE_KERNELS the measurement
 probes P1-P6 (ops/probes.py, ops/cavlc_lockstep.py; P1 one counter per
 stage, P5/P6 one per variant).
 """
@@ -185,8 +185,14 @@ COMPOSITE_GRID = Kernel("h264t_composite_grid",
 SCROLL_GRID = Kernel("h264t_scroll_grid",
                      [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P])
 
+# K7 (syntax/slice_headers.p_slice_header_symbols): (fields, values, batch,
+#     fn_bits, poc_bits, deblock, slice_type, qp_ue, slots, max_waypoints,
+#     pat, nb, stream); fields a host array of 9 x 5 int64, values 9 int32.
+P_SLICE_HEADER = Kernel("h264t_p_slice_header",
+                        [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P])
+
 KERNELS = (EMIT_FUSED, PACK_PLACE, EBSP_NAL, PACK_WORDS, COMPOSITE_GRID,
-           SCROLL_GRID)
+           SCROLL_GRID, P_SLICE_HEADER)
 
 # P1: (stage, then K1's arguments, probe_meta, probe_words, stream); one
 # counter per stage, in csrc's order (0 launch ... 5 full).

@@ -444,6 +444,160 @@ def ebsp_saturation_case():
 
 
 # ---------------------------------------------------------------------------
+# K7: the P slice header's symbol stream (syntax/slice_headers).
+# ---------------------------------------------------------------------------
+
+# The configurations of the sweep: (log2_max_frame_num, pic_order_cnt_type,
+# deblocking_filter_control_present_flag, slice_qp_delta).
+HEADER_CONFIGS = ((4, 2, 1, 0), (4, 0, 0, -12), (5, 0, 1, 12), (8, 2, 0, 12),
+                  (11, 0, 1, 0), (16, 2, 1, -12), (16, 0, 0, 0))
+HEADER_BATCHES = (0, 1, 256, 1024)
+# prev_ref_abs_diff's values: absent (0, or negative), 1, and large ones
+# whose ue still fits a 32-bit symbol (K1's widest).
+HEADER_PREV = (0, 1, 2, 37, 4097, 65535, -3)
+
+
+def header_config(k: int) -> tuple[ComposerConfig, int]:
+    """(cfg, slice_qp_delta) of HEADER_CONFIGS[k] at 1280x720."""
+    fn_bits, poc_type, deblock, qp = HEADER_CONFIGS[k]
+    cfg = ComposerConfig(1280, 720, log2_max_frame_num=fn_bits,
+                         pic_order_cnt_type=poc_type,
+                         log2_max_pic_order_cnt_lsb=min(fn_bits + 1, 16),
+                         deblocking_filter_control_present_flag=deblock)
+    return cfg, qp
+
+
+def header_case(B: int, seed: int, *, writer: bool = False) -> dict:
+    """Numpy inputs of B P slice headers, the keyword arguments of
+    p_slice_header_symbols but cfg and slice_qp_delta: session b has b % 9
+    waypoints, is a reference on alternate runs of 9, half of them marked
+    long-term; frame numbers past every max_frame_num (the wrap);
+    prev_ref_abs_diff from HEADER_PREV; first_mb of the sliced rows (k
+    rows of 9 MB rows at 720p).  writer=True keeps to what
+    write_p_slice_header writes: the registry valid exactly below the count
+    (else with holes, and stray valid slots past it), first_mb 0, POC LSB
+    twice the frame number (else any) and prev_ref_abs_diff > 0 or 0."""
+    rng = np.random.default_rng(seed)
+    b = np.arange(B)
+    count = (b % (MAX_WAYPOINTS + 1)).astype(np.int32)
+    below = np.arange(MAX_WAYPOINTS)[None, :] < count[:, None]
+    if writer:
+        valid = below
+    else:
+        r = rng.random((B, MAX_WAYPOINTS))
+        valid = (below & (r < 0.75)) | (~below & (r < 0.2))
+    frame_num = rng.integers(0, 1 << 20, B).astype(np.int32)
+    prev = np.asarray(HEADER_PREV, np.int32)[b % len(HEADER_PREV)]
+    return dict(
+        frame_num=frame_num,
+        poc_lsb=(2 * frame_num if writer
+                 else rng.integers(-(1 << 20), 1 << 20, B).astype(np.int32)),
+        is_reference=(b // (MAX_WAYPOINTS + 1)) % 2 == 1,
+        long_term_idx=np.where(rng.random(B) < 0.5, -1,
+                               rng.integers(0, 18, B)).astype(np.int32),
+        num_waypoints=count,
+        wp_long_term_idx=rng.integers(0, 18, (B, MAX_WAYPOINTS)).astype(
+            np.int32),
+        wp_valid=valid,
+        first_mb=(np.zeros(B, np.int32) if writer
+                  else ((b % 5) * 9 * 80).astype(np.int32)),
+        prev_ref_abs_diff=np.maximum(prev, 0) if writer else prev)
+
+
+def header_extremes_case() -> dict:
+    """Inputs at the ends of int32, as header_case's (B = 6): first_mb -1
+    (ue of 0xffffffff: pattern 0, nbits -1), long_term_idx 2**31 - 1 (its
+    + 1 wraps), prev_ref_abs_diff -2**31 (its - 1 wraps), counts past
+    MAX_WAYPOINTS and negative, negative and huge frame numbers."""
+    big, small = (1 << 31) - 1, -(1 << 31)
+    case = header_case(6, 77)
+    case.update(
+        frame_num=np.array([big, small, -1, 0, 65535, 1 << 30], np.int32),
+        poc_lsb=np.array([small, big, -7, 3, 0, -1], np.int32),
+        is_reference=np.array([1, 1, 1, 0, 1, 1], bool),
+        long_term_idx=np.array([big, 0, -1, big, small, 7], np.int32),
+        num_waypoints=np.array([9, -1, 8, small, big, 0], np.int32),
+        first_mb=np.array([-1, big, small, 0, -2, 1], np.int32),
+        prev_ref_abs_diff=np.array([small, big, 1, -1, 0, 2], np.int32))
+    return case
+
+
+def header_tensors(case: dict, device, variant: str = "int32") -> dict:
+    """header_case's inputs as tensors on `device` in one of the forms
+    K7 reads in place: "int32" (bool flags), "int64" (flags too), "narrow"
+    (int16 values and the registry, uint8 flags; valid where the values fit
+    int16), or "strided" (every [B] input a view of every other element,
+    the registry columns of a [B, 2 * MAX_WAYPOINTS] array)."""
+    out = {}
+    for k, v in case.items():
+        v = np.asarray(v)
+        if variant == "int64":
+            v = v.astype(np.int64)
+        elif variant == "narrow":
+            v = v.astype(np.uint8 if v.dtype == bool else np.int16)
+        t = torch.as_tensor(v, device=device)
+        if variant == "strided":
+            wide = torch.zeros((t.shape[0], 2, *t.shape[1:]), dtype=t.dtype,
+                               device=device)
+            wide[:, 1] = t
+            t = (wide[:, 1] if t.dim() == 1
+                 else wide.transpose(1, 2).reshape(t.shape[0], -1)[:, 1::2])
+        out[k] = t
+    return out
+
+
+def symbol_bits(patterns, nbits) -> list[str]:
+    """Each row of a symbol stream as its bit string (a slot's low nbits
+    bits of its pattern, most significant first; nbits 0 writes none)."""
+    rows = []
+    for pr, nr in zip(np.asarray(patterns).astype(np.int64) & 0xFFFFFFFF,
+                      np.asarray(nbits)):
+        rows.append("".join(format(int(p) & ((1 << int(n)) - 1), f"0{n}b")
+                            for p, n in zip(pr, nr) if n > 0))
+    return rows
+
+
+def header_writer_bits(cfg: ComposerConfig, case: dict, qp: int) -> list[str]:
+    """write_p_slice_header's bit string of each session of a writer=True
+    header_case."""
+    from .ops.bitio import BitWriter
+    from .syntax.slice_headers import write_p_slice_header
+
+    rows = []
+    for b in range(len(case["frame_num"])):
+        bw = BitWriter()
+        n = int(case["num_waypoints"][b])
+        prev = int(case["prev_ref_abs_diff"][b])
+        write_p_slice_header(
+            bw, cfg, int(case["frame_num"][b]),
+            is_reference=bool(case["is_reference"][b]),
+            long_term_idx=int(case["long_term_idx"][b]), num_waypoints=n,
+            wp_long_term_idx=[int(x) for x in case["wp_long_term_idx"][b, :n]],
+            slice_qp_delta=qp, prev_ref_abs_diff=prev if prev > 0 else None)
+        nbits = bw.bit_position
+        data = bw.getvalue()
+        rows.append("".join(format(x, "08b") for x in data)[:nbits])
+    return rows
+
+
+def header_writer_nals(cfg: ComposerConfig, case: dict, qp: int,
+                       nal_ref_idc: int = 2) -> list[bytes]:
+    """Each writer=True session's header alone as a non-IDR slice NAL unit
+    (start code, header byte, EBSP of header + trailing bits), from
+    write_p_slice_header: what K1 makes of the header's symbols with
+    append_tb."""
+    from .syntax.nal import write_nal_unit
+
+    out = []
+    for bits in header_writer_bits(cfg, case, qp):
+        bits += "1"
+        bits += "0" * (-len(bits) % 8)
+        rbsp = int(bits, 2).to_bytes(len(bits) // 8, "big")
+        out.append(write_nal_unit(rbsp, nal_ref_idc, 1))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The 720p scroll schedules.
 # ---------------------------------------------------------------------------
 

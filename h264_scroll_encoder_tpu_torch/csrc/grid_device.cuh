@@ -140,6 +140,24 @@ struct Field {
   int code;
 };
 
+// The wrappers hand each Field over as kFieldWords int64: address, the
+// three strides, dtype code (K5, K6 and K7 alike).
+constexpr int kFieldWords = 5;
+
+inline Field field_of(const long long* d) {
+  Field f;
+  f.p = reinterpret_cast<const char*>(d[0]);
+  f.sb = d[1];
+  f.sr = d[2];
+  f.sc = d[3];
+  f.code = static_cast<int>(d[4]);
+  return f;
+}
+
+inline bool valid_code(int code) {
+  return code == 1 || code == -1 || code == 2 || code == 4 || code == 8;
+}
+
 // A value as int32 (a wider one keeps its low 32 bits, as torch's
 // .to(torch.int32) does) or as a flag (nonzero, as .to(torch.bool)).
 struct AsInt {

@@ -72,22 +72,6 @@
 
 namespace {
 
-constexpr int kFieldWords = 5;
-
-Field field_of(const long long* d) {
-  Field f;
-  f.p = reinterpret_cast<const char*>(d[0]);
-  f.sb = d[1];
-  f.sr = d[2];
-  f.sc = d[3];
-  f.code = static_cast<int>(d[4]);
-  return f;
-}
-
-bool valid_code(int code) {
-  return code == 1 || code == -1 || code == 2 || code == 4 || code == 8;
-}
-
 // The fields of `d` (kFieldWords int64 each), checked: every one with an
 // address and a known dtype code, but the last (num_refs) may have none.
 bool read_fields(const long long* d, int count, Field* out) {

@@ -8,16 +8,22 @@ h264_write_idr_slice_header and h264_write_non_idr_i_slice_header
 (experiments/scroll-encoder/src/h264_encoder.c:622-715).  The base P
 header is the waypoint variant specialized to zero waypoints and no MMCO
 self-marking, so one branchless stream covers both: every optional field
-has a fixed slot whose nbits is 0 when absent.  The host writers are
-copied unchanged (they have no framework dependency).
+has a fixed slot whose nbits is 0 when absent.  On CUDA tensors the
+stream is one launch of K7 (csrc/header_kernels.cu), on CPU tensors its
+plain version.  The host writers are copied unchanged (they have no
+framework dependency).
 """
 
 from __future__ import annotations
 
+import ctypes
+import numbers
+
 import torch
 
+from .. import _kernels
 from ..config import ComposerConfig, MAX_WAYPOINTS, SLICE_TYPE_P
-from ..ops import expgolomb
+from ..ops import expgolomb, grid
 from ..ops.bitio import BitWriter
 
 # Slot budget for the P slice header symbol stream (incl. the two
@@ -31,7 +37,17 @@ def p_slice_header_symbols(cfg: ComposerConfig, frame_num, poc_lsb,
                            first_mb=0, slice_qp_delta: int = 0,
                            prev_ref_abs_diff=0):
     """P slice headers as (patterns int32[B, P_HEADER_SLOTS] holding the
-    JAX package's uint32 bits, nbits int32[B, P_HEADER_SLOTS]).
+    JAX package's uint32 bits, nbits int32[B, P_HEADER_SLOTS]): the plain
+    version for a CPU frame_num, one launch of K7 (csrc/header_kernels.cu,
+    h264t_p_slice_header) for a CUDA one.
+
+    The kernel reads each tensor input in place, in its own integer or
+    bool dtype and strides, and takes a Python integer every session
+    shares by value; it refuses (TypeError, ValueError) a tensor on
+    another device, of a float dtype or of another shape, and anything
+    else the plain version would first convert (lists, numpy arrays):
+    there is no fallback.  Around the launch it runs no tensor op (the
+    outputs are torch.empty).
 
     Args (per session [B] tensors, or Python scalars shared by all):
       frame_num: int[B], already wrapped to max_frame_num; fixes B and the
@@ -48,6 +64,28 @@ def p_slice_header_symbols(cfg: ComposerConfig, frame_num, poc_lsb,
       prev_ref_abs_diff: > 0 leads the list with a short-term picture
         (reordering idc 0, abs_diff_pic_num_minus1 = value - 1); 0 = absent.
     """
+    frame_num = torch.as_tensor(frame_num)
+    if frame_num.device.type != "cuda":
+        return p_slice_header_symbols_plain(
+            cfg, frame_num, poc_lsb, is_reference, long_term_idx,
+            num_waypoints, wp_long_term_idx, wp_valid, first_mb,
+            slice_qp_delta, prev_ref_abs_diff)
+    return _p_slice_header_kernel(cfg, slice_qp_delta, dict(
+        frame_num=frame_num, poc_lsb=poc_lsb, is_reference=is_reference,
+        long_term_idx=long_term_idx, num_waypoints=num_waypoints,
+        prev_ref_abs_diff=prev_ref_abs_diff, first_mb=first_mb,
+        wp_long_term_idx=wp_long_term_idx, wp_valid=wp_valid))
+
+
+def p_slice_header_symbols_plain(cfg: ComposerConfig, frame_num, poc_lsb,
+                                 is_reference, long_term_idx,
+                                 num_waypoints, wp_long_term_idx, wp_valid,
+                                 first_mb=0, slice_qp_delta: int = 0,
+                                 prev_ref_abs_diff=0):
+    """p_slice_header_symbols in plain torch, with the same arguments and
+    returns: K7's contract, and what CPU tensors run.  It takes what the
+    kernel refuses too (lists and numpy arrays are placed on frame_num's
+    device, other dtypes converted)."""
     frame_num = torch.as_tensor(frame_num)
     B = frame_num.shape[0]
     dev = frame_num.device
@@ -132,6 +170,88 @@ def p_slice_header_symbols(cfg: ComposerConfig, frame_num, poc_lsb,
     patterns = torch.stack(pats, dim=1)
     nbits = torch.stack(bits, dim=1)
     assert patterns.shape[1] == P_HEADER_SLOTS, patterns.shape
+    return patterns, nbits
+
+
+# K7's inputs in the order of its descriptors (csrc/header_kernels.cu's
+# HeaderInput): (argument, read as a flag); the last two are the
+# [B, MAX_WAYPOINTS] registry.
+_K7_INPUTS = (("frame_num", False), ("poc_lsb", False),
+              ("is_reference", True), ("long_term_idx", False),
+              ("num_waypoints", False), ("prev_ref_abs_diff", False),
+              ("first_mb", False), ("wp_long_term_idx", False),
+              ("wp_valid", True))
+_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def _int32_value(name: str, v: int) -> int:
+    if not _INT32_MIN <= v <= _INT32_MAX:
+        raise ValueError(f"P slice header: {name} = {v} does not fit int32")
+    return v
+
+
+def _k7_input(name: str, x, B: int, dev, flag: bool, registry: bool):
+    """(descriptor, value) of one input of K7: a Python integer every
+    session shares by value (address 0), or a tensor on `dev` read in place
+    (0-dim or [B]; the registry [B, >= MAX_WAYPOINTS]), as ops/grid's
+    _field describes it.  Anything else raises."""
+    if not isinstance(x, torch.Tensor):
+        if registry or not isinstance(x, numbers.Integral):
+            raise TypeError(f"P slice header on {dev}: {name} must be a "
+                            f"tensor on {dev}"
+                            + ("" if registry else " or a Python integer")
+                            + f", not {type(x).__name__}")
+        return (0, 0, 0, 0, 4), int(bool(x)) if flag else _int32_value(
+            name, int(x))
+    if x.device != dev:
+        raise ValueError(f"P slice header: {name} is on {x.device}, not "
+                         f"{dev} (no copy is made)")
+    if x.dtype not in grid._DTYPE_CODES:
+        raise TypeError(f"P slice header: {name} must be an integer or bool "
+                        f"tensor, not {x.dtype}")
+    e, code = x.element_size(), grid._DTYPE_CODES[x.dtype]
+    if registry:
+        if x.dim() != 2 or x.shape[0] != B or x.shape[1] < MAX_WAYPOINTS:
+            raise ValueError(f"P slice header: {name} is {tuple(x.shape)}, "
+                             f"not [{B}, {MAX_WAYPOINTS}]")
+        return (x.data_ptr(), x.stride(0) * e, 0, x.stride(1) * e, code), 0
+    if x.dim() == 0:
+        return (x.data_ptr(), 0, 0, 0, code), 0
+    if x.dim() != 1 or x.shape[0] != B:
+        raise ValueError(f"P slice header: {name} is {tuple(x.shape)}, not "
+                         f"[{B}] or a scalar")
+    return (x.data_ptr(), x.stride(0) * e, 0, 0, code), 0
+
+
+def _p_slice_header_kernel(cfg, slice_qp_delta, args: dict):
+    """K7 on frame_num's card over the per-session arguments `args` (by
+    name): one launch, none at B = 0."""
+    frame_num = args["frame_num"]
+    if frame_num.dim() != 1:
+        raise ValueError(f"P slice header: frame_num is "
+                         f"{tuple(frame_num.shape)}, not [B]")
+    B, dev = frame_num.shape[0], frame_num.device
+    inputs = [_k7_input(name, args[name], B, dev, flag,
+                        name.startswith("wp_"))
+              for name, flag in _K7_INPUTS]
+    qp_ue = _int32_value("slice_qp_delta", 2 * slice_qp_delta - 1
+                         if slice_qp_delta > 0 else -2 * slice_qp_delta)
+    poc_bits = (cfg.log2_max_pic_order_cnt_lsb
+                if cfg.pic_order_cnt_type == 0 else 0)
+    with torch.cuda.device(dev):
+        patterns = torch.empty((B, P_HEADER_SLOTS), dtype=torch.int32,
+                               device=dev)
+        nbits = torch.empty((B, P_HEADER_SLOTS), dtype=torch.int32,
+                            device=dev)
+        if B:
+            values = (ctypes.c_int * len(inputs))(*(v for _d, v in inputs))
+            _kernels.P_SLICE_HEADER.launch(
+                grid._descriptors([d for d, _v in inputs]), values, B,
+                cfg.log2_max_frame_num, poc_bits,
+                int(bool(cfg.deblocking_filter_control_present_flag)),
+                SLICE_TYPE_P, qp_ue, P_HEADER_SLOTS, MAX_WAYPOINTS,
+                patterns.data_ptr(), nbits.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     return patterns, nbits
 
 

@@ -14,6 +14,7 @@ import json
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
 
 from h264_scroll_encoder_tpu_torch import _kernels, cases
 from h264_scroll_encoder_tpu_torch.config import ComposerConfig, MAX_WAYPOINTS
@@ -1333,3 +1334,154 @@ def test_symbol_stages_launch_the_grid_kernels(dev):
     finally:
         grid.scroll_grid_plain, grid.composite_grid_plain = real
     assert calls == []
+
+
+# ---------------------------------------------------------------------------
+# K7: the P slice header's symbol stream.
+# ---------------------------------------------------------------------------
+
+def _k7_same(cfg, qp, tensors):
+    """K7 through p_slice_header_symbols: one launch (none at B = 0),
+    equal slot for slot to the plain version on the same CUDA inputs."""
+    B = tensors["frame_num"].shape[0]
+    before = _kernels.P_SLICE_HEADER.launches
+    got = slice_headers.p_slice_header_symbols(cfg, slice_qp_delta=qp,
+                                               **tensors)
+    assert _kernels.P_SLICE_HEADER.launches == before + (1 if B else 0)
+    assert got[0].shape == (B, slice_headers.P_HEADER_SLOTS)
+    _same(got, slice_headers.p_slice_header_symbols_plain(
+        cfg, slice_qp_delta=qp, **tensors))
+    return got
+
+
+@pytest.mark.parametrize("B", cases.HEADER_BATCHES)
+@pytest.mark.parametrize("k", range(len(cases.HEADER_CONFIGS)))
+def test_p_slice_header_kernel_sweep(dev, k, B):
+    """Every configuration of the sweep (log2_max_frame_num 4-16 with the
+    frame number's wrap, POC types 0 and 2, deblocking on and off,
+    slice_qp_delta -12/0/+12) at B = 0, 1, 256 and 1,024: the sweep with
+    registry holes, the sliced rows' first_mb and every short-term lead
+    equal to the plain version; the writer's sessions also bit for bit
+    against write_p_slice_header and byte for byte after K1."""
+    cfg, qp = cases.header_config(k)
+    _k7_same(cfg, qp, cases.header_tensors(cases.header_case(B, 100 + k),
+                                           dev))
+    case = cases.header_case(B, k, writer=True)
+    hp, hn = _k7_same(cfg, qp, cases.header_tensors(case, dev))
+    if not B:
+        return
+    assert (cases.symbol_bits(hp.cpu(), hn.cpu())
+            == cases.header_writer_bits(cfg, case, qp))
+    nal, nal_len, _bits, ovf = emit_fused.emit_nal_fused_batch(
+        hp, hn, 2, 256, cases.CAP, append_tb=True)
+    assert not bool(ovf.any())
+    nal, nal_len = nal.cpu().numpy(), nal_len.cpu().numpy()
+    assert ([nal[b, :nal_len[b]].tobytes() for b in range(B)]
+            == cases.header_writer_nals(cfg, case, qp))
+
+
+@pytest.mark.parametrize("variant", ["int32", "int64", "narrow", "strided"])
+def test_p_slice_header_kernel_reads_inputs_in_place(dev, variant):
+    """int64, int16 and uint8, strided (every other element, registry
+    columns of a wider array) inputs read as they lie: equal to the plain
+    version, and the wrapper runs no tensor op around its launch."""
+    cfg, qp = cases.header_config(4)
+    t = cases.header_tensors(cases.header_case(256, 9), dev, variant)
+    _k7_same(cfg, qp, t)
+    assert cases.compute_ops(lambda: slice_headers.p_slice_header_symbols(
+        cfg, slice_qp_delta=qp, **t)) == []
+
+
+def test_p_slice_header_kernel_scalars_and_extremes(dev):
+    """Python scalars and 0-dim tensors shared by every session equal [B]
+    tensors of the same values; the ends of int32 (ue of 0xffffffff, the
+    wraps of long_term_idx + 1 and prev_ref_abs_diff - 1) equal the plain
+    version."""
+    cfg, qp = cases.header_config(1)
+    t = cases.header_tensors(cases.header_case(9, 3), dev)
+    shared = dict(poc_lsb=6, is_reference=True, long_term_idx=4,
+                  num_waypoints=3, first_mb=720, prev_ref_abs_diff=2)
+    want = _k7_same(cfg, qp, {**t, **{
+        k: torch.full((9,), v, dtype=torch.int32, device=dev)
+        for k, v in shared.items()}})
+    _same(_k7_same(cfg, qp, {**t, **shared}), want)
+    zero_dim = {k: torch.tensor(v, device=dev) for k, v in shared.items()}
+    _same(_k7_same(cfg, qp, {**t, **zero_dim}), want)
+    assert cases.compute_ops(lambda: slice_headers.p_slice_header_symbols(
+        cfg, slice_qp_delta=qp, **{**t, **shared})) == []
+    for k in (0, 5):
+        cfg, qp = cases.header_config(k)
+        _k7_same(cfg, qp, cases.header_tensors(cases.header_extremes_case(),
+                                               dev))
+
+
+def test_p_slice_header_kernel_refuses_what_it_cannot_read(dev, monkeypatch):
+    """An input on another device, of a float dtype, of another shape, a
+    list, an int past int32 or a 0-dim frame_num raises before any launch,
+    and the plain version never runs for CUDA tensors."""
+    def plain(*_a, **_k):
+        raise AssertionError("the plain version ran for CUDA tensors")
+
+    monkeypatch.setattr(slice_headers, "p_slice_header_symbols_plain", plain)
+    cfg, qp = cases.header_config(0)
+    t = cases.header_tensors(cases.header_case(8, 1), dev)
+    bad = [(TypeError, dict(poc_lsb=t["poc_lsb"].float())),
+           (ValueError, dict(num_waypoints=t["num_waypoints"].cpu())),
+           (ValueError, dict(long_term_idx=t["long_term_idx"][:, None])),
+           (ValueError, dict(first_mb=t["first_mb"][:4])),
+           (ValueError, dict(wp_valid=t["wp_valid"][:, :4])),
+           (TypeError, dict(wp_long_term_idx=t["wp_long_term_idx"].tolist())),
+           (TypeError, dict(is_reference=np.ones(8, bool))),
+           (ValueError, dict(prev_ref_abs_diff=1 << 31)),
+           (ValueError, dict(frame_num=t["frame_num"][0]))]
+    before = _kernels.P_SLICE_HEADER.launches
+    for err, change in bad:
+        with pytest.raises(err):
+            slice_headers.p_slice_header_symbols(cfg, slice_qp_delta=qp,
+                                                 **{**t, **change})
+    with pytest.raises(ValueError):
+        slice_headers.p_slice_header_symbols(cfg, slice_qp_delta=1 << 31,
+                                             **t)
+    assert _kernels.P_SLICE_HEADER.launches == before
+    slice_headers.p_slice_header_symbols(cfg, slice_qp_delta=qp, **t)
+    assert _kernels.P_SLICE_HEADER.launches == before + 1
+
+
+@pytest.mark.parametrize("path", ["scroll step B=256", "scroll_frame",
+                                  "waypoint_frame", "sliced frame"])
+def test_p_slice_header_kernel_in_the_graphs(dev, path):
+    """The scroll step's and the session frames' graphs run K7 once a
+    replay (counted once a replay), and hold fewer than 200 nodes."""
+    from h264_scroll_encoder_tpu_torch import session
+
+    cfg = ComposerConfig(1280, 720)
+    s = session.ComposerSession(cfg, device=dev)
+    s.frame_num = 5
+    if path == "scroll step B=256":
+        fn = batch.make_batched_step(cfg)
+        sched = torch.as_tensor(cases.bench_schedule(720, 256, 2), device=dev)
+        state = batch.SessionState.create(256, device=dev)
+        args = (state, sched[1])
+    elif path == "sliced frame":
+        fn = session.graphed_sliced_frame(cfg, False)
+        args = (s._frame_row(100), cases.SESSION_ROWS_PER_SLICE)
+    else:
+        fn = session.graphed_frame(path, cfg, False, "floor", False)
+        args = (s._frame_row(496 if path == "waypoint_frame" else 500),)
+    fn.reset()
+    eager = fn.eager(*args)
+    fn(*args)                                   # eager run, then capture
+    (stats,) = fn.stats()
+    assert stats["launches"]["h264t_p_slice_header"] == 1
+    assert stats["nodes"] < 200, stats
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    for _ in range(3):
+        out = fn(*args)
+    torch.cuda.synchronize()
+    assert _kernels.P_SLICE_HEADER.launches == 3
+
+    def leaves(x):
+        return [v for v in pytree.tree_leaves(x) if isinstance(v, torch.Tensor)]
+
+    _same(leaves(out), leaves(eager))
