@@ -10,11 +10,14 @@ Each kernel is a `Kernel` whose `launches` counter goes up by one per
 launch, so a run can show which kernels its main path went through:
 KERNELS are the production kernels K1-K7, PROBE_KERNELS the measurement
 probes P1-P6 (ops/probes.py, ops/cavlc_lockstep.py; P1 one counter per
-stage, P5/P6 one per variant).
+stage, P5/P6 one per variant).  A launch may also carry counts read from
+its plan for the composer's tracer (utils/trace.COUNTERS `emit.chunks`,
+`grid.wide_launches`), which count as its launch does.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -26,6 +29,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from .utils.trace import TRACER
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -123,6 +128,11 @@ def _capturing() -> bool:
     return torch.cuda.is_current_stream_capturing()
 
 
+# The tracer counts of the launches captured into CUDA graphs so far
+# ({counter: n}); utils/graphs counts a graph's share on each replay.
+_captured_tracer_counts: collections.Counter = collections.Counter()
+
+
 class Kernel:
     """One extern "C" entry of the kernel library; `launches` counts the
     launches of its kernel.  A launch made while a CUDA graph is captured
@@ -139,7 +149,10 @@ class Kernel:
         self.captured = 0
         self._fn = None
 
-    def launch(self, *args):
+    def launch(self, *args, counts=None):
+        """Launches the kernel; `counts` ({tracer counter: n}, read from
+        the launch's plan) go to the tracer while it records, or, where
+        the launch is captured, on each replay of the graph."""
         if self._fn is None:
             fn = getattr(_load(), self.symbol)
             fn.argtypes = self.argtypes
@@ -151,8 +164,13 @@ class Kernel:
                 f"{self.symbol}: CUDA launch failed with cudaError_t {err}")
         if _capturing():
             self.captured += 1
+            if counts:
+                _captured_tracer_counts.update(counts)
         else:
             self.launches += 1
+            if counts and TRACER.on:
+                for name, n in counts.items():
+                    TRACER.count(name, n)
 
 
 # K1: (pat, nb, sym_bytes, pat_row, nb_row, idc, idc_row, idc_value, batch,
@@ -367,6 +385,13 @@ def captured_counts() -> dict:
     """{Kernel: launches recorded into CUDA graphs so far}; the difference
     across one capture is what each replay of that graph launches."""
     return {k: k.captured for k in KERNELS + PROBE_KERNELS}
+
+
+def captured_tracer_counts() -> collections.Counter:
+    """{tracer counter: n} of the launches recorded into CUDA graphs so
+    far; the difference across one capture is what each replay of that
+    graph counts."""
+    return collections.Counter(_captured_tracer_counts)
 
 
 def count_replay(launches: dict) -> None:

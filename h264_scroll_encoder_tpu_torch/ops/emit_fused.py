@@ -333,6 +333,14 @@ def launch_geometry(plan, n: int, cluster: int | None) -> tuple[int, int]:
     return c, items_per_thread(n) if c == 1 else cluster_items_per_thread(n, c)
 
 
+def staged_chunks(n: int, c: int, k: int) -> int:
+    """Chunks of n symbols a session's C blocks stage at k symbols a thread
+    (the tracer's `emit.chunks` a K1 launch): 1 at 720p, 8 for a 3840x2160
+    scroll frame on one block."""
+    share = n if c == 1 else cluster_share(n, c)
+    return c * -(-share // (_kernels.PACK_THREADS * k))
+
+
 def emit_nal_fused_batch(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
                          *, align: bool = False, append_tb: bool = False,
                          cluster: int | None = None):
@@ -373,7 +381,8 @@ def emit_nal_fused_batch(patterns, nbits, nal_ref_idc, n_rbsp: int, cap: int,
                 None if idc is None else idc.data_ptr(), idc_row, idc_value,
                 B, n, k, n_nal, n_rbsp, cap, int(align), int(append_tb), c,
                 nal.data_ptr(), meta[0].data_ptr(), meta[1].data_ptr(),
-                overflow.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                overflow.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+                counts={"emit.chunks": staged_chunks(n, c, k)})
     return nal, meta[0], meta[1], overflow
 
 

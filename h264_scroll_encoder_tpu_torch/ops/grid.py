@@ -345,6 +345,12 @@ def _grid_parts(kind: int, what: str, B: int, h: int, w: int, parts):
     return planned
 
 
+def _wide_count(n_mbs: int):
+    """The tracer's count of a K5 or K6 launch: `grid.wide_launches` on the
+    wide layout."""
+    return {"grid.wide_launches": 1} if n_mbs > NARROW_MAX_MBS else None
+
+
 # ---------------------------------------------------------------------------
 # K6: the scroll MB grid.
 # ---------------------------------------------------------------------------
@@ -463,7 +469,8 @@ def scroll_grid_batch(ref, mv_x, mv_y, num_refs, *, enable_pskip: bool,
                 fields, B, h, w, nr_value, int(n_mbs > NARROW_MAX_MBS),
                 int(compact_x), int(enable_pskip), P, mb_p.data_ptr(),
                 mb_n.data_ptr(), last.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+                torch.cuda.current_stream(dev).cuda_stream,
+                counts=_wide_count(n_mbs))
     del nr      # kept alive until the launch is queued
     return mb_p, mb_n, last
 
@@ -673,7 +680,8 @@ def composite_grid_batch(r0: int, c0: int, R: int, C: int, num_refs,
                 0 if bg2_p is None else bg2_p.data_ptr(),
                 0 if bg2_n is None else bg2_n.data_ptr(),
                 sr_p.data_ptr(), sr_n.data_ptr(), last.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+                torch.cuda.current_stream(dev).cuda_stream,
+                counts=_wide_count(n_mbs))
     del nr, donor   # kept alive until the launch is queued
     return CompositeGrid(bg_p, bg_n, bg2_p, bg2_n, sr_p, sr_n, last)
 

@@ -27,7 +27,9 @@ Under the composer's tracer (utils/trace) `write_scroll_frame` and
 frame graph's `graphs.call` and the fetch to the host, `session.fetch`;
 while the tracer records, each frame emitted counts `session.frames`
 (`session.waypoint_frames` for a waypoint frame), its NAL bytes
-`session.bytes`, and an overflow retry `session.exact_retries`.
+`session.bytes`, the waypoints it is written against
+`session.waypoints`, and an overflow retry `session.exact_retries`; each
+fetch counts the bytes it copies, `session.fetch_bytes`.
 """
 
 from __future__ import annotations
@@ -155,6 +157,8 @@ def _fetch(frame):
         host = torch.cat([nal.reshape(-1),
                           nal_len.reshape(K).to(torch.int32).view(torch.uint8),
                           overflow.reshape(K).to(torch.uint8)]).cpu().numpy()
+    if TRACER.on:
+        TRACER.count("session.fetch_bytes", host.nbytes)
     rows = host[: nal.numel()].reshape(K, -1)
     lens = host[nal.numel(): nal.numel() + 4 * K].view(np.int32)
     return rows, lens, host[nal.numel() + 4 * K:].astype(bool)
@@ -513,6 +517,9 @@ class ComposerSession:
             TRACER.count("session.waypoint_frames", int(waypoint))
             TRACER.count("session.exact_retries", int(retried))
             TRACER.count("session.bytes", int(nal_len[0]))
+            # The registry the frame is written against (a waypoint frame
+            # registers itself after this).
+            TRACER.count("session.waypoints", self.waypoints.count)
 
     # -- output --------------------------------------------------------------
 

@@ -33,7 +33,8 @@ outputs) for as long as it lives; `Capture.pool_bytes` reports it and
 graph's node count (kernels, copies, fills), read once from the
 captured CUDA graph before it is instantiated.  The kernels' launch counters
 stay truthful: a launch recorded while a graph is captured counts on each
-replay instead (_kernels.Kernel).
+replay instead (_kernels.Kernel), and so do the tracer counts a launch
+reads from its plan (`Capture.counts`).
 
 Under the composer's tracer (utils/trace) a call is the span
 `graphs.call` (device-timed from its input copies to its output clones)
@@ -120,6 +121,7 @@ class Capture:
     pool_bytes: int
     nodes: int                 # the graph's nodes: kernels, copies, fills
     out_bytes: int             # bytes a replay's output clones copy
+    counts: dict               # {tracer counter: n} a replay counts
 
     def run(self, leaves):
         tr = TRACER
@@ -142,6 +144,8 @@ class Capture:
             tr.count("graphs.nodes", self.nodes)
             tr.count("graphs.input_bytes", sum(b.nbytes for b in copied))
             tr.count("graphs.output_bytes", self.out_bytes)
+            for name, n in self.counts.items():
+                tr.count(name, n)
         return out
 
 
@@ -203,6 +207,7 @@ class Graphed:
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(dev)
             before = _kernels.captured_counts()
+            counts_before = _kernels.captured_tracer_counts()
             # keep_graph: the captured cudaGraph_t stays readable (its
             # nodes are counted) until instantiate() builds the exec.
             graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -220,12 +225,13 @@ class Graphed:
             after = _kernels.captured_counts()
             launches = {k: after[k] - before.get(k, 0) for k in after
                         if after[k] != before.get(k, 0)}
+            counts = dict(_kernels.captured_tracer_counts() - counts_before)
             out_bytes = sum(t.nbytes for t in pytree.tree_leaves(static_out)
                             if isinstance(t, torch.Tensor))
             return Capture(graph, dev, static_in, static_out, launches,
                            capture_ms,
                            torch.cuda.memory_reserved(dev) - reserved,
-                           nodes, out_bytes)
+                           nodes, out_bytes, counts)
 
     def reset(self) -> None:
         """Drop every capture (their memory pools go back to the caching

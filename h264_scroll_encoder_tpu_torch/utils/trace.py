@@ -52,14 +52,21 @@ import torch
 # The composer's spans and counters, by layer.  Spans: a compiled step's
 # call (its key and placement, the copies into its static inputs, the
 # replay's launch, the clones of its outputs) and capture; a session
-# frame and its fetch to the host; egress's compaction.
+# frame and its fetch to the host; egress's compaction.  Counters besides
+# the layers' own: the waypoint registry's depth at each session frame,
+# summed (`session.waypoints`), the bytes a fetch copies to the host
+# (`session.fetch_bytes`), and two read from a kernel's launch plan
+# (_kernels.Kernel.launch), the chunks K1 stages a session at each launch
+# (`emit.chunks`) and K5 and K6 launches on the wide symbol layout
+# (`grid.wide_launches`).
 SPANS = ("graphs.call", "graphs.key", "graphs.inputs", "graphs.replay",
          "graphs.outputs", "graphs.capture", "session.frame",
          "session.fetch", "batch.compact")
 COUNTERS = ("graphs.replays", "graphs.captures", "graphs.nodes",
             "graphs.input_bytes", "graphs.output_bytes", "session.frames",
             "session.waypoint_frames", "session.exact_retries",
-            "session.bytes", "batch.compact_positions")
+            "session.bytes", "session.waypoints", "session.fetch_bytes",
+            "batch.compact_positions", "emit.chunks", "grid.wide_launches")
 # Spans kept in memory by a recording tracer; the oldest go first.
 MAX_SPANS = 65536
 

@@ -1485,3 +1485,81 @@ def test_p_slice_header_kernel_in_the_graphs(dev, path):
         return [v for v in pytree.tree_leaves(x) if isinstance(v, torch.Tensor)]
 
     _same(leaves(out), leaves(eager))
+
+
+# ---------------------------------------------------------------------------
+# 4K scrolling sessions (the benchmark's configuration scroll2160p).
+# ---------------------------------------------------------------------------
+
+def _scroll_config(width, height):
+    """The benchmark's 4K scroll configuration (scroll2160p) at width x
+    height: (the port's ComposerConfig, the plain reference's Sps)."""
+    from pathlib import Path
+
+    from portbench import drive
+
+    path = Path(__file__).resolve().parent.parent / "portbench" / "configs"
+    config = {**json.loads((path / "scroll2160p.json").read_text()),
+              "width": width, "height": height}
+    return drive.composer_config(config), drive.sps_of(config)
+
+
+def _striped_session(cfg, dev):
+    from h264_scroll_encoder_tpu_torch import session
+
+    s = session.ComposerSession(cfg, device=dev)
+    s.write_parameter_sets()
+    s.write_test_atlases(striped=True)
+    return s
+
+
+def test_4k_session_through_four_waypoints_equals_the_reference(dev):
+    """A 3840x2160 session through its four waypoints on the card, its
+    frames replayed from the scroll and waypoint graphs after their first
+    call: every frame byte-equal to the plain reference
+    (portbench/reference/scroll), none retried."""
+    from portbench.reference import scroll as ref_scroll
+
+    cfg, sps = _scroll_config(3840, 2160)
+    s, ref = _striped_session(cfg, dev), ref_scroll.Session()
+    retries = _kernels.PACK_PLACE.launches
+    for off in (8, 488, 496, 504, 992, 1000, 1488, 1984, 2144, 1500, 8,
+                1000):
+        s.write_scroll_or_waypoint_frame(off)
+        want, _waypoint = ref.step(sps, off)
+        assert s.writer._chunks[-1] == want, off
+    assert s.waypoints.offsets[:s.waypoints.count] == [496, 992, 1488, 1984]
+    assert _kernels.PACK_PLACE.launches == retries
+
+
+@pytest.mark.parametrize("size,chunks,wide", [((3840, 2160), 8, 1),
+                                              ((1280, 720), 1, 0)],
+                         ids=["4k", "720p"])
+def test_plan_counters_of_session_frames(dev, size, chunks, wide):
+    """Under the tracer each session frame counts the chunks K1 stages (8
+    for a 4K frame on one block, 1 at 720p) and a wide K6 launch at 4K
+    (none at 720p), eager and replayed alike; the registry's depth and the
+    bounded NAL buffer fetched."""
+    from h264_scroll_encoder_tpu_torch.utils.trace import TRACER
+
+    cfg, _sps = _scroll_config(*size)
+    s = _striped_session(cfg, dev)
+    offsets = (8, 496, 504, 512, 520, 8)
+    TRACER.disable()
+    TRACER.clear()
+    try:
+        with TRACER.recording():
+            for off in offsets:
+                s.write_scroll_or_waypoint_frame(off)
+        c = TRACER.summary()["counters"]
+    finally:
+        TRACER.clear()
+    n = len(offsets)
+    assert c["session.frames"] == n and c["session.exact_retries"] == 0
+    assert c["emit.chunks"] == chunks * n
+    assert c["grid.wide_launches"] == wide * n
+    assert c["session.waypoints"] == 0 + 0 + 1 + 1 + 1 + 1
+    n_nal = emit_fused.nal_bytes(
+        scroll._n_rbsp(cfg.total_mbs, scroll.SCROLL_FAST_RBSP_BITS_PER_MB),
+        cases.CAP)
+    assert c["session.fetch_bytes"] == n * (n_nal + 5)

@@ -16,7 +16,10 @@ import pytest
 import torch
 
 from h264_scroll_encoder_tpu_torch import _kernels
-from h264_scroll_encoder_tpu_torch.config import ComposerConfig
+from h264_scroll_encoder_tpu_torch.config import (ComposerConfig,
+                                                  MAX_EBSP_INSERTIONS)
+from h264_scroll_encoder_tpu_torch.models import scroll
+from h264_scroll_encoder_tpu_torch.ops import emit_fused, grid
 from h264_scroll_encoder_tpu_torch.parallel import batch
 from h264_scroll_encoder_tpu_torch.session import ComposerSession
 from h264_scroll_encoder_tpu_torch.utils import graphs, trace
@@ -168,14 +171,109 @@ def test_serving_demo_reports_every_layer(tracer):
     (line,) = [x for x in lines if x.startswith("trace ")]
     rep = json.loads(line[len("trace "):])
     assert set(rep["counters"]) == set(trace.COUNTERS)
-    # No CUDA graph on the CPU; no frame of the demo overflows.
+    # No CUDA graph and no kernel launch on the CPU; no frame of the demo
+    # overflows; the single session's waypoint frame is its last, so every
+    # frame is written against an empty registry.
     assert [k for k, v in rep["counters"].items() if v == 0] == [
         k for k in trace.COUNTERS
-        if k.startswith("graphs.") or k == "session.exact_retries"]
+        if k.startswith("graphs.") or k in (
+            "session.exact_retries", "session.waypoints", "emit.chunks",
+            "grid.wide_launches")]
     assert rep["counters"]["session.waypoint_frames"] == 1
     assert rep["counters"]["session.frames"] == 32
     assert {"graphs.call", "graphs.key", "session.frame", "session.fetch",
             "batch.compact"} <= set(rep["spans"])
+
+
+# A 64-px-wide 4K-high session: four waypoints over the 0..2,144 px page.
+TALL_4K = (64, 2160)
+DEEP_OFFSETS = [8, 496, 504, 992, 1000, 1488, 1984, 2144, 1500, 8]
+
+
+def test_session_counts_registry_depth_and_fetch_bytes(tracer):
+    """`session.waypoints` sums the registry's depth each frame is written
+    against, `session.fetch_bytes` is each frame's bounded NAL buffer
+    (the 16 bits/MB fast budget) and its length and flag."""
+    s = _session(size=TALL_4K)
+    depths = []
+    with tracer.recording():
+        for off in DEEP_OFFSETS:
+            depths.append(s.waypoints.count)
+            s.write_scroll_or_waypoint_frame(off)
+    assert depths == [0, 0, 1, 1, 2, 2, 3, 4, 4, 4]
+    c = tracer.counters
+    assert c["session.frames"] == len(DEEP_OFFSETS)
+    assert c["session.waypoint_frames"] == 4
+    assert c["session.waypoints"] == sum(depths)
+    n_nal = emit_fused.nal_bytes(
+        scroll._n_rbsp(s.cfg.total_mbs, scroll.SCROLL_FAST_RBSP_BITS_PER_MB),
+        MAX_EBSP_INSERTIONS)
+    assert c["session.fetch_bytes"] == len(DEEP_OFFSETS) * (n_nal + 5)
+    assert c["session.bytes"] == sum(len(x) for x in
+                                     s.writer._chunks[-len(DEEP_OFFSETS):])
+    assert {"emit.chunks", "grid.wide_launches"}.isdisjoint(c)
+
+
+def test_no_counter_moves_while_off(tracer):
+    """The same frames with the tracer off: no counter, no span."""
+    s = _session(size=TALL_4K)
+    for off in DEEP_OFFSETS:
+        s.write_scroll_or_waypoint_frame(off)
+    assert s.waypoints.count == 4
+    assert not tracer.counters and not tracer.records
+
+
+class _FakeEntry:
+    """A kernel library entry that launches nothing and succeeds."""
+
+    def __call__(self, *_a):
+        return 0
+
+
+@pytest.mark.parametrize("capturing", [False, True])
+def test_launch_counts_go_to_the_tracer_or_the_capture(tracer, monkeypatch,
+                                                       capturing):
+    """A launch's plan counts reach the tracer while it records, nothing
+    while it is off, and the captured tally (which utils/graphs counts on
+    each replay) while a graph is captured."""
+    k = _kernels.Kernel("h264t_none", [])
+    k._fn = _FakeEntry()
+    monkeypatch.setattr(_kernels, "_capturing", lambda: capturing)
+    counts = {"emit.chunks": 8, "grid.wide_launches": 1}
+    before = _kernels.captured_tracer_counts()
+    k.launch(counts=counts)
+    with tracer.recording():
+        k.launch(counts=counts)
+        k.launch()
+    added = _kernels.captured_tracer_counts() - before
+    if capturing:
+        assert k.captured == 3 and k.launches == 0
+        assert dict(added) == {"emit.chunks": 16, "grid.wide_launches": 2}
+        assert not tracer.counters
+    else:
+        assert k.launches == 3 and k.captured == 0
+        assert not added
+        assert dict(tracer.counters) == counts
+
+
+@pytest.mark.parametrize("n,c,k,chunks", [
+    (97240, 1, 24, 8),      # a 3840x2160 scroll frame (wide layout)
+    (7240, 1, 15, 1),       # a 1280x720 scroll frame
+    (129640, 8, 33, 8),     # a 4K hint frame on a cluster of 8
+    (129640, 2, 33, 8),     # the same on a forced cluster of 2
+])
+def test_staged_chunks_follow_the_launch_geometry(n, c, k, chunks):
+    if c == 1:
+        assert emit_fused.items_per_thread(n) == k
+    else:
+        assert emit_fused.cluster_items_per_thread(n, c) == k
+    assert emit_fused.staged_chunks(n, c, k) == chunks
+
+
+def test_wide_launches_count_past_the_narrow_layout():
+    assert grid._wide_count(grid.NARROW_MAX_MBS) is None
+    assert grid._wide_count(45 * 80) is None
+    assert grid._wide_count(135 * 240) == {"grid.wide_launches": 1}
 
 
 def test_buffer_is_bounded(monkeypatch):
@@ -248,7 +346,7 @@ def test_session_frame_nodes_are_the_profilers_device_ops(dev, tracer,
     s.write_scroll_or_waypoint_frame(8)
     (cap,) = s._scroll_fn.graphs.values()
     kinds = _kernels.graph_nodes(cap.graph.raw_cuda_graph())
-    assert kinds["other"] == 0 and cap.nodes > 1000
+    assert kinds["other"] == 0 and 100 < cap.nodes < 200
     counts = []
     for i in range(3):               # the profiler can drop a window's ops
         with profile(activities=[ProfilerActivity.CPU,
