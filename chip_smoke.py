@@ -12,7 +12,7 @@ it launches, so K1 still counts once per step or frame:
   2. Build, started together: the kernels (K1 h264t_emit_fused, K2
      h264t_pack_place, K3 h264t_ebsp_nal, K4 h264t_pack_words, K5
      h264t_composite_grid, K6 h264t_scroll_grid, K7
-     h264t_p_slice_header, and the probes P1-P6)
+     h264t_p_slice_header, K8 h264t_compact_nal, and the probes P1-P6)
      from h264_scroll_encoder_tpu_torch/csrc/*.cu with one nvcc per
      source, then one link, the native CAVLC
      engine from csrc/cavlc_decode.cpp with g++, and avref from
@@ -67,7 +67,9 @@ it launches, so K1 still counts once per step or frame:
      over 16 frames of the benchmark's schedule at B = 256, then the
      golden batch-8 schedule and one `ebsp_exact` (K2) frame per session,
      whose digests must equal golden/scroll_720p.json (the JAX package's
-     output).
+     output).  Each step's rows go through egress as the benchmark's
+     harness sends them (compact_batch_nal into the whole buffer, B * N:
+     K8, equal to its plain version), one K8 launch a step.
   5. The rows splice path (the serving hot path): 32 seeded representative
      donors prepared by the native engine into the blob wire (host time per
      donor; the Python engine must give the same wire), tiled to B = 256
@@ -75,7 +77,8 @@ it launches, so K1 still counts once per step or frame:
      MB (30, 10)) by the compact and the static-chrome programs, plus one
      `ebsp_exact` frame per session; every session's digest must equal
      golden/splice_rows_720p.json, no frame may overflow, and K1 launches
-     once per step.  Step times: CUDA events and host wall; launches per
+     once per step; each step's rows go through egress as in phase 4, one
+     K8 launch a step.  Step times: CUDA events and host wall; launches per
      step from torch.profiler.
   6. K3 and K4 through their own entry points (ops/ebsp_flat
      `rbsp_to_nal_batch`, ops/bitpack_flat `pack_words_batch`) on the
@@ -92,9 +95,15 @@ it launches, so K1 still counts once per step or frame:
      sha256 must equal golden/session_720p.json and pass verify_stream;
      K1 launches once per device P-frame (once per sliced frame), K2 on a
      forced `ebsp_exact` frame.  Then make_batched_hint_step (compact_x)
-     at B = 256 against the golden digest and compact_batch_nal on its
-     output (exact bytes, overflow at total - 1), both timed (CUDA events
-     and host wall).
+     at B = 256 against the golden digest, timed (CUDA events and host
+     wall), and compact_batch_nal on its output (exact bytes, overflow at
+     total - 1).  Then K8 (compact_batch_nal on CUDA tensors) against
+     its plain version on every case of cases.COMPACT_CASES at each cap,
+     exactly, one launch and no tensor op but its outputs' allocation a
+     call (these launches count on no path); timed as phase 3 times its
+     kernels on the benchmark's egress
+     rows (the pooled splice rows, B = 1,024 at the 10,240 B RBSP budget,
+     and the scroll step's, B = 256; the cap the whole buffer, B * N).
   8. The dense splice path and the large frames ("dense", "large"):
      make_batched_splice_step_dense at bench.py's geometry over the 32
      representative donors at the honest budget, tiled to B = 256 and
@@ -947,6 +956,8 @@ def main() -> int:
         if not bool(((lens > 5) & (lens <= nal.shape[1])).all()):
             raise AssertionError("NAL length out of range")
         waypoints += int(wp.sum())
+        _egress(batch, nal, nal_len, "scroll")
+    scroll_rows = (nal, nal_len)
     k1_steps = _kernels.EMIT_FUSED.launches
     if k1_steps != len(schedule):
         raise AssertionError(f"K1 launched {k1_steps} times in "
@@ -957,19 +968,22 @@ def main() -> int:
     if _kernels.P_SLICE_HEADER.launches != len(schedule):
         raise AssertionError(f"K7 launched {_kernels.P_SLICE_HEADER.launches} "
                              f"times in {len(schedule)} steps")
+    if _kernels.COMPACT_NAL.launches != len(schedule):
+        raise AssertionError(f"K8 launched {_kernels.COMPACT_NAL.launches} "
+                             f"times in {len(schedule)} steps' egress")
     golden = json.loads(cases.GOLDEN_PATH.read_text())
     if cases.port_golden(dev) != golden:
         raise AssertionError("CUDA output differs from the scroll golden digests")
     torch.cuda.synchronize()
     scroll_launches = {k.symbol: k.launches for k in _kernels.KERNELS}
     for k in (_kernels.EMIT_FUSED, _kernels.PACK_PLACE, _kernels.SCROLL_GRID,
-              _kernels.P_SLICE_HEADER):
+              _kernels.P_SLICE_HEADER, _kernels.COMPACT_NAL):
         if scroll_launches[k.symbol] == 0:
             raise AssertionError(f"{k.symbol} never launched on the scroll path")
     step_ms, wall_ms = timer.medians()
     _log(f"phase 4: scroll, {len(schedule)} steps at B={B}: no overflow, "
-         f"{waypoints} waypoint frames; golden digests match; launches "
-         f"{scroll_launches}")
+         f"{waypoints} waypoint frames, egress K8 equal to its plain version "
+         f"each step; golden digests match; launches {scroll_launches}")
     _log(f"phase 4: batch-256 720p scroll step: {step_ms:.4f} ms (CUDA-event "
          f"median), host wall {wall_ms:.4f} ms (median)")
 
@@ -1008,6 +1022,7 @@ def main() -> int:
         nal, nal_len, _bits, ovf = out
         if bool(ovf.any()):
             raise AssertionError(f"splice {name} B={B} overflowed")
+        _egress(batch, nal, nal_len, f"splice {name} B={B}")
         idx = [b for b in range(B) if b % N_DONORS < cases.SPLICE_GOLDEN_BATCH]
         got = cases.digest_step(nal[idx].cpu().numpy(), nal_len[idx].cpu().numpy(),
                                 np.zeros(len(idx), bool), ovf[idx].cpu().numpy())
@@ -1018,7 +1033,7 @@ def main() -> int:
 
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()
-    n_run = n_compact = 0
+    n_run = n_compact = n_egress = 0
     for B_s in (256, 1024):
         args = cases.splice_session_inputs(cfg, B_s, dev) + (tile(B_s),)
         for name in ("compact", "static"):
@@ -1027,9 +1042,11 @@ def main() -> int:
             timer = Timer()
             for _ in range(n_steps):
                 out = timer(lambda: steps[name](*args))
+                _egress(batch, out[0], out[1], f"splice {name} B={B_s}")
             n_run += n_warm + n_steps
             n_compact += (n_warm + n_steps) * (name == "compact")
             check_digests(name, out, B_s)
+            n_egress += n_warm + n_steps + 1
             step_ms, wall_ms = timer.medians()
             _log(f"phase 5: splice {name} B={B_s}: {step_ms:.4f} ms "
                  f"(CUDA-event median of {n_steps}), host wall {wall_ms:.4f} ms "
@@ -1038,6 +1055,7 @@ def main() -> int:
                  f"{float(out[1].float().mean()):.1f} B")
         if B_s == 256:
             check_digests("ebsp_exact", steps["ebsp_exact"](*args), B_s)
+            n_egress += 1
     torch.cuda.synchronize()
     splice_launches = {k.symbol: k.launches for k in _kernels.KERNELS}
     if splice_launches["h264t_emit_fused"] != n_run:
@@ -1049,13 +1067,17 @@ def main() -> int:
         raise AssertionError(f"K5 launched "
                              f"{splice_launches['h264t_composite_grid']} times "
                              f"in {n_compact + 1} compact steps")
+    if splice_launches["h264t_compact_nal"] != n_egress:
+        raise AssertionError(f"K8 launched {splice_launches['h264t_compact_nal']} "
+                             f"times in {n_egress} splice steps' egress")
     for k in (_kernels.EMIT_FUSED, _kernels.PACK_PLACE):
         if splice_launches[k.symbol] == 0:
             raise AssertionError(f"{k.symbol} never launched on the splice path")
     if cases.port_splice_golden(dev) != splice_golden:
         raise AssertionError("CUDA output differs from the splice golden digests")
     _log(f"phase 5: {n_run} splice steps + 1 ebsp_exact frame: no overflow, "
-         f"digests match the golden file; launches {splice_launches}")
+         f"digests match the golden file, egress K8 equal to its plain version "
+         f"each step; launches {splice_launches}")
     for B_s in (256, 1024):
         args = cases.splice_session_inputs(cfg, B_s, dev) + (tile(B_s),)
         for name in ("compact", "static"):
@@ -1098,8 +1120,13 @@ def main() -> int:
          f"{entry_launches}")
 
     # -- 7. The per-session composer --------------------------------------------
-    session_launches, streams7 = _session_phase(dev, cfg, cases, batch,
-                                                _kernels, Timer)
+    egress_rows = {"K8": cases.pooled_egress_rows(cfg, dn32, has_align, dev),
+                   "K8 scroll B=256": scroll_rows}
+    session_launches, streams7, k8 = _session_phase(
+        dev, cfg, cases, batch, _kernels, Timer, timing_, egress_rows)
+    timing.update(k8["timing"])
+    bound_ms.update(k8["bound_ms"])
+    errs["K8"] = 0
 
     # -- 8. The dense splice path and the large frames ---------------------------
     dense_launches, large_launches = _dense_phase(
@@ -1146,12 +1173,16 @@ def main() -> int:
         ("p_slice_header (K7)", "K7", "h264t_p_slice_header",
          "h264_scroll_encoder_tpu/syntax/slice_headers.py:28",
          "h264_scroll_encoder_tpu_torch/csrc/header_kernels.cu"),
+        ("compact_nal (K8)", "K8", "h264t_compact_nal",
+         "h264_scroll_encoder_tpu/parallel/batch.py:298",
+         "h264_scroll_encoder_tpu_torch/csrc/egress_kernels.cu"),
     ]
     # The paths each grid kernel serves; it must have launched on each.
     grid_paths = {"K5": ("splice", "dense", "serving", "probes", "graphs"),
                   "K6": ("scroll", "session", "large", "serving", "probes",
                          "graphs"),
-                  "K7": ("scroll", "session", "graphs")}
+                  "K7": ("scroll", "session", "graphs"),
+                  "K8": ("scroll", "splice", "serving")}
     paths = {"scroll": scroll_launches, "splice": splice_launches,
              "entry": entry_launches, "session": session_launches,
              "dense": dense_launches, "large": large_launches,
@@ -1187,6 +1218,9 @@ def main() -> int:
                           "parts": grid_parts[label]}
                   for label, (kern, _a, _k) in grid_runs.items()
                   if kern == key and label != key}
+        shapes.update({label: {**timing[label], "bound_ms": bound_ms[label]}
+                       for label in k8["timing"]
+                       if label.startswith(key + " ") and label != key})
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, "max_abs_err": errs[key],
@@ -1208,9 +1242,84 @@ def main() -> int:
     return 0
 
 
-def _session_phase(dev, cfg, cases, batch, _kernels, Timer):
-    """Phase 7: the per-session composer and the batched hint step on the
-    card; returns the launch counts of the phase and its streams."""
+def _egress(batch, nal, nal_len, what):
+    """A step's rows through egress as the benchmark's harness sends them
+    (drive._Egress): compact_batch_nal into the whole buffer, B * N, held
+    to the plain version."""
+    cap = nal.numel()
+    got = batch.compact_batch_nal(nal, nal_len, cap)
+    if _max_abs_err(got, batch.compact_batch_nal_plain(nal, nal_len, cap)):
+        raise AssertionError(f"{what}: egress (K8) != its plain version")
+    return got
+
+
+def _k8_phase(dev, cases, batch, _kernels, timing_, egress_rows):
+    """Phase 7's K8: held to its plain version on the sweep, then timed
+    on the benchmark's egress rows; returns {"timing", "bound_ms"} by
+    label.  Its launches are counted here and on no path."""
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    calls = 0
+    for name in cases.COMPACT_CASES:
+        case = cases.compact_case(name)
+        nal, lens = cases.compact_tensors(case, dev)
+        for cap in case["caps"]:
+            got = batch.compact_batch_nal(nal, lens, cap)
+            want = batch.compact_batch_nal_plain(nal, lens, cap)
+            torch.cuda.synchronize()
+            if _max_abs_err(got, want):
+                raise AssertionError(f"K8 {name} cap {cap}: kernel != plain")
+            calls += 1
+        ops = cases.compute_ops(lambda: batch.compact_batch_nal(
+            nal, lens, case["caps"][0]))
+        calls += 1
+        if ops:
+            raise AssertionError(f"K8's wrapper ran tensor ops {ops} on {name}")
+    torch.cuda.synchronize()
+    if _kernels.COMPACT_NAL.launches != calls:
+        raise AssertionError(f"K8 launched {_kernels.COMPACT_NAL.launches} "
+                             f"times in {calls} calls")
+    _log(f"phase 7: K8 equals its plain version on {len(cases.COMPACT_CASES)} "
+         f"compaction cases at every cap, exactly, one launch and no tensor "
+         f"op but the outputs' allocation a call")
+    # Timing as phase 3's: the kernel's device time (calls queued back to
+    # back), one call, the host's issue time, and the plain version on the
+    # card, in turns.  Bound: the valid bytes and the lengths read once,
+    # the cap, total and overflow written once at 3.35 TB/s.
+    timing, bound_ms = {}, {}
+    for label, (nal, nal_len) in egress_rows.items():
+        cap = nal.numel()
+        kernel = lambda nal=nal, nal_len=nal_len, cap=cap: (
+            batch.compact_batch_nal(nal, nal_len, cap))
+        plain = lambda nal=nal, nal_len=nal_len, cap=cap: (
+            batch.compact_batch_nal_plain(nal, nal_len, cap))
+        if _max_abs_err(kernel(), plain()):
+            raise AssertionError(f"{label}: kernel != plain")
+        p_a = timing_.call_ms(plain, 10)
+        d_a = timing_.device_ms(kernel)
+        c = timing_.call_ms(kernel, 20)
+        h = timing_.host_ms(kernel)
+        d_b = timing_.device_ms(kernel)
+        p_b = timing_.call_ms(plain, 10)
+        valid = int(nal_len.sum())
+        timing[label] = {"ms": c, "device_ms": statistics.median([d_a, d_b]),
+                         "host_ms": h,
+                         "plain_ms": statistics.median([p_a, p_b])}
+        bound_ms[label] = (valid + nal_len.numel() * nal_len.element_size()
+                           + cap + 5) / HBM_BYTES_PER_MS
+        _log(f"phase 7: {label} ({tuple(nal.shape)} rows, {valid} valid B, "
+             f"cap {cap} B): device {d_a:.5f}/{d_b:.5f} ms per call, one call "
+             f"{c:.5f} ms, host issue {h:.5f} ms per call, plain "
+             f"{p_a:.4f}/{p_b:.4f} ms (CUDA-event medians); bound "
+             f"{bound_ms[label]:.5f} ms")
+    return {"timing": timing, "bound_ms": bound_ms}
+
+
+def _session_phase(dev, cfg, cases, batch, _kernels, Timer, timing_,
+                   egress_rows):
+    """Phase 7: the per-session composer, the batched hint step and
+    egress (K8) on the card; returns the launch counts of the phase, its
+    streams and K8's timings."""
     from h264_scroll_encoder_tpu_torch.session import ComposerSession
     from h264_scroll_encoder_tpu_torch.syntax.slice_headers import (
         p_slice_header_symbols)
@@ -1353,33 +1462,27 @@ def _session_phase(dev, cfg, cases, batch, _kernels, Timer):
                              "sessions' valid bytes")
     if not bool(batch.compact_batch_nal(nal, nal_len, total - 1)[2]):
         raise AssertionError("compact_batch_nal: no overflow at total - 1")
-    step_t, egress_t = Timer(), Timer()
+    step_t = Timer()
     for _ in range(3):
         cases.run_hint_step(step, inputs)
     for _ in range(20):
-        out = step_t(lambda: cases.run_hint_step(step, inputs))
-        egress_t(lambda: batch.compact_batch_nal(out[0], out[1], total))
-    (step_ms, step_wall), (eg_ms, eg_wall) = step_t.medians(), egress_t.medians()
+        step_t(lambda: cases.run_hint_step(step, inputs))
+    step_ms, step_wall = step_t.medians()
     try:
-        prof = {name: _profile_launches(fn, 5) for name, fn in (
-            ("hint step", lambda: cases.run_hint_step(step, inputs)),
-            ("compact_batch_nal",
-             lambda: batch.compact_batch_nal(out[0], out[1], total)))}
+        prof = _profile_launches(lambda: cases.run_hint_step(step, inputs), 5)
     except Exception as e:  # measurement only; outputs checked above
-        prof = {}
+        prof = None
         _log(f"phase 7: torch.profiler failed: {e!r}")
-    for name, got in prof.items():
-        if got is not None:
-            _log(f"phase 7: {name} B=256 under torch.profiler: {got[0]:.1f} "
-                 f"CUDA API launches per call, device time {got[1]:.4f} ms")
+    if prof is not None:
+        _log(f"phase 7: hint step B=256 under torch.profiler: {prof[0]:.1f} "
+             f"CUDA API launches per call, device time {prof[1]:.4f} ms")
     _log(f"phase 7: hint step (compact_x) B=256 720p: digest equals the golden "
          f"file; {step_ms:.4f} ms (CUDA-event median of 20), host wall "
          f"{step_wall:.4f} ms; NAL buffer {tuple(nal.shape)}, {total} valid B "
-         f"(mean {total / nal.shape[0]:.1f} B)")
-    _log(f"phase 7: compact_batch_nal B=256 (cap = total = {total} B): "
-         f"{eg_ms:.4f} ms (CUDA-event median of 20), host wall {eg_wall:.4f} "
-         f"ms; packed[:total] equals the sessions' bytes, overflow at total - 1")
-    return launches, streams
+         f"(mean {total / nal.shape[0]:.1f} B); compact_batch_nal's "
+         f"packed[:total] equals the sessions' bytes, overflow at total - 1")
+    k8 = _k8_phase(dev, cases, batch, _kernels, timing_, egress_rows)
+    return launches, streams, k8
 
 
 def _dense_phase(dev, cfg, cases, batch, _kernels, Timer, avref, streams7,
@@ -1688,6 +1791,11 @@ def _serving_phase(dev, cfg, cases, batch, _kernels, Timer, avref, streams7,
                                         [o[1] for o in sharded[t]], cap, dev)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"egress across the blocks differs at step {t}")
+    # Egress is K8 on the card: one launch a call, both calls a step.
+    launches["h264t_compact_nal"] = _kernels.COMPACT_NAL.launches
+    if launches["h264t_compact_nal"] != 2 * len(schedule):
+        raise AssertionError(f"K8 launched {launches['h264t_compact_nal']} "
+                             f"times in {2 * len(schedule)} egress calls")
     final = batch.gather_batch(states, dev)
     if not all(torch.equal(getattr(final, f), getattr(state_u, f))
                for f in ("frame_num", "wp_offsets", "wp_ltidx", "wp_valid",

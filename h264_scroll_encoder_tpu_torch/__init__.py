@@ -16,7 +16,8 @@ names as the JAX package, so every function has an obvious counterpart:
                the donor rewrite, the host splice path and the padding
                transcode (trans-resizer).
   parallel/  — `SessionState`, the batched scroll, splice (rows, dense)
-               and hint steps, egress (`compact_batch_nal`); several
+               and hint steps, egress (`compact_batch_nal`: one launch
+               of K8, `csrc/egress_kernels.cu`, on the card); several
                devices: `make_sharded_step`, `shard_batch` /
                `gather_batch`, `run_on_blocks`, `compact_sharded_nal`,
                and `parallel/dryrun` (every serving program sharded against

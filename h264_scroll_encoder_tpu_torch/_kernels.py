@@ -8,7 +8,7 @@ loaded at import time.
 
 Each kernel is a `Kernel` whose `launches` counter goes up by one per
 launch, so a run can show which kernels its main path went through:
-KERNELS are the production kernels K1-K7, PROBE_KERNELS the measurement
+KERNELS are the production kernels K1-K8, PROBE_KERNELS the measurement
 probes P1-P6 (ops/probes.py, ops/cavlc_lockstep.py; P1 one counter per
 stage, P5/P6 one per variant).  A launch may also carry counts read from
 its plan for the composer's tracer (utils/trace.COUNTERS `emit.chunks`,
@@ -209,8 +209,13 @@ SCROLL_GRID = Kernel("h264t_scroll_grid",
 P_SLICE_HEADER = Kernel("h264t_p_slice_header",
                         [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P])
 
+# K8 (parallel/batch.compact_batch_nal): (nal, row, n, lens, len_stride,
+#     len_bytes, batch, cap, tile, packed, total, overflow, stream).
+COMPACT_NAL = Kernel("h264t_compact_nal",
+                     [_P, _L, _I, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P])
+
 KERNELS = (EMIT_FUSED, PACK_PLACE, EBSP_NAL, PACK_WORDS, COMPOSITE_GRID,
-           SCROLL_GRID, P_SLICE_HEADER)
+           SCROLL_GRID, P_SLICE_HEADER, COMPACT_NAL)
 
 # P1: (stage, then K1's arguments, probe_meta, probe_words, stream); one
 # counter per stage, in csrc's order (0 launch ... 5 full).

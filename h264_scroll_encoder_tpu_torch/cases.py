@@ -598,6 +598,97 @@ def header_writer_nals(cfg: ComposerConfig, case: dict, qp: int,
 
 
 # ---------------------------------------------------------------------------
+# K8: egress compaction (parallel/batch.compact_batch_nal).
+# ---------------------------------------------------------------------------
+
+# The sweep: name -> (B, N, row stride, lengths' dtype, lengths' element
+# stride, how the lengths are drawn).  Rows lie in a wider array where the
+# row stride passes N; lengths in one where their stride passes 1.  N
+# 10,272 and 7,333 are the benchmark's splice (pooled) and scroll rows.
+COMPACT_CASES = {
+    "b1": (1, 333, 333, "int64", 1, "full"),
+    "b1_empty": (1, 16, 16, "int32", 1, "zero"),
+    "b7_ragged": (7, 50, 50, "int32", 1, "b7"),
+    "b256_all_zero": (256, 100, 100, "int32", 1, "zero"),
+    "b256_scroll": (256, 7333, 7333, "int32", 1, "scroll"),
+    "b1024_pooled": (1024, 10272, 10272, "int32", 1, "pooled"),
+    "b1024_int64_ragged": (1024, 509, 509, "int64", 1, "ragged"),
+    "b4096_short": (4096, 37, 37, "int32", 1, "ragged"),
+    "b4096_tiny": (4096, 3, 3, "int64", 1, "tiny"),
+    "every_alignment": (64, 61, 61, "int32", 1, "seventeen"),
+    "alignment_pairs": (2000, 61, 61, "int64", 1, "ragged"),
+    "strided_rows": (300, 123, 251, "int32", 1, "ragged"),
+    "strided_lengths": (257, 64, 80, "int64", 2, "ragged"),
+    "long_rows": (3, 100_003, 100_003, "int32", 1, "long"),
+}
+
+
+def compact_case(name: str, seed: int = 0) -> dict:
+    """COMPACT_CASES[name] as numpy arrays: nal u8[B, N] (a view of a
+    [B, row stride] array), nal_len [B] (a view where its stride passes 1),
+    and the caps to run it at: above the total (by 37, and the whole
+    buffer B * N, as the benchmark's egress gives), at it, one below, a
+    third of it, 1 and 0.  Lengths: "full" whole rows; "zero" none;
+    "b7" tests/test_batch.py's [13, 0, 50, 1, 29, 0, 7]; "scroll" and
+    "pooled" the benchmark's ranges (about 3.5 and 5.5 KB); "ragged"
+    0..N with a fifth of the rows empty; "tiny" 0 or 1 (a 16-byte vector
+    over up to 16 sessions); "seventeen" 17 each (the sessions start at
+    every offset mod 16, the rows at every address mod 16); "long" rows
+    across many of the kernel's tiles."""
+    B, N, row, dtype, stride, kind = COMPACT_CASES[name]
+    rng = np.random.default_rng([seed, len(name), sum(map(ord, name))])
+    nal = rng.integers(0, 256, (B, row), dtype=np.uint8)[:, :N]
+    if kind == "full":
+        lens = np.full(B, N)
+    elif kind == "zero":
+        lens = np.zeros(B)
+    elif kind == "b7":
+        lens = np.asarray([13, 0, 50, 1, 29, 0, 7])
+    elif kind == "scroll":
+        lens = rng.integers(3000, 4001, B)
+    elif kind == "pooled":
+        lens = rng.integers(4500, 6501, B)
+    elif kind == "ragged":
+        lens = np.where(rng.random(B) < 0.2, 0, rng.integers(0, N + 1, B))
+    elif kind == "tiny":
+        lens = rng.integers(0, 2, B)
+    elif kind == "seventeen":
+        lens = np.full(B, 17)
+    else:
+        lens = np.minimum(N, np.asarray([N, 77_777, 5]))
+    wide = np.zeros((B, stride), dtype)
+    wide[:, 0] = lens
+    nal_len = wide[:, 0] if stride > 1 else wide[:, 0].copy()
+    total = int(lens.sum())
+    caps = sorted({c for c in (total + 37, B * N, total, total - 1,
+                               total // 3, 1, 0) if c >= 0}, reverse=True)
+    return {"nal": nal, "nal_len": nal_len, "caps": caps, "total": total}
+
+
+def compact_tensors(case: dict, device) -> tuple:
+    """compact_case's nal and nal_len as tensors on `device` with their
+    strides: views of tensors as wide as the numpy arrays under them."""
+    nal, lens = case["nal"], case["nal_len"]
+    rows = torch.as_tensor(np.ascontiguousarray(nal.base if nal.base is not None
+                                                else nal), device=device)
+    t_nal = rows[:, :nal.shape[1]]
+    if lens.base is not None:
+        t_lens = torch.as_tensor(lens.base, device=device)[:, 0]
+    else:
+        t_lens = torch.as_tensor(lens, device=device)
+    return t_nal, t_lens
+
+
+def compact_reference(nal, nal_len, cap: int) -> tuple:
+    """What compact_batch_nal returns, from numpy: (packed bytes, total,
+    overflow)."""
+    data = b"".join(np.asarray(nal)[b, :int(n)].tobytes()
+                    for b, n in enumerate(np.asarray(nal_len)))
+    return (data[:cap] + bytes(max(0, cap - len(data))), len(data),
+            len(data) > cap)
+
+
+# ---------------------------------------------------------------------------
 # The 720p scroll schedules.
 # ---------------------------------------------------------------------------
 
@@ -761,6 +852,19 @@ def splice_symbols(cfg: ComposerConfig, dn: dict, batch_size: int,
         compact_x=True, s_row=SPLICE_S_ROW, s_flat=SPLICE_S_FLAT,
         s_exc=SPLICE_S_EXC)
     return pat, nb
+
+
+def pooled_egress_rows(cfg: ComposerConfig, dn: dict, align: bool, device):
+    """The NAL rows the benchmark's pooled splice cell compacts: K1 on the
+    compact splice symbols of the donors of `dn` tiled over B = 1,024
+    sessions, at the cell's RBSP budget (10,240 B), as (nal, nal_len)."""
+    n_rbsp = 10_240
+    sym = splice_symbols(cfg, dn, 1024, n_rbsp, device)
+    nal, nal_len, _bits, ovf = emit_fused.emit_nal_fused_batch(
+        *sym, 0, n_rbsp, CAP, align=align, append_tb=True)
+    if bool(ovf.any()):
+        raise AssertionError("the pooled splice rows overflowed")
+    return nal, nal_len
 
 
 def splice_golden_config() -> dict:

@@ -11,7 +11,8 @@ path): a pre-encoded donor rect composed into each session's P-frame;
 `make_batched_splice_step_dense` is the same frame over the dense (per-MB)
 donor layout, its byte-for-byte parity partner; `make_batched_hint_step`
 composes hint frames (static chrome plus motion regions);
-`compact_batch_nal` is egress, the sessions' valid bytes in one buffer.
+`compact_batch_nal` is egress, the sessions' valid bytes in one buffer
+(one launch of K8, csrc/egress_kernels.cu, on the card).
 
 Across devices (the JAX package's "sessions" mesh axis) sessions split
 into equal contiguous blocks, one per device (`shard_batch`; `gather_batch`
@@ -36,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import operator
 
 import numpy as np
 import torch
@@ -427,29 +429,137 @@ def compact_batch_nal(nal, nal_len, cap: int):
     total > cap: packed then holds the first `cap` bytes and the caller
     retries with a larger cap (nothing is truncated silently).
 
-    An exclusive cumsum of the lengths gives each session's offset; each
-    output byte finds its session by a binary search over the inclusive
-    offsets and gathers its byte, so bytes past a session's length are
-    never read.
+    On CUDA tensors the call is one launch of K8 (csrc/egress_kernels.cu,
+    h264t_compact_nal), which scans the lengths and writes packed, total
+    and overflow itself; on CPU tensors, the plain version
+    (compact_batch_nal_plain).  The kernel reads nal (uint8, a unit column
+    stride, any row stride) and nal_len (int32 or int64 [B], any stride)
+    in place, on one card, with 1 <= B, B * N < 2**31 and 0 <= cap <
+    2**31, and refuses (TypeError, ValueError) anything else before any
+    launch: there is no fallback.  Around the launch it runs no tensor op
+    (the outputs are torch.empty), so a CUDA graph captures the call as
+    one kernel node.
 
     Under the composer's tracer it is the device-timed span
     `batch.compact`; while the tracer records, `batch.compact_positions`
     counts the caps (total stays on the device)."""
     with TRACER.span("batch.compact") as span:
         span.time_device(nal.device)
-        B, N = nal.shape
-        lens = nal_len.to(torch.int32)
-        incl = torch.cumsum(lens, dim=0, dtype=torch.int32)
-        total = incl[-1]
-        pos = torch.arange(cap, dtype=torch.int32, device=nal.device)
-        session = torch.searchsorted(incl, pos, right=True,
-                                     out_int32=True).clamp(max=B - 1)
-        col = (pos - (incl - lens)[session]).clamp(0, N - 1)
-        packed = torch.where(pos < total, nal[session, col],
-                             0).to(torch.uint8)
+        if _on_cuda(nal) or _on_cuda(nal_len):
+            out = _compact_nal_kernel(nal, nal_len, cap)
+        else:
+            out = compact_batch_nal_plain(nal, nal_len, cap)
     if TRACER.on:
         TRACER.count("batch.compact_positions", cap)
+    return out
+
+
+def compact_batch_nal_plain(nal, nal_len, cap: int):
+    """compact_batch_nal in plain torch (K8's contract): an exclusive
+    cumsum of the lengths gives each session's offset; each output byte
+    finds its session by a binary search over the inclusive offsets and
+    gathers its byte, so bytes past a session's length are never read."""
+    B, N = nal.shape
+    lens = nal_len.to(torch.int32)
+    incl = torch.cumsum(lens, dim=0, dtype=torch.int32)
+    total = incl[-1]
+    pos = torch.arange(cap, dtype=torch.int32, device=nal.device)
+    session = torch.searchsorted(incl, pos, right=True,
+                                 out_int32=True).clamp(max=B - 1)
+    col = (pos - (incl - lens)[session]).clamp(0, N - 1)
+    packed = torch.where(pos < total, nal[session, col], 0).to(torch.uint8)
     return packed, total, total > cap
+
+
+def _on_cuda(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.device.type == "cuda"
+
+
+_INT32_MAX = (1 << 31) - 1
+# K8's threads a block (csrc/egress_kernels.cu: kCompactThreads), and the
+# most 16-byte vectors a thread of the plan's largest tile writes.
+_COMPACT_THREADS = 256
+_COMPACT_MAX_VECTORS = 4
+
+
+def compact_tile(cap: int, sms: int) -> int:
+    """K8's plan: the bytes of packed a block writes, 4,096 (16 bytes a
+    thread) times the largest of 4, 2, 1 that still gives at least four
+    blocks an SM of a card with `sms` SMs, where the cap allows: fewer,
+    larger tiles scan the lengths fewer times, more tiles fill the card.
+    On an H100 (kernel_ab.py --egress, every tile forced) this picks the
+    fastest tile at both of the benchmark's caps: 16 KB at the pooled
+    splice cap (10.5 MB), 4 KB at the scroll cap (1.9 MB)."""
+    tile = 16 * _COMPACT_THREADS * _COMPACT_MAX_VECTORS
+    while tile > 16 * _COMPACT_THREADS and -(-cap // tile) < 4 * sms:
+        tile //= 2
+    return tile
+
+
+def compact_nal_args(nal, nal_len, cap: int) -> tuple:
+    """K8's arguments before its outputs (nal, row stride, N, lens, their
+    stride, their bytes, B, cap), from the inputs as they lie; raises
+    TypeError or ValueError for what the kernel cannot read in place.
+    Touches no kernel library."""
+    if not isinstance(nal, torch.Tensor) or not isinstance(nal_len,
+                                                           torch.Tensor):
+        raise TypeError("compact_batch_nal on the card: nal and nal_len must "
+                        f"be tensors, not {type(nal).__name__} and "
+                        f"{type(nal_len).__name__}")
+    if nal_len.device != nal.device:
+        raise ValueError(f"compact_batch_nal: nal is on {nal.device}, nal_len "
+                         f"on {nal_len.device} (no copy is made)")
+    if nal.dtype != torch.uint8:
+        raise TypeError(f"compact_batch_nal: nal must be uint8, not "
+                        f"{nal.dtype}")
+    if nal_len.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"compact_batch_nal: nal_len must be int32 or int64, "
+                        f"not {nal_len.dtype}")
+    if nal.dim() != 2 or nal.shape[0] < 1:
+        raise ValueError(f"compact_batch_nal: nal is {tuple(nal.shape)}, not "
+                         "[B, N] with B >= 1")
+    B, N = nal.shape
+    if nal_len.shape != (B,):
+        raise ValueError(f"compact_batch_nal: nal_len is "
+                         f"{tuple(nal_len.shape)}, not [{B}]")
+    if N > 1 and nal.stride(1) != 1:
+        raise ValueError(f"compact_batch_nal: nal's bytes are "
+                         f"{nal.stride(1)} apart along a row, not 1")
+    if B * N > _INT32_MAX:
+        raise ValueError(f"compact_batch_nal: {B} rows of {N} bytes could "
+                         "sum past int32")
+    try:
+        cap = operator.index(cap)
+    except TypeError:
+        raise TypeError(f"compact_batch_nal: cap must be an integer, not "
+                        f"{type(cap).__name__}") from None
+    if not 0 <= cap <= _INT32_MAX:
+        raise ValueError(f"compact_batch_nal: cap {cap} is not in [0, 2**31)")
+    return (nal.data_ptr(), nal.stride(0), N, nal_len.data_ptr(),
+            nal_len.stride(0), nal_len.element_size(), B, cap)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _compact_nal_kernel(nal, nal_len, cap: int, tile: int | None = None):
+    """K8 on nal's card: one launch, `tile` bytes a block (default: the
+    plan's, compact_tile; kernel_ab.py forces others to weigh the plan)."""
+    args = compact_nal_args(nal, nal_len, cap)
+    cap, dev = args[-1], nal.device
+    with torch.cuda.device(dev):
+        if tile is None:
+            tile = compact_tile(cap, _sms(torch.cuda.current_device()))
+        packed = torch.empty(cap, dtype=torch.uint8, device=dev)
+        total = torch.empty((), dtype=torch.int32, device=dev)
+        overflow = torch.empty((), dtype=torch.bool, device=dev)
+        _kernels.COMPACT_NAL.launch(
+            *args, tile,
+            packed.data_ptr(), total.data_ptr(), overflow.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    return packed, total, overflow
 
 
 def compact_sharded_nal(nal_blocks, len_blocks, cap: int, device=None):

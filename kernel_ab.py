@@ -1,6 +1,6 @@
 """Same-process A/B timing of the kernel wrappers of two trees on one card.
 
-    python3 kernel_ab.py --parent DIR [--large | --grid]
+    python3 kernel_ab.py --parent DIR [--large | --grid | --egress]
 
 DIR holds another commit of this repository, unpacked (for example
 `git archive <commit> | tar -x -C _parent`; `_parent/` is gitignored).
@@ -34,7 +34,18 @@ grid-stage kernels instead, on this tree's inputs of chip_smoke.py phase
 after printing what `nvcc -Xptxas -v` says of this tree's
 csrc/grid_kernels.cu (registers, stack, spills); then this tree's K5 and
 K6 at every band plan forced on each of those shapes, beside the plan's
-own choice (plan_sweep).
+own choice (plan_sweep).  With --egress, egress instead, on the
+benchmark's rows (the cap the whole buffer, B * N, as its egress gives):
+
+  K8  parallel.batch.compact_batch_nal  the pooled splice rows (K1 on the
+                                        32 donors at B = 1,024 and the
+                                        10,240 B RBSP budget) and the
+                                        scroll step's rows (B = 256)
+
+where a parent before K8 runs the plain version on the card (the
+profiler's kernel column then reads 0; its work column is the call's);
+then this tree's K8 at every tile of COMPACT_TILES forced on each of those
+rows, beside the plan's own tile (tile_sweep).
 
 For each, the two trees' outputs are held equal; then each is measured in
 turns (parent, tree, tree, parent; the median of each pair): with
@@ -61,7 +72,7 @@ import torch
 
 N_DONORS = 32
 MODULES = ("_kernels", "ops.emit_fused", "ops.bitpack_flat", "ops.ebsp_flat",
-           "ops.grid")
+           "ops.grid", "parallel.batch")
 
 
 def load_tree(root: Path, name: str) -> dict:
@@ -159,6 +170,21 @@ def grid_cells(cases, cfg, dn, dev):
     return cells
 
 
+def egress_cells(cases, cfg, dn, has_align, dev):
+    """K8's cells: the pooled splice cell's NAL rows and the scroll
+    cell's, each compacted into the whole buffer."""
+    from h264_scroll_encoder_tpu_torch.parallel import batch
+
+    pooled = cases.pooled_egress_rows(cfg, dn, bool(has_align.any()), dev)
+    sched = torch.as_tensor(cases.bench_schedule(720, 256, 2), device=dev)
+    step = batch.make_batched_step(cfg)
+    _state, out = step(batch.SessionState.create(256, device=dev), sched[1])
+    return [(label, "compact_nal", "compact_batch_nal", "parallel.batch",
+             (nal, nal_len, nal.numel()), {})
+            for label, (nal, nal_len) in (("K8 pooled B=1024", pooled),
+                                          ("K8 scroll B=256", out[:2]))]
+
+
 def plan_sweep(tree, cells, timing) -> dict:
     """This tree's K5 and K6 at every band plan forced (the wrappers'
     `parts=`) that fits a block, on every grid cell: device ms per call
@@ -186,6 +212,36 @@ def plan_sweep(tree, cells, timing) -> dict:
     return out
 
 
+COMPACT_TILES = (2048, 4096, 8192, 16384, 32768, 65536)
+
+
+def tile_sweep(tree, cells, timing) -> dict:
+    """This tree's K8 at every tile of COMPACT_TILES forced
+    (`_compact_nal_kernel`'s `tile=`) on every egress cell, in two passes
+    (up, then down): device ms per call of each pass beside the plan's own
+    tile (compact_tile), the fastest tile and how much slower the plan's
+    is than it."""
+    batch = tree["parallel.batch"]
+    out = {}
+    for label, _kernel, _wrapper, _module, (nal, nal_len, cap), _kw in cells:
+        ms = {t: [] for t in COMPACT_TILES}
+        for order in (COMPACT_TILES, COMPACT_TILES[::-1]):
+            for t in order:
+                ms[t].append(timing.device_ms(
+                    lambda t=t: batch._compact_nal_kernel(nal, nal_len, cap,
+                                                          tile=t)))
+        med = {t: statistics.median(v) for t, v in ms.items()}
+        plan = batch.compact_tile(cap, batch._sms(nal.device.index))
+        best = min(med, key=med.get)
+        row = {"plan": plan, "fastest": best,
+               "plan_over_fastest": med[plan] / med[best],
+               **{f"tile={t}": v for t, v in ms.items()}}
+        out[label] = row
+        print(f"{label}: " + ", ".join(f"{k} {v}" for k, v in row.items()),
+              flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
@@ -193,6 +249,8 @@ def main() -> int:
                     help="also K1 and K2 on the shapes past one block")
     ap.add_argument("--grid", action="store_true",
                     help="K5 and K6 instead of K1-K4")
+    ap.add_argument("--egress", action="store_true",
+                    help="K8 instead of K1-K4")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
@@ -223,6 +281,8 @@ def main() -> int:
 
         print(_kernels.ptxas_report("grid_kernels.cu"), flush=True)
         cells, extra = grid_cells(cases, cfg, dn, dev), {}
+    elif args.egress:
+        cells, extra = egress_cells(cases, cfg, dn, has_align, dev), {}
     else:
         cells, extra = emit_cells(cases, cfg, dn, bits, has_align, dev,
                                   large=args.large)
@@ -261,6 +321,8 @@ def main() -> int:
             for k in row["parent"]), flush=True)
     if args.grid:
         results["plans"] = plan_sweep(trees["tree"], cells, timing)
+    if args.egress:
+        results["tiles"] = tile_sweep(trees["tree"], cells, timing)
     print(smi)
     print(json.dumps(results))
     return 0

@@ -1488,6 +1488,123 @@ def test_p_slice_header_kernel_in_the_graphs(dev, path):
 
 
 # ---------------------------------------------------------------------------
+# K8: egress compaction (parallel/batch.compact_batch_nal).
+# ---------------------------------------------------------------------------
+
+def _k8_same(nal, lens, cap):
+    """K8 through compact_batch_nal: one launch and no tensor op besides
+    its outputs' allocation, equal byte for byte, with total and overflow,
+    to the plain version on the same CUDA inputs."""
+    before = _kernels.COMPACT_NAL.launches
+    got = batch.compact_batch_nal(nal, lens, cap)
+    assert _kernels.COMPACT_NAL.launches == before + 1
+    want = batch.compact_batch_nal_plain(nal, lens, cap)
+    _same(got, want)
+    assert got[0].shape == (cap,) and got[1].shape == got[2].shape == ()
+    return got
+
+
+@pytest.mark.parametrize("name", list(cases.COMPACT_CASES))
+def test_compact_nal_kernel_sweep(dev, name):
+    """Every case of the sweep (B = 1 to 4,096, empty rows and batches,
+    widths not a multiple of 4 or 16, sessions and rows at every
+    alignment, int32 and int64 lengths, strided rows and lengths) at every
+    cap (above, at, one below and far below the total, 1 and 0): equal to
+    the plain version and to numpy's concatenation, overflow truncating at
+    the cap; no tensor op around the launch."""
+    case = cases.compact_case(name)
+    nal, lens = cases.compact_tensors(case, dev)
+    for cap in case["caps"]:
+        got = _k8_same(nal, lens, cap)
+        want = cases.compact_reference(case["nal"], case["nal_len"], cap)
+        assert got[0].cpu().numpy().tobytes() == want[0]
+        assert (int(got[1]), bool(got[2])) == want[1:]
+    assert cases.compute_ops(lambda: batch.compact_batch_nal(
+        nal, lens, case["caps"][0])) == []
+
+
+@pytest.mark.parametrize("name", ["b7_ragged", "b256_scroll", "b1024_pooled",
+                                  "b4096_tiny", "strided_lengths"])
+def test_compact_nal_kernel_in_a_graph(dev, name):
+    """compact_batch_nal captured as a CUDA graph (utils/graphs) is one
+    kernel node, K8, counted once a replay; each replay on new rows and
+    lengths (caps above, at and below the total) equals the plain
+    version."""
+    from h264_scroll_encoder_tpu_torch.utils import graphs
+
+    fn = graphs.graphed(batch.compact_batch_nal, "compact")
+    case = cases.compact_case(name)
+    nal, lens = cases.compact_tensors(case, dev)
+    for cap in (case["caps"][0], case["total"], case["total"] // 3):
+        fn.reset()
+        fn(nal, lens, cap)                      # eager run, then capture
+        (stats,) = fn.stats()
+        assert stats["nodes"] == 1 and stats["launches"] == {
+            "h264t_compact_nal": 1}, stats
+        for seed in (1, 2, 3):
+            other = cases.compact_case(name, seed)
+            o_nal, o_lens = cases.compact_tensors(other, dev)
+            torch.cuda.synchronize()
+            before = _kernels.COMPACT_NAL.launches
+            got = fn(o_nal, o_lens, cap)
+            torch.cuda.synchronize()
+            assert _kernels.COMPACT_NAL.launches == before + 1
+            _same(got, batch.compact_batch_nal_plain(o_nal, o_lens, cap))
+
+
+def test_compact_nal_kernel_refuses_what_it_cannot_read(dev, monkeypatch):
+    """A dtype, shape or stride K8 cannot read, inputs on two devices, a cap
+    outside [0, 2**31) raise before any launch, and the plain version never
+    runs for CUDA tensors."""
+    def plain(*_a, **_k):
+        raise AssertionError("the plain version ran for CUDA tensors")
+
+    monkeypatch.setattr(batch, "compact_batch_nal_plain", plain)
+    nal, lens = cases.compact_tensors(cases.compact_case("b7_ragged"), dev)
+    bad = [(TypeError, (nal.int(), lens, 64)),
+           (TypeError, (nal, lens.short(), 64)),
+           (TypeError, (nal, lens.tolist(), 64)),
+           (ValueError, (nal, lens.cpu(), 64)),
+           (ValueError, (nal.cpu(), lens, 64)),
+           (ValueError, (nal, lens[:3], 64)),
+           (ValueError, (nal[:0], lens[:0], 64)),
+           (ValueError, (nal[:, ::2], lens, 64)),
+           (ValueError, (nal, lens, -1)),
+           (ValueError, (nal, lens, 1 << 31))]
+    before = _kernels.COMPACT_NAL.launches
+    for err, args in bad:
+        with pytest.raises(err):
+            batch.compact_batch_nal(*args)
+    assert _kernels.COMPACT_NAL.launches == before
+    batch.compact_batch_nal(nal, lens, 64)
+    assert _kernels.COMPACT_NAL.launches == before + 1
+
+
+def test_compact_nal_kernel_on_the_tracer(dev):
+    """Under the composer's tracer each call is one `batch.compact` span
+    (device-timed) and one K8 launch in launch_counts(); the caps count in
+    `batch.compact_positions`."""
+    from h264_scroll_encoder_tpu_torch.utils.trace import TRACER
+
+    case = cases.compact_case("b256_scroll")
+    nal, lens = cases.compact_tensors(case, dev)
+    cap = case["caps"][0]
+    batch.compact_batch_nal(nal, lens, cap)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    TRACER.clear()
+    with TRACER.recording():
+        for _ in range(5):
+            batch.compact_batch_nal(nal, lens, cap)
+        report = TRACER.report()
+    span = report["spans"]["batch.compact"]
+    assert span["calls"] == 5 and span["device_ms"] > 0
+    assert report["counters"]["batch.compact_positions"] == 5 * cap
+    assert _kernels.launch_counts()["h264t_compact_nal"] == 5
+    TRACER.clear()
+
+
+# ---------------------------------------------------------------------------
 # 4K scrolling sessions (the benchmark's configuration scroll2160p).
 # ---------------------------------------------------------------------------
 
