@@ -128,25 +128,26 @@ def _capturing() -> bool:
     return torch.cuda.is_current_stream_capturing()
 
 
-# The tracer counts of the launches captured into CUDA graphs so far
-# ({counter: n}); utils/graphs counts a graph's share on each replay.
-_captured_tracer_counts: collections.Counter = collections.Counter()
+# What the launches captured into CUDA graphs so far count: 1 under each
+# launch's Kernel and its plan counts under their tracer counter names.
+# utils/graphs takes a capture's share of it (captured_counts) and counts
+# that share on each replay of the graph (count_replay).
+_captured: collections.Counter = collections.Counter()
 
 
 class Kernel:
     """One extern "C" entry of the kernel library; `launches` counts the
     launches of its kernel.  A launch made while a CUDA graph is captured
-    runs nothing then: it counts in `captured`, and utils/graphs adds it
-    to `launches` on each replay of that graph (count_replay).  `name`
-    tells apart counters that share an entry (P1's stages); it defaults
-    to the symbol."""
+    runs nothing then: it goes to the captured tally, and utils/graphs
+    adds it to `launches` on each replay of that graph (count_replay).
+    `name` tells apart counters that share an entry (P1's stages); it
+    defaults to the symbol."""
 
     def __init__(self, symbol: str, argtypes, name: str | None = None):
         self.symbol = symbol
         self.name = name or symbol
         self.argtypes = argtypes
         self.launches = 0
-        self.captured = 0
         self._fn = None
 
     def launch(self, *args, counts=None):
@@ -163,9 +164,9 @@ class Kernel:
             raise RuntimeError(
                 f"{self.symbol}: CUDA launch failed with cudaError_t {err}")
         if _capturing():
-            self.captured += 1
+            _captured[self] += 1
             if counts:
-                _captured_tracer_counts.update(counts)
+                _captured.update(counts)
         else:
             self.launches += 1
             if counts and TRACER.on:
@@ -386,21 +387,19 @@ def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS + PROBE_KERNELS}
 
 
-def captured_counts() -> dict:
-    """{Kernel: launches recorded into CUDA graphs so far}; the difference
-    across one capture is what each replay of that graph launches."""
-    return {k: k.captured for k in KERNELS + PROBE_KERNELS}
+def captured_counts() -> collections.Counter:
+    """A snapshot of the captured tally: {Kernel or tracer counter: n} of
+    the launches recorded into CUDA graphs so far.  The difference across
+    one capture is what each replay of that graph counts."""
+    return collections.Counter(_captured)
 
 
-def captured_tracer_counts() -> collections.Counter:
-    """{tracer counter: n} of the launches recorded into CUDA graphs so
-    far; the difference across one capture is what each replay of that
-    graph counts."""
-    return collections.Counter(_captured_tracer_counts)
-
-
-def count_replay(launches: dict) -> None:
-    """Adds one replay of a graph that launches {Kernel: n} to the
-    counters."""
-    for k, n in launches.items():
-        k.launches += n
+def count_replay(counts: dict) -> None:
+    """Counts one replay of a graph whose capture recorded `counts` (a
+    difference of captured_counts): each Kernel's launches always, the
+    tracer counters while the tracer records."""
+    for k, n in counts.items():
+        if isinstance(k, Kernel):
+            k.launches += n
+        elif TRACER.on:
+            TRACER.count(k, n)

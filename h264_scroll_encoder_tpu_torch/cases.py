@@ -1,4 +1,4 @@
-"""Seeded inputs and golden digests shared by the tests and chip_smoke.py.
+"""Seeded inputs and golden digests shared by the tests and kernel_ab.py.
 
 The cases are plain numpy arrays, so the same inputs feed the JAX package
 (in the tests), the port's plain PyTorch versions and the CUDA kernels
@@ -1095,18 +1095,16 @@ def _splice_hints(k: int, motion_region, frame_hints):
                        dynamic_mb_y=SPLICE_R0)
 
 
-def drive_session(s, pkg, *, timed=None) -> None:
+def drive_session(s, pkg) -> None:
     """Script the main 720p session `s` (either package's ComposerSession):
     parameter sets, striped test atlases, the scroll-encoder schedule
-    through write_scroll_or_waypoint_frame (each call through timed(fn)
-    when given), two sliced frames, the hint frames and the spliced frames
-    with representative donors.  `pkg` names that package's MotionRegion,
-    FrameHints and fixtures module."""
+    through write_scroll_or_waypoint_frame, two sliced frames, the hint
+    frames and the spliced frames with representative donors.  `pkg`
+    names that package's MotionRegion, FrameHints and fixtures module."""
     s.write_parameter_sets()
     s.write_test_atlases(striped=True)
     for off in session_scroll_offsets():
-        call = lambda off=off: s.write_scroll_or_waypoint_frame(off)
-        timed(call) if timed else call()
+        s.write_scroll_or_waypoint_frame(off)
     for off in SESSION_SLICED_OFFSETS:
         s.write_scroll_frame_sliced(off, SESSION_ROWS_PER_SLICE)
     for k in range(SESSION_HINT_FRAMES):
@@ -1241,7 +1239,7 @@ def stream_digest(data: bytes) -> dict:
 
 
 # K1's and K2's shapes past one block's shared memory (their cluster plan),
-# as chip_smoke.py and kernel_ab.py time them: the hint frames of
+# as kernel_ab.py times them: the hint frames of
 # LARGE_FRAMES and 3840x2160 at the generic 32 bits per MB, and the exact
 # retry's buffers at 4096x2160 and 5120x3200.
 LARGE_EMIT_FRAMES = {"hint_3840x2160": (3840, 2160, 32), **LARGE_FRAMES}
@@ -1434,8 +1432,8 @@ def port_session_golden(device="cuda", workdir=None) -> dict:
 
 # ---------------------------------------------------------------------------
 # K5's and K6's cases (ops/grid): tests/test_torch_grid.py holds the plain
-# versions to the JAX package on them, tests/test_torch_cuda.py and
-# chip_smoke.py phase 3 the kernels to the plain versions.
+# versions to the JAX package on them, tests/test_torch_cuda.py the
+# kernels to the plain versions.
 # ---------------------------------------------------------------------------
 
 GRID_SMALL = (8, 10)        # H x W MBs

@@ -60,8 +60,8 @@
 //
 // What bounds K3.  At 720p a session reads its valid RBSP bytes (5,602 of
 // an 8,192-byte budget on average) and writes an 8,224-byte NAL: ~3.5 MB
-// a call at B = 256, ~1.1 us at the card's memory rate (chip_smoke.py
-// counts it from each run's lengths).  Its work per byte is a few integer
+// a call at B = 256, ~1.1 us at the card's memory rate (counted from a
+// run's lengths).  Its work per byte is a few integer
 // operations, and
 // B = 256 blocks are one wave, so again a session's time is a chain of
 // latencies: load round trips and barriers.

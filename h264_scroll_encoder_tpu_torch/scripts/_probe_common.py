@@ -1,6 +1,6 @@
 """What the measurement scripts share: their arguments, the inputs they
-measure (the JAX probes' own symbols and the 720p shapes chip_smoke.py
-builds), the clock and the one-line table each prints last.
+measure (the JAX probes' own symbols and the 720p splice and scroll
+shapes), the clock and the one-line table each prints last.
 
 Every script runs on the card unless `--device cpu` is given; on the CPU
 its kernels run their plain versions and its times come from the host
@@ -125,7 +125,7 @@ def rep_budget(engine: str) -> int:
 
 
 def splice_donors(args, dev):
-    """chip_smoke.py's splice donors: `args.donors` seeded representative
+    """The splice donors: `args.donors` seeded representative
     donors through the host prep into the blob wire: (dn, donor_bits,
     has_align)."""
     payloads = [cases.splice_donor_payload(k) for k in range(args.donors)]

@@ -15,7 +15,7 @@ row.
 
 The verdict's host side is measured on the same machine: the port's donor
 prep (cases.prepare_splice_donors: splice_device.prepare_donor_rows_serving
-with the native engine, as chip_smoke.py phase 5 runs it) of `--donors`
+with the native engine, as the rows splice step's inputs) of `--donors`
 representative donors in one batch, per donor.  The device side is the
 JAX probe's donor-equivalent: a representative donor carries DONOR_BITS of
 residual payload, so DONOR_BITS / (mean bits a block) blocks, at the

@@ -21,8 +21,8 @@ the card each stage's device time per call alone (utils/timing
 stage's own outputs, which differ from stage to stage.
 
 Shapes: the JAX probe's own input (8,483 symbols, widths 0-8, seed 1, at
-the representative splice budget), then the 720p shapes chip_smoke.py
-builds: compact splice at B and 4B, scroll and partitioned frames at B,
+the representative splice budget), then the 720p main paths' shapes:
+compact splice at B and 4B, scroll and partitioned frames at B,
 and K1's cluster plan: the dense frame of I_PCM-bearing donors at B / 8
 (B = 256 by default; 4 blocks a session) and the 5120x3200 hint frame at
 B = 1 (16).  On the card each row also has K1's blocks a session, its

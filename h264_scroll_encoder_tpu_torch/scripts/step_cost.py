@@ -6,8 +6,8 @@ nothing, so the counterpart counts a step as it runs op by op (its
 `.eager`, not its CUDA graph, which the dispatcher does not see into):
 every aten op of one step is seen through the dispatcher with the shapes
 and dtypes of its tensor arguments and results.  The steps are the
-compact rows step (chip_smoke.py's phase 5 step at bench.py's geometry,
-B sessions) and the 720p scroll step (make_batched_step, step 0 of the
+compact rows step (the 32 seeded representative donors on the blob
+wire at bench.py's geometry, B sessions) and the 720p scroll step (make_batched_step, step 0 of the
 benchmark schedule, B fresh sessions); for each
 
   - the bytes each op reads (its tensor arguments, each once, a

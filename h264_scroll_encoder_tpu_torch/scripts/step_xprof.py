@@ -1,9 +1,8 @@
 """Op-level profile of the rows splice step.
 
 Port of scripts/step_xprof.py (which reads an XLA device trace): the
-compact rows splice step at bench.py's geometry (chip_smoke.py's phase 5
-step: the 32 seeded representative donors on the blob wire, tiled over B
-sessions), run op by op (the step's `.eager`, not its CUDA graph, so
+compact rows splice step at bench.py's geometry (the 32 seeded
+representative donors on the blob wire, tiled over B sessions), run op by op (the step's `.eager`, not its CUDA graph, so
 that each op is its own launch in the trace) under torch.profiler over a
 few warm steps, and from its trace
 

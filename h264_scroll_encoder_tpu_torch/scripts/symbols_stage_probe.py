@@ -3,7 +3,7 @@
 Port of scripts/symbols_stage_probe.py.  The pieces of
 splice_device.rows_splice_symbols on the blob wire of the compact
 program (the 32 seeded representative donors tiled over B sessions at
-bench.py's geometry, chip_smoke.py's phase 5 input), each alone:
+bench.py's geometry), each alone:
 
   unblob    blob wire -> donor fields (_unblob)
   stencil   scroll.mv_pred_grid_roles on the scattered donor roles

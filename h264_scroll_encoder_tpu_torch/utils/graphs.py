@@ -32,9 +32,9 @@ outputs) for as long as it lives; `Capture.pool_bytes` reports it and
 `Graphed.reset()` frees a step's graphs.  `Capture.nodes` is the
 graph's node count (kernels, copies, fills), read once from the
 captured CUDA graph before it is instantiated.  The kernels' launch counters
-stay truthful: a launch recorded while a graph is captured counts on each
-replay instead (_kernels.Kernel), and so do the tracer counts a launch
-reads from its plan (`Capture.counts`).
+stay truthful: a launch recorded while a graph is captured, and the tracer
+counts it reads from its plan, count on each replay instead
+(`Capture.counts`, _kernels.count_replay).
 
 Under the composer's tracer (utils/trace) a call is the span
 `graphs.call` (device-timed from its input copies to its output clones)
@@ -110,18 +110,17 @@ def _place(x, dev: torch.device):
 
 @dataclasses.dataclass
 class Capture:
-    """One key's graph: its static inputs and outputs, the kernel launches
-    each replay makes, its nodes, and what the capture cost."""
+    """One key's graph: its static inputs and outputs, what each replay
+    counts, its nodes, and what the capture cost."""
     graph: "torch.cuda.CUDAGraph"
     device: torch.device
     static_in: list            # the call's leaves, tensors as static buffers
     static_out: object         # fn's outputs in the graph's memory pool
-    launches: dict             # {Kernel: launches per replay}
+    counts: dict               # {Kernel or tracer counter: n} a replay counts
     capture_ms: float
     pool_bytes: int
     nodes: int                 # the graph's nodes: kernels, copies, fills
     out_bytes: int             # bytes a replay's output clones copy
-    counts: dict               # {tracer counter: n} a replay counts
 
     def run(self, leaves):
         tr = TRACER
@@ -134,7 +133,7 @@ class Capture:
                         copied.append(buf)
             with tr.span("graphs.replay"):
                 self.graph.replay()
-            _kernels.count_replay(self.launches)
+            _kernels.count_replay(self.counts)
             with tr.span("graphs.outputs"):
                 out = pytree.tree_map(
                     lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
@@ -144,8 +143,6 @@ class Capture:
             tr.count("graphs.nodes", self.nodes)
             tr.count("graphs.input_bytes", sum(b.nbytes for b in copied))
             tr.count("graphs.output_bytes", self.out_bytes)
-            for name, n in self.counts.items():
-                tr.count(name, n)
         return out
 
 
@@ -207,7 +204,6 @@ class Graphed:
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(dev)
             before = _kernels.captured_counts()
-            counts_before = _kernels.captured_tracer_counts()
             # keep_graph: the captured cudaGraph_t stays readable (its
             # nodes are counted) until instantiate() builds the exec.
             graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -222,16 +218,13 @@ class Graphed:
             graph.instantiate()
             torch.cuda.synchronize(dev)
             capture_ms = (time.perf_counter() - t0) * 1e3
-            after = _kernels.captured_counts()
-            launches = {k: after[k] - before.get(k, 0) for k in after
-                        if after[k] != before.get(k, 0)}
-            counts = dict(_kernels.captured_tracer_counts() - counts_before)
+            counts = dict(_kernels.captured_counts() - before)
             out_bytes = sum(t.nbytes for t in pytree.tree_leaves(static_out)
                             if isinstance(t, torch.Tensor))
-            return Capture(graph, dev, static_in, static_out, launches,
+            return Capture(graph, dev, static_in, static_out, counts,
                            capture_ms,
                            torch.cuda.memory_reserved(dev) - reserved,
-                           nodes, out_bytes, counts)
+                           nodes, out_bytes)
 
     def reset(self) -> None:
         """Drop every capture (their memory pools go back to the caching
@@ -245,7 +238,8 @@ class Graphed:
         the kernel launches of one replay."""
         return [{"capture_ms": c.capture_ms, "pool_bytes": c.pool_bytes,
                  "nodes": c.nodes,
-                 "launches": {k.name: n for k, n in c.launches.items()}}
+                 "launches": {k.name: n for k, n in c.counts.items()
+                              if isinstance(k, _kernels.Kernel)}}
                 for c in self.graphs.values()]
 
 

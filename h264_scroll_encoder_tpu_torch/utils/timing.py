@@ -1,4 +1,4 @@
-"""CUDA-event timing on the card, for chip_smoke.py and kernel_ab.py.
+"""CUDA-event timing on the card, for kernel_ab.py and the scripts.
 
 Two measurements of a function that launches device work:
 

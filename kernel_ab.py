@@ -13,6 +13,10 @@ widths) at the 720p compact splice shapes (32 seeded representative donors tiled
   K2  ops.bitpack_flat.pack_words_place_batch   B = 256, the ebsp_exact input
   K3  ops.ebsp_flat.rbsp_to_nal_batch           B = 256, K2's frames
   K4  ops.bitpack_flat.pack_words_batch         B = 256, as K2
+  K7  syntax.slice_headers.p_slice_header_symbols
+                                                B = 1, 256 and 1,024,
+                                                cases.header_case's
+                                                headers at the 720p config
 
 and, with --large, K1 and K2 on the shapes past one block's shared memory
 (cases.large_emit_inputs and large_pack_inputs of this tree: the 3840x2160
@@ -20,8 +24,8 @@ and 5120x3200 hint frames at B = 1, the 720p dense frame of I_PCM donors
 at B = 32 and 256, the exact retry at 4096x2160 and 5120x3200), whichever
 plan each tree takes there, and K1 on the frames one block stages in
 several chunks (cases.multichunk_emit_inputs, B = 1).  With --grid, the
-grid-stage kernels instead, on this tree's inputs of chip_smoke.py phase
-3, each tree on its own plan:
+grid-stage kernels instead, on the main paths' inputs of this tree's
+cases, each tree on its own plan:
 
   K5  ops.grid.composite_grid_batch   720p rows compact B = 1, 256 and
                                       1,024; dense B = 256
@@ -72,7 +76,7 @@ import torch
 
 N_DONORS = 32
 MODULES = ("_kernels", "ops.emit_fused", "ops.bitpack_flat", "ops.ebsp_flat",
-           "ops.grid", "parallel.batch")
+           "ops.grid", "parallel.batch", "syntax.slice_headers")
 
 
 def load_tree(root: Path, name: str) -> dict:
@@ -126,7 +130,7 @@ def emit_cells(cases, cfg, dn, bits, has_align, dev, *, large: bool):
     n_words = (n_rbsp + 3) // 4
     words, total = bitpack.pack_words(e_pat, e_nb, n_words)
     rbsp = bitpack.words_to_bytes(words)[:, :n_rbsp].to(torch.uint8)
-    # As phase 6 hands them: K3 takes int64 lengths.
+    # K3 takes int64 lengths.
     k3_args = (rbsp, (total // 8).to(torch.int64), 0x01, n_nal, cap)
     cells += [("K2 B=256", "pack_place_kernel", "pack_words_place_batch",
                "ops.bitpack_flat", (e_pat, e_nb, n_words), {}),
@@ -151,9 +155,21 @@ def emit_cells(cases, cfg, dn, bits, has_align, dev, *, large: bool):
     return cells, {"n_rbsp": n_rbsp, "n_nal": n_nal}
 
 
+def header_cells(cases, dev):
+    """K7's cells: cases.header_case's P slice headers under the 720p
+    configuration HEADER_CONFIGS[0] at B = 1, 256 and 1,024."""
+    cfg, qp = cases.header_config(0)
+    return [(f"K7 B={B}", "p_slice_header_kernel", "p_slice_header_symbols",
+             "syntax.slice_headers", (cfg,),
+             dict(slice_qp_delta=qp,
+                  **cases.header_tensors(cases.header_case(B, 7), dev)))
+            for B in (1, 256, 1024)]
+
+
 def grid_cells(cases, cfg, dn, dev):
-    """K5's and K6's cells: chip_smoke.py phase 3's shapes, each tree on its
-    own plan (the profiler matches "grid_kernel", both trees' name)."""
+    """K5's and K6's cells: the 720p rows and dense splice steps' inputs
+    and cases.scroll_grid_inputs, each tree on its own plan (the profiler
+    matches "grid_kernel", both trees' name)."""
     dense_dn, _bits, _align = cases.prepare_dense_donors(
         "representative", engine="native", device=dev)
     cells = []
@@ -248,9 +264,9 @@ def main() -> int:
     ap.add_argument("--large", action="store_true",
                     help="also K1 and K2 on the shapes past one block")
     ap.add_argument("--grid", action="store_true",
-                    help="K5 and K6 instead of K1-K4")
+                    help="K5 and K6 instead of K1-K4 and K7")
     ap.add_argument("--egress", action="store_true",
-                    help="K8 instead of K1-K4")
+                    help="K8 instead of K1-K4 and K7")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
@@ -286,6 +302,7 @@ def main() -> int:
     else:
         cells, extra = emit_cells(cases, cfg, dn, bits, has_align, dev,
                                   large=args.large)
+        cells += header_cells(cases, dev)
 
     def measure(fn, kernel):
         own, work = profiled_ms(fn, kernel)

@@ -19,10 +19,11 @@ import torch.utils._pytree as pytree
 from h264_scroll_encoder_tpu_torch import _kernels, cases
 from h264_scroll_encoder_tpu_torch.config import ComposerConfig, MAX_WAYPOINTS
 from h264_scroll_encoder_tpu_torch.models import scroll
-from h264_scroll_encoder_tpu_torch.ops import (bitpack_flat, ebsp_flat, emit_fused,
-                                               grid)
+from h264_scroll_encoder_tpu_torch.ops import (bitpack, bitpack_flat, ebsp_flat,
+                                               emit_fused, grid)
 from h264_scroll_encoder_tpu_torch.parallel import batch
 from h264_scroll_encoder_tpu_torch.syntax import slice_headers
+from h264_scroll_encoder_tpu_torch.utils.trace import TRACER
 
 pytestmark = pytest.mark.cuda
 
@@ -48,13 +49,17 @@ def _same(got, want):
 @pytest.mark.parametrize("align", [False, True])
 @pytest.mark.parametrize("append_tb", [False, True])
 def test_emit_kernel_byte_and_align_cases(dev, align, append_tb):
+    """K1 on the byte-stream and alignment cases, reading int64 and int32
+    symbols: one launch, equal to the plain version."""
     for pat, nb in (cases.byte_stream_cases(), cases.align_cases()):
-        args = (_cu(pat, dev), _cu(nb, dev), 2, cases.N_RBSP, cases.CAP)
-        kw = dict(align=align, append_tb=append_tb)
-        before = _kernels.EMIT_FUSED.launches
-        got = emit_fused.emit_nal_fused_batch(*args, **kw)
-        assert _kernels.EMIT_FUSED.launches == before + 1
-        _same(got, emit_fused.emit_nal_fused_plain(*args, **kw))
+        for int32 in (False, True):
+            args = (_cu(pat, dev, int32), _cu(nb, dev, int32), 2,
+                    cases.N_RBSP, cases.CAP)
+            kw = dict(align=align, append_tb=append_tb)
+            before = _kernels.EMIT_FUSED.launches
+            got = emit_fused.emit_nal_fused_batch(*args, **kw)
+            assert _kernels.EMIT_FUSED.launches == before + 1
+            _same(got, emit_fused.emit_nal_fused_plain(*args, **kw))
 
 
 def test_emit_kernel_window_sweep_and_overflow(dev):
@@ -72,18 +77,36 @@ def test_emit_kernel_window_sweep_and_overflow(dev):
 @pytest.mark.parametrize("n,num_words", [(1024, 300), (64, 80), (200, 64),
                                          (8483, 1490), (100, 300)])
 def test_pack_kernel(dev, n, num_words):
+    """K2 and K4 on the pack cases, equal to the plain version."""
     pat, nb = cases.pack_cases(n, 8, n, num_words)
     args = (_cu(pat, dev), _cu(nb, dev), num_words)
-    _same(bitpack_flat.pack_words_place_batch(*args),
-          bitpack_flat.pack_words_place_plain(*args))
+    want = bitpack_flat.pack_words_place_plain(*args)
+    _same(bitpack_flat.pack_words_place_batch(*args), want)
+    _same(bitpack_flat.pack_words_batch(*args), want)
+
+
+def _golden_twice(run, path):
+    """run() on the card equals the golden file at `path`, and so does a
+    second run, in which every graphed step replays a graph (the tracer
+    counts replays and no capture)."""
+    want = json.loads(path.read_text())
+    assert run() == want
+    counters = TRACER.counters
+    captures, replays = counters["graphs.captures"], counters["graphs.replays"]
+    with TRACER.recording():
+        assert run() == want
+    assert counters["graphs.captures"] == captures
+    assert counters["graphs.replays"] > replays
 
 
 def test_golden_digests_on_card(dev):
-    assert cases.port_golden(dev) == json.loads(cases.GOLDEN_PATH.read_text())
+    """The scroll golden run on the card, then again on replays."""
+    _golden_twice(lambda: cases.port_golden(dev), cases.GOLDEN_PATH)
 
 
 @pytest.mark.parametrize("n,num_words", [(100, 10), (257, 30), (5, 1),
-                                         (1000, 1000), (8483, 1490)])
+                                         (1000, 1000), (8483, 1490),
+                                         (64, 3)])
 def test_pack_words_kernel(dev, n, num_words):
     """K4 at widths of 0 and 32, lane counts that are not powers of two,
     and streams cut at num_words."""
@@ -207,17 +230,20 @@ def test_small_splice_step_matches_cpu(dev, program):
 
 
 def test_splice_golden_digests_on_card(dev):
-    want = json.loads(cases.SPLICE_GOLDEN_PATH.read_text())
-    assert cases.port_splice_golden(dev) == want
+    """The rows splice golden run on the card, then again on replays."""
+    _golden_twice(lambda: cases.port_splice_golden(dev),
+                  cases.SPLICE_GOLDEN_PATH)
 
 
 @pytest.mark.parametrize("int32", [False, True], ids=["int64", "int32"])
 @pytest.mark.parametrize("n", cases.PACK_BOUNDARY_LENGTHS)
 def test_kernels_on_pack_boundaries(dev, n, int32):
     """K1, K2 and K4 on the run and chunk boundaries of their pack
-    (cases.pack_boundary_cases), reading int64 and int32 symbols."""
+    (cases.pack_boundary_cases), reading int64 and int32 symbols; K1 with
+    a nal_ref_idc per session."""
     pat, nb, n_rbsp = cases.pack_boundary_cases(n)
-    args = (_cu(pat, dev, int32), _cu(nb, dev, int32), 1, n_rbsp, cases.CAP)
+    idc = torch.arange(len(pat), device=dev) % 4
+    args = (_cu(pat, dev, int32), _cu(nb, dev, int32), idc, n_rbsp, cases.CAP)
     for align in (False, True):
         kw = dict(align=align, append_tb=True)
         _same(emit_fused.emit_nal_fused_batch(*args, **kw),
@@ -520,8 +546,9 @@ def test_emit_kernel_on_dense_ipcm_symbols(dev, config):
 
 
 def test_dense_golden_on_card(dev):
-    want = json.loads(cases.DENSE_GOLDEN_PATH.read_text())
-    assert cases.port_dense_golden(dev) == want
+    """The dense splice golden run on the card, then again on replays."""
+    _golden_twice(lambda: cases.port_dense_golden(dev),
+                  cases.DENSE_GOLDEN_PATH)
 
 
 def test_dense_ipcm_step_at_b256_on_card(dev):
@@ -546,16 +573,22 @@ def test_dense_ipcm_step_at_b256_on_card(dev):
 def test_large_frames_golden_on_card(dev):
     """The two large hint frames (NAL buffers past a block's shared
     memory) through ComposerSession on the card equal the JAX package's
-    digests (golden/large_frames.json)."""
+    digests (golden/large_frames.json) and pass verify_stream; each frame
+    is one K1 and one K6 launch."""
+    from h264_scroll_encoder_tpu_torch.verify import verify_stream
+
     want = json.loads(cases.LARGE_GOLDEN_PATH.read_text())
-    assert cases.large_golden(cases.port_package(), device=dev) == want
-
-
-def test_session_golden_on_card(dev, tmp_path):
-    """Every session stream and the batched hint step on the card equal the
-    JAX package's digests (golden/session_720p.json)."""
-    want = json.loads(cases.SESSION_GOLDEN_PATH.read_text())
-    assert cases.port_session_golden(dev, tmp_path) == want
+    assert set(want) == set(cases.LARGE_FRAMES)
+    for name in cases.LARGE_FRAMES:
+        torch.cuda.synchronize()
+        before = (_kernels.EMIT_FUSED.launches, _kernels.SCROLL_GRID.launches)
+        data = cases.large_frame_stream(cases.port_package(), name, device=dev)
+        torch.cuda.synchronize()
+        assert (_kernels.EMIT_FUSED.launches - before[0],
+                _kernels.SCROLL_GRID.launches - before[1]) == (1, 1)
+        assert cases.stream_digest(data) == want[name]
+        rep = verify_stream(data)
+        assert rep.ok, (name, rep.errors[:3])
 
 
 def test_compact_batch_nal_on_card(dev):
@@ -578,40 +611,69 @@ def _card_blocks(dev):
             else [dev, dev])
 
 
-def test_sharded_step_on_card(dev):
-    """make_sharded_step at 720p, B = 16, over the cards (two blocks on
-    cuda:0 on one card): every output equals the unsharded step's on the
-    card and on the CPU, egress across the blocks equals compact_batch_nal,
-    and K1 launches once per block per step."""
+@pytest.mark.parametrize("B,steps", [(16, 4), (256, 16)])
+def test_sharded_step_on_card(dev, B, steps):
+    """make_sharded_step at 720p over `steps` steps of the benchmark's
+    schedule, over the cards (two blocks on cuda:0 on one card): every
+    output equals the unsharded step's on the card (and at B = 16 on the
+    CPU), egress across the blocks equals compact_batch_nal, K1 launches
+    once per block per step, and the final states are equal; a frame
+    forced through the ebsp_exact retry on one shard launches K2 once and
+    writes the bounded frame's bytes."""
+    from h264_scroll_encoder_tpu_torch.parallel import dryrun
+
     cfg = ComposerConfig(1280, 720)
     devices = _card_blocks(dev)
-    sched = torch.as_tensor(cases.bench_schedule(720, 16, 4))
+    sched = torch.as_tensor(cases.bench_schedule(720, B, steps))
     sstep = batch.make_sharded_step(cfg, devices)
     ustep = batch.make_batched_step(cfg)
-    blocks = batch.shard_batch(batch.SessionState.create(16, device=dev),
+    blocks = batch.shard_batch(batch.SessionState.create(B, device=dev),
                                devices)
-    card = batch.SessionState.create(16, device=dev)
-    cpu = batch.SessionState.create(16, device="cpu")
+    card = batch.SessionState.create(B, device=dev)
+    cpu = batch.SessionState.create(B, device="cpu") if B == 16 else None
     for offs in sched:
         _kernels.reset_launch_counts()
         blocks, outs = sstep(blocks, batch.shard_batch(offs, devices))
         torch.cuda.synchronize()
         assert _kernels.EMIT_FUSED.launches == len(devices)
         card, want = ustep(card, offs.to(dev))
-        cpu, want_cpu = ustep(cpu, offs)
         got = batch.gather_batch(outs, dev)
-        for g, w, c in zip(got, want, want_cpu):
-            assert torch.equal(g, w) and torch.equal(g.cpu(), c)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        if cpu is not None:
+            cpu, want_cpu = ustep(cpu, offs)
+            for g, c in zip(got, want_cpu):
+                assert torch.equal(g.cpu(), c)
         cap = int(want[1].sum())
         packed = batch.compact_sharded_nal([o[0] for o in outs],
                                            [o[1] for o in outs], cap, dev)
         for g, w in zip(packed, batch.compact_batch_nal(want[0], want[1], cap)):
             assert torch.equal(g, w)
+    final = batch.gather_batch(blocks, dev).to_numpy()
+    for f, a in card.to_numpy().items():
+        np.testing.assert_array_equal(final[f], a)
+    st0 = blocks[0]
+    offs0 = batch.shard_batch(sched[-1], devices)[0]
+    before = _kernels.PACK_PLACE.launches
+    with batch.on_device(devices[0]):
+        frame_args = (cfg, st0.frame_num, offs0, st0.wp_offsets, st0.wp_ltidx,
+                      st0.wp_valid, st0.wp_count)
+        exact = scroll.scroll_frame(*frame_args, ebsp_exact=True)
+        bounded = scroll.scroll_frame(*frame_args)
+    torch.cuda.synchronize()
+    assert _kernels.PACK_PLACE.launches == before + 1
+    assert torch.equal(exact[1], bounded[1]) and not bool(bounded[3].any())
+    n = min(exact[0].shape[1], bounded[0].shape[1])
+    assert torch.equal(dryrun.valid_bytes(*exact[:2])[:, :n],
+                       dryrun.valid_bytes(*bounded[:2])[:, :n])
 
 
 def test_serving_state_restores_on_card(dev, tmp_path):
     """A state saved on the CPU and loaded onto the card continues
-    byte for byte; and one saved on the card loads on the CPU."""
+    byte for byte; and one saved on the card loads on the CPU.  A 720p
+    ComposerSession on the card, saved with save_session and restored
+    into a new one by restore_session, continues byte for byte through
+    two more waypoints."""
     from h264_scroll_encoder_tpu_torch.utils import snapshot
 
     cfg = ComposerConfig(64, 1024)
@@ -635,6 +697,79 @@ def test_serving_state_restores_on_card(dev, tmp_path):
     assert back.to_numpy().keys() == cpu.to_numpy().keys()
     for f, a in back.to_numpy().items():
         np.testing.assert_array_equal(a, cpu.to_numpy()[f])
+    from h264_scroll_encoder_tpu_torch.session import ComposerSession
+
+    a = _striped_session(ComposerConfig(1280, 720), dev)
+    for off in (0, 496, 496, 600):
+        a.write_scroll_or_waypoint_frame(off)
+    snapshot.save_session(a, tmp_path / "session.json")
+    b = ComposerSession(ComposerConfig(1280, 720), device=dev)
+    snapshot.restore_session(b, tmp_path / "session.json")
+    for off in (700, 992, 992, 40):
+        for s in (a, b):
+            s.write_scroll_or_waypoint_frame(off)
+        assert a.writer._chunks[-1] == b.writer._chunks[-1], off
+
+
+def test_splice_serving_loop_evicts_and_restores_on_card(dev, tmp_path):
+    """The splice serving loop at bench.py's geometry, B = 256: each step
+    the 32 representative donors go through the native engine onto the
+    blob wire and session b carries donor (b + 5 t) % 32.  Evicted after
+    3 of 6 steps with save_serving_state and restored onto the card with
+    load_serving_state, it writes every NAL of the uninterrupted run; K1
+    and K5 launch once a step."""
+    from h264_scroll_encoder_tpu_torch.parallel import dryrun
+    from h264_scroll_encoder_tpu_torch.utils import snapshot
+
+    cfg, B, T, evict = ComposerConfig(1280, 720), 256, 6, 3
+    pays = [cases.splice_donor_payload(k) for k in range(32)]
+    zero = torch.zeros((B, cfg.mb_height, cfg.mb_width), dtype=torch.int32,
+                       device=dev)
+
+    def serve(state, ctx, t0, t1):
+        out = []
+        for t in range(t0, t1):
+            dn, bits, align = cases.prepare_splice_donors(
+                pays, engine="native", device=dev)
+            step = cases.splice_steps(cfg, int(bits.max()),
+                                      bool(align.any()))["compact"]
+            pick = (torch.arange(B, device=dev) + ctx["rotation"] * t) % 32
+            fn = state.frame_num % (1 << cfg.log2_max_frame_num)
+            hp, hn = slice_headers.p_slice_header_symbols(
+                cfg, fn, fn * 2, False, -1, state.wp_count, state.wp_ltidx,
+                state.wp_valid)
+            nal, nal_len, _bits, ovf = step(hp, hn, zero, zero, zero,
+                                            zero.bool(),
+                                            {"blob": dn["blob"][pick]})
+            assert not bool(ovf.any()), t
+            out.append((nal_len, dryrun.valid_bytes(nal, nal_len)))
+            state = batch.SessionState(state.frame_num + 1, state.wp_offsets,
+                                       state.wp_ltidx, state.wp_valid,
+                                       state.wp_count)
+        return state, out
+
+    def sessions():
+        state = batch.SessionState.create(B, device=dev)
+        state.frame_num += torch.arange(B, device=dev, dtype=torch.int32) % 5
+        return state
+
+    ctx0 = {"step": 0, "rotation": 5}
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    want = serve(sessions(), ctx0, 0, T)[1]
+    state, got = serve(sessions(), ctx0, 0, evict)
+    snapshot.save_serving_state(tmp_path / "serving.npz", state,
+                                dict(ctx0, step=evict))
+    del state
+    state, ctx = snapshot.load_serving_state(tmp_path / "serving.npz",
+                                             device=dev)
+    assert ctx == dict(ctx0, step=evict) and state.frame_num.device == dev
+    got += serve(state, ctx, ctx["step"], T)[1]
+    for t, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1]), t
+    torch.cuda.synchronize()
+    assert (_kernels.EMIT_FUSED.launches,
+            _kernels.COMPOSITE_GRID.launches) == (2 * T, 2 * T)
 
 
 def test_dryrun_multigpu_on_card(dev):
@@ -924,14 +1059,15 @@ def test_graphed_scroll_step_on_card(dev):
     _replays_run_k1(lambda: step(state, sched[0]))
 
 
-@pytest.mark.parametrize("program", ["compact", "static", "ebsp_exact"])
-def test_graphed_rows_step_serves_fresh_donors_on_card(dev, program):
-    """The rows splice programs at B = 256: fresh donors every call replay
-    one graph (one capture), equal to eager; the exact retry runs K2."""
-    cfg, B = ComposerConfig(1280, 720), 256
-    pays = [cases.splice_donor_payload(k) for k in range(32)]
-    dn, bits, align = cases.prepare_splice_donors(pays, engine="native",
-                                                  device=dev)
+@pytest.mark.parametrize("program,B", [("compact", 256), ("compact", 1024),
+                                       ("static", 256), ("static", 1024),
+                                       ("ebsp_exact", 256)])
+def test_graphed_rows_step_serves_fresh_donors_on_card(dev, program, B):
+    """The rows splice programs at B = 256 and 1,024: fresh donors every
+    call replay one graph (one capture), equal to eager; the exact retry
+    runs K2."""
+    cfg = ComposerConfig(1280, 720)
+    dn, bits, align = _splice_donors(dev)
     step = cases.splice_steps(cfg, int(bits.max()), bool(align.any()))[program]
     step.reset()
     args_at = _splice_call(cfg, dn, B, dev)
@@ -1280,28 +1416,34 @@ def test_grid_kernels_read_inputs_in_place(dev):
 
 @pytest.mark.parametrize("path", ["rows", "dense"])
 def test_composite_grid_kernel_on_the_splice_steps(dev, path):
-    """K5 on the 720p splice steps' own inputs at B = 64 (32 donors in
-    turn): the rows wire (compact_x) and the dense wire."""
+    """K5 on the 720p splice steps' own inputs at B = 1, 64, 256 and 1,024
+    (32 donors in turn): the rows wire (compact_x) and the dense wire;
+    the wrapper runs no tensor op around its launch."""
     cfg = ComposerConfig(1280, 720)
     if path == "rows":
-        pays = [cases.splice_donor_payload(k) for k in range(32)]
-        dn, _bits, _align = cases.prepare_splice_donors(pays, engine="native",
-                                                        device=dev)
+        dn, _bits, _align = _splice_donors(dev)
     else:
         dn, _bits, _align = cases.prepare_dense_donors(
             "representative", engine="native", device=dev)
-    args, kw = cases.composite_grid_inputs(cfg, dn, 64, dev,
-                                           rows=path == "rows")
-    _grid_same(grid.composite_grid_batch(*args, **kw),
-               grid.composite_grid_plain(*args, **kw))
+    for B in (1, 64, 256, 1024):
+        args, kw = cases.composite_grid_inputs(cfg, dn, B, dev,
+                                               rows=path == "rows")
+        _grid_same(grid.composite_grid_batch(*args, **kw),
+                   grid.composite_grid_plain(*args, **kw))
+        assert cases.compute_ops(
+            lambda: grid.composite_grid_batch(*args, **kw)) == []
 
 
 def test_scroll_grid_kernel_on_its_paths(dev):
-    """K6 on the 720p scroll and hint steps' inputs at B = 256 and on the
-    1920x1088, 3840x2160 and 5120x3200 hint frames (the wide layout)."""
+    """K6 on the 720p scroll and hint steps' inputs at B = 256, a
+    session's 720p frame and the 1920x1088, 3840x2160 and 5120x3200 hint
+    frames (the wide layout); the wrapper runs no tensor op around its
+    launch."""
     for name, (args, kw) in cases.scroll_grid_inputs(dev).items():
         _grid_same(grid.scroll_grid_batch(*args, **kw),
                    grid.scroll_grid_plain(*args, **kw))
+        assert cases.compute_ops(
+            lambda: grid.scroll_grid_batch(*args, **kw)) == [], name
 
 
 def test_symbol_stages_launch_the_grid_kernels(dev):
@@ -1584,8 +1726,6 @@ def test_compact_nal_kernel_on_the_tracer(dev):
     """Under the composer's tracer each call is one `batch.compact` span
     (device-timed) and one K8 launch in launch_counts(); the caps count in
     `batch.compact_positions`."""
-    from h264_scroll_encoder_tpu_torch.utils.trace import TRACER
-
     case = cases.compact_case("b256_scroll")
     nal, lens = cases.compact_tensors(case, dev)
     cap = case["caps"][0]
@@ -1657,8 +1797,6 @@ def test_plan_counters_of_session_frames(dev, size, chunks, wide):
     for a 4K frame on one block, 1 at 720p) and a wide K6 launch at 4K
     (none at 720p), eager and replayed alike; the registry's depth and the
     bounded NAL buffer fetched."""
-    from h264_scroll_encoder_tpu_torch.utils.trace import TRACER
-
     cfg, _sps = _scroll_config(*size)
     s = _striped_session(cfg, dev)
     offsets = (8, 496, 504, 512, 520, 8)
@@ -1680,3 +1818,489 @@ def test_plan_counters_of_session_frames(dev, size, chunks, wide):
         scroll._n_rbsp(cfg.total_mbs, scroll.SCROLL_FAST_RBSP_BITS_PER_MB),
         cases.CAP)
     assert c["session.fetch_bytes"] == n * (n_nal + 5)
+
+
+# ---------------------------------------------------------------------------
+# The main paths at their real shapes: the symbols K1-K4 are handed, the
+# scroll and splice steps with egress, the session and its host tools.
+# ---------------------------------------------------------------------------
+
+def _splice_donors(dev):
+    """The 32 representative donors on the blob wire (native engine)."""
+    pays = [cases.splice_donor_payload(k) for k in range(32)]
+    return cases.prepare_splice_donors(pays, engine="native", device=dev)
+
+
+@pytest.mark.parametrize("path", ["scroll", "partitioned", "splice"])
+def test_kernels_on_the_720p_main_path_symbols(dev, path):
+    """K1 on the symbols the 720p main paths hand it at B = 256 (step 0 of
+    the benchmark's scroll schedule, its partitioned frames, the compact
+    splice of the 32 donors in turn; the splice also at 1,024): int32
+    from the symbol stages, one block a session, equal to the plain
+    version on them and widened to int64, no frame flagged, and no tensor
+    op in the wrapper.  On the splice frames also K2 and K4 (the
+    ebsp_exact input) and K3 (their RBSP bytes, int64 lengths, read in
+    place and through a row stride), each equal to its plain version with
+    no tensor op around it; K4 then K3 give K1's NAL on every frame."""
+    cfg, B = ComposerConfig(1280, 720), 256
+    if path == "splice":
+        dn, bits, align = _splice_donors(dev)
+        n_rbsp = cases.splice_budget(cfg, int(bits.max()), static_bg=False)
+        pat, nb = cases.splice_symbols(cfg, dn, B, n_rbsp, dev)
+        idc, kw = 0, dict(align=bool(align.any()), append_tb=True)
+    else:
+        state = batch.SessionState.create(B, device=dev)
+        offs = torch.as_tensor(cases.bench_schedule(720, B, 1)[0], device=dev)
+        needs = scroll.needs_waypoint(offs, state.wp_offsets, state.wp_valid,
+                                      state.wp_count)
+        pat, nb, n_rbsp, idc = scroll.unified_frame_symbols(
+            cfg, state.frame_num, offs, state.wp_offsets, state.wp_ltidx,
+            state.wp_valid, state.wp_count, needs,
+            boundary_policy="floor" if path == "scroll" else path)
+        assert idc.dtype == torch.int32
+        kw = dict(append_tb=True)
+    assert pat.dtype == nb.dtype == torch.int32
+    n_nal = emit_fused.nal_bytes(n_rbsp, cases.CAP)
+    with torch.cuda.device(dev):
+        assert _kernels.emit_plan(4, pat.shape[1],
+                                  emit_fused.items_per_thread(pat.shape[1]),
+                                  n_nal) == 1
+    for p, n in ((pat.to(torch.int64), nb.to(torch.int64)), (pat, nb)):
+        args = (p, n, idc, n_rbsp, cases.CAP)
+        k1 = emit_fused.emit_nal_fused_batch(*args, **kw)
+        _same(k1, emit_fused.emit_nal_fused_plain(*args, **kw))
+        assert not bool(k1[3].any())
+    assert cases.compute_ops(lambda: emit_fused.emit_nal_fused_batch(
+        pat, nb, idc, n_rbsp, cases.CAP, **kw)) == []
+    if path != "splice":
+        return
+    args = (*cases.splice_symbols(cfg, dn, 1024, n_rbsp, dev), idc, n_rbsp,
+            cases.CAP)
+    _same(emit_fused.emit_nal_fused_batch(*args, **kw),
+          emit_fused.emit_nal_fused_plain(*args, **kw))
+    tb_pat, tb_nb = bitpack.trailing_bits_symbol(nb.sum(dim=1,
+                                                        dtype=torch.int32))
+    e_pat = torch.cat([pat, tb_pat[:, None]], dim=1)
+    e_nb = torch.cat([nb, tb_nb[:, None]], dim=1)
+    n_words = (n_rbsp + 3) // 4
+    words, total = bitpack_flat.pack_words_place_plain(e_pat, e_nb, n_words)
+    for fn in (bitpack_flat.pack_words_place_batch,
+               bitpack_flat.pack_words_batch):
+        _same(fn(e_pat, e_nb, n_words), (words, total))
+        assert cases.compute_ops(lambda: fn(e_pat, e_nb, n_words)) == []
+    rbsp = bitpack.words_to_bytes(words)[:, :n_rbsp].to(torch.uint8)
+    rbsp_len = (total // 8).to(torch.int64)
+    with torch.cuda.device(dev):
+        assert not _kernels.ebsp_nal_in_global(n_nal)
+    wide = torch.zeros((B, n_rbsp + 9), dtype=torch.uint8, device=dev)
+    wide[:, 3:-6] = rbsp
+    for rows in (rbsp, wide[:, 3:-6]):
+        args = (rows, rbsp_len, 0x01, n_nal, cases.CAP)
+        nal3, count3 = ebsp_flat.rbsp_to_nal_batch(*args)
+        _same((nal3, count3), ebsp_flat.rbsp_to_nal_plain(*args))
+        assert cases.compute_ops(lambda: ebsp_flat.rbsp_to_nal_batch(*args)) == []
+    nal1, len1, _bits, ovf1 = k1
+    len3 = 5 + total // 8 + count3
+    both = ~ovf1 & (count3 <= cases.CAP)
+    assert bool(both.all())
+    for b in range(B):
+        n = int(len1[b])
+        assert int(len3[b]) == n and torch.equal(nal3[b, :n], nal1[b, :n]), b
+
+
+def _egress_same(nal, nal_len):
+    """A step's rows through egress as the benchmark sends them: K8 into
+    the whole buffer (B * N), equal to its plain version."""
+    cap = nal.numel()
+    _same(batch.compact_batch_nal(nal, nal_len, cap),
+          batch.compact_batch_nal_plain(nal, nal_len, cap))
+
+
+def test_scroll_step_at_b256_on_card(dev):
+    """The 720p scroll step at B = 256 over 16 steps of the benchmark's
+    schedule: no frame flagged, each NAL in its row, each step's rows
+    through egress equal to the plain version, and each step one launch
+    each of K1, K6, K7 and (egress) K8, none of K2."""
+    cfg, B, steps = ComposerConfig(1280, 720), 256, 16
+    sched = torch.as_tensor(cases.bench_schedule(720, B, steps), device=dev)
+    step = batch.make_batched_step(cfg)
+    state = batch.SessionState.create(B, device=dev)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    for offs in sched:
+        state, (nal, nal_len, _wp, _bits, ovf) = step(state, offs)
+        assert not bool(ovf.any())
+        assert bool(((nal_len > 5) & (nal_len <= nal.shape[1])).all())
+        _egress_same(nal, nal_len)
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    assert {k: counts[k] for k in (
+        "h264t_emit_fused", "h264t_scroll_grid", "h264t_p_slice_header",
+        "h264t_compact_nal", "h264t_pack_place")} == {
+            "h264t_emit_fused": steps, "h264t_scroll_grid": steps,
+            "h264t_p_slice_header": steps, "h264t_compact_nal": steps,
+            "h264t_pack_place": 0}
+
+
+def test_rows_splice_steps_on_card(dev):
+    """The rows splice programs at bench.py's geometry over the 32 donors
+    tiled to B = 256 and 1,024 (the native engine's wire on the card
+    equal to the Python engine's): compact and static-chrome, and the
+    ebsp_exact retry at 256.  Every session equals its donor's golden
+    digest, no frame is flagged, each step's rows go through egress equal
+    to the plain version; K1 launches once a step (K2 in the retry in its
+    place), K5 in the compact programs only, K8 once an egress."""
+    cfg = ComposerConfig(1280, 720)
+    dn, bits, align = _splice_donors(dev)
+    dn_py, bits_py, _ = cases.prepare_splice_donors(
+        [cases.splice_donor_payload(0)], engine="python", device="cpu")
+    assert torch.equal(dn["blob"][0].cpu(), dn_py["blob"][0])
+    assert int(bits_py[0]) == int(bits[0])
+    golden = json.loads(cases.SPLICE_GOLDEN_PATH.read_text())
+    steps = cases.splice_steps(cfg, int(bits.max()), bool(align.any()))
+    runs = (("compact", 256), ("static", 256), ("ebsp_exact", 256),
+            ("compact", 1024), ("static", 1024))
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    for name, B in runs:
+        nal, nal_len, _bits, ovf = steps[name](
+            *cases.splice_session_inputs(cfg, B, dev), cases.tile_donors(dn, B))
+        assert not bool(ovf.any())
+        _egress_same(nal, nal_len)
+        idx = [b for b in range(B) if b % 32 < cases.SPLICE_GOLDEN_BATCH]
+        got = cases.digest_step(nal[idx].cpu().numpy(),
+                                nal_len[idx].cpu().numpy(),
+                                np.zeros(len(idx), bool), ovf[idx].cpu().numpy())
+        assert got == [golden[name][b % 32] for b in idx], (name, B)
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    assert {k: counts[k] for k in (
+        "h264t_emit_fused", "h264t_pack_place", "h264t_composite_grid",
+        "h264t_compact_nal")} == {
+            "h264t_emit_fused": 4, "h264t_pack_place": 1,
+            "h264t_composite_grid": 3, "h264t_compact_nal": 5}
+
+
+@pytest.mark.parametrize("B", [256, 1024])
+def test_dense_step_equals_the_rows_step_on_card(dev, B):
+    """The dense splice step over the 32 representative donors tiled to B
+    sessions: one K1 and one K5 launch, every session equal to its donor's
+    golden digest and, byte for byte, to the rows step's frame of the same
+    donor; at B = 256 also the forced ebsp_exact retry, one K2 launch,
+    equal to the golden digests."""
+    cfg = ComposerConfig(1280, 720)
+    golden = json.loads(cases.DENSE_GOLDEN_PATH.read_text())["representative"]
+    dn, bits, align = cases.prepare_dense_donors("representative",
+                                                 engine="native", device=dev)
+    inputs = cases.splice_session_inputs(cfg, B, dev)
+
+    def check(out):
+        nal, nal_len, _bits, ovf = out
+        assert not bool(ovf.any())
+        assert cases.digest_step(nal.cpu().numpy(), nal_len.cpu().numpy(),
+                                 np.zeros(B, bool), ovf.cpu().numpy()) == [
+            golden[b % cases.DENSE_DONORS] for b in range(B)]
+
+    step = cases.dense_step(cfg, "representative", bits, align)
+    torch.cuda.synchronize()
+    before = (_kernels.EMIT_FUSED.launches, _kernels.COMPOSITE_GRID.launches)
+    nal, nal_len, _bits, ovf = step(*inputs, cases.tile_donors(dn, B))
+    torch.cuda.synchronize()
+    assert (_kernels.EMIT_FUSED.launches - before[0],
+            _kernels.COMPOSITE_GRID.launches - before[1]) == (1, 1)
+    check((nal, nal_len, _bits, ovf))
+    r_dn, r_bits, r_align = _splice_donors(dev)
+    rows = cases.splice_steps(cfg, int(r_bits.max()),
+                              bool(r_align.any()))["compact"]
+    r_nal, r_len, _rb, r_ovf = rows(*inputs, cases.tile_donors(r_dn, B))
+    assert not bool(r_ovf.any()) and torch.equal(r_len, nal_len)
+    n = min(r_nal.shape[1], nal.shape[1])
+    valid = torch.arange(n, device=dev)[None, :] < nal_len[:, None]
+    assert torch.equal(torch.where(valid, r_nal[:, :n], 0),
+                       torch.where(valid, nal[:, :n], 0))
+    if B == 256:
+        before = _kernels.PACK_PLACE.launches
+        check(cases.dense_step(cfg, "representative", bits, align,
+                               ebsp_exact=True)(*inputs,
+                                                cases.tile_donors(dn, B)))
+        torch.cuda.synchronize()
+        assert _kernels.PACK_PLACE.launches == before + 1
+
+
+def test_session_golden_on_card(dev, tmp_path):
+    """Every golden session stream composed on the card (the main 720p
+    session, the partitioned and nearest sessions, the scroll-encoder and
+    composer CLIs, the 1920x1088 hint frame, the 3840x2160 scroll frame)
+    equals the JAX package's digest (golden/session_720p.json; the hint
+    step's: test_hint_step_and_its_compaction_on_card) and passes
+    verify_stream, one K1 launch a device P-frame, K6 on the way.  On two
+    of them the host tools: the trans-resizer's two engines agree on the
+    composer CLI's stream, and the MP4 mux of the scroll-encoder CLI's
+    stream is ftyp/moov/mdat with one sample a frame."""
+    from h264_scroll_encoder_tpu_torch.models.splice import transcode_pad_stream
+    from h264_scroll_encoder_tpu_torch.utils import mp4mux
+    from h264_scroll_encoder_tpu_torch.verify import verify_stream
+
+    golden = json.loads(cases.SESSION_GOLDEN_PATH.read_text())
+    assert golden["config"] == cases.session_golden_config()
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    streams = cases.session_streams(cases.port_package(), tmp_path, device=dev)
+    assert set(streams) == set(golden) - {"config", "hint_step"}
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    device_frames = -cases.SESSION_SPLICED_FRAMES   # spliced on the host
+    for name, data in streams.items():
+        assert cases.stream_digest(data) == golden[name], name
+        rep = verify_stream(data)
+        assert rep.ok, (name, rep.errors[:3])
+        device_frames += rep.frame_count - 2        # all but the atlases
+    assert counts["h264t_emit_fused"] == device_frames
+    assert counts["h264t_scroll_grid"] > 0
+    cfg = ComposerConfig(1280, 720)
+    widened = {e: transcode_pad_stream(streams["composer_cli"],
+                                       cfg.width + 16, cfg.height, engine=e)
+               for e in ("native", "python")}
+    assert widened["native"] == widened["python"]
+    assert verify_stream(widened["native"]).ok
+    stream = streams["scroll_encoder_cli"]
+    mp4 = mp4mux.mux(stream)
+    boxes, pos = [], 0
+    while pos < len(mp4):
+        boxes.append(mp4[pos + 4:pos + 8])
+        pos += int.from_bytes(mp4[pos:pos + 4], "big")
+    _sps, _pps, samples, sync = mp4mux.annexb_to_samples(stream)
+    assert boxes == [b"ftyp", b"moov", b"mdat"] and pos == len(mp4)
+    assert len(samples) == verify_stream(stream).frame_count and sync == [1]
+
+
+def test_session_frames_launch_their_kernels_on_card(dev):
+    """A 720p session's sliced frame is one K1 and one K6 launch; a frame
+    forced through the ebsp_exact retry launches K1 and K2 once each and
+    writes the bytes of the same frame unforced; the P slice header of a
+    session frame runs no tensor op besides K7."""
+    from h264_scroll_encoder_tpu_torch.session import ComposerSession
+
+    cfg = ComposerConfig(1280, 720)
+    s = _striped_session(cfg, dev)
+    for off in (0, 496, 500):
+        s.write_scroll_or_waypoint_frame(off)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    s.write_scroll_frame_sliced(60, cases.SESSION_ROWS_PER_SLICE)
+    torch.cuda.synchronize()
+    assert (_kernels.EMIT_FUSED.launches, _kernels.SCROLL_GRID.launches) == (1, 1)
+    honest, forced = (ComposerSession(cfg, device=dev) for _ in range(2))
+    fast = forced._scroll_fn
+
+    def flagged(*args):
+        nal, nal_len, bits, ovf = fast(*args)
+        return nal, nal_len, bits, torch.ones_like(ovf)
+
+    forced._scroll_fn = flagged
+    honest.write_scroll_frame(100)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    forced.write_scroll_frame(100)
+    torch.cuda.synchronize()
+    assert (_kernels.EMIT_FUSED.launches, _kernels.PACK_PLACE.launches) == (1, 1)
+    assert forced.getvalue() == honest.getvalue()
+    frame_num, _off, _wp_off, wp_lt, wp_valid, count = s._frame_args(500)
+    poc = frame_num * 2
+    assert cases.compute_ops(lambda: slice_headers.p_slice_header_symbols(
+        cfg, frame_num, poc, False, -1, count, wp_lt, wp_valid)) == []
+
+
+def test_hint_step_and_its_compaction_on_card(dev):
+    """The B = 256 hint step (compact_x): one K1 and one K6 launch and the
+    golden digest; compact_batch_nal of its rows at their total gives the
+    sessions' bytes end to end (the golden sha256), one byte short it
+    flags the overflow."""
+    import hashlib
+
+    cfg = ComposerConfig(1280, 720)
+    step = batch.make_batched_hint_step(cfg, compact_x=True, device=dev)
+    inputs = {k: torch.as_tensor(v, device=dev)
+              for k, v in cases.hint_step_inputs().items()}
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    nal, nal_len, _bits, ovf = cases.run_hint_step(step, inputs)
+    torch.cuda.synchronize()
+    assert (_kernels.EMIT_FUSED.launches, _kernels.SCROLL_GRID.launches) == (1, 1)
+    want = json.loads(cases.SESSION_GOLDEN_PATH.read_text())["hint_step"]
+    assert cases.hint_step_digest(nal.cpu().numpy(), nal_len.cpu().numpy(),
+                                  ovf.cpu().numpy()) == want
+    total = int(nal_len.sum())
+    packed, tot, c_ovf = batch.compact_batch_nal(nal, nal_len, total)
+    assert int(tot) == total and not bool(c_ovf)
+    assert (hashlib.sha256(packed.cpu().numpy().tobytes()).digest()
+            == bytes.fromhex(want["sha256"]))
+    assert bool(batch.compact_batch_nal(nal, nal_len, total - 1)[2])
+
+
+def test_pixel_oracle_on_a_card_session(dev):
+    """A 720p session composed on the card at MB-aligned offsets decodes
+    pixel-exact under the pixel oracle: luma against the intended scroll,
+    chroma against the canvas."""
+    from h264_scroll_encoder_tpu_torch import pixel_oracle as po
+
+    cfg = ComposerConfig(1280, 720)
+    s = _striped_session(cfg, dev)
+    offsets = (0, 16, 48, 96)
+    for off in offsets:
+        s.write_scroll_frame(off)
+    pics = po.decode_stream_pixels(s.getvalue())
+    assert len(pics) == 2 + len(offsets)
+    canvas = po.scroll_canvas(pics[0], pics[1])
+    for pic, off in zip(pics[2:], offsets):
+        assert po.luma_mismatch_rows(pic, po.intended_scroll_luma(
+            canvas, off, cfg.height)).size == 0, off
+        rows = slice(off // 2, off // 2 + cfg.height // 2)
+        assert (pic.cb == canvas.cb[rows]).all(), off
+        assert (pic.cr == canvas.cr[rows]).all(), off
+
+
+def test_avref_on_card_streams(dev, tmp_path):
+    """Where the system has libavcodec (avref builds): a 720p session on
+    the card takes a fallback frame mid-stream, the stream decodes with no
+    error, the fallback frame shows the standalone x264 encode of its
+    pixels and the frames after it compose against it; the batched
+    video-in-corner demo and netflix_scroll --demo run on the card."""
+    from h264_scroll_encoder_tpu_torch import avref
+    from h264_scroll_encoder_tpu_torch.examples import video_in_corner_demo
+    from h264_scroll_encoder_tpu_torch.models.splice import (FrameHints,
+                                                             MotionRegion)
+    from h264_scroll_encoder_tpu_torch.scripts import netflix_scroll
+
+    if avref.missing() is not None:
+        pytest.skip(f"avref cannot build here: {avref.missing()}")
+    cfg = ComposerConfig(1280, 720)
+    W, H = cfg.width, cfg.height
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[:H, :W]
+    target = (((xx * 255) // W + rng.integers(0, 24, (H, W))).astype(np.uint8),
+              (128 + (yy[::2, ::2] * 60) // H).astype(np.uint8),
+              (128 - (xx[::2, ::2] * 60) // W).astype(np.uint8))
+    s = _striped_session(cfg, dev)
+    full = (0, 0, W // 16, H // 16)
+    took = [s.write_hint_frame_or_fallback(FrameHints(motion_regions=(
+                MotionRegion(*full, ref_idx=1),))),
+            s.write_hint_frame_or_fallback(FrameHints(motion_regions=(
+                MotionRegion(*full, ref_idx=5),)), fallback_frame=target),
+            s.write_hint_frame_or_fallback(FrameHints(motion_regions=())),
+            s.write_hint_frame_or_fallback(FrameHints(motion_regions=(
+                MotionRegion(0, 0, W // 16, 2, ref_idx=0, mv_x=0, mv_y=16),)))]
+    assert took == [False, True, False, False]
+    pics, nerrors = avref.decode_pictures(s.getvalue())
+    assert nerrors == 0 and len(pics) == 6
+    ref, _ = avref.decode_pictures(avref.encode_x264(
+        [target], qp=20, keyint=1, refs=1,
+        extra_params="psy=0:chroma-qp-offset=0"))
+    fb = pics[3]
+    for p in ("y", "cb", "cr"):
+        assert (getattr(fb, p) == getattr(ref[0], p)).all(), p
+        assert (getattr(pics[4], p) == getattr(fb, p)).all(), p
+    assert (pics[5].y[:32] == fb.y[16:48]).all()
+    assert (pics[5].y[32:] == fb.y[32:]).all()
+    video_in_corner_demo.main_batched(str(tmp_path / "vic.h264"), device=dev,
+                                      log=lambda *a, **k: None)
+    assert netflix_scroll.main(["--demo", "-n", "60", "--device", str(dev),
+                                "-o", str(tmp_path / "netflix.mp4"),
+                                "--extract-frames"]) == 0
+
+
+@pytest.mark.parametrize("example", ["serving_demo", "splice_serving_demo",
+                                     "full_pipeline_demo", "generate_refs"])
+def test_examples_on_card(dev, tmp_path, example):
+    """The examples and generate_refs on the card, each checking its own
+    output: serving_demo's streams (720p) verify and its state survives
+    a snapshot round trip; splice_serving_demo's NALs equal its CPU run's;
+    full_pipeline_demo's stream verifies and muxes; generate_refs writes
+    two donors of one frame each that verify."""
+    from h264_scroll_encoder_tpu_torch.verify import verify_stream
+
+    quiet = lambda *a, **k: None  # noqa: E731
+    if example == "serving_demo":
+        from h264_scroll_encoder_tpu_torch.examples import serving_demo
+
+        streams = serving_demo.run(dev, out_dir=tmp_path, log=quiet)
+        assert len(streams) == 8 and all(verify_stream(x).ok for x in streams)
+    elif example == "splice_serving_demo":
+        from h264_scroll_encoder_tpu_torch.examples import splice_serving_demo
+
+        assert (splice_serving_demo.run(dev, log=quiet)
+                == splice_serving_demo.run("cpu", log=quiet))
+    elif example == "full_pipeline_demo":
+        from h264_scroll_encoder_tpu_torch.examples import full_pipeline_demo
+
+        data, mp4 = full_pipeline_demo.run(tmp_path / "full.h264", dev,
+                                           log=quiet)
+        assert verify_stream(data).ok and mp4[4:8] == b"ftyp"
+    else:
+        from h264_scroll_encoder_tpu_torch.scripts import generate_refs
+
+        assert generate_refs.main(["--out-dir", str(tmp_path),
+                                   "--device", str(dev)]) == 0
+        for name in ("ref_a.h264", "ref_b.h264"):
+            rep = verify_stream((tmp_path / name).read_bytes())
+            assert rep.ok and rep.frame_count == 1, (name, rep.errors[:3])
+
+
+def test_run_e2e_on_card(dev, tmp_path):
+    """run_e2e.sh on the card at 1280x720, 60 frames: both streams verify
+    and the MP4 is its scroll stream's mux."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from h264_scroll_encoder_tpu_torch.utils import mp4mux
+
+    script = (Path(__file__).resolve().parent.parent
+              / "h264_scroll_encoder_tpu_torch" / "scripts" / "run_e2e.sh")
+    env = dict(os.environ, OUT=str(tmp_path), W="1280", H="720", FRAMES="60",
+               DEVICE=str(dev), PYTHON=sys.executable)
+    r = subprocess.run(["bash", str(script)], env=env, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    assert r.stdout.count('"ok": true') == 2
+    assert (tmp_path / "scroll.mp4").read_bytes() == mp4mux.mux(
+        (tmp_path / "scroll.h264").read_bytes())
+
+
+# Each measurement script at two steps a chain and one chain, B = 256 (its
+# default); P4's extra row at 4,224 lanes, a block of 32 lanes on each of
+# the H100's 132 SMs.
+_CARD_SCRIPTS = (
+    ("emit_stage_probe", []), ("emit_wrap_probe", []),
+    ("pack_u16_probe", []), ("pack_tiled_probe", []),
+    ("splice_stage_profile", []), ("splice_stage_profile", ["--static"]),
+    ("symbols_stage_probe", []), ("step_xprof", []), ("step_cost", []),
+    ("ebsp_stage_probe", []), ("ebsp_sizing_probe", []),
+    ("gpu_parity_probe", []), ("cavlc_device_probe", ["--wide", "4224"]),
+    ("ebsp_cumsum_probe", []), ("ebsp_fused_probe", []))
+
+
+def test_measurement_scripts_on_card(dev, capsys):
+    """Every measurement script's main on the card at a small depth: exit
+    0 with its table as the last line; step_cost's census keeps int64
+    under 15% of each step's aten bytes; every probe kernel (P1-P6), K5
+    and K6 launch in the run."""
+    import importlib
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    for name, extra in _CARD_SCRIPTS:
+        mod = importlib.import_module(
+            f"h264_scroll_encoder_tpu_torch.scripts.{name}")
+        assert mod.main(["--steps", "2", "--reps", "1", *extra]) == 0, name
+        table = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert table["script"] == name and table["rows"], name
+        if name == "step_cost":
+            for step, r in table["rows"].items():
+                assert r["int64_share"] <= 0.15, (step, r["int64_ops"])
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    for k in (*_kernels.PROBE_KERNELS, _kernels.COMPOSITE_GRID,
+              _kernels.SCROLL_GRID):
+        assert counts[k.name] > 0, k.name

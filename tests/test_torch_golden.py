@@ -4,7 +4,7 @@ h264_scroll_encoder_tpu_torch/golden/scroll_720p.json holds, per step and
 session, the sha256 of the valid NAL bytes, nal_len, emitted_waypoint and
 overflow for the batch-8, 12-step 1280x720 schedule of
 `cases.golden_schedule`, plus one `ebsp_exact` scroll frame per session.
-chip_smoke.py holds the card's output against it without jax.
+tests/test_torch_cuda.py holds the card's output against it without jax.
 
 h264_scroll_encoder_tpu_torch/golden/splice_rows_720p.json holds the same
 digests for the 720p rows splice (bench.py's geometry) of the seeded

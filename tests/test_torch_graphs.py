@@ -384,27 +384,39 @@ def test_graphed_places_numpy_and_scalars_stay_static():
 
 
 def test_replays_count_the_captured_launches(monkeypatch):
-    """A launch made while a graph is captured counts in `captured`, not in
-    `launches`; each replay adds the graph's launches to the counters, so
-    launch_counts() stays truthful under replay."""
+    """A launch made while a graph is captured goes to the captured tally,
+    not to `launches`, with its plan counts; each replay counts the
+    graph's share of the tally (count_replay): the launches always, the
+    plan counts while the tracer records, so launch_counts() and the
+    tracer's counters stay truthful under replay."""
+    from h264_scroll_encoder_tpu_torch.utils.trace import TRACER
+
     k1 = _kernels.Kernel("h264t_stub", [], name="stub kernel")
     k1._fn = lambda *a: 0
     monkeypatch.setattr(_kernels, "KERNELS", _kernels.KERNELS + (k1,))
     capturing = [False]
     monkeypatch.setattr(_kernels, "_capturing", lambda: capturing[0])
     k1.launch()
-    assert (k1.launches, k1.captured) == (1, 0)
+    assert k1.launches == 1
     before = _kernels.captured_counts()
     capturing[0] = True
-    k1.launch()
+    k1.launch(counts={"emit.chunks": 8})
     k1.launch()
     capturing[0] = False
-    after = _kernels.captured_counts()
-    per_replay = {k: after[k] - before[k] for k in after
-                  if after[k] != before[k]}
-    assert per_replay == {k1: 2} and k1.launches == 1
-    for _ in range(3):
+    per_replay = dict(_kernels.captured_counts() - before)
+    assert per_replay == {k1: 2, "emit.chunks": 8} and k1.launches == 1
+    TRACER.disable()
+    TRACER.clear()
+    try:
         _kernels.count_replay(per_replay)
+        with TRACER.recording():
+            for _ in range(2):
+                _kernels.count_replay(per_replay)
+        counters = TRACER.summary()["counters"]
+        assert {k: n for k, n in counters.items() if n} == {"emit.chunks": 16}
+    finally:
+        TRACER.disable()
+        TRACER.clear()
     assert _kernels.launch_counts()["stub kernel"] == 1 + 3 * 2
     k1._fn = lambda *a: 700
     with pytest.raises(RuntimeError, match="cudaError_t 700"):

@@ -1,5 +1,5 @@
 """The PyTorch port must run where jax is not installed: importing every
-module of h264_scroll_encoder_tpu_torch, and chip_smoke.py, loads neither
+module of h264_scroll_encoder_tpu_torch, and kernel_ab.py, loads neither
 jax nor the JAX package."""
 
 import os
@@ -14,7 +14,7 @@ import h264_scroll_encoder_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
+import kernel_ab
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'h264_scroll_encoder_tpu'))
 assert not bad, bad
